@@ -1,0 +1,24 @@
+"""The weight bridge from the JAX package's parameter trees.
+
+Both packages lay parameters out the same way: conv ``w`` is OIHW, the
+dense ``w`` is (in, out) and is applied as ``x @ w``, biases are vectors.
+So the bridge copies every leaf and transposes nothing.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax"]
+
+
+def params_from_jax(tree: Dict[str, Any], device: Any = "cuda"
+                    ) -> Dict[str, Any]:
+    """Turn a (nested dict) parameter tree of arrays — numpy arrays, or
+    anything ``np.asarray`` reads — into the port's dict of tensors on
+    ``device``, leaf for leaf."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)

@@ -1,0 +1,544 @@
+"""Cached fold-schedule execution engine.
+
+The paper compiles the 7-D loop nest into a *static* fold schedule once and
+then streams data through it; a network's conv layers collapse to a
+handful of distinct loop-nest geometries whose schedules are reused ("fold
+reuse").  This module is that compile-once discipline, model-agnostic:
+models describe themselves as streaming graphs (``core/graph.py``).
+
+* ``ScheduleKey`` canonicalizes a ``ConvLoopNest`` to its filter-fold
+  geometry ``(N_F, C, R, S, stride, dilation, groups)`` — spatial extents
+  and the batch are excluded, so a deep trunk collapses to a few keys.
+* ``ConvSchedule`` is one cached schedule: the ``ConvBlockPlan`` solved
+  once per key plus the dataflow picked by ``dataflow_costs``.
+* ``ScheduleCache`` is the registry; its hit/miss counters are the paper's
+  fold-reuse metric.
+* ``compile_network`` lowers a ``StreamGraph`` through one shared cache
+  and returns an eager forward with the schedules baked in.
+
+The cost model prices traffic with the paper's accelerator constants
+(``MavecConfig``), exactly as the JAX package does, so the two packages
+pick the same dataflow for every layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.epilogue import Epilogue, epilogue_out_hw, maxpool2x2
+from repro_torch.core.graph import (DEPTHWISE, GraphError, StreamGraph,
+                                    as_graph, fuse_graph)
+from repro_torch.core.loopnest import ConvLoopNest
+from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
+                                      plan_conv_blocks)
+from repro_torch.core.perfmodel import MavecConfig
+
+__all__ = [
+    "ScheduleKey",
+    "ConvSchedule",
+    "CacheStats",
+    "ScheduleCache",
+    "traffic_components",
+    "dataflow_costs",
+    "dataflow_traffic_bytes",
+    "select_dataflow",
+    "plan_and_dataflow",
+    "resolve_execution",
+    "CompiledNetwork",
+    "compile_network",
+    "BucketCompiler",
+    "POLICIES",
+]
+
+POLICIES = ("auto", "kernel", "reference")
+
+
+# --------------------------------------------------------------------------
+# Canonical schedule keys
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleKey:
+    """Filter-fold geometry of a conv loop nest — the schedule identity."""
+    nf: int
+    c: int
+    r: int
+    s: int
+    stride: int
+    dilation: int = 1
+    groups: int = 1
+
+    @classmethod
+    def from_loopnest(cls, cv: ConvLoopNest) -> "ScheduleKey":
+        return cls(nf=cv.nf, c=cv.c, r=cv.r, s=cv.s, stride=cv.stride,
+                   dilation=cv.dilation, groups=cv.groups)
+
+    def __str__(self) -> str:
+        g = f"/g{self.groups}" if self.groups > 1 else ""
+        return f"{self.r}x{self.s}x{self.c}->{self.nf}/s{self.stride}{g}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSchedule:
+    """One compiled fold schedule: block plan + selected dataflow.  ``nest``
+    is the loop nest the plan was solved against; ``costs`` are the
+    estimated cycles per dataflow that drove the selection."""
+    key: ScheduleKey
+    nest: ConvLoopNest
+    plan: ConvBlockPlan
+    dataflow: str
+    costs: Tuple[Tuple[str, float], ...]
+
+    def impl(self) -> str:
+        """The ``kernels.ops.conv2d`` impl string for this dataflow."""
+        return ("fold_ws" if self.dataflow == "weight_stationary"
+                else "fold_os")
+
+
+# --------------------------------------------------------------------------
+# Dataflow selection from the traffic model
+# --------------------------------------------------------------------------
+
+def traffic_components(cv: ConvLoopNest, plan: ConvBlockPlan, dataflow: str,
+                       bytes_per_elem: int = 4) -> Dict[str, float]:
+    """Per-tensor-class off-chip byte split for one dataflow (fp32)."""
+    bpe = bytes_per_elem
+    sizes = cv.tensor_sizes()
+    w_bytes = sizes["filter"] * bpe
+    in_bytes = cv.n * cv.c * cv.padded_x * cv.padded_y * bpe
+    out_bytes = sizes["output"] * bpe
+    clamped = plan.clamped(cv.nf, cv.c, cv.p)
+    g_nf, g_c, g_p = clamped.grid
+    if cv.depthwise:
+        if dataflow != "depthwise":
+            raise ValueError(f"depthwise nest has no {dataflow!r} "
+                             "formulation")
+        return {"weights": w_bytes, "input": in_bytes, "output": out_bytes}
+    g_nfg = max(g_nf // cv.groups, 1)       # nf folds per group
+    # psum staging writes and reads back every depth fold's partial sums,
+    # then writes the output: (2*g_c + 1) output-sized transfers
+    psum = (2 * g_c + 1) * out_bytes
+    acc_bytes = clamped.nf_block * g_p * clamped.p_block * cv.q * bpe
+    ws_out = out_bytes if acc_bytes <= WS_ACC_BYTES_LIMIT else psum
+    if dataflow == "weight_stationary":
+        return {"weights": w_bytes, "input": g_nfg * in_bytes,
+                "output": ws_out}
+    if dataflow == "weight_stationary_psum":
+        return {"weights": w_bytes, "input": g_nfg * in_bytes,
+                "output": psum}
+    if dataflow == "output_stationary":
+        return {"weights": g_p * w_bytes, "input": g_nfg * in_bytes,
+                "output": out_bytes}
+    raise ValueError(f"unknown dataflow {dataflow!r}")
+
+
+def dataflow_traffic_bytes(cv: ConvLoopNest, plan: ConvBlockPlan,
+                           bytes_per_elem: int = 4) -> Dict[str, float]:
+    """Modeled off-chip bytes per dataflow formulation."""
+    dws = (("depthwise",) if cv.depthwise else
+           ("weight_stationary", "weight_stationary_psum",
+            "output_stationary"))
+    return {df: sum(traffic_components(cv, plan, df,
+                                       bytes_per_elem).values())
+            for df in dws}
+
+
+def dataflow_costs(cv: ConvLoopNest, plan: ConvBlockPlan,
+                   cfg: Optional[MavecConfig] = None) -> Dict[str, float]:
+    """Estimated cycles of each dataflow for this layer: the shared compute
+    term (MACs over the tile's PEs) plus the modeled traffic over the
+    ``MavecConfig`` off-chip bandwidth.  Weight-stationary fetches weights
+    once and re-streams the input per NF fold; output-stationary re-fetches
+    the weight block for every P fold."""
+    cfg = cfg or MavecConfig()
+    traffic = dataflow_traffic_bytes(cv, plan, cfg.bytes_per_elem)
+
+    def cycles(traffic_bytes: float) -> float:
+        return traffic_bytes / (cfg.offchip_gbps * 1e9) * (cfg.freq_ghz * 1e9)
+
+    compute = cv.macs / cfg.tile_pes
+    if cv.depthwise:
+        return {"depthwise": compute + cycles(traffic["depthwise"])}
+    return {
+        "weight_stationary": compute + cycles(traffic["weight_stationary"]),
+        "output_stationary": compute + cycles(traffic["output_stationary"]),
+    }
+
+
+def select_dataflow(cv: ConvLoopNest, plan: ConvBlockPlan,
+                    cfg: Optional[MavecConfig] = None,
+                    costs: Optional[Dict[str, float]] = None) -> str:
+    """Pick the cheaper dataflow; ties go to ``output_stationary``."""
+    if cv.depthwise:
+        return "depthwise"
+    costs = costs if costs is not None else dataflow_costs(cv, plan, cfg)
+    if costs["output_stationary"] <= costs["weight_stationary"]:
+        return "output_stationary"
+    return "weight_stationary"
+
+
+def plan_and_dataflow(cv: ConvLoopNest, cfg: Optional[MavecConfig] = None
+                      ) -> Tuple[ConvBlockPlan, str]:
+    """Uncached one-shot planning (the ``impl="fold_auto"`` path)."""
+    plan = plan_conv_blocks(cv)
+    return plan, select_dataflow(cv, plan, cfg)
+
+
+# --------------------------------------------------------------------------
+# Execution policy
+# --------------------------------------------------------------------------
+
+def resolve_execution(policy: str = "auto",
+                      device: Any = "cuda") -> Tuple[str, torch.device]:
+    """Resolve an execution policy and device to ``(mode, device)``.
+
+      "auto"      — the same as "kernel".
+      "kernel"    — the fold kernels: the CUDA kernels on a CUDA device,
+                    their plain-torch fold loop on the CPU.
+      "reference" — the plain-torch ``conv2d_direct`` everywhere.
+
+    There is no silent fallback: a CUDA device without a usable GPU
+    raises.
+    """
+    if policy not in POLICIES:
+        raise ValueError(f"unknown execution policy {policy!r} "
+                         f"(want one of {POLICIES})")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' was requested but no CUDA device "
+                           "is available; pass device='cpu' to run the "
+                           "plain-torch path")
+    return ("reference" if policy == "reference" else "kernel"), dev
+
+
+# --------------------------------------------------------------------------
+# The schedule registry
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CacheStats:
+    hits: int = 0
+    misses: int = 0
+    replans: int = 0
+
+    @property
+    def lookups(self) -> int:
+        return self.hits + self.misses
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def as_dict(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "replans": self.replans, "hit_rate": round(self.hit_rate, 4)}
+
+
+class ScheduleCache:
+    """Registry of fold schedules keyed by filter-fold geometry.
+
+    ``schedule_for`` solves each geometry's plan and dataflow once and
+    reuses it for every later layer with the same key; a reused plan is
+    clamped to the actual dims by the kernel, so reuse across shrinking
+    spatial extents is exact.  A *larger* spatial extent arriving later
+    re-plans the entry in place (``stats.replans``).
+    """
+
+    def __init__(self, cfg: Optional[MavecConfig] = None,
+                 vmem_limit: int = 64 * 1024 * 1024):
+        self.cfg = cfg or MavecConfig()
+        self.vmem_limit = vmem_limit
+        self.stats = CacheStats()
+        self._entries: Dict[ScheduleKey, ConvSchedule] = {}
+        self._kernels: Dict[Tuple[ScheduleKey, str, Optional[Epilogue]],
+                            Callable] = {}
+
+    @property
+    def distinct(self) -> int:
+        return len(self._entries)
+
+    def _build(self, cv: ConvLoopNest, key: ScheduleKey) -> ConvSchedule:
+        plan = plan_conv_blocks(cv, vmem_limit=self.vmem_limit)
+        costs = dataflow_costs(cv, plan, self.cfg)
+        dataflow = select_dataflow(cv, plan, self.cfg, costs=costs)
+        return ConvSchedule(key=key, nest=cv, plan=plan, dataflow=dataflow,
+                            costs=tuple(sorted(costs.items())))
+
+    def schedule_for(self, cv: ConvLoopNest) -> ConvSchedule:
+        key = ScheduleKey.from_loopnest(cv)
+        hit = self._entries.get(key)
+        if hit is not None:
+            if (cv.padded_x > hit.nest.padded_x
+                    or cv.padded_y > hit.nest.padded_y):
+                self.stats.replans += 1
+                self._entries[key] = self._build(cv, key)
+                self._kernels = {k: v for k, v in self._kernels.items()
+                                 if k[0] != key}
+                return self._entries[key]
+            self.stats.hits += 1
+            return hit
+        self.stats.misses += 1
+        sched = self._build(cv, key)
+        self._entries[key] = sched
+        return sched
+
+    def kernel_for(self, sched: ConvSchedule,
+                   epilogue: Optional[Epilogue] = None) -> Callable:
+        """The fold kernel for a schedule with plan, dataflow and fused
+        epilogue bound, memoized per (key, dataflow, epilogue).  Called as
+        ``fn(x_padded, w, bias=b)``."""
+        from repro_torch.kernels.conv2d_ws import conv2d_folded
+        kk = (sched.key, sched.dataflow, epilogue)
+        fn = self._kernels.get(kk)
+        if fn is None:
+            fn = functools.partial(conv2d_folded, plan=sched.plan,
+                                   dataflow=sched.dataflow,
+                                   epilogue=epilogue,
+                                   groups=sched.key.groups)
+            self._kernels[kk] = fn
+        return fn
+
+
+# --------------------------------------------------------------------------
+# Whole-network compilation: StreamGraph lowering
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompiledNetwork:
+    """A whole-network static fold schedule plus its eager forward.
+
+    ``layer_schedules`` and ``build_stats`` are snapshots taken at compile
+    time.
+    """
+    apply: Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]
+    layer_schedules: Tuple[Tuple[str, ConvSchedule], ...]
+    build_stats: CacheStats
+    cache: ScheduleCache
+    mode: str                # "kernel" | "reference"
+    device: torch.device
+    fused: bool = False
+    graph: Optional[StreamGraph] = None
+
+    def __call__(self, params: Dict[str, Any], x: torch.Tensor
+                 ) -> torch.Tensor:
+        return self.apply(params, x)
+
+    @property
+    def distinct_schedules(self) -> int:
+        return len({s.key for _, s in self.layer_schedules})
+
+    def fold_reuse(self) -> dict:
+        """The paper's fold-reuse metric for this network's build."""
+        d = self.build_stats.as_dict()
+        d.update(conv_layers=len(self.layer_schedules),
+                 distinct_schedules=self.distinct_schedules)
+        return d
+
+    def describe(self) -> str:
+        lines = [f"CompiledNetwork(mode={self.mode}, device={self.device}, "
+                 f"fused={self.fused}, layers={len(self.layer_schedules)}, "
+                 f"schedules={self.distinct_schedules})"]
+        for name, sched in self.layer_schedules:
+            lines.append(f"  {name:<10} {str(sched.key):<24} "
+                         f"{sched.dataflow:<18} grid={sched.plan.grid}")
+        return "\n".join(lines)
+
+
+def _unported(op: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"graph op {op!r} is not ported yet (ROADMAP queue A item 10: "
+        "ResNet-18 and MobileNetV2)")
+
+
+def compile_network(params: Dict[str, Any], graph,
+                    input_shape: Tuple[int, int, int, int], *,
+                    policy: str = "auto",
+                    cache: Optional[ScheduleCache] = None,
+                    head: Optional[Callable] = None,
+                    fuse_epilogues: bool = True,
+                    device: Any = "cuda") -> CompiledNetwork:
+    """Lower a streaming graph into a static fold schedule + eager forward.
+
+    ``graph`` is a ``StreamGraph`` (or a legacy conv-spec sequence).  Conv
+    and dense weights live at ``params[node.param]["w"]`` (OIHW / (in,
+    out)) with biases at ``["b"]``; ``input_shape`` is NCHW.  All schedules
+    are built here through the shared ``ScheduleCache``; the forward never
+    plans.
+
+    In kernel mode with ``fuse_epilogues`` the graph first runs through
+    ``fuse_graph``, so each conv's bias/ReLU/2x2-pool chain flushes inside
+    the conv's kernel — one launch per conv block.  Reference mode runs the
+    plain-torch conv and standalone ops.  A fused pool on an output too
+    small to pool (P or Q < 2) is demoted to a standalone op.  The forward
+    runs on ``device`` (default "cuda"; "cpu" runs the plain-torch fold
+    loop in kernel mode).
+    """
+    cache = cache if cache is not None else ScheduleCache()
+    mode, dev = resolve_execution(policy, device)
+    stats_before = dataclasses.replace(cache.stats)
+    fused = fuse_epilogues and mode == "kernel"
+    base_graph = as_graph(graph)
+    g = fuse_graph(base_graph) if fused else base_graph
+
+    shapes: Dict[str, Tuple[int, ...]] = {g.input: tuple(input_shape)}
+    layer_schedules: List[Tuple[str, ConvSchedule]] = []
+    steps: List[Tuple] = []   # (op, out, in_names, static payload)
+
+    for nd in g.nodes:
+        s_in = shapes[nd.inputs[0]]
+        if nd.op == "conv":
+            if len(s_in) != 4:
+                raise GraphError(f"{nd.name}: conv expects an NCHW tensor, "
+                                 f"got shape {s_in}")
+            n_, chan, h, w_ = s_in
+            nf, cin, r, s = (int(d) for d in params[nd.param]["w"].shape)
+            groups = chan if nd.groups == DEPTHWISE else nd.groups
+            if cin * groups != chan:
+                raise GraphError(
+                    f"{nd.name}: weights expect {cin}x{groups} input "
+                    f"channels, trunk carries {chan}")
+            if nf % groups:
+                raise GraphError(
+                    f"{nd.name}: groups={groups} must divide the filter "
+                    f"count {nf}")
+            cv = ConvLoopNest(n=n_, nf=nf, c=chan, r=r, s=s, x=h, y=w_,
+                              stride=nd.stride, pad=nd.pad, groups=groups)
+            epi, demoted_pool = nd.epilogue, False
+            if epi is not None and epi.pool and (cv.p < 2 or cv.q < 2):
+                epi = dataclasses.replace(epi, pool=None)
+                demoted_pool = True
+            sched = cache.schedule_for(cv)
+            layer_schedules.append((nd.name, sched))
+            shapes[nd.name] = (n_, nf) + epilogue_out_hw(nd.epilogue, cv.p,
+                                                         cv.q)
+            steps.append(("conv", nd.name, nd.all_inputs(),
+                          (sched, epi, nd.stride, nd.pad, nd.param,
+                           demoted_pool, groups)))
+        elif nd.op in ("bias", "relu"):
+            shapes[nd.name] = s_in
+            steps.append((nd.op, nd.name, nd.inputs, nd.param))
+        elif nd.op == "maxpool2":
+            n_, chan, h, w_ = s_in
+            shapes[nd.name] = (n_, chan, h // 2, w_ // 2)
+            steps.append(("maxpool2", nd.name, nd.inputs, None))
+        elif nd.op == "flatten":
+            shapes[nd.name] = (s_in[0], int(math.prod(s_in[1:])))
+            steps.append(("flatten", nd.name, nd.inputs, None))
+        elif nd.op == "dense":
+            din, dout = (int(d) for d in params[nd.param]["w"].shape)
+            if len(s_in) != 2 or s_in[1] != din:
+                raise GraphError(f"{nd.name}: dense expects (N, {din}), "
+                                 f"got {s_in}")
+            shapes[nd.name] = (s_in[0], dout)
+            steps.append(("dense", nd.name, nd.inputs, nd.param))
+        else:
+            raise _unported(nd.op)
+
+    steps_t = tuple(steps)
+    out_name = g.output
+
+    def forward(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels.ops import conv2d, conv2d_fused
+        if x.device.type != dev.type:
+            raise ValueError(f"network compiled for {dev}, input is on "
+                             f"{x.device}")
+        env: Dict[str, torch.Tensor] = {g.input: x}
+        for op, out, ins, info in steps_t:
+            if op == "conv":
+                sched, epi, stride, pad, pname, demoted_pool, groups = info
+                xin, w = env[ins[0]], p[pname]["w"]
+                impl = "direct" if mode == "reference" else sched.impl()
+                if epi is not None:
+                    # an epilogue on a conv node is graph semantics and is
+                    # honored in every mode
+                    b = p[pname]["b"] if epi.bias else None
+                    y = conv2d_fused(xin, w, b, stride=stride, pad=pad,
+                                     epilogue=epi, impl=impl,
+                                     plan=sched.plan, groups=groups)
+                else:
+                    y = conv2d(xin, w, stride=stride, pad=pad, impl=impl,
+                               plan=sched.plan, groups=groups)
+                env[out] = maxpool2x2(y) if demoted_pool else y
+            elif op == "bias":
+                env[out] = env[ins[0]] + p[info]["b"][None, :, None, None]
+            elif op == "relu":
+                env[out] = torch.relu(env[ins[0]])
+            elif op == "maxpool2":
+                env[out] = maxpool2x2(env[ins[0]])
+            elif op == "flatten":
+                v = env[ins[0]]
+                env[out] = v.reshape(v.shape[0], -1)
+            else:                                 # dense: x @ w, as in JAX
+                env[out] = torch.matmul(env[ins[0]], p[info]["w"]) \
+                    + p[info]["b"]
+        y = env[out_name]
+        return head(p, y) if head is not None else y
+
+    build_stats = CacheStats(
+        hits=cache.stats.hits - stats_before.hits,
+        misses=cache.stats.misses - stats_before.misses,
+        replans=cache.stats.replans - stats_before.replans)
+    return CompiledNetwork(apply=forward,
+                           layer_schedules=tuple(layer_schedules),
+                           build_stats=build_stats, cache=cache, mode=mode,
+                           device=dev, fused=fused, graph=g)
+
+
+# --------------------------------------------------------------------------
+# Per-bucket compiled-forward cache (the serving engine's compile surface)
+# --------------------------------------------------------------------------
+
+class BucketCompiler:
+    """Memoized ``compile_network`` per batch width over one shared
+    ``ScheduleCache``.  ``ScheduleKey`` excludes the batch, so the first
+    bucket's compile plans every schedule and every later bucket compiles
+    with 100% schedule-cache hits."""
+
+    def __init__(self, params: Dict[str, Any], graph, img: int, *,
+                 chan: int = 3, policy: str = "auto",
+                 cache: Optional[ScheduleCache] = None,
+                 head: Optional[Callable] = None,
+                 fuse_epilogues: bool = True, device: Any = "cuda"):
+        self.params = params
+        self.graph = as_graph(graph)
+        self.img = int(img)
+        self.chan = int(chan)
+        self.policy = policy
+        self.cache = cache if cache is not None else ScheduleCache()
+        self.head = head
+        self.fuse_epilogues = fuse_epilogues
+        self.device = device
+        self._nets: Dict[int, CompiledNetwork] = {}
+
+    @property
+    def buckets(self) -> List[int]:
+        """Bucket widths compiled so far, ascending."""
+        return sorted(self._nets)
+
+    def network_for(self, batch: int) -> CompiledNetwork:
+        """The compiled forward for one bucket width (compiled on first
+        use; schedules come from the shared cache)."""
+        batch = int(batch)
+        if batch < 1:
+            raise ValueError(f"bucket width must be >= 1, got {batch}")
+        net = self._nets.get(batch)
+        if net is None:
+            net = compile_network(
+                self.params, self.graph,
+                (batch, self.chan, self.img, self.img),
+                policy=self.policy, cache=self.cache, head=self.head,
+                fuse_epilogues=self.fuse_epilogues, device=self.device)
+            self._nets[batch] = net
+        return net
+
+    def stats(self) -> dict:
+        """Buckets built + the shared schedule cache's fold-reuse
+        counters."""
+        d = {"buckets": self.buckets,
+             "distinct_schedules": self.cache.distinct}
+        d.update(self.cache.stats.as_dict())
+        return d

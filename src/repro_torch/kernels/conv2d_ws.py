@@ -1,0 +1,709 @@
+"""Fold-streamed convolution: the paper's two dataflows as hand-written
+CUDA kernels for Hopper, with their plain-torch fold loop beside them.
+
+Both kernels compute, for one conv layer on the pre-padded input
+``x (N, C, Xp, Yp)`` and ``w (NF, C, R, S)``::
+
+    out = epilogue(sum_{c,r,s} w[f,c,r,s] * x[n, c, p*stride+r, q*stride+s])
+
+with the epilogue bias -> ReLU -> optional 2x2/2 max-pool, the sum taken in
+true fp32 (FFMA on the CUDA cores: ``wgmma`` takes no fp32 operands and
+TF32 is not fp32), and the output written to device memory once — the
+pre-activation never reaches it.  They differ in loop order, as the
+paper's dataflows do:
+
+* ``weight_stationary`` (replaces ``repro/kernels/conv2d_ws.py:_ws_kernel``):
+  a CTA keeps a sub-fold of the filter fold resident in shared memory and
+  walks the image folds (P rows) past it.  With more than one depth fold
+  the partial sums of the full output height live in an fp32 slab that
+  only that CTA reads and writes, in a fixed order.
+* ``output_stationary`` (replaces ``_os_kernel``): a CTA owns an output
+  tile held in registers and loops over the depth folds, restaging the
+  weights for every P tile.
+
+The source is ``csrc/fold_conv.cu``; ``build.py`` compiles it at first
+use.  On a CPU tensor ``conv2d_folded`` runs the plain-torch version of the
+same fold loop (``conv2d_folded_plain``: ``_fold_partial`` +
+``_flush_value`` + the WS/OS grid walk); on a CUDA tensor it launches the
+kernel or raises.
+
+The order of the sum for one output element is channel-ascending, then
+R, then S, in both kernels.  It depends only on the fold plan — never on
+N, the grid or the CTA tile — so a layer gives bitwise-identical rows at
+every batch width.
+
+Inputs are NCHW, weights OIHW.  The caller pre-pads spatially
+(``ops.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.epilogue import Epilogue, epilogue_out_hw, maxpool2x2
+from repro_torch.core.loopnest import ConvLoopNest
+from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
+                                      plan_conv_blocks)
+
+__all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
+           "OperandSpec", "FoldKernelSpec", "fold_kernel_spec", "launch_ws",
+           "launch_os", "launch_counts", "reset_launch_counts"]
+
+DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
+
+
+# --------------------------------------------------------------------------
+# Index maps as inspectable data
+# --------------------------------------------------------------------------
+# Every index map below is a *named module-level function* (bound with
+# ``functools.partial`` where group geometry applies): the launch geometry
+# of a fold schedule as data, in the JAX package's own terms, so the two
+# packages' specs compare field by field.  Grid argument orders:
+#   weight_stationary / psum : (b, f, cc, pp)   -- grid (N, nf, c, p)
+#   output_stationary        : (b, f, pp, cc)   -- grid (N, nf, p, c)
+#   depthwise                : (b, cc, pp)      -- grid (N, c, p)
+
+def _ix_ws_x(b, f, cc, pp, *, nfg_folds: int, cg_folds: int):
+    """Streamed input block: channel fold ``cc`` within the group the
+    current filter fold ``f`` belongs to.  Dense layers are the G=1 case
+    (``nfg_folds`` = all nf folds, so the group index is always 0)."""
+    return (b, (f // nfg_folds) * cg_folds + cc, 0, 0)
+
+
+def _ix_ws_w(b, f, cc, pp):
+    """Weight fold: globally filter-indexed, per-group channel-indexed."""
+    return (f, cc, 0, 0)
+
+
+def _ix_ws_vec(b, f, cc, pp):
+    return (f, 0)
+
+
+def _ix_ws_res(b, f, cc, pp):
+    """Residual rides full-height, resident like the WS accumulator."""
+    return (b, f, 0, 0)
+
+
+def _ix_ws_out(b, f, cc, pp):
+    """Constant along (c, p): the finished output is written to device
+    memory exactly once per (N, NF-fold).  P-fold revisits write
+    disjoint in-block row slices (``inner_sliced_axes``)."""
+    return (b, f, 0, 0)
+
+
+def _ix_os_x(b, f, pp, cc, *, nfg_folds: int, cg_folds: int):
+    return (b, (f // nfg_folds) * cg_folds + cc, 0, 0)
+
+
+def _ix_os_w(b, f, pp, cc):
+    return (f, cc, 0, 0)
+
+
+def _ix_os_vec(b, f, pp, cc):
+    return (f, 0)
+
+
+def _ix_os_res(b, f, pp, cc):
+    return (b, f, pp, 0)
+
+
+def _ix_os_out(b, f, pp, cc):
+    """Constant along c only: the depth sweep accumulates into the
+    block-sized scratch and writes the block once."""
+    return (b, f, pp, 0)
+
+
+def _ix_dw_x(b, cc, pp):
+    return (b, cc, 0, 0)
+
+
+def _ix_dw_w(b, cc, pp):
+    return (cc, 0, 0, 0)
+
+
+def _ix_dw_vec(b, cc, pp):
+    return (cc, 0)
+
+
+def _ix_dw_res(b, cc, pp):
+    return (b, cc, pp, 0)
+
+
+def _ix_dw_out(b, cc, pp):
+    return (b, cc, pp, 0)
+
+
+def _ix_psum_out(b, f, cc, pp):
+    """One partial-sum fold per depth fold: cc addresses a leading psum
+    axis, so every grid point owns a distinct output block (no revisits)."""
+    return (cc, b, f, pp, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandSpec:
+    """One kernel operand: its block shape, the (padded) array shape the
+    kernel binds, and the fold index map as an inspectable callable.
+    ``role`` is one of x | w | vec | residual | out."""
+    role: str
+    block: Tuple[int, ...]
+    array_shape: Tuple[int, ...]
+    index_map: Callable[..., Tuple[int, ...]]
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldKernelSpec:
+    """The complete static description of one fold-streamed conv kernel
+    launch: resolved dataflow, grid, and every operand's block geometry
+    as data.  ``conv2d_folded`` pads its operands to the spec's array
+    shapes and sizes its CUDA launch from the spec's plan.
+
+    ``reduction_axis`` is the depth-fold grid axis (the only axis allowed
+    to revisit the accumulator/output block); ``inner_sliced_axes`` are
+    grid axes whose output revisits are *disjoint in-block sub-slices*
+    (the WS kernel's per-P-fold rows), not races.
+    """
+    dataflow: str                       # resolved (post-fallback)
+    requested: str                      # dataflow as requested by caller
+    grid: Tuple[int, ...]
+    grid_axes: Tuple[str, ...]          # loop-nest name per grid axis
+    reduction_axis: Optional[int]
+    inner_sliced_axes: Tuple[int, ...]
+    inputs: Tuple[OperandSpec, ...]
+    output: OperandSpec
+    epilogue: Epilogue
+    plan: ConvBlockPlan                 # clamped to this layer's dims
+    groups: int
+    nfg_folds: int                      # nf folds per group (g_nf / G)
+    cg_folds: int                       # c folds per group (= depth folds)
+    nf: int
+    c: int
+    p: int
+    q: int
+    r: int
+    s: int
+    stride: int
+    nf_pad: int
+    c_pad: int
+    p_pad: int
+    x_rows: int                         # padded input rows the kernel sees
+    p_block: int                        # post pool-even bump
+    p_valid: int
+    q_valid: int
+
+
+def fold_kernel_spec(x_shape: Tuple[int, int, int, int],
+                     w_shape: Tuple[int, int, int, int], *,
+                     stride: int = 1,
+                     plan: Optional[ConvBlockPlan] = None,
+                     dataflow: str = "weight_stationary",
+                     epilogue: Optional[Epilogue] = None,
+                     groups: int = 1) -> FoldKernelSpec:
+    """Solve the complete launch geometry for a fold-streamed conv — block
+    clamping, the pool-even P bump, padding, and the WS->psum/OS
+    accumulator fallback — and return it as inspectable data.  Pure shape
+    arithmetic: no tensors are touched, so it applies to any layer."""
+    n, c, xp_, yp_ = x_shape
+    nf, cw, r, s = w_shape
+    assert c == cw * groups, (c, cw, groups)
+    assert nf % groups == 0, (nf, groups)
+    p = (xp_ - r) // stride + 1
+    q = (yp_ - s) // stride + 1
+    epi = epilogue or Epilogue()
+    if epi.pool == "max2" and (p < 2 or q < 2):
+        raise ValueError(f"cannot fuse 2x2 pool into a {p}x{q} output")
+    requested = dataflow
+    if dataflow == "depthwise" and not (groups > 1 and groups == c == nf):
+        raise ValueError("dataflow='depthwise' needs groups == C == N_F, "
+                         f"got groups={groups}, C={c}, N_F={nf}")
+    if dataflow not in DATAFLOWS + ("weight_stationary_psum",):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    if dataflow == "weight_stationary_psum":
+        if not epi.identity:
+            raise ValueError("the legacy psum dataflow has no fused epilogue")
+        if groups > 1:
+            raise ValueError("the legacy psum dataflow predates grouped "
+                             "convolution")
+    if plan is None or plan.groups != groups:
+        # a plan solved for a different group structure cannot tile this
+        # layer (divisibility invariants differ) — re-solve
+        cv = ConvLoopNest(n=n, nf=nf, c=c, r=r, s=s,
+                          x=xp_, y=yp_, stride=stride, pad=0, groups=groups)
+        plan = plan_conv_blocks(cv)
+    plan = plan.clamped(nf, c, p)
+    nf_b, c_b, p_b = plan.nf_block, plan.c_block, plan.p_block
+    g_nf, g_c, g_p = plan.grid
+    pooled = epi.pool == "max2"
+    if pooled and p_b % 2:
+        # pool windows must not straddle P-fold boundaries
+        p_b += 1
+        g_p = -(-p // p_b)
+    p_valid, q_valid = epilogue_out_hw(epi, p, q)
+    q_o = q // 2 if pooled else q
+
+    if dataflow == "depthwise":
+        c_pad, p_pad = g_c * c_b, g_p * p_b
+        rows_needed = (p_pad - 1) * stride + r
+        x_rows = max(xp_, rows_needed)
+        p_b_o = p_b // 2 if pooled else p_b
+        p_o_pad = p_pad // 2 if pooled else p_pad
+        inputs = [
+            OperandSpec("x", (1, c_b, x_rows, yp_),
+                        (n, c_pad, x_rows, yp_), _ix_dw_x),
+            OperandSpec("w", (c_b, 1, r, s), (c_pad, 1, r, s), _ix_dw_w),
+            OperandSpec("vec", (c_b, 3), (c_pad, 3), _ix_dw_vec),
+        ]
+        if epi.residual:
+            inputs.append(OperandSpec("residual", (1, c_b, p_b, q),
+                                      (n, c_pad, p_pad, q), _ix_dw_res))
+        out = OperandSpec("out", (1, c_b, p_b_o, q_o),
+                          (n, c_pad, p_o_pad, q_o), _ix_dw_out)
+        return FoldKernelSpec(
+            dataflow="depthwise", requested=requested,
+            grid=(n, g_c, g_p), grid_axes=("n", "c", "p"),
+            reduction_axis=None, inner_sliced_axes=(),
+            inputs=tuple(inputs), output=out, epilogue=epi, plan=plan,
+            groups=groups, nfg_folds=1, cg_folds=g_c,
+            nf=nf, c=c, p=p, q=q, r=r, s=s, stride=stride,
+            nf_pad=c_pad, c_pad=c_pad, p_pad=p_pad, x_rows=x_rows,
+            p_block=p_b, p_valid=p_valid, q_valid=q_valid)
+
+    # Pad every tiled dim to an exact block multiple: zero channels/filters
+    # contribute nothing to the accumulation, and extra bottom rows only
+    # produce out-of-range outputs that are sliced away.  This keeps the
+    # in-kernel dynamic_slice un-clamped (fold geometry stays exact).
+    # Aligned layers skip the pads entirely (no copy).  Grouped layers are
+    # exactly tiled by construction (blocks divide the per-group extents),
+    # so only the bottom-row pad can apply.
+    if groups > 1:
+        nf_pad, c_pad = nf, c
+        g_nfg = g_nf // groups            # nf folds per group
+    else:
+        nf_pad, c_pad = g_nf * nf_b, g_c * c_b
+        g_nfg = g_nf
+    p_pad = g_p * p_b
+    rows_needed = (p_pad - 1) * stride + r
+    x_rows = max(xp_, rows_needed)
+
+    # a fused residual rides along full-height, resident like the
+    # accumulator — it doubles the WS footprint the spill check must price
+    ws_resident = nf_b * p_pad * q * 4 * (2 if epi.residual else 1)
+    if (dataflow == "weight_stationary"
+            and ws_resident > WS_ACC_BYTES_LIMIT):
+        # the full-height fp32 accumulator (+ resident residual) would not
+        # fit WS_ACC_BYTES_LIMIT: fall back to psum staging (or to the
+        # block-accumulator OS kernel when an epilogue must flush
+        # in-kernel, and always for grouped layers — the psum formulation
+        # predates groups) — mirrored by the spill price in
+        # ``core/engine.py:dataflow_traffic_bytes``
+        dataflow = ("weight_stationary_psum"
+                    if epi.identity and groups == 1
+                    else "output_stationary")
+
+    if dataflow == "weight_stationary_psum":
+        inputs = [
+            OperandSpec("x", (1, c_b, x_rows, yp_), (n, c_pad, x_rows, yp_),
+                        functools.partial(_ix_ws_x, nfg_folds=g_nfg,
+                                          cg_folds=g_c)),
+            OperandSpec("w", (nf_b, c_b, r, s),
+                        (nf_pad, c_pad // groups, r, s), _ix_ws_w),
+        ]
+        # out: one partial-sum fold per depth fold (paper Fig 5, staged in
+        # device memory — the formulation the in-kernel reduction replaces)
+        out = OperandSpec("out", (1, 1, nf_b, p_b, q),
+                          (g_c, n, nf_pad, p_pad, q), _ix_psum_out)
+        return FoldKernelSpec(
+            dataflow="weight_stationary_psum", requested=requested,
+            grid=(n, g_nf, g_c, g_p), grid_axes=("n", "nf", "c", "p"),
+            reduction_axis=None, inner_sliced_axes=(),
+            inputs=tuple(inputs), output=out, epilogue=epi, plan=plan,
+            groups=groups, nfg_folds=g_nfg, cg_folds=g_c,
+            nf=nf, c=c, p=p, q=q, r=r, s=s, stride=stride,
+            nf_pad=nf_pad, c_pad=c_pad, p_pad=p_pad, x_rows=x_rows,
+            p_block=p_b, p_valid=p_valid, q_valid=q_valid)
+
+    if dataflow == "weight_stationary":
+        p_o_pad = p_pad // 2 if pooled else p_pad
+        inputs = [
+            OperandSpec("x", (1, c_b, x_rows, yp_), (n, c_pad, x_rows, yp_),
+                        functools.partial(_ix_ws_x, nfg_folds=g_nfg,
+                                          cg_folds=g_c)),
+            OperandSpec("w", (nf_b, c_b, r, s),
+                        (nf_pad, c_pad // groups, r, s), _ix_ws_w),
+            OperandSpec("vec", (nf_b, 3), (nf_pad, 3), _ix_ws_vec),
+        ]
+        if epi.residual:
+            # resident like the output: constant along (c, p)
+            inputs.append(OperandSpec("residual", (1, nf_b, p_pad, q),
+                                      (n, nf_pad, p_pad, q), _ix_ws_res))
+        out = OperandSpec("out", (1, nf_b, p_o_pad, q_o),
+                          (n, nf_pad, p_o_pad, q_o), _ix_ws_out)
+        return FoldKernelSpec(
+            dataflow="weight_stationary", requested=requested,
+            grid=(n, g_nf, g_c, g_p), grid_axes=("n", "nf", "c", "p"),
+            reduction_axis=2, inner_sliced_axes=(3,),
+            inputs=tuple(inputs), output=out, epilogue=epi, plan=plan,
+            groups=groups, nfg_folds=g_nfg, cg_folds=g_c,
+            nf=nf, c=c, p=p, q=q, r=r, s=s, stride=stride,
+            nf_pad=nf_pad, c_pad=c_pad, p_pad=p_pad, x_rows=x_rows,
+            p_block=p_b, p_valid=p_valid, q_valid=q_valid)
+
+    # output_stationary
+    p_b_o = p_b // 2 if pooled else p_b
+    p_o_pad = p_pad // 2 if pooled else p_pad
+    inputs = [
+        OperandSpec("x", (1, c_b, x_rows, yp_), (n, c_pad, x_rows, yp_),
+                    functools.partial(_ix_os_x, nfg_folds=g_nfg,
+                                      cg_folds=g_c)),
+        OperandSpec("w", (nf_b, c_b, r, s),
+                    (nf_pad, c_pad // groups, r, s), _ix_os_w),
+        OperandSpec("vec", (nf_b, 3), (nf_pad, 3), _ix_os_vec),
+    ]
+    if epi.residual:
+        inputs.append(OperandSpec("residual", (1, nf_b, p_b, q),
+                                  (n, nf_pad, p_pad, q), _ix_os_res))
+    out = OperandSpec("out", (1, nf_b, p_b_o, q_o),
+                      (n, nf_pad, p_o_pad, q_o), _ix_os_out)
+    return FoldKernelSpec(
+        dataflow="output_stationary", requested=requested,
+        grid=(n, g_nf, g_p, g_c), grid_axes=("n", "nf", "p", "c"),
+        reduction_axis=3, inner_sliced_axes=(),
+        inputs=tuple(inputs), output=out, epilogue=epi, plan=plan,
+        groups=groups, nfg_folds=g_nfg, cg_folds=g_c,
+        nf=nf, c=c, p=p, q=q, r=r, s=s, stride=stride,
+        nf_pad=nf_pad, c_pad=c_pad, p_pad=p_pad, x_rows=x_rows,
+        p_block=p_b, p_valid=p_valid, q_valid=q_valid)
+
+
+
+def _pad_to(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Zero-pad ``arr`` up to ``shape`` (a contiguous no-copy when already
+    aligned)."""
+    pads = [t - d for d, t in zip(arr.shape, shape)]
+    if not any(pads):
+        return arr.contiguous()
+    flat = []
+    for hi in reversed(pads):            # F.pad wants last dim first
+        flat += [0, hi]
+    return F.pad(arr, flat)
+
+
+# --------------------------------------------------------------------------
+# What this slice ports, and what it refuses
+# --------------------------------------------------------------------------
+
+def _refuse_unported(x_padded: torch.Tensor, w: torch.Tensor,
+                     dataflow: str, epi: Epilogue, groups: int) -> None:
+    """Every variant of the TPU kernels that the port does not carry yet
+    raises here, naming its ROADMAP item; nothing falls back."""
+    if x_padded.dtype == torch.int8 or w.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 fold streaming is not ported yet (ROADMAP queue A item "
+            "11, queue B items 1-2 int8 variants)")
+    if x_padded.dtype != torch.float32 or w.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the fold kernels take fp32 operands, got x {x_padded.dtype} "
+            f"and w {w.dtype} (ROADMAP queue B items 1-2)")
+    if groups != 1:
+        raise NotImplementedError(
+            "grouped convolution is not ported yet (ROADMAP queue A item "
+            "10, queue B items 1-2 grouped variants)")
+    if dataflow == "depthwise":
+        raise NotImplementedError(
+            "the depthwise kernel is not ported yet (ROADMAP queue B "
+            "item 3: _dw_kernel)")
+    if dataflow == "weight_stationary_psum":
+        raise NotImplementedError(
+            "the psum-staging kernel is not ported yet (ROADMAP queue B "
+            "item 6: _ws_psum_kernel)")
+    for name in ("residual", "scale", "relu6"):
+        if getattr(epi, name):
+            raise NotImplementedError(
+                f"the {name} epilogue is not ported yet (ROADMAP queue B "
+                "items 1-2: residual, scale/ReLU6 variants)")
+
+
+# --------------------------------------------------------------------------
+# The plain-torch fold loop (the CPU path and the kernels' oracle)
+# --------------------------------------------------------------------------
+
+def _fold_partial(xv: torch.Tensor, w: torch.Tensor, i_p: int, *, r: int,
+                  s: int, stride: int, p_block: int, q: int) -> torch.Tensor:
+    """One fold interaction (Fig 4): R*S stationary taps against a strided
+    window of the image rows.  xv (N, c_b, rows, Y), w (nf_b, c_b, R, S)
+    -> (N, nf_b, p_block, q) in fp32."""
+    row0 = i_p * p_block * stride
+    rows = (p_block - 1) * stride + r
+    xwin = xv[:, :, row0:row0 + rows]
+    acc = xv.new_zeros((xv.shape[0], w.shape[0], p_block, q),
+                       dtype=torch.float32)
+    for ri in range(r):
+        for si in range(s):
+            win = xwin[:, :, ri:ri + p_block * stride:stride,
+                       si:si + q * stride:stride]        # (N, c_b, p_b, q)
+            acc += torch.einsum("fc,ncpq->nfpq", w[:, :, ri, si].float(),
+                                win.float())
+    return acc
+
+
+def _flush_value(v: torch.Tensor, bias: Optional[torch.Tensor],
+                 epi: Epilogue) -> torch.Tensor:
+    """Apply the fused epilogue to a finished fp32 fold (N, nf_b, p_b, q)."""
+    if epi.bias:
+        v = v + bias.float()[None, :, None, None]
+    if epi.relu:
+        v = torch.relu(v)
+    if epi.pool == "max2":
+        v = maxpool2x2(v)        # p_b forced even: windows stay in-fold
+    return v
+
+
+def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The WS / OS grid walk of the TPU kernels, fold by fold, in torch."""
+    epi = spec.epilogue
+    nf_b, c_b = spec.plan.nf_block, spec.plan.c_block
+    p_b, q, g_c = spec.p_block, spec.q, spec.cg_folds
+    g_nf, g_p = spec.nf_pad // nf_b, spec.p_pad // p_b
+    p_bo = p_b // 2 if epi.pool == "max2" else p_b
+    kw = dict(r=spec.r, s=spec.s, stride=spec.stride, p_block=p_b, q=q)
+    out = xp.new_empty(spec.output.array_shape, dtype=torch.float32)
+    for f in range(g_nf):
+        fs = slice(f * nf_b, (f + 1) * nf_b)
+        bf = bias[fs] if bias is not None else None
+        if spec.dataflow == "weight_stationary":
+            # grid (N, nf, c, p), p fastest: the full-height accumulator
+            acc = xp.new_empty((xp.shape[0], nf_b, spec.p_pad, q),
+                               dtype=torch.float32)
+            for c in range(g_c):
+                cs = slice(c * c_b, (c + 1) * c_b)
+                for i_p in range(g_p):
+                    rows = slice(i_p * p_b, (i_p + 1) * p_b)
+                    part = _fold_partial(xp[:, cs], wp[fs, cs], i_p, **kw)
+                    acc[:, :, rows] = part if c == 0 else acc[:, :, rows] + part
+                    if c == g_c - 1:
+                        out[:, fs, i_p * p_bo:(i_p + 1) * p_bo] = \
+                            _flush_value(acc[:, :, rows], bf, epi)
+        else:
+            # grid (N, nf, p, c), c fastest: a block-sized accumulator
+            for i_p in range(g_p):
+                acc = None
+                for c in range(g_c):
+                    cs = slice(c * c_b, (c + 1) * c_b)
+                    part = _fold_partial(xp[:, cs], wp[fs, cs], i_p, **kw)
+                    acc = part if acc is None else acc + part
+                out[:, fs, i_p * p_bo:(i_p + 1) * p_bo] = \
+                    _flush_value(acc, bf, epi)
+    return out
+
+
+# --------------------------------------------------------------------------
+# The CUDA launches
+# --------------------------------------------------------------------------
+#
+# Bound on the H100: the FFMA rate.  A 3x3 VGG layer does 2*C*9 flops per
+# output element for 4 bytes written, far above the card's ~20 flop/byte
+# fp32 ridge, so both kernels are compute-bound by the 67 TFLOP/s fp32
+# CUDA-core peak.  What the design does about it: each thread owns a 2x2
+# output micro-tile for NFT filters, i.e. 4*NFT fp32 accumulators in
+# registers, so one weight vector read from shared memory (two 16-byte
+# broadcasts) feeds 4*NFT FMAs and each input element read through L1
+# feeds NFT FMAs.  Loads stay off the critical path as long as the FMA
+# pipes are fed; there is no tensor-core path in true fp32.
+
+NFT = 8                 # filters per CTA sub-fold (NFT in csrc/fold_conv.cu)
+OS_CHUNK = 32           # channels per OS weight restage (OS_CHUNK there too)
+MAX_THREADS = 256       # __launch_bounds__ of both kernels
+SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
+
+
+def _cta_tile(p_block: int, q: int) -> Tuple[int, int, int]:
+    """The CTA tile inside one P fold: all ceil(p_block/2) micro-tile rows
+    by ``mq`` micro-tile columns (2x2 outputs each).  Returns (mq, number
+    of Q tiles, threads per CTA)."""
+    mrows, mcols = -(-p_block // 2), -(-q // 2)
+    mq = max(1, min(mcols, MAX_THREADS // mrows))
+    threads = min(MAX_THREADS, -(-(mrows * mq) // 32) * 32)
+    return mq, -(-mcols // mq), threads
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda_operands(*tensors: Optional[torch.Tensor]) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("fold kernels take contiguous fp32 operands on "
+                             f"one device, got {t.dtype} on {t.device}")
+
+
+def _raise_on_error(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.fold_conv_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _common_args(spec: "FoldKernelSpec", n: int, mq: int) -> list:
+    epi = spec.epilogue
+    return [n, spec.c_pad, spec.x_rows, spec.inputs[0].array_shape[3],
+            spec.nf_pad, spec.r, spec.s, spec.stride, spec.q, spec.p_pad,
+            spec.plan.nf_block, spec.plan.c_block, spec.p_block,
+            int(epi.relu), int(epi.pool == "max2"), mq]
+
+
+def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the weight-stationary kernel on padded CUDA operands."""
+    from repro_torch.kernels import build
+    _check_cuda_operands(xp, wp, bias)
+    smem = NFT * spec.plan.c_block * spec.r * spec.s * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the WS kernel keeps {NFT} filters x c_block={spec.plan.c_block}"
+            f" x {spec.r}x{spec.s} taps resident: {smem} bytes exceed the "
+            f"{SMEM_LIMIT}-byte shared memory of one CTA")
+    n = xp.shape[0]
+    mq, q_tiles, threads = _cta_tile(spec.p_block, spec.q)
+    g_p = spec.p_pad // spec.p_block
+    # split the P walk only as far as it takes to give every SM two CTAs;
+    # the split never changes the order of any output's sum
+    subs = spec.nf_pad // spec.plan.nf_block * -(-spec.plan.nf_block // NFT)
+    target = 2 * torch.cuda.get_device_properties(xp.device).multi_processor_count
+    chunks = min(g_p, max(1, -(-target // (q_tiles * subs * n))))
+    p_chunk = -(-g_p // chunks)
+    out = torch.empty(spec.output.array_shape, device=xp.device,
+                      dtype=torch.float32)
+    slab = None
+    if spec.cg_folds > 1:
+        slab = torch.empty((n, spec.nf_pad, spec.p_pad, spec.q),
+                           device=xp.device, dtype=torch.float32)
+    lib = build.library()
+    err = lib.fold_conv_ws(
+        _ptr(xp), _ptr(wp), _ptr(bias), _ptr(out), _ptr(slab),
+        *_common_args(spec, n, mq), p_chunk, threads,
+        torch.cuda.current_stream(xp.device).cuda_stream)
+    _raise_on_error(lib, err, "fold_conv_ws")
+    launch_ws.launches += 1
+    return out
+
+
+def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the output-stationary kernel on padded CUDA operands."""
+    from repro_torch.kernels import build
+    _check_cuda_operands(xp, wp, bias)
+    if -(-spec.p_block // 2) > MAX_THREADS:
+        raise ValueError(
+            f"the OS kernel holds one P fold in registers: p_block="
+            f"{spec.p_block} needs more than {MAX_THREADS} threads")
+    n = xp.shape[0]
+    mq, _, threads = _cta_tile(spec.p_block, spec.q)
+    out = torch.empty(spec.output.array_shape, device=xp.device,
+                      dtype=torch.float32)
+    lib = build.library()
+    err = lib.fold_conv_os(
+        _ptr(xp), _ptr(wp), _ptr(bias), _ptr(out),
+        *_common_args(spec, n, mq), threads,
+        torch.cuda.current_stream(xp.device).cuda_stream)
+    _raise_on_error(lib, err, "fold_conv_os")
+    launch_os.launches += 1
+    return out
+
+
+launch_ws.launches = 0
+launch_os.launches = 0
+_LAUNCHERS: Dict[str, Callable] = {"fold_conv_ws": launch_ws,
+                                   "fold_conv_os": launch_os}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, by kernel name."""
+    return {name: fn.launches for name, fn in _LAUNCHERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _LAUNCHERS.values():
+        fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The public entry
+# --------------------------------------------------------------------------
+
+def _prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups):
+    n, c, xp_, yp_ = x_padded.shape
+    nf, cw, r, s = w.shape
+    epi = epilogue or Epilogue()
+    _refuse_unported(x_padded, w, dataflow, epi, groups)
+    if c != cw:
+        raise ValueError(f"input has {c} channels, weights expect {cw}")
+    if epi.bias and bias is None:
+        raise ValueError("epilogue.bias=True needs a bias vector")
+    spec = fold_kernel_spec(tuple(x_padded.shape), tuple(w.shape),
+                            stride=stride, plan=plan, dataflow=dataflow,
+                            epilogue=epi, groups=groups)
+    if spec.dataflow == "weight_stationary_psum":
+        # the WS accumulator spill lands on psum staging only for an
+        # identity epilogue
+        _refuse_unported(x_padded, w, spec.dataflow, epi, groups)
+    xp = _pad_to(x_padded, spec.inputs[0].array_shape)
+    wp = _pad_to(w, spec.inputs[1].array_shape)
+    bp = _pad_to(bias.float(), (spec.nf_pad,)) if epi.bias else None
+    return spec, xp, wp, bp
+
+
+def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
+                        stride: int = 1,
+                        plan: Optional[ConvBlockPlan] = None,
+                        dataflow: str = "weight_stationary",
+                        bias: Optional[torch.Tensor] = None,
+                        epilogue: Optional[Epilogue] = None,
+                        groups: int = 1) -> torch.Tensor:
+    """The plain-torch version of ``conv2d_folded`` on any device: the same
+    spec, the same padding, the fold loop in torch ops."""
+    spec, xp, wp, bp = _prepare(x_padded, w, stride, plan, dataflow, bias,
+                                epilogue, groups)
+    out = _plain_walk(spec, xp, wp, bp)
+    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]
+
+
+def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
+                  stride: int = 1,
+                  plan: Optional[ConvBlockPlan] = None,
+                  dataflow: str = "weight_stationary",
+                  bias: Optional[torch.Tensor] = None,
+                  epilogue: Optional[Epilogue] = None,
+                  groups: int = 1) -> torch.Tensor:
+    """Run the fold-streamed conv on a PRE-PADDED input.
+
+    x_padded: (N, C, Xp, Yp)   w: (NF, C, R, S)   -> (N, NF, P', Q')
+    where (P', Q') = (P, Q) or (P//2, Q//2) when ``epilogue.pool`` fuses
+    the 2x2/2 max-pool.
+
+    ``plan`` may come from the engine's schedule cache and describe a
+    larger geometry sharing this layer's filter-fold key; it is clamped to
+    the actual dims here, which is what makes schedule reuse exact.  On a
+    CUDA tensor this launches the WS or OS kernel; on a CPU tensor it runs
+    the plain-torch fold loop.  Unported variants raise
+    ``NotImplementedError``.
+    """
+    spec, xp, wp, bp = _prepare(x_padded, w, stride, plan, dataflow, bias,
+                                epilogue, groups)
+    if xp.device.type == "cuda":
+        launch = (launch_ws if spec.dataflow == "weight_stationary"
+                  else launch_os)
+        out = launch(spec, xp, wp, bp)
+    elif xp.device.type == "cpu":
+        out = _plain_walk(spec, xp, wp, bp)
+    else:
+        raise ValueError(f"conv2d_folded runs on cuda or cpu tensors, got "
+                         f"{xp.device}")
+    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]

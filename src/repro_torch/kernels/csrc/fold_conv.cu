@@ -1,0 +1,331 @@
+// Fold-streamed fp32 convolution for Hopper (sm_90a): the weight-stationary
+// and output-stationary dataflows of the paper, with the fused
+// bias -> ReLU -> 2x2/2 max-pool epilogue.
+//
+// Replaces the Pallas TPU kernels repro/kernels/conv2d_ws.py:_ws_kernel and
+// :_os_kernel (both launched from conv2d_folded).  The Python wrapper
+// (repro_torch/kernels/conv2d_ws.py) pads every operand to the fold plan
+// (fold_kernel_spec), allocates the output and the WS slab, and checks
+// the error code each entry returns.
+//
+// Operands (all fp32, contiguous):
+//   x    (N, C_pad, X_rows, Yp)   pre-padded input
+//   w    (NF_pad, C_pad, R, S)
+//   bias (NF_pad) or null
+//   out  (N, NF_pad, P_pad or P_pad/2, Q or Q/2)
+//   slab (N, NF_pad, P_pad, Q)     WS partial sums while g_c > 1, else null
+//
+// Bound: FFMA throughput (see the wrapper's note).  Each thread owns a 2x2
+// output micro-tile for NFT filters, 4*NFT accumulators in registers.  The
+// sum of one output element runs over channels ascending, then R, then S,
+// and nothing else: no split of the depth across threads or CTAs, so the
+// result does not depend on N, the grid, or the CTA tile.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NFT = 8;        // filters per CTA sub-fold
+constexpr int OS_CHUNK = 32;  // channels per output-stationary weight restage
+constexpr int MAX_THREADS = 256;
+
+struct Geom {
+  int n, c_pad, x_rows, yp;
+  int nf_pad, r, s, stride;
+  int q, p_pad;
+  int nf_b, c_b, p_b;
+  int relu, pool;
+  int mq;        // micro-tile columns per CTA tile
+  int q_tiles;   // CTA tiles along Q
+  int p_chunk;   // WS: P folds one CTA walks
+};
+
+// One 2x2 micro-tile of the CTA tile: where it sits and which of its four
+// outputs are real (rows past the P fold and columns past Q are not).
+struct Micro {
+  int prow, qcol;
+  bool rv1, cv1;
+};
+
+// Copy the weight sub-fold [f0, f0+nvalid) x [c0, c0+nch) x R x S into
+// shared memory as [c][r][s][NFT]: one tap of all NFT filters is two
+// 16-byte words, read as a broadcast.  Missing filters are zeros.
+__device__ void stage_weights(float* w_s, const float* __restrict__ w,
+                              const Geom& g, int f0, int nvalid, int c0,
+                              int nch) {
+  const int rs = g.r * g.s;
+  const int total = nch * rs * NFT;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int j = i % NFT;
+    const int crs = i / NFT;
+    const int c = crs / rs;
+    const int k = crs % rs;
+    w_s[i] = j < nvalid
+        ? w[(static_cast<size_t>(f0 + j) * g.c_pad + c0 + c) * rs + k]
+        : 0.f;
+  }
+}
+
+// _fold_partial: R*S stationary taps of nch channels against the strided
+// input window of one micro-tile, accumulated into acc in fixed order.
+__device__ __forceinline__ void fold_partial(float (&acc)[NFT][4],
+                                             const float* __restrict__ xc0,
+                                             const float* w_s, int nch,
+                                             const Geom& g, const Micro& m) {
+  const size_t plane = static_cast<size_t>(g.x_rows) * g.yp;
+  const int col0 = m.qcol * g.stride;
+  for (int c = 0; c < nch; ++c) {
+    const float* xc = xc0 + c * plane;
+    for (int r = 0; r < g.r; ++r) {
+      const float* row0 =
+          xc + static_cast<size_t>(m.prow * g.stride + r) * g.yp + col0;
+      const float* row1 = row0 + static_cast<size_t>(g.stride) * g.yp;
+      for (int s = 0; s < g.s; ++s) {
+        const float4* wp = reinterpret_cast<const float4*>(
+            w_s + ((c * g.r + r) * g.s + s) * NFT);
+        const float4 wa = wp[0];
+        const float4 wb = wp[1];
+        const float wv[NFT] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+        float xv[4];
+        xv[0] = __ldg(row0 + s);
+        xv[1] = m.cv1 ? __ldg(row0 + s + g.stride) : 0.f;
+        xv[2] = m.rv1 ? __ldg(row1 + s) : 0.f;
+        xv[3] = (m.rv1 && m.cv1) ? __ldg(row1 + s + g.stride) : 0.f;
+#pragma unroll
+        for (int f = 0; f < NFT; ++f) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[f][k] = fmaf(wv[f], xv[k], acc[f][k]);
+        }
+      }
+    }
+  }
+}
+
+// _flush_value: bias -> ReLU -> optional 2x2 max, then the one write of
+// each finished output element.
+__device__ __forceinline__ void flush_value(const float (&acc)[NFT][4],
+                                            float* __restrict__ out,
+                                            const float* __restrict__ bias,
+                                            const Geom& g, int nidx, int f0,
+                                            int nvalid, const Micro& m) {
+  const int qo = g.pool ? g.q / 2 : g.q;
+  const int po = g.pool ? g.p_pad / 2 : g.p_pad;
+#pragma unroll
+  for (int j = 0; j < NFT; ++j) {
+    if (j >= nvalid) break;
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = acc[j][k];
+      if (bias) v[k] += bias[f0 + j];
+      if (g.relu) v[k] = v[k] < 0.f ? 0.f : v[k];
+    }
+    float* o = out + (static_cast<size_t>(nidx) * g.nf_pad + f0 + j) * po * qo;
+    if (g.pool) {
+      // p_b is even, so both rows lie in the fold; the tile's pooled
+      // column exists only when both of its columns are real
+      if (m.cv1) {
+        o[(m.prow / 2) * qo + m.qcol / 2] =
+            fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+      }
+    } else {
+      o[m.prow * qo + m.qcol] = v[0];
+      if (m.cv1) o[m.prow * qo + m.qcol + 1] = v[1];
+      if (m.rv1) o[(m.prow + 1) * qo + m.qcol] = v[2];
+      if (m.rv1 && m.cv1) o[(m.prow + 1) * qo + m.qcol + 1] = v[3];
+    }
+  }
+}
+
+__device__ __forceinline__ bool micro_tile(const Geom& g, int t, int q_tile,
+                                           int pf, Micro& m) {
+  const int mrow = t / g.mq;
+  const int mcol = t % g.mq;
+  const int pl = 2 * mrow;
+  m.qcol = 2 * (q_tile * g.mq + mcol);
+  if (pl >= g.p_b || m.qcol >= g.q) return false;
+  m.prow = pf * g.p_b + pl;
+  m.rv1 = pl + 1 < g.p_b;
+  m.cv1 = m.qcol + 1 < g.q;
+  return true;
+}
+
+__device__ __forceinline__ void sub_fold(const Geom& g, int& f0, int& nvalid) {
+  const int subs = (g.nf_b + NFT - 1) / NFT;
+  const int fold = blockIdx.y / subs;
+  const int sub = blockIdx.y % subs;
+  f0 = fold * g.nf_b + sub * NFT;
+  nvalid = min(NFT, g.nf_b - sub * NFT);
+}
+
+// Weight-stationary: grid (Q tiles x P chunks, filter sub-folds, N).  For
+// each depth fold the CTA stages its filter sub-fold once and walks its P
+// folds past it; with g_c > 1 the partial sums of the walked rows go to
+// the slab, which no other CTA touches.
+__global__ void __launch_bounds__(MAX_THREADS)
+ws_kernel(const float* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ bias, float* __restrict__ out,
+          float* __restrict__ slab, Geom g) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  int f0, nvalid;
+  sub_fold(g, f0, nvalid);
+  const int nidx = blockIdx.z;
+  const int q_tile = blockIdx.x % g.q_tiles;
+  const int chunk = blockIdx.x / g.q_tiles;
+  const int g_c = g.c_pad / g.c_b;
+  const int g_p = g.p_pad / g.p_b;
+  const int pf_lo = chunk * g.p_chunk;
+  const int pf_hi = min(g_p, pf_lo + g.p_chunk);
+  const int tile = ((g.p_b + 1) / 2) * g.mq;
+  const size_t plane = static_cast<size_t>(g.x_rows) * g.yp;
+  for (int cf = 0; cf < g_c; ++cf) {
+    __syncthreads();
+    stage_weights(w_s, w, g, f0, nvalid, cf * g.c_b, g.c_b);
+    __syncthreads();
+    const float* xc0 =
+        x + (static_cast<size_t>(nidx) * g.c_pad + cf * g.c_b) * plane;
+    for (int pf = pf_lo; pf < pf_hi; ++pf) {
+      for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+        Micro m;
+        if (!micro_tile(g, t, q_tile, pf, m)) continue;
+        float acc[NFT][4];
+#pragma unroll
+        for (int j = 0; j < NFT; ++j) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+        }
+        if (cf > 0) {
+          for (int j = 0; j < nvalid; ++j) {
+            const float* sl = slab + (static_cast<size_t>(nidx) * g.nf_pad +
+                                      f0 + j) * g.p_pad * g.q;
+            acc[j][0] = sl[m.prow * g.q + m.qcol];
+            if (m.cv1) acc[j][1] = sl[m.prow * g.q + m.qcol + 1];
+            if (m.rv1) acc[j][2] = sl[(m.prow + 1) * g.q + m.qcol];
+            if (m.rv1 && m.cv1) acc[j][3] = sl[(m.prow + 1) * g.q + m.qcol + 1];
+          }
+        }
+        fold_partial(acc, xc0, w_s, g.c_b, g, m);
+        if (cf == g_c - 1) {
+          flush_value(acc, out, bias, g, nidx, f0, nvalid, m);
+        } else {
+          for (int j = 0; j < nvalid; ++j) {
+            float* sl = slab + (static_cast<size_t>(nidx) * g.nf_pad + f0 + j) *
+                                   g.p_pad * g.q;
+            sl[m.prow * g.q + m.qcol] = acc[j][0];
+            if (m.cv1) sl[m.prow * g.q + m.qcol + 1] = acc[j][1];
+            if (m.rv1) sl[(m.prow + 1) * g.q + m.qcol] = acc[j][2];
+            if (m.rv1 && m.cv1) sl[(m.prow + 1) * g.q + m.qcol + 1] = acc[j][3];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Output-stationary: grid (Q tiles x P folds, filter sub-folds, N).  Each
+// thread holds one micro-tile's accumulators across every depth fold; the
+// weights are restaged OS_CHUNK channels at a time for this P tile.
+__global__ void __launch_bounds__(MAX_THREADS)
+os_kernel(const float* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ bias, float* __restrict__ out, Geom g) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  int f0, nvalid;
+  sub_fold(g, f0, nvalid);
+  const int nidx = blockIdx.z;
+  const int q_tile = blockIdx.x % g.q_tiles;
+  const int pf = blockIdx.x / g.q_tiles;
+  const int g_c = g.c_pad / g.c_b;
+  const size_t plane = static_cast<size_t>(g.x_rows) * g.yp;
+  Micro m;
+  const bool active = micro_tile(g, threadIdx.x, q_tile, pf, m);
+  float acc[NFT][4];
+#pragma unroll
+  for (int j = 0; j < NFT; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+  }
+  for (int cf = 0; cf < g_c; ++cf) {
+    for (int ch0 = 0; ch0 < g.c_b; ch0 += OS_CHUNK) {
+      const int nch = min(OS_CHUNK, g.c_b - ch0);
+      const int c0 = cf * g.c_b + ch0;
+      __syncthreads();
+      stage_weights(w_s, w, g, f0, nvalid, c0, nch);
+      __syncthreads();
+      if (active) {
+        fold_partial(acc, x + (static_cast<size_t>(nidx) * g.c_pad + c0) * plane,
+                     w_s, nch, g, m);
+      }
+    }
+  }
+  if (active) flush_value(acc, out, bias, g, nidx, f0, nvalid, m);
+}
+
+Geom make_geom(int n, int c_pad, int x_rows, int yp, int nf_pad, int r,
+               int s, int stride, int q, int p_pad, int nf_b, int c_b,
+               int p_b, int relu, int pool, int mq, int p_chunk) {
+  Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, nf_b, c_b,
+         p_b, relu, pool, mq, 0, p_chunk};
+  g.q_tiles = ((q + 1) / 2 + mq - 1) / mq;
+  return g;
+}
+
+int sub_folds(const Geom& g) {
+  return (g.nf_pad / g.nf_b) * ((g.nf_b + NFT - 1) / NFT);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* fold_conv_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int fold_conv_ws(const void* x, const void* w, const void* bias, void* out,
+                 void* slab, int n, int c_pad, int x_rows, int yp, int nf_pad,
+                 int r, int s, int stride, int q, int p_pad, int nf_b, int c_b,
+                 int p_b, int relu, int pool, int mq, int p_chunk, int threads,
+                 void* stream) {
+  const Geom g = make_geom(n, c_pad, x_rows, yp, nf_pad, r, s, stride, q,
+                           p_pad, nf_b, c_b, p_b, relu, pool, mq, p_chunk);
+  const int g_p = p_pad / p_b;
+  const int chunks = (g_p + p_chunk - 1) / p_chunk;
+  const size_t smem = sizeof(float) * NFT * c_b * r * s;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(g.q_tiles * chunks, sub_folds(g), n);
+  ws_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out),
+      static_cast<float*>(slab), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fold_conv_os(const void* x, const void* w, const void* bias, void* out,
+                 int n, int c_pad, int x_rows, int yp, int nf_pad, int r,
+                 int s, int stride, int q, int p_pad, int nf_b, int c_b,
+                 int p_b, int relu, int pool, int mq, int threads,
+                 void* stream) {
+  const Geom g = make_geom(n, c_pad, x_rows, yp, nf_pad, r, s, stride, q,
+                           p_pad, nf_b, c_b, p_b, relu, pool, mq, 1);
+  const size_t smem = sizeof(float) * NFT * OS_CHUNK * r * s;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        os_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(g.q_tiles * (p_pad / p_b), sub_folds(g), n);
+  os_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

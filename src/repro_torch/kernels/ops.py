@@ -1,0 +1,104 @@
+"""Public conv entry points over the fold kernels (forward only, fp32).
+
+``impl`` selects the path:
+  "fold_ws"   — weight-stationary fold kernel (the paper's dataflow)
+  "fold_os"   — output-stationary fold kernel
+  "fold_auto" — fold kernel with the dataflow picked by the engine's cost
+                model (``core/engine.py``)
+  "direct"    — the plain-torch shifted-product reference
+
+``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
+passes these in).  The backward passes wait for the training slice
+(ROADMAP queue A item 6).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.epilogue import Epilogue, apply_epilogue
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.conv2d_ws import conv2d_folded
+
+__all__ = ["conv2d", "conv2d_fused", "FOLD_IMPLS", "IMPLS"]
+
+FOLD_IMPLS = ("fold_ws", "fold_os", "fold_auto")
+IMPLS = FOLD_IMPLS + ("direct",)
+
+
+def _resolve_fold_dataflow(x, w, stride: int, pad: int, impl: str, plan,
+                           groups: int = 1):
+    """Map a fold impl string to (plan, dataflow) for the fold kernel."""
+    if impl == "fold_auto":
+        from repro_torch.core.engine import plan_and_dataflow, select_dataflow
+        from repro_torch.core.loopnest import ConvLoopNest
+        n, c, xh, xw = x.shape
+        nf, _, r, s = w.shape
+        cv = ConvLoopNest(n=n, nf=nf, c=c, r=r, s=s, x=xh, y=xw,
+                          stride=stride, pad=pad, groups=groups)
+        if plan is None:
+            return plan_and_dataflow(cv)
+        return plan, select_dataflow(cv, plan)
+    return plan, ("weight_stationary" if impl == "fold_ws"
+                  else "output_stationary")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown conv impl {impl!r} (want one of {IMPLS})")
+
+
+def _folded(x, w, b, stride, pad, epi, impl, plan, groups):
+    plan, dataflow = _resolve_fold_dataflow(x, w, stride, pad, impl, plan,
+                                            groups)
+    xp = F.pad(x, (pad, pad, pad, pad)) if pad else x
+    return conv2d_folded(xp, w, stride=stride, dataflow=dataflow, plan=plan,
+                         bias=b, epilogue=epi, groups=groups)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
+           impl: str = "fold_auto", plan=None,
+           groups: int = 1) -> torch.Tensor:
+    """Convolution through the fold framework.  x: NCHW, w: OIHW."""
+    _check_impl(impl)
+    if impl == "direct":
+        return _ref.conv2d_direct(x, w, stride, pad, groups)
+    return _folded(x, w, None, stride, pad, None, impl, plan, groups)
+
+
+def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, *, stride: int = 1,
+                 pad: int = 0, epilogue: Optional[Epilogue] = None,
+                 impl: str = "fold_auto", plan=None,
+                 residual: Optional[torch.Tensor] = None,
+                 scale: Optional[torch.Tensor] = None,
+                 shift: Optional[torch.Tensor] = None,
+                 groups: int = 1) -> torch.Tensor:
+    """Convolution with the epilogue flushed in-kernel.  x: NCHW, w: OIHW,
+    b: (NF,) per-filter bias (required when ``epilogue.bias``).
+
+    On the fold impls the whole conv→bias→ReLU(→pool) chain is one kernel
+    launch and the pre-activation never reaches device memory.  Output is
+    (N, NF, P, Q), or (N, NF, P//2, Q//2) when ``epilogue.pool`` fuses the
+    2x2 max-pool.
+    """
+    _check_impl(impl)
+    epi = epilogue if epilogue is not None else Epilogue(
+        bias=b is not None, residual=residual is not None,
+        scale=scale is not None)
+    if epi.residual != (residual is not None):
+        raise ValueError("epilogue.residual and the residual argument must "
+                         "be supplied together")
+    if epi.scale != (scale is not None and shift is not None):
+        raise ValueError("epilogue.scale and the scale/shift arguments "
+                         "must be supplied together")
+    if impl == "direct":
+        y = _ref.conv2d_direct(x, w, stride, pad, groups)
+        return apply_epilogue(y, b, epi, residual, scale, shift)
+    if epi.residual or epi.scale:
+        raise NotImplementedError(
+            "residual and scale epilogues are not ported to the fold "
+            "kernels yet (ROADMAP queue B items 1-2)")
+    return _folded(x, w, b, stride, pad, epi, impl, plan, groups)

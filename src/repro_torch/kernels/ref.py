@@ -1,0 +1,38 @@
+"""Plain-torch oracle for the fold kernels: the ``"reference"`` policy's
+conv and the tests' semantics oracle."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["conv2d_direct"]
+
+
+def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                  pad: int = 0, groups: int = 1) -> torch.Tensor:
+    """Direct 7-loop convolution, vectorized as R*S shifted products.
+
+    x: (N, C, X, Y)  w: (NF, C, R, S)  ->  (N, NF, P, Q)
+
+    Walks the (R, S) loops explicitly and accumulates the partial sums in
+    fp32, mirroring the paper's reduction order.
+    """
+    if groups != 1:
+        raise NotImplementedError(
+            "grouped conv2d_direct is not ported yet (ROADMAP queue A "
+            "item 10: grouped and depthwise convs)")
+    n, c, _, _ = x.shape
+    nf, cw, r, s = w.shape
+    if c != cw:
+        raise ValueError(f"input has {c} channels, weights expect {cw}")
+    xp = F.pad(x, (pad, pad, pad, pad)) if pad else x
+    p = (xp.shape[2] - r) // stride + 1
+    q = (xp.shape[3] - s) // stride + 1
+    acc = torch.zeros((n, nf, p, q), dtype=torch.float32, device=x.device)
+    for ri in range(r):
+        for si in range(s):
+            win = xp[:, :, ri:ri + p * stride:stride,
+                     si:si + q * stride:stride]          # (N, C, P, Q)
+            acc = acc + torch.einsum("ncpq,fc->nfpq", win.float(),
+                                     w[:, :, ri, si].float())
+    return acc.to(x.dtype)

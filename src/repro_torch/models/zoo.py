@@ -1,0 +1,68 @@
+"""Registry of conv models that lower through the streaming-graph IR.
+
+This slice registers ``vgg16``; ResNet-18 and MobileNetV2 come with their
+epilogues (ROADMAP queue A item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+__all__ = ["ConvModelSpec", "register_conv_model", "get_conv_model",
+           "compile_forward", "bucket_compiler"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvModelSpec:
+    """One registered conv model: ``init_params(generator, *, width_mult,
+    img, classes, device)`` and ``to_graph()``."""
+    name: str
+    init_params: Callable
+    to_graph: Callable
+
+
+_REGISTRY: Dict[str, ConvModelSpec] = {}
+
+
+def register_conv_model(name: str, init_params: Callable,
+                        to_graph: Callable) -> ConvModelSpec:
+    spec = ConvModelSpec(name=name, init_params=init_params,
+                         to_graph=to_graph)
+    _REGISTRY[name] = spec
+    return spec
+
+
+def get_conv_model(name: str) -> ConvModelSpec:
+    _ensure_builtin()
+    spec = _REGISTRY.get(name)
+    if spec is None:
+        raise KeyError(f"unknown conv model {name!r} "
+                       f"(registered: {', '.join(sorted(_REGISTRY))})")
+    return spec
+
+
+def compile_forward(model, params, *, img: int, batch: int = 1,
+                    chan: int = 3, **compile_kw):
+    """Compile a registered model's graph (``core/engine.py:
+    compile_network``; ``compile_kw`` carries policy, cache, device...)."""
+    from repro_torch.core.engine import compile_network
+    spec = model if isinstance(model, ConvModelSpec) else \
+        get_conv_model(model)
+    return compile_network(params, spec.to_graph(),
+                           (batch, chan, img, img), **compile_kw)
+
+
+def bucket_compiler(model, params, *, img: int, chan: int = 3,
+                    **compile_kw):
+    """One memoized compiled forward per batch-bucket width."""
+    from repro_torch.core.engine import BucketCompiler
+    spec = model if isinstance(model, ConvModelSpec) else \
+        get_conv_model(model)
+    return BucketCompiler(params, spec.to_graph(), img, chan=chan,
+                          **compile_kw)
+
+
+def _ensure_builtin() -> None:
+    if "vgg16" not in _REGISTRY:
+        from repro_torch.models import vgg
+        register_conv_model("vgg16", vgg.init_params, vgg.to_graph)

@@ -1,0 +1,240 @@
+"""Continuous-batching image-inference engine over the compiled
+fold-schedule engine.
+
+* batches form from a FIFO queue with **bucketed** widths
+  (``serve/batcher.py``) — one compiled forward per bucket, all buckets
+  sharing one ``ScheduleCache`` via ``BucketCompiler``, so fold planning
+  is pay-once across buckets;
+* host→device staging **overlaps compute** with a double-buffered
+  feeder: while the device runs batch k, batch k+1 is formed, copied into
+  pinned host memory and sent with a non-blocking copy; the blocking point
+  is the readback of batch k's logits at completion;
+* ``ServingMetrics``: images/s, p50/p95/p99 request latency, slot
+  occupancy, and the schedule cache's fold-reuse counters.
+
+The degradation ladder, admission control, chaos, watchdog, tracing and
+the mesh wait for a later slice (ROADMAP queue A item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import BucketCompiler, ScheduleCache
+from repro_torch.obs.metrics import LogHistogram
+from repro_torch.serve.batcher import (BucketPolicy, FormedBatch,
+                                       ImageBatcher, ImageRequest)
+
+__all__ = ["ServingMetrics", "VisionEngine"]
+
+
+def _latency_hist() -> LogHistogram:
+    """1µs .. 10ks range — any serving latency this host can produce."""
+    return LogHistogram(lo=1e-6, hi=1e4, buckets_per_decade=48)
+
+
+def _occupancy_hist() -> LogHistogram:
+    """Slot occupancy lives in (0, 1]."""
+    return LogHistogram(lo=1e-3, hi=2.0, buckets_per_decade=48)
+
+
+@dataclasses.dataclass
+class ServingMetrics:
+    """Accumulated over ``VisionEngine.run``/``step`` calls (warmup
+    excluded).  Every submitted request ends in one of ``outcomes`` or is
+    still queued."""
+    images: int = 0
+    requests: int = 0
+    batches: int = 0
+    elapsed_s: float = 0.0
+    latency_hist: LogHistogram = dataclasses.field(
+        default_factory=_latency_hist)
+    occupancy_hist: LogHistogram = dataclasses.field(
+        default_factory=_occupancy_hist)
+    per_bucket: Dict[int, int] = dataclasses.field(default_factory=dict)
+    submitted: int = 0
+    expired: int = 0
+    outcomes: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def images_per_s(self) -> float:
+        return self.images / self.elapsed_s if self.elapsed_s else 0.0
+
+    @property
+    def slot_occupancy(self) -> float:
+        return self.occupancy_hist.mean
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        h = self.latency_hist
+        if not h.count:
+            return {"p50_s": 0.0, "p95_s": 0.0, "p99_s": 0.0, "mean_s": 0.0}
+        return {"p50_s": h.percentile(50), "p95_s": h.percentile(95),
+                "p99_s": h.percentile(99), "mean_s": h.mean}
+
+    def as_dict(self) -> dict:
+        return {
+            "images": self.images,
+            "requests": self.requests,
+            "batches": self.batches,
+            "elapsed_s": self.elapsed_s,
+            "images_per_s": self.images_per_s,
+            "latency": self.latency_percentiles(),
+            "slot_occupancy": self.slot_occupancy,
+            "per_bucket_batches": {str(k): v for k, v
+                                   in sorted(self.per_bucket.items())},
+            "submitted": self.submitted,
+            "expired": self.expired,
+            "outcomes": {k: self.outcomes[k] for k in sorted(self.outcomes)},
+        }
+
+
+class VisionEngine:
+    """Serve a stream of image requests through bucketed compiled forwards.
+
+    ``submit`` then ``run`` (or ``step`` one batch at a time).  Outputs land
+    on each request's ``logits``.  The conv trunk gives bitwise-identical
+    rows at every bucket width (the fold kernels' sum order does not depend
+    on the batch); the dense head runs through ``torch.matmul``, whose
+    algorithm may change with the batch width, so served logits match a
+    direct forward of the same images to rounding, not bitwise.
+    """
+
+    def __init__(self, params: Dict[str, Any], graph, *,
+                 img: int, chan: int = 3, policy: str = "auto",
+                 buckets: Sequence[int] = (1, 2, 4, 8),
+                 cache: Optional[ScheduleCache] = None,
+                 head: Optional[Callable] = None,
+                 fuse_epilogues: bool = True, device: Any = "cuda"):
+        self.params = params
+        self.batcher = ImageBatcher(BucketPolicy(buckets), img, chan)
+        self.compiler = BucketCompiler(
+            params, graph, img, chan=chan, policy=policy, cache=cache,
+            head=head, fuse_epilogues=fuse_epilogues, device=device)
+        # compile the first bucket now: it resolves the device (raising
+        # when a requested GPU is absent) before any request is taken
+        self.device = self.compiler.network_for(
+            self.batcher.policy.widths[0]).device
+        self.metrics = ServingMetrics()
+
+    # -- request side ------------------------------------------------------
+    def submit(self, images: np.ndarray,
+               deadline_s: Optional[float] = None) -> ImageRequest:
+        """Validate and enqueue one request.  Malformed payloads raise
+        ``BadRequestError``; a request whose deadline passes before its
+        batch forms ends ``expired``."""
+        req = self.batcher.submit(images, deadline_s)
+        self.metrics.submitted += 1
+        return req
+
+    @property
+    def pending(self) -> int:
+        return len(self.batcher)
+
+    def _account(self, req: ImageRequest) -> None:
+        key = req.outcome.value
+        self.metrics.outcomes[key] = self.metrics.outcomes.get(key, 0) + 1
+
+    def _drain_expired(self) -> None:
+        for req in self.batcher.expired:
+            self.metrics.expired += 1
+            self._account(req)
+        self.batcher.expired.clear()
+
+    # -- device side -------------------------------------------------------
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """Stage a host batch: into pinned memory, then a non-blocking copy
+        on the current stream (the caching host allocator keeps the pinned
+        block alive until that copy has run)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(x)
+        host = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
+        host.numpy()[...] = x
+        return host.to(self.device, non_blocking=True)
+
+    def _stage(self) -> Optional[Tuple[FormedBatch, torch.Tensor]]:
+        fb = self.batcher.form()
+        self._drain_expired()
+        if fb is None:
+            return None
+        return fb, self._to_device(fb.x)
+
+    def _dispatch(self, staged: Tuple[FormedBatch, torch.Tensor]):
+        """Enqueue the bucket's forward and return without waiting: the
+        kernels run while the host forms and stages the next batch."""
+        fb, x = staged
+        net = self.compiler.network_for(fb.bucket)
+        with torch.inference_mode():
+            return fb, net(self.params, x)
+
+    def _complete(self, inflight) -> None:
+        fb, out = inflight
+        logits = out.cpu().numpy()        # blocks until the device is done
+        t_done = time.monotonic()
+        m = self.metrics
+        m.batches += 1
+        m.occupancy_hist.record(fb.occupancy)
+        m.per_bucket[fb.bucket] = m.per_bucket.get(fb.bucket, 0) + 1
+        ImageBatcher.scatter(fb, logits, t_done)
+        m.images += fb.n_images
+        m.requests += len(fb.requests)
+        for req in fb.requests:
+            m.latency_hist.record(req.latency_s)
+            self._account(req)
+
+    def warmup(self) -> Sequence[int]:
+        """Run every bucket width once on zeros, so serving latencies
+        measure steady-state forwards (and the kernel build is paid
+        here).  Returns the widths warmed."""
+        widths = self.batcher.policy.widths
+        for w in widths:
+            net = self.compiler.network_for(w)
+            zeros = np.zeros((w, self.batcher.chan, self.batcher.img,
+                              self.batcher.img), np.float32)
+            with torch.inference_mode():
+                net(self.params, self._to_device(zeros)).cpu()
+        return widths
+
+    def step(self) -> int:
+        """Serve one batch synchronously; returns #images served (0 when
+        the queue is empty)."""
+        t0 = time.monotonic()
+        staged = self._stage()
+        if staged is None:
+            return 0
+        self._complete(self._dispatch(staged))
+        self.metrics.elapsed_s += time.monotonic() - t0
+        return staged[0].n_images
+
+    def run(self, max_batches: int = 1_000_000) -> ServingMetrics:
+        """Drain the queue with the double-buffered feeder: batch k+1 is
+        formed and staged while the device computes batch k, and the
+        blocking readback of k happens only after k+1 is dispatched."""
+        t0 = time.monotonic()
+        inflight = None
+        batches = 0
+        staged = self._stage() if max_batches > 0 else None
+        while staged is not None or inflight is not None:
+            nxt = None
+            if staged is not None:
+                nxt = self._dispatch(staged)
+                batches += 1
+            staged = self._stage() if batches < max_batches else None
+            if inflight is not None:
+                self._complete(inflight)
+            inflight = nxt
+        self.metrics.elapsed_s += time.monotonic() - t0
+        return self.metrics
+
+    def metrics_dict(self) -> dict:
+        d = self.metrics.as_dict()
+        d["compile"] = self.compiler.stats()
+        d["buckets"] = list(self.batcher.policy.widths)
+        d["device"] = str(self.device)
+        d["lost_requests"] = (self.metrics.submitted
+                              - sum(self.metrics.outcomes.values())
+                              - self.pending)
+        return d

@@ -1,0 +1,85 @@
+"""The port stands alone: no file of it (nor ``chip_smoke.py``) imports
+jax or the JAX package, it imports in a process where jax cannot load,
+and asking for a GPU that is not there raises instead of falling back."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_no_reference_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_where_jax_cannot_load():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "from repro_torch.models import vgg, zoo\n"
+        "from repro_torch.serve import vision\n"
+        "from repro_torch.kernels import build, conv2d_ws, ops\n"
+        "from repro_torch import convert\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "            and sys.modules[m] is not None]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["compile_forward", "vision_engine",
+                                   "bucket_compiler"])
+def test_cuda_without_a_gpu_raises(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: nothing to refuse")
+    from repro_torch.models import vgg
+    from repro_torch.serve.vision import VisionEngine
+    params = vgg.init_params(torch.Generator(), width_mult=0.0625, img=32,
+                             classes=10, device="cpu")
+    calls = {
+        "compile_forward": lambda: vgg.compile_forward(params, img=32),
+        "vision_engine": lambda: VisionEngine(params, vgg.to_graph(),
+                                              img=32),
+        "bucket_compiler": lambda: vgg.bucket_compiler(
+            params, img=32).network_for(1),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    """Without a card the script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
