@@ -8,17 +8,29 @@ Phases (any failed check raises, and the script exits non-zero):
 1. Environment: the card's name and power limit, the CUDA version, whether
    ``triton`` imports, ``nvcc``, and the build of the fold kernels from
    ``src/repro_torch/kernels/csrc/`` into ``build/``.
-2. Kernels: each CUDA kernel against its plain-torch version on the card
-   over random shapes, then the kernel, its plain version and
-   ``torch.nn.functional.conv2d`` timed at the 13 VGG-16 layer shapes.
+2. Kernels: each CUDA kernel (WS, OS, depthwise) against its plain-torch
+   version on the card over random shapes and every epilogue the zoo
+   models fuse, then the kernel, its plain version and
+   ``torch.nn.functional.conv2d`` timed at the 13 VGG-16 layer shapes and
+   at every conv of full-width MobileNetV2 and ResNet-18 at 32x32, batch 4.
 3. Full-width VGG-16 at 224x224, batch 1 and 4: fold reuse, one WS launch
    per conv, logits against the reference policy, and the conv trunk
    bitwise-identical across batch widths.
 4. Full-width VGG-16 at 32x32, batch 4: 2 WS + 11 OS launches per forward.
 5. Serving: ``VisionEngine`` at 224 over buckets (1, 2, 4).
+6. Full-width MobileNetV2 at 32x32 with random batch-norm statistics,
+   batch 1 and 4: fold reuse 52/30/22, 17 depthwise + 7 WS + 28 OS
+   launches per forward, logits against the reference policy, the conv
+   trunk bitwise-identical across batch widths, fused bitwise-equal to
+   unfused.
+7. Full-width ResNet-18 at 32x32, batch 1 and 4: fold reuse 20/11/9,
+   5 WS + 15 OS launches per forward, logits against the reference policy.
+8. Serving full-width MobileNetV2 through ``serving_summary`` (what
+   ``python -m repro_torch.launch.serve --vision`` runs) over buckets
+   (1, 2, 4, 8): none lost, served logits against a direct forward.
 
 The kernel launch counts are set to 0 just before phase 3 and read just
-after phase 5: that run is the main path.  The second-to-last line is a
+after phase 8: that run is the main path.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Details (per-layer times, serving
 metrics, the compiler's resource report) go to ``build/chip_smoke.json``.
@@ -70,13 +82,66 @@ def time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def bound(n, c, xp, yp, nf, r, s, p, q, out_numel):
-    """(bound ms, op ms, byte ms) of one fold conv: each operand read once,
-    the output written once, fp32."""
-    op_s = 2.0 * n * nf * c * r * s * p * q / FP32_PEAK
-    byte_s = 4.0 * (n * c * xp * yp + nf * c * r * s + nf + out_numel) \
-        / HBM_BYTES_PER_S
-    return 1e3 * max(op_s, byte_s), 1e3 * op_s, 1e3 * byte_s
+def time_graph_ms(torch, fn, reps: int) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed between two CUDA events, after one eager warm-up call, so
+    the host's dispatch work is out of the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(flops, nbytes):
+    """(bound ms, op ms, byte ms) of one call: its fp32 operations over the
+    FFMA peak, its bytes (each operand read once, the output written once;
+    the input without its zero halo, which no conv has to read) over the
+    memory rate."""
+    op_ms, byte_ms = 1e3 * flops / FP32_PEAK, 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(op_ms, byte_ms), op_ms, byte_ms
+
+
+def epi_operands(torch, gen, dev, epi, n, nf, p, q):
+    """Random bias / BN scale and shift / shortcut for an epilogue, as
+    keyword arguments of ``conv2d_folded``."""
+    ops = {}
+    if epi.bias:
+        ops["bias"] = torch.randn(nf, device=dev, generator=gen)
+    if epi.scale:
+        ops["scale"] = 1.0 + 0.2 * torch.randn(nf, device=dev, generator=gen)
+        ops["shift"] = 0.2 * torch.randn(nf, device=dev, generator=gen)
+    if epi.residual:
+        ops["residual"] = torch.randn(n, nf, p, q, device=dev, generator=gen)
+    return ops
+
+
+def randomize_bn(torch, params, seed=7):
+    """Non-trivial batch-norm statistics, drawn as the JAX package's
+    MobileNetV2 tests draw them (the init statistics are the identity)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for name, leaf in params.items():
+        if not name.endswith("_bn"):
+            continue
+        n, dev = leaf["gamma"].shape[0], leaf["gamma"].device
+        draws = {"gamma": 1.0 + 0.2 * rng.standard_normal(n),
+                 "beta": 0.2 * rng.standard_normal(n),
+                 "mean": 0.3 * rng.standard_normal(n),
+                 "var": rng.uniform(0.5, 1.5, n)}
+        for k, v in draws.items():
+            leaf[k] = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    return params
 
 
 def phase_environment(torch):
@@ -104,6 +169,23 @@ def phase_environment(torch):
     return {"build_s": info["seconds"], "ptxas": info["ptxas"]}
 
 
+def check_kernel(torch, cw, name, x, w, errs, what, **kw):
+    """One launch of a kernel against its plain version on the same
+    inputs, within TOL_KERNEL·max(1, max|plain|)."""
+    before = cw.launch_counts()[name]
+    got = cw.conv2d_folded(x, w, **kw)
+    torch.cuda.synchronize()
+    check(cw.launch_counts()[name] == before + 1, f"{name} did not launch")
+    want = cw.conv2d_folded_plain(x, w, **kw)
+    err = (got - want).abs().max().item()
+    tol = TOL_KERNEL * max(1.0, want.abs().max().item())
+    print(f"[kernels] {name} {what} epi={kw.get('epilogue')} "
+          f"max_abs_err={err:.3e} (tol {tol:.3e})")
+    check(got.shape == want.shape and err <= tol,
+          f"{name} disagrees with its plain version")
+    errs[name] = max(errs[name], err)
+
+
 def phase_kernels(torch, dev):
     from repro_torch.core.epilogue import Epilogue
     from repro_torch.core.mapping import ConvBlockPlan
@@ -111,6 +193,10 @@ def phase_kernels(torch, dev):
 
     id_, br, brp = (Epilogue(), Epilogue(bias=True, relu=True),
                     Epilogue(bias=True, relu=True, pool="max2"))
+    sc, sc6, scr, brr = (Epilogue(scale=True),
+                         Epilogue(scale=True, relu6=True),
+                         Epilogue(scale=True, residual=True),
+                         Epilogue(bias=True, residual=True, relu=True))
     # (n, c, h, w, nf, r, s, stride, pad, epilogue, forced plan or None)
     cases = [
         (1, 3, 32, 32, 64, 3, 3, 1, 1, br, None),           # C = 3
@@ -124,32 +210,59 @@ def phase_kernels(torch, dev):
         (3, 33, 9, 7, 13, 3, 3, 1, 1, br,                   # g_c = 2, ragged
          ConvBlockPlan(nf_block=8, c_block=17, p_block=3, grid=(2, 2, 3),
                        vmem_bytes=0)),
+        # the epilogues ResNet-18 and MobileNetV2 fuse
+        (4, 96, 16, 16, 24, 1, 1, 1, 0, sc, None),          # project
+        (4, 32, 32, 32, 192, 1, 1, 1, 0, sc6, None),        # expand
+        (3, 40, 9, 11, 24, 1, 1, 1, 0, scr, None),          # project + skip
+        (3, 33, 9, 7, 13, 3, 3, 1, 1, scr,                  # g_c = 2 + skip
+         ConvBlockPlan(nf_block=8, c_block=17, p_block=3, grid=(2, 2, 3),
+                       vmem_bytes=0)),
+        (4, 64, 16, 16, 128, 3, 3, 2, 1, br, None),         # stride-2 3x3
+        (4, 128, 8, 8, 128, 3, 3, 1, 1, brr, None),         # residual block
+        (4, 64, 16, 16, 128, 1, 1, 2, 0, Epilogue(bias=True), None),
+        # every step at once: no zoo layer fuses it
+        (3, 33, 9, 7, 13, 3, 3, 1, 1,
+         Epilogue(bias=True, scale=True, residual=True, relu6=True),
+         ConvBlockPlan(nf_block=8, c_block=17, p_block=3, grid=(2, 2, 3),
+                       vmem_bytes=0)),
+    ]
+    # depthwise: (n, c, h, w, stride, epilogue, forced c_block or None);
+    # c_pad > C where the c_block does not divide C
+    dw_cases = [
+        (4, 96, 32, 32, 1, sc6, None),
+        (4, 144, 32, 32, 2, sc6, None),                     # stride 2, even
+        (2, 24, 15, 15, 2, sc6, None),                      # stride 2, odd
+        (3, 40, 9, 11, 1, scr, None),                       # odd, skip
+        (4, 960, 4, 4, 1, sc6, None),                       # c_pad 1024
+        (4, 576, 8, 8, 2, id_, None),                       # c_pad 1024, s2
+        (2, 20, 11, 10, 1, scr, 8),                         # c_pad 24
     ]
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"fold_conv_ws": 0.0, "fold_conv_os": 0.0}
+    errs = {"fold_conv_ws": 0.0, "fold_conv_os": 0.0, "fold_conv_dw": 0.0}
     for (n, c, h, w_, nf, r, s, st, pad, epi, plan) in cases:
         x = torch.randn(n, c, h + 2 * pad, w_ + 2 * pad, device=dev,
                         generator=gen)
         w = torch.randn(nf, c, r, s, device=dev, generator=gen)
-        b = torch.randn(nf, device=dev, generator=gen)
+        p, q = (h + 2 * pad - r) // st + 1, (w_ + 2 * pad - s) // st + 1
+        ops = epi_operands(torch, gen, dev, epi, n, nf, p, q)
         for name, df in (("fold_conv_ws", "weight_stationary"),
                          ("fold_conv_os", "output_stationary")):
-            kw = dict(stride=st, plan=plan, dataflow=df, epilogue=epi,
-                      bias=b if epi.bias else None)
-            before = cw.launch_counts()[name]
-            got = cw.conv2d_folded(x, w, **kw)
-            torch.cuda.synchronize()
-            check(cw.launch_counts()[name] == before + 1,
-                  f"{name} did not launch")
-            want = cw.conv2d_folded_plain(x, w, **kw)
-            err = (got - want).abs().max().item()
-            tol = TOL_KERNEL * max(1.0, want.abs().max().item())
-            print(f"[kernels] {name} n={n} c={c} {h}x{w_} nf={nf} "
-                  f"{r}x{s}/s{st} epi={epi} max_abs_err={err:.3e} "
-                  f"(tol {tol:.3e})")
-            check(got.shape == want.shape and err <= tol,
-                  f"{name} disagrees with its plain version")
-            errs[name] = max(errs[name], err)
+            check_kernel(torch, cw, name, x, w, errs,
+                         f"n={n} c={c} {h}x{w_} nf={nf} {r}x{s}/s{st}",
+                         stride=st, plan=plan, dataflow=df, epilogue=epi,
+                         **ops)
+    for (n, c, h, w_, st, epi, c_b) in dw_cases:
+        x = torch.randn(n, c, h + 2, w_ + 2, device=dev, generator=gen)
+        w = torch.randn(c, 1, 3, 3, device=dev, generator=gen)
+        p, q = (h - 1) // st + 1, (w_ - 1) // st + 1
+        plan = None if c_b is None else ConvBlockPlan(
+            nf_block=c_b, c_block=c_b, p_block=4, grid=(1, -(-c // c_b), 1),
+            vmem_bytes=0, groups=c)
+        check_kernel(torch, cw, "fold_conv_dw", x, w, errs,
+                     f"n={n} c={c} {h}x{w_} 3x3/s{st}", stride=st,
+                     plan=plan, dataflow="depthwise", epilogue=epi,
+                     groups=c, **epi_operands(torch, gen, dev, epi, n, c,
+                                              p, q))
     return errs
 
 
@@ -200,16 +313,88 @@ def time_layers(torch, dev, layers, dataflows, reps):
             torch, lambda: F.conv2d(xin, w, b, padding=1), max(reps, 10))
         out = cw.conv2d_folded(x, w, **kw)
         row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
-            batch, cv.c, h + 2, h + 2, cv.nf, 3, 3, h, h, out.numel())
+            2.0 * batch * cv.nf * cv.c * 9 * h * h,
+            4.0 * (batch * cv.c * h * h + w.numel() + b.numel()
+                   + out.numel()))
         rows.append(row)
     return rows
 
 
-def summarize(rows, df):
-    keys = (f"{df}_ms", "plain_ms", "library_ms", "bound_ms", "op_ms",
-            "byte_ms")
+def model_layers(name: str, img: int, batch: int):
+    """(layer, schedule, its own loop nest, fused epilogue) of a zoo
+    model's convs as the engine compiles them at full width."""
+    import torch
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.models import zoo
+    spec = zoo.get_conv_model(name)
+    params = spec.init_params(torch.Generator(), img=img, device="meta")
+    net = zoo.compile_forward(spec, params, img=img, batch=batch,
+                              device="meta")
+    epis = {nd.name: nd.epilogue or Epilogue() for nd in net.graph.nodes
+            if nd.op == "conv"}
+    nests = dict(net.layer_nests)
+    return [(lname, sched, nests[lname], epis[lname])
+            for lname, sched in net.layer_schedules]
+
+
+def time_model_layers(torch, dev, layers, reps):
+    """Time each conv of a model at its main-path shape, with its bound:
+    ``ms`` the launch of the kernel its schedule selects on prepared
+    operands, ``plain_ms`` the plain version and ``library_ms`` one
+    ``F.conv2d`` call (bias included, no epilogue), all three as device
+    time (CUDA-graph replay); ``call_ms`` the eager ``conv2d_folded`` call,
+    host work included."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d_ws as cw
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for name, sched, cv, epi in layers:
+        pad = cv.pad
+        x = torch.randn(cv.n, cv.c, cv.x + 2 * pad, cv.y + 2 * pad,
+                        device=dev, generator=gen)
+        w = torch.randn(cv.nf, cv.c // cv.groups, cv.r, cv.s, device=dev,
+                        generator=gen)
+        ops = epi_operands(torch, gen, dev, epi, cv.n, cv.nf, cv.p, cv.q)
+        kw = dict(stride=cv.stride, plan=sched.plan,
+                  dataflow=sched.dataflow, epilogue=epi, groups=cv.groups,
+                  **ops)
+        row = {"layer": name, "batch": cv.n, "h": cv.x, "c": cv.c,
+               "nf": cv.nf, "rs": f"{cv.r}x{cv.s}", "stride": cv.stride,
+               "groups": cv.groups, "dataflow": sched.dataflow,
+               "epilogue": str(epi)}
+        spec, *prepared = cw.prepare(
+            x, w, cv.stride, sched.plan, sched.dataflow, ops.get("bias"),
+            epi, cv.groups, ops.get("residual"), ops.get("scale"),
+            ops.get("shift"))
+        launch = cw.LAUNCHERS[spec.dataflow]
+        row["ms"] = time_graph_ms(torch, lambda: launch(spec, *prepared),
+                                  reps)
+        row["call_ms"] = time_ms(
+            torch, lambda: cw.conv2d_folded(x, w, **kw), reps)
+        row["plain_ms"] = time_graph_ms(
+            torch, lambda: cw.conv2d_folded_plain(x, w, **kw), 2)
+        xin = x[:, :, pad:x.shape[2] - pad, pad:x.shape[3] - pad] \
+            .contiguous()
+        row["library_ms"] = time_graph_ms(
+            torch, lambda: F.conv2d(xin, w, ops.get("bias"),
+                                    stride=cv.stride, padding=pad,
+                                    groups=cv.groups), reps)
+        out = cw.conv2d_folded(x, w, **kw)
+        vec = cv.nf * (int(epi.bias) + 2 * int(epi.scale))
+        res = out.numel() if epi.residual else 0
+        row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
+            2.0 * cv.n * cv.nf * (cv.c // cv.groups) * cv.r * cv.s
+            * cv.p * cv.q,
+            4.0 * (cv.n * cv.c * cv.x * cv.y + w.numel() + vec + res
+                   + out.numel()))
+        rows.append(row)
+    return rows
+
+
+def summarize(rows, key):
+    keys = (key, "plain_ms", "library_ms", "bound_ms", "op_ms", "byte_ms")
     tot = {k: sum(r[k] for r in rows) for k in keys}
-    return {"ms": tot[f"{df}_ms"], "plain_ms": tot["plain_ms"],
+    return {"ms": tot[key], "plain_ms": tot["plain_ms"],
             "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": ("operations" if tot["op_ms"] >= tot["byte_ms"]
                          else "bytes")}
@@ -253,7 +438,8 @@ def phase_model_224(torch, dev, params):
         x = x4[:b]
         y, counts = forward_counts(torch, net, params, x)
         print(f"[model224] batch {b}: launches {counts}")
-        check(counts == {"fold_conv_ws": 13, "fold_conv_os": 0},
+        check(counts == {"fold_conv_ws": 13, "fold_conv_os": 0,
+                         "fold_conv_dw": 0},
               f"batch {b}: expected 13 WS launches per forward")
         ref = vgg.compile_forward(params, img=224, batch=b,
                                   policy="reference", device=dev)
@@ -290,7 +476,8 @@ def phase_model_32(torch, dev):
     print(net.describe())
     y, counts = forward_counts(torch, net, params, x)
     print(f"[model32] batch 4: launches {counts}")
-    check(counts == {"fold_conv_ws": 2, "fold_conv_os": 11},
+    check(counts == {"fold_conv_ws": 2, "fold_conv_os": 11,
+                     "fold_conv_dw": 0},
           "expected 2 WS + 11 OS launches per forward at 32x32")
     ref = vgg.compile_forward(params, img=32, batch=4, policy="reference",
                               device=dev)
@@ -328,6 +515,115 @@ def phase_serving(torch, dev, params):
           f"p50 {lat['p50_s'] * 1e3:.3f} ms, p99 {lat['p99_s'] * 1e3:.3f} ms,"
           f" batches per bucket {d['per_bucket_batches']}")
     check(d["lost_requests"] == 0, "requests lost")
+    return d
+
+
+def model_forwards(torch, dev, module, params, x4, counts_want, reuse_want,
+                   what):
+    """Batch 1 and 4 forwards of a zoo model: fold reuse, launches per
+    forward, logits against the reference policy, and the times of both.
+    Returns (ms by name, the compiled networks by batch)."""
+    out, nets = {}, {}
+    for b in (1, 4):
+        nets[b] = module.compile_forward(params, img=32, batch=b, device=dev)
+    fr = nets[4].fold_reuse()
+    print(f"[{what}] fold_reuse {fr}")
+    print(nets[4].describe())
+    check((fr["conv_layers"], fr["distinct_schedules"], fr["hits"])
+          == reuse_want, f"{what}: fold reuse is not {reuse_want}")
+    for b, net in nets.items():
+        x = x4[:b]
+        y, counts = forward_counts(torch, net, params, x)
+        print(f"[{what}] batch {b}: launches {counts}")
+        check(counts == counts_want,
+              f"{what} batch {b}: expected launches {counts_want}")
+        ref = module.compile_forward(params, img=32, batch=b,
+                                     policy="reference", device=dev)
+        with torch.inference_mode():
+            want = ref(params, x)
+        check(y.shape == (b, module.n_classes),
+              f"logits shape {tuple(y.shape)}")
+        close(torch, y, want, TOL_MODEL, f"{what} b{b} vs reference")
+        with torch.inference_mode():
+            out[f"forward_b{b}_ms"] = time_ms(
+                torch, lambda: net(params, x), 10)
+            out[f"device_b{b}_ms"] = time_graph_ms(
+                torch, lambda: net(params, x), 5)
+            out[f"reference_b{b}_ms"] = time_ms(
+                torch, lambda: ref(params, x), 3)
+        busy = out[f"device_b{b}_ms"] / out[f"forward_b{b}_ms"]
+        print(f"[{what}] batch {b}: forward {out[f'forward_b{b}_ms']:.3f} "
+              f"ms (device work {out[f'device_b{b}_ms']:.3f} ms when "
+              f"replayed as a CUDA graph: busy share {busy:.3f}), "
+              f"reference policy {out[f'reference_b{b}_ms']:.3f} ms")
+    return out, nets
+
+
+def phase_mobilenet(torch, dev):
+    from repro_torch.core.engine import compile_network
+    from repro_torch.models import mobilenet
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
+                                                       device=dev))
+    x4 = torch.randn(4, 3, 32, 32, device=dev, generator=gen)
+    out, nets = model_forwards(
+        torch, dev, mobilenet, params, x4,
+        {"fold_conv_ws": 7, "fold_conv_os": 28, "fold_conv_dw": 17},
+        (52, 30, 22), "mobilenetv2")
+    unfused = mobilenet.compile_forward(params, img=32, batch=4,
+                                        fuse_epilogues=False,
+                                        cache=nets[4].cache, device=dev)
+    with torch.inference_mode():
+        check(torch.equal(nets[4](params, x4), unfused(params, x4)),
+              "mobilenetv2: fused logits differ from unfused")
+    print("[mobilenetv2] fused logits bitwise-equal to unfused at batch 4")
+    trunks = {b: compile_network(params,
+                                 mobilenet.to_graph(include_head=False),
+                                 (b, 3, 32, 32), device=dev)
+              for b in (1, 4)}
+    with torch.inference_mode():
+        t4 = trunks[4](params, x4)
+        for i in range(4):
+            t1 = trunks[1](params, x4[i:i + 1])
+            check(torch.equal(t1[0], t4[i]),
+                  f"mobilenetv2 trunk row {i} differs between batch 1 "
+                  "and batch 4")
+    print("[mobilenetv2] trunk rows bitwise-equal at batch 1 and batch 4")
+    return out
+
+
+def phase_resnet(torch, dev):
+    from repro_torch.models import resnet
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    params = resnet.init_params(gen, img=32, device=dev)
+    x4 = torch.randn(4, 3, 32, 32, device=dev, generator=gen)
+    out, _ = model_forwards(
+        torch, dev, resnet, params, x4,
+        {"fold_conv_ws": 5, "fold_conv_os": 15, "fold_conv_dw": 0},
+        (20, 11, 9), "resnet18")
+    return out
+
+
+def phase_serving_mobilenet(torch, dev):
+    from repro_torch.serve.vision import serving_summary
+    requests = 40
+    d = serving_summary("mobilenetv2", requests=requests, img=32,
+                        width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
+                        device=dev)
+    lat, v = d["latency"], d["verify"]
+    print(f"[serve mobilenetv2] {d['requests']} requests / {d['images']} "
+          f"images in {d['elapsed_s']:.4f} s: {d['images_per_s']:.3f} "
+          f"images/s, p50 {lat['p50_s'] * 1e3:.3f} ms, p99 "
+          f"{lat['p99_s'] * 1e3:.3f} ms, batches per bucket "
+          f"{d['per_bucket_batches']}, fold reuse {d['compile']}")
+    tol = TOL_SERVE * v["max_abs_ref"]
+    print(f"[serve mobilenetv2] served vs direct max_abs_err="
+          f"{v['max_abs_err']:.3e} (tol {tol:.3e})")
+    check(d["lost_requests"] == 0 and d["outcomes"] == {"ok": requests},
+          f"mobilenetv2 serving: outcomes {d['outcomes']}, lost "
+          f"{d['lost_requests']}")
+    check(v["requests"] == requests and v["max_abs_err"] <= tol,
+          "mobilenetv2 serving: served logits differ from a direct forward")
     return d
 
 
@@ -371,6 +667,32 @@ def main() -> int:
               f"bound={r['bound_ms']:.4f}")
     report["layers_224_b1"] = rows224
     report["layers_32_b4"] = rows32
+    zoo_rows = {m: time_model_layers(torch, dev, model_layers(m, 32, 4), 10)
+                for m in ("mobilenetv2", "resnet18")}
+    for m, rows in zoo_rows.items():
+        print(f"[kernels] {m} layers at 32, batch 4 (ms):")
+        for r in rows:
+            print(f"  {r['layer']:<9} {r['rs']}/s{r['stride']} "
+                  f"c={r['c']:<4} nf={r['nf']:<4} h={r['h']:<3} "
+                  f"{r['dataflow']:<18} {r['epilogue']:<20} "
+                  f"kernel={r['ms']:.4f} call={r['call_ms']:.4f} "
+                  f"plain={r['plain_ms']:.4f} "
+                  f"F.conv2d={r['library_ms']:.4f} "
+                  f"bound={r['bound_ms']:.4f}")
+        for df in ("weight_stationary", "output_stationary", "depthwise"):
+            sel = [r for r in rows if r["dataflow"] == df]
+            if sel:
+                t = summarize(sel, "ms")
+                calls = sum(r["call_ms"] for r in sel)
+                print(f"[kernels] {m} {df}: {len(sel)} layers, kernel "
+                      f"{t['ms']:.4f} ms (eager call {calls:.4f}), plain "
+                      f"{t['plain_ms']:.4f}, "
+                      f"F.conv2d {t['library_ms']:.4f}, bound "
+                      f"{t['bound_ms']:.4f} ({t['bound_by']})")
+        report[f"layers_{m}_32_b4"] = rows
+    dw_rows = [r for r in zoo_rows["mobilenetv2"]
+               if r["dataflow"] == "depthwise"]
+    check(len(dw_rows) == 17, "expected 17 depthwise layers in MobileNetV2")
 
     # -- the main path: counts from 0 just before, read just after --------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -379,20 +701,29 @@ def main() -> int:
     report["model224"] = phase_model_224(torch, dev, params)
     phase_model_32(torch, dev)
     report["serving"] = phase_serving(torch, dev, params)
+    report["mobilenetv2"] = phase_mobilenet(torch, dev)
+    report["resnet18"] = phase_resnet(torch, dev)
+    report["serving_mobilenetv2"] = phase_serving_mobilenet(torch, dev)
     launches = cw.launch_counts()
     print(f"[main path] launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 
+    # ms_kind: "eager" times the wrapper call, host work included (the
+    # VGG layers' kernels run long enough to hide it); "device" replays the
+    # bare launch on prepared operands as a CUDA graph
     kernels = []
-    for name, df, rows, line in (
-            ("fold_conv_ws", "weight_stationary", rows224, 131),
-            ("fold_conv_os", "output_stationary", rows32_os, 176)):
+    for name, key, rows, line, kind in (
+            ("fold_conv_ws", "weight_stationary_ms", rows224, 131, "eager"),
+            ("fold_conv_os", "output_stationary_ms", rows32_os, 176,
+             "eager"),
+            ("fold_conv_dw", "ms", dw_rows, 202, "device")):
         entry = {"name": name, "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
                  "replaces": f"src/repro/kernels/conv2d_ws.py:{line}",
-                 "launches": launches[name], "max_abs_err": errs[name]}
-        entry.update(summarize(rows, df))
+                 "launches": launches[name], "max_abs_err": errs[name],
+                 "ms_kind": kind}
+        entry.update(summarize(rows, key))
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

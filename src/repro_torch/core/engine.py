@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.epilogue import Epilogue, epilogue_out_hw, maxpool2x2
 from repro_torch.core.graph import (DEPTHWISE, GraphError, StreamGraph,
-                                    as_graph, fuse_graph)
+                                    as_graph, bn_scale_shift, fuse_graph)
 from repro_torch.core.loopnest import ConvLoopNest
 from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
                                       plan_conv_blocks)
@@ -95,6 +95,8 @@ class ConvSchedule:
 
     def impl(self) -> str:
         """The ``kernels.ops.conv2d`` impl string for this dataflow."""
+        if self.dataflow == "depthwise":
+            return "fold_dw"
         return ("fold_ws" if self.dataflow == "weight_stationary"
                 else "fold_os")
 
@@ -312,7 +314,8 @@ class CompiledNetwork:
     """A whole-network static fold schedule plus its eager forward.
 
     ``layer_schedules`` and ``build_stats`` are snapshots taken at compile
-    time.
+    time; ``layer_nests`` holds each conv's own loop nest (its batch and
+    spatial extent, which a reused schedule's ``nest`` does not carry).
     """
     apply: Callable[[Dict[str, Any], torch.Tensor], torch.Tensor]
     layer_schedules: Tuple[Tuple[str, ConvSchedule], ...]
@@ -322,6 +325,7 @@ class CompiledNetwork:
     device: torch.device
     fused: bool = False
     graph: Optional[StreamGraph] = None
+    layer_nests: Tuple[Tuple[str, ConvLoopNest], ...] = ()
 
     def __call__(self, params: Dict[str, Any], x: torch.Tensor
                  ) -> torch.Tensor:
@@ -348,12 +352,6 @@ class CompiledNetwork:
         return "\n".join(lines)
 
 
-def _unported(op: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"graph op {op!r} is not ported yet (ROADMAP queue A item 10: "
-        "ResNet-18 and MobileNetV2)")
-
-
 def compile_network(params: Dict[str, Any], graph,
                     input_shape: Tuple[int, int, int, int], *,
                     policy: str = "auto",
@@ -370,9 +368,11 @@ def compile_network(params: Dict[str, Any], graph,
     plans.
 
     In kernel mode with ``fuse_epilogues`` the graph first runs through
-    ``fuse_graph``, so each conv's bias/ReLU/2x2-pool chain flushes inside
-    the conv's kernel — one launch per conv block.  Reference mode runs the
-    plain-torch conv and standalone ops.  A fused pool on an output too
+    ``fuse_graph``, so each conv's bias / batch-norm / residual-add /
+    ReLU[6] / 2x2-pool chain flushes inside the conv's kernel — one launch
+    per conv block; batch-norm statistics fold to the epilogue's
+    scale/shift (``bn_scale_shift``) at every call.  Reference mode runs
+    the plain-torch conv and standalone ops.  A fused pool on an output too
     small to pool (P or Q < 2) is demoted to a standalone op.  The forward
     runs on ``device`` (default "cuda"; "cpu" runs the plain-torch fold
     loop in kernel mode).
@@ -386,6 +386,7 @@ def compile_network(params: Dict[str, Any], graph,
 
     shapes: Dict[str, Tuple[int, ...]] = {g.input: tuple(input_shape)}
     layer_schedules: List[Tuple[str, ConvSchedule]] = []
+    layer_nests: List[Tuple[str, ConvLoopNest]] = []
     steps: List[Tuple] = []   # (op, out, in_names, static payload)
 
     for nd in g.nodes:
@@ -411,16 +412,38 @@ def compile_network(params: Dict[str, Any], graph,
             if epi is not None and epi.pool and (cv.p < 2 or cv.q < 2):
                 epi = dataclasses.replace(epi, pool=None)
                 demoted_pool = True
+            if epi is not None and epi.residual:
+                if nd.residual is None:
+                    raise GraphError(
+                        f"{nd.name}: Epilogue(residual=True) needs the "
+                        "node's residual skip-edge input set")
+                want = (n_, nf, cv.p, cv.q)
+                got = shapes[nd.residual]
+                if tuple(got) != want:
+                    raise GraphError(
+                        f"{nd.name}: fused shortcut {nd.residual!r} has "
+                        f"shape {got}, conv output is {want}")
             sched = cache.schedule_for(cv)
             layer_schedules.append((nd.name, sched))
+            layer_nests.append((nd.name, cv))
             shapes[nd.name] = (n_, nf) + epilogue_out_hw(nd.epilogue, cv.p,
                                                          cv.q)
             steps.append(("conv", nd.name, nd.all_inputs(),
                           (sched, epi, nd.stride, nd.pad, nd.param,
-                           demoted_pool, groups)))
-        elif nd.op in ("bias", "relu"):
+                           demoted_pool, groups, nd.bn_param)))
+        elif nd.op in ("bias", "batchnorm", "relu", "relu6"):
             shapes[nd.name] = s_in
             steps.append((nd.op, nd.name, nd.inputs, nd.param))
+        elif nd.op == "global_avgpool":
+            shapes[nd.name] = (s_in[0], s_in[1], 1, 1)
+            steps.append(("global_avgpool", nd.name, nd.inputs, None))
+        elif nd.op == "residual_add":
+            a, b = (shapes[i] for i in nd.inputs)
+            if tuple(a) != tuple(b):
+                raise GraphError(f"{nd.name}: residual_add operands differ "
+                                 f"in shape: {a} vs {b}")
+            shapes[nd.name] = a
+            steps.append(("residual_add", nd.name, nd.inputs, None))
         elif nd.op == "maxpool2":
             n_, chan, h, w_ = s_in
             shapes[nd.name] = (n_, chan, h // 2, w_ // 2)
@@ -435,8 +458,8 @@ def compile_network(params: Dict[str, Any], graph,
                                  f"got {s_in}")
             shapes[nd.name] = (s_in[0], dout)
             steps.append(("dense", nd.name, nd.inputs, nd.param))
-        else:
-            raise _unported(nd.op)
+        else:  # pragma: no cover — construction validates ops
+            raise GraphError(f"{nd.name}: cannot lower op {nd.op!r}")
 
     steps_t = tuple(steps)
     out_name = g.output
@@ -449,24 +472,41 @@ def compile_network(params: Dict[str, Any], graph,
         env: Dict[str, torch.Tensor] = {g.input: x}
         for op, out, ins, info in steps_t:
             if op == "conv":
-                sched, epi, stride, pad, pname, demoted_pool, groups = info
+                (sched, epi, stride, pad, pname, demoted_pool, groups,
+                 bn_param) = info
                 xin, w = env[ins[0]], p[pname]["w"]
                 impl = "direct" if mode == "reference" else sched.impl()
                 if epi is not None:
                     # an epilogue on a conv node is graph semantics and is
                     # honored in every mode
                     b = p[pname]["b"] if epi.bias else None
+                    scale = shift = None
+                    if epi.scale:
+                        scale, shift = bn_scale_shift(p[bn_param])
+                    res = env[ins[1]] if epi.residual else None
                     y = conv2d_fused(xin, w, b, stride=stride, pad=pad,
                                      epilogue=epi, impl=impl,
-                                     plan=sched.plan, groups=groups)
+                                     plan=sched.plan, residual=res,
+                                     scale=scale, shift=shift,
+                                     groups=groups)
                 else:
                     y = conv2d(xin, w, stride=stride, pad=pad, impl=impl,
                                plan=sched.plan, groups=groups)
                 env[out] = maxpool2x2(y) if demoted_pool else y
             elif op == "bias":
                 env[out] = env[ins[0]] + p[info]["b"][None, :, None, None]
+            elif op == "batchnorm":
+                scale, shift = bn_scale_shift(p[info])
+                env[out] = (env[ins[0]] * scale[None, :, None, None]
+                            + shift[None, :, None, None])
             elif op == "relu":
                 env[out] = torch.relu(env[ins[0]])
+            elif op == "relu6":
+                env[out] = torch.clamp(env[ins[0]], 0.0, 6.0)
+            elif op == "global_avgpool":
+                env[out] = env[ins[0]].mean(dim=(2, 3), keepdim=True)
+            elif op == "residual_add":
+                env[out] = env[ins[0]] + env[ins[1]]
             elif op == "maxpool2":
                 env[out] = maxpool2x2(env[ins[0]])
             elif op == "flatten":
@@ -485,7 +525,8 @@ def compile_network(params: Dict[str, Any], graph,
     return CompiledNetwork(apply=forward,
                            layer_schedules=tuple(layer_schedules),
                            build_stats=build_stats, cache=cache, mode=mode,
-                           device=dev, fused=fused, graph=g)
+                           device=dev, fused=fused, graph=g,
+                           layer_nests=tuple(layer_nests))
 
 
 # --------------------------------------------------------------------------

@@ -1,16 +1,16 @@
 """Fused epilogue descriptor for the fold-streamed conv kernels.
 
-The kernels flush the per-layer epilogue — bias add, ReLU, and VGG's 2x2/2
-max-pool — at the moment the last depth fold finishes, so a
-conv→bias→ReLU(→pool) chain is one kernel launch and the pre-activation
-tensor never reaches device memory.
+The kernels flush the per-layer epilogue — bias add, folded batch-norm
+scale/shift, residual add, ReLU or ReLU6, and VGG's 2x2/2 max-pool — at
+the moment the last depth fold finishes, so a whole conv block is one
+kernel launch and the pre-activation tensor never reaches device memory.
 
 ``Epilogue`` is a frozen (hashable) dataclass so it can ride along in the
 engine's kernel memo keys (``ScheduleCache.kernel_for``).
 ``apply_epilogue`` is the plain-torch oracle used by the non-kernel impls.
 The descriptor keeps every field of the JAX package's so graphs and
-fusion rules stay identical; the port's kernels accept the fp32
-bias/ReLU/pool subset and refuse the rest (``kernels/conv2d_ws.py``).
+fusion rules stay identical; the port's fp32 kernels flush all of them
+(``kernels/conv2d_ws.py``).
 """
 from __future__ import annotations
 

@@ -54,11 +54,13 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    common = [i32] * 16                # n .. mq, see csrc/fold_conv.cu
-    lib.fold_conv_ws.argtypes = [ptr] * 5 + common + [i32, i32, ptr]
+    common = [i32] * 15                # n .. mq, see csrc/fold_conv.cu
+    lib.fold_conv_ws.argtypes = [ptr] * 6 + common + [i32, i32, ptr]
     lib.fold_conv_ws.restype = i32
-    lib.fold_conv_os.argtypes = [ptr] * 4 + common + [i32, ptr]
+    lib.fold_conv_os.argtypes = [ptr] * 5 + common + [i32, ptr]
     lib.fold_conv_os.restype = i32
+    lib.fold_conv_dw.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
+    lib.fold_conv_dw.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]
     lib.fold_conv_error_string.restype = ctypes.c_char_p
     return lib

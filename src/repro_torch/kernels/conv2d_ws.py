@@ -1,16 +1,19 @@
-"""Fold-streamed convolution: the paper's two dataflows as hand-written
-CUDA kernels for Hopper, with their plain-torch fold loop beside them.
+"""Fold-streamed convolution: the paper's two dataflows and the depthwise
+fold as hand-written CUDA kernels for Hopper, with their plain-torch fold
+loops beside them.
 
-Both kernels compute, for one conv layer on the pre-padded input
+The dense kernels compute, for one conv layer on the pre-padded input
 ``x (N, C, Xp, Yp)`` and ``w (NF, C, R, S)``::
 
     out = epilogue(sum_{c,r,s} w[f,c,r,s] * x[n, c, p*stride+r, q*stride+s])
 
-with the epilogue bias -> ReLU -> optional 2x2/2 max-pool, the sum taken in
-true fp32 (FFMA on the CUDA cores: ``wgmma`` takes no fp32 operands and
-TF32 is not fp32), and the output written to device memory once — the
-pre-activation never reaches it.  They differ in loop order, as the
-paper's dataflows do:
+with the epilogue bias -> BN scale/shift -> residual add -> ReLU or ReLU6
+-> optional 2x2/2 max-pool, the sum taken in true fp32 (FFMA on the CUDA
+cores: ``wgmma`` takes no fp32 operands and TF32 is not fp32), and the
+output written to device memory once — the pre-activation never reaches
+it.  Bias, scale and shift ride in one ``(NF_pad, 3)`` vector block
+(``_vector_block``); the residual is an ``(N, NF, P, Q)`` shortcut.  The
+dense kernels differ in loop order, as the paper's dataflows do:
 
 * ``weight_stationary`` (replaces ``repro/kernels/conv2d_ws.py:_ws_kernel``):
   a CTA keeps a sub-fold of the filter fold resident in shared memory and
@@ -21,16 +24,23 @@ paper's dataflows do:
   tile held in registers and loops over the depth folds, restaging the
   weights for every P tile.
 
+The third, ``depthwise`` (replaces ``_dw_kernel``), is the groups == C ==
+NF fold: ``w (C, 1, R, S)``, one filter per channel, no depth reduction,
+the R*S taps multiplied elementwise and the epilogue flushed for every
+output at once.
+
 The source is ``csrc/fold_conv.cu``; ``build.py`` compiles it at first
 use.  On a CPU tensor ``conv2d_folded`` runs the plain-torch version of the
 same fold loop (``conv2d_folded_plain``: ``_fold_partial`` +
-``_flush_value`` + the WS/OS grid walk); on a CUDA tensor it launches the
-kernel or raises.
+``_flush_value`` + the WS/OS grid walk, or the depthwise walk); on a CUDA
+tensor it launches the kernel or raises.
 
 The order of the sum for one output element is channel-ascending, then
-R, then S, in both kernels.  It depends only on the fold plan — never on
-N, the grid or the CTA tile — so a layer gives bitwise-identical rows at
-every batch width.
+R, then S, in the dense kernels, and R then S in the depthwise one.  It
+depends only on the fold plan — never on N, the grid or the CTA tile — so
+a layer gives bitwise-identical rows at every batch width.  The epilogue
+rounds each step on its own (no fused multiply-add), so a fused layer
+gives the bits of the same steps run as separate torch ops.
 
 Inputs are NCHW, weights OIHW.  The caller pre-pads spatially
 (``ops.py``).
@@ -51,7 +61,8 @@ from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
 
 __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "OperandSpec", "FoldKernelSpec", "fold_kernel_spec", "launch_ws",
-           "launch_os", "launch_counts", "reset_launch_counts"]
+           "launch_os", "launch_dw", "LAUNCHERS", "launch_counts",
+           "reset_launch_counts", "prepare"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
 
@@ -396,34 +407,42 @@ def _pad_to(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def _refuse_unported(x_padded: torch.Tensor, w: torch.Tensor,
-                     dataflow: str, epi: Epilogue, groups: int) -> None:
+                     dataflow: str, groups: int) -> None:
     """Every variant of the TPU kernels that the port does not carry yet
     raises here, naming its ROADMAP item; nothing falls back."""
     if x_padded.dtype == torch.int8 or w.dtype == torch.int8:
         raise NotImplementedError(
             "int8 fold streaming is not ported yet (ROADMAP queue A item "
-            "11, queue B items 1-2 int8 variants)")
+            "11, queue B items 1-3 int8 variants)")
     if x_padded.dtype != torch.float32 or w.dtype != torch.float32:
         raise NotImplementedError(
             f"the fold kernels take fp32 operands, got x {x_padded.dtype} "
-            f"and w {w.dtype} (ROADMAP queue B items 1-2)")
-    if groups != 1:
+            f"and w {w.dtype} (ROADMAP queue B items 1-3)")
+    if groups != 1 and dataflow != "depthwise":
         raise NotImplementedError(
-            "grouped convolution is not ported yet (ROADMAP queue A item "
-            "10, queue B items 1-2 grouped variants)")
-    if dataflow == "depthwise":
-        raise NotImplementedError(
-            "the depthwise kernel is not ported yet (ROADMAP queue B "
-            "item 3: _dw_kernel)")
+            "grouped convolution with 1 < G < C on the WS / OS kernels is "
+            "not ported yet (ROADMAP queue B items 1-2 grouped variants)")
     if dataflow == "weight_stationary_psum":
         raise NotImplementedError(
             "the psum-staging kernel is not ported yet (ROADMAP queue B "
             "item 6: _ws_psum_kernel)")
-    for name in ("residual", "scale", "relu6"):
-        if getattr(epi, name):
-            raise NotImplementedError(
-                f"the {name} epilogue is not ported yet (ROADMAP queue B "
-                "items 1-2: residual, scale/ReLU6 variants)")
+
+
+def _vector_block(nf: int, nf_pad: int, epi: Epilogue,
+                  bias: Optional[torch.Tensor],
+                  scale: Optional[torch.Tensor],
+                  shift: Optional[torch.Tensor],
+                  device: torch.device) -> torch.Tensor:
+    """The (nf_pad, 3) per-filter vector block every fold kernel carries:
+    column 0 the bias, columns 1-2 the folded-BN scale/shift.  Columns the
+    epilogue does not enable are zeros and never read."""
+    vec = torch.zeros((nf_pad, 3), dtype=torch.float32, device=device)
+    if epi.bias:
+        vec[:nf, 0] = bias
+    if epi.scale:
+        vec[:nf, 1] = scale
+        vec[:nf, 2] = shift
+    return vec
 
 
 # --------------------------------------------------------------------------
@@ -449,20 +468,31 @@ def _fold_partial(xv: torch.Tensor, w: torch.Tensor, i_p: int, *, r: int,
     return acc
 
 
-def _flush_value(v: torch.Tensor, bias: Optional[torch.Tensor],
-                 epi: Epilogue) -> torch.Tensor:
-    """Apply the fused epilogue to a finished fp32 fold (N, nf_b, p_b, q)."""
+def _flush_value(v: torch.Tensor, vec: torch.Tensor, epi: Epilogue,
+                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply the fused epilogue to a finished fp32 fold (N, nf_b, p_b, q),
+    in the JAX order: bias -> scale/shift -> residual -> ReLU or ReLU6 ->
+    2x2 pool.  ``vec`` is the fold's (nf_b, 3) slice of the vector block,
+    ``res`` the fold's slice of the shortcut."""
     if epi.bias:
-        v = v + bias.float()[None, :, None, None]
+        v = v + vec[:, 0][None, :, None, None]
+    if epi.scale:                            # inference BN: y*scale + shift
+        v = (v * vec[:, 1][None, :, None, None]
+             + vec[:, 2][None, :, None, None])
+    if epi.residual:
+        v = v + res                          # ResNet shortcut, pre-ReLU
     if epi.relu:
         v = torch.relu(v)
+    if epi.relu6:
+        v = torch.clamp(v, 0.0, 6.0)         # MobileNet activation
     if epi.pool == "max2":
         v = maxpool2x2(v)        # p_b forced even: windows stay in-fold
     return v
 
 
 def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
+                vec: torch.Tensor, res: Optional[torch.Tensor]
+                ) -> torch.Tensor:
     """The WS / OS grid walk of the TPU kernels, fold by fold, in torch."""
     epi = spec.epilogue
     nf_b, c_b = spec.plan.nf_block, spec.plan.c_block
@@ -473,7 +503,6 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     out = xp.new_empty(spec.output.array_shape, dtype=torch.float32)
     for f in range(g_nf):
         fs = slice(f * nf_b, (f + 1) * nf_b)
-        bf = bias[fs] if bias is not None else None
         if spec.dataflow == "weight_stationary":
             # grid (N, nf, c, p), p fastest: the full-height accumulator
             acc = xp.new_empty((xp.shape[0], nf_b, spec.p_pad, q),
@@ -485,8 +514,9 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                     part = _fold_partial(xp[:, cs], wp[fs, cs], i_p, **kw)
                     acc[:, :, rows] = part if c == 0 else acc[:, :, rows] + part
                     if c == g_c - 1:
+                        r_ = res[:, fs, rows] if epi.residual else None
                         out[:, fs, i_p * p_bo:(i_p + 1) * p_bo] = \
-                            _flush_value(acc[:, :, rows], bf, epi)
+                            _flush_value(acc[:, :, rows], vec[fs], epi, r_)
         else:
             # grid (N, nf, p, c), c fastest: a block-sized accumulator
             for i_p in range(g_p):
@@ -495,8 +525,41 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                     cs = slice(c * c_b, (c + 1) * c_b)
                     part = _fold_partial(xp[:, cs], wp[fs, cs], i_p, **kw)
                     acc = part if acc is None else acc + part
+                rows = slice(i_p * p_b, (i_p + 1) * p_b)
+                r_ = res[:, fs, rows] if epi.residual else None
                 out[:, fs, i_p * p_bo:(i_p + 1) * p_bo] = \
-                    _flush_value(acc, bf, epi)
+                    _flush_value(acc, vec[fs], epi, r_)
+    return out
+
+
+def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
+                   wp: torch.Tensor, vec: torch.Tensor,
+                   res: Optional[torch.Tensor]) -> torch.Tensor:
+    """The depthwise grid walk (N, c folds, p folds) of ``_dw_kernel``: no
+    depth reduction, R*S elementwise taps per channel, R then S, and the
+    epilogue flushed at every step."""
+    epi = spec.epilogue
+    c_b, p_b, q, st = spec.plan.c_block, spec.p_block, spec.q, spec.stride
+    p_bo = p_b // 2 if epi.pool == "max2" else p_b
+    rows = (p_b - 1) * st + spec.r
+    out = xp.new_empty(spec.output.array_shape, dtype=torch.float32)
+    for cc in range(spec.c_pad // c_b):
+        cs = slice(cc * c_b, (cc + 1) * c_b)
+        for i_p in range(spec.p_pad // p_b):
+            row0 = i_p * p_b * st
+            xwin = xp[:, cs, row0:row0 + rows].float()
+            acc = xp.new_zeros((xp.shape[0], c_b, p_b, q),
+                               dtype=torch.float32)
+            for ri in range(spec.r):
+                for si in range(spec.s):
+                    win = xwin[:, :, ri:ri + p_b * st:st,
+                               si:si + q * st:st]          # (N, c_b, p_b, q)
+                    acc += win * wp[cs, 0, ri, si].float()[None, :, None,
+                                                           None]
+            p_rows = slice(i_p * p_b, (i_p + 1) * p_b)
+            r_ = res[:, cs, p_rows] if epi.residual else None
+            out[:, cs, i_p * p_bo:(i_p + 1) * p_bo] = \
+                _flush_value(acc, vec[cs], epi, r_)
     return out
 
 
@@ -514,10 +577,26 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
 # feeds NFT FMAs.  Loads stay off the critical path as long as the FMA
 # pipes are fed; there is no tensor-core path in true fp32.
 
+#
+# The depthwise kernel is bound by bytes instead: 2*R*S flops per output
+# element (18 at 3x3) against the 4 bytes it writes and about as many it
+# reads, far below the ridge.  One thread per output element reads its
+# window through the read-only cache, coalesced along Q, so the kernel
+# moves each input byte from device memory about once.
+
 NFT = 8                 # filters per CTA sub-fold (NFT in csrc/fold_conv.cu)
 OS_CHUNK = 32           # channels per OS weight restage (OS_CHUNK there too)
-MAX_THREADS = 256       # __launch_bounds__ of both kernels
+MAX_THREADS = 256       # __launch_bounds__ of every kernel
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
+# Epilogue flags, one bit per step (EPI_* in csrc/fold_conv.cu)
+EPI_BIAS, EPI_SCALE, EPI_RESIDUAL, EPI_RELU, EPI_RELU6, EPI_POOL = \
+    1, 2, 4, 8, 16, 32
+
+
+def _epi_flags(epi: Epilogue) -> int:
+    return (EPI_BIAS * epi.bias | EPI_SCALE * epi.scale
+            | EPI_RESIDUAL * epi.residual | EPI_RELU * epi.relu
+            | EPI_RELU6 * epi.relu6 | EPI_POOL * (epi.pool == "max2"))
 
 
 def _cta_tile(p_block: int, q: int) -> Tuple[int, int, int]:
@@ -552,18 +631,18 @@ def _raise_on_error(lib, err: int, name: str) -> None:
 
 
 def _common_args(spec: "FoldKernelSpec", n: int, mq: int) -> list:
-    epi = spec.epilogue
     return [n, spec.c_pad, spec.x_rows, spec.inputs[0].array_shape[3],
             spec.nf_pad, spec.r, spec.s, spec.stride, spec.q, spec.p_pad,
             spec.plan.nf_block, spec.plan.c_block, spec.p_block,
-            int(epi.relu), int(epi.pool == "max2"), mq]
+            _epi_flags(spec.epilogue), mq]
 
 
 def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
-              bias: Optional[torch.Tensor]) -> torch.Tensor:
+              vec: torch.Tensor, res: Optional[torch.Tensor]
+              ) -> torch.Tensor:
     """Launch the weight-stationary kernel on padded CUDA operands."""
     from repro_torch.kernels import build
-    _check_cuda_operands(xp, wp, bias)
+    _check_cuda_operands(xp, wp, vec, res)
     smem = NFT * spec.plan.c_block * spec.r * spec.s * 4
     if smem > SMEM_LIMIT:
         raise ValueError(
@@ -587,7 +666,7 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                            device=xp.device, dtype=torch.float32)
     lib = build.library()
     err = lib.fold_conv_ws(
-        _ptr(xp), _ptr(wp), _ptr(bias), _ptr(out), _ptr(slab),
+        _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out), _ptr(slab),
         *_common_args(spec, n, mq), p_chunk, threads,
         torch.cuda.current_stream(xp.device).cuda_stream)
     _raise_on_error(lib, err, "fold_conv_ws")
@@ -596,10 +675,11 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
 
 
 def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
-              bias: Optional[torch.Tensor]) -> torch.Tensor:
+              vec: torch.Tensor, res: Optional[torch.Tensor]
+              ) -> torch.Tensor:
     """Launch the output-stationary kernel on padded CUDA operands."""
     from repro_torch.kernels import build
-    _check_cuda_operands(xp, wp, bias)
+    _check_cuda_operands(xp, wp, vec, res)
     if -(-spec.p_block // 2) > MAX_THREADS:
         raise ValueError(
             f"the OS kernel holds one P fold in registers: p_block="
@@ -610,7 +690,7 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                       dtype=torch.float32)
     lib = build.library()
     err = lib.fold_conv_os(
-        _ptr(xp), _ptr(wp), _ptr(bias), _ptr(out),
+        _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
         *_common_args(spec, n, mq), threads,
         torch.cuda.current_stream(xp.device).cuda_stream)
     _raise_on_error(lib, err, "fold_conv_os")
@@ -618,19 +698,45 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     return out
 
 
-launch_ws.launches = 0
-launch_os.launches = 0
-_LAUNCHERS: Dict[str, Callable] = {"fold_conv_ws": launch_ws,
-                                   "fold_conv_os": launch_os}
+def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
+              vec: torch.Tensor, res: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """Launch the depthwise kernel on padded CUDA operands.  Only the
+    layer's own C channels are computed: the output's channels past C
+    (``c_pad``) are left unwritten and sliced away by the caller."""
+    from repro_torch.kernels import build
+    _check_cuda_operands(xp, wp, vec, res)
+    out = torch.empty(spec.output.array_shape, device=xp.device,
+                      dtype=torch.float32)
+    lib = build.library()
+    err = lib.fold_conv_dw(
+        _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
+        xp.shape[0], spec.c, spec.c_pad, spec.x_rows,
+        spec.inputs[0].array_shape[3], spec.r, spec.s, spec.stride, spec.q,
+        spec.p_pad, _epi_flags(spec.epilogue),
+        torch.cuda.current_stream(xp.device).cuda_stream)
+    _raise_on_error(lib, err, "fold_conv_dw")
+    launch_dw.launches += 1
+    return out
+
+
+# The launcher of each resolved dataflow's kernel, with the name of the
+# kernel's C entry point and its launch counter
+LAUNCHERS: Dict[str, Callable] = {"weight_stationary": launch_ws,
+                                  "output_stationary": launch_os,
+                                  "depthwise": launch_dw}
+for _fn, _kernel in zip(LAUNCHERS.values(),
+                        ("fold_conv_ws", "fold_conv_os", "fold_conv_dw")):
+    _fn.kernel, _fn.launches = _kernel, 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {name: fn.launches for name, fn in _LAUNCHERS.items()}
+    return {fn.kernel: fn.launches for fn in LAUNCHERS.values()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _LAUNCHERS.values():
+    for fn in LAUNCHERS.values():
         fn.launches = 0
 
 
@@ -638,26 +744,54 @@ def reset_launch_counts() -> None:
 # The public entry
 # --------------------------------------------------------------------------
 
-def _prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups):
+def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
+            residual, scale, shift):
+    """Check a call, solve its spec, and pad its operands: returns
+    ``(spec, x, w, vec, residual or None)``, what a launcher takes."""
     n, c, xp_, yp_ = x_padded.shape
     nf, cw, r, s = w.shape
     epi = epilogue or Epilogue()
-    _refuse_unported(x_padded, w, dataflow, epi, groups)
-    if c != cw:
-        raise ValueError(f"input has {c} channels, weights expect {cw}")
+    _refuse_unported(x_padded, w, dataflow, groups)
+    if c != cw * groups or nf % groups:
+        raise ValueError(f"input has {c} channels, weights expect "
+                         f"{cw}x{groups} (and groups={groups} must divide "
+                         f"NF={nf})")
     if epi.bias and bias is None:
         raise ValueError("epilogue.bias=True needs a bias vector")
+    if epi.scale and (scale is None or shift is None):
+        raise ValueError("epilogue.scale=True needs scale and shift "
+                         "vectors")
     spec = fold_kernel_spec(tuple(x_padded.shape), tuple(w.shape),
                             stride=stride, plan=plan, dataflow=dataflow,
                             epilogue=epi, groups=groups)
+    if epi.residual:
+        if residual is None:
+            raise ValueError("epilogue.residual=True needs a residual "
+                             "tensor")
+        if tuple(residual.shape) != (n, nf, spec.p, spec.q):
+            raise ValueError(f"residual shape {tuple(residual.shape)} != "
+                             f"conv output {(n, nf, spec.p, spec.q)}")
     if spec.dataflow == "weight_stationary_psum":
         # the WS accumulator spill lands on psum staging only for an
         # identity epilogue
-        _refuse_unported(x_padded, w, spec.dataflow, epi, groups)
-    xp = _pad_to(x_padded, spec.inputs[0].array_shape)
-    wp = _pad_to(w, spec.inputs[1].array_shape)
-    bp = _pad_to(bias.float(), (spec.nf_pad,)) if epi.bias else None
-    return spec, xp, wp, bp
+        _refuse_unported(x_padded, w, spec.dataflow, groups)
+    # the operands in the spec's order: x, w, vec[, residual]
+    arrays = {"x": x_padded, "w": w, "residual": residual}
+    ops = []
+    for op in spec.inputs:
+        if op.role == "vec":
+            ops.append(_vector_block(nf, op.array_shape[0], epi, bias,
+                                     scale, shift, x_padded.device))
+        else:
+            ops.append(_pad_to(arrays[op.role], op.array_shape))
+    if not epi.residual:
+        ops.append(None)
+    return (spec, *ops)
+
+
+def _walk(spec, xp, wp, vec, res):
+    walk = _plain_dw_walk if spec.dataflow == "depthwise" else _plain_walk
+    return walk(spec, xp, wp, vec, res)
 
 
 def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
@@ -666,12 +800,15 @@ def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
                         dataflow: str = "weight_stationary",
                         bias: Optional[torch.Tensor] = None,
                         epilogue: Optional[Epilogue] = None,
+                        residual: Optional[torch.Tensor] = None,
+                        scale: Optional[torch.Tensor] = None,
+                        shift: Optional[torch.Tensor] = None,
                         groups: int = 1) -> torch.Tensor:
     """The plain-torch version of ``conv2d_folded`` on any device: the same
     spec, the same padding, the fold loop in torch ops."""
-    spec, xp, wp, bp = _prepare(x_padded, w, stride, plan, dataflow, bias,
-                                epilogue, groups)
-    out = _plain_walk(spec, xp, wp, bp)
+    spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
+                          epilogue, groups, residual, scale, shift)
+    out = _walk(spec, *ops)
     return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]
 
 
@@ -681,29 +818,34 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
                   dataflow: str = "weight_stationary",
                   bias: Optional[torch.Tensor] = None,
                   epilogue: Optional[Epilogue] = None,
+                  residual: Optional[torch.Tensor] = None,
+                  scale: Optional[torch.Tensor] = None,
+                  shift: Optional[torch.Tensor] = None,
                   groups: int = 1) -> torch.Tensor:
     """Run the fold-streamed conv on a PRE-PADDED input.
 
-    x_padded: (N, C, Xp, Yp)   w: (NF, C, R, S)   -> (N, NF, P', Q')
+    x_padded: (N, C, Xp, Yp)   w: (NF, C/groups, R, S)   -> (N, NF, P', Q')
     where (P', Q') = (P, Q) or (P//2, Q//2) when ``epilogue.pool`` fuses
     the 2x2/2 max-pool.
 
     ``plan`` may come from the engine's schedule cache and describe a
     larger geometry sharing this layer's filter-fold key; it is clamped to
-    the actual dims here, which is what makes schedule reuse exact.  On a
-    CUDA tensor this launches the WS or OS kernel; on a CPU tensor it runs
-    the plain-torch fold loop.  Unported variants raise
-    ``NotImplementedError``.
+    the actual dims here, which is what makes schedule reuse exact.
+    ``epilogue`` is flushed in-kernel, with ``bias`` when
+    ``epilogue.bias``, ``scale``/``shift`` (the folded batch-norm vectors)
+    when ``epilogue.scale`` and ``residual`` (an (N, NF, P, Q) shortcut)
+    when ``epilogue.residual``.  ``dataflow="depthwise"`` (groups == C ==
+    NF) selects the no-reduction kernel.  On a CUDA tensor this launches
+    the WS, OS or depthwise kernel; on a CPU tensor it runs the plain-torch
+    fold loop.  Unported variants raise ``NotImplementedError``.
     """
-    spec, xp, wp, bp = _prepare(x_padded, w, stride, plan, dataflow, bias,
-                                epilogue, groups)
-    if xp.device.type == "cuda":
-        launch = (launch_ws if spec.dataflow == "weight_stationary"
-                  else launch_os)
-        out = launch(spec, xp, wp, bp)
-    elif xp.device.type == "cpu":
-        out = _plain_walk(spec, xp, wp, bp)
+    spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
+                          epilogue, groups, residual, scale, shift)
+    if ops[0].device.type == "cuda":
+        out = LAUNCHERS[spec.dataflow](spec, *ops)
+    elif ops[0].device.type == "cpu":
+        out = _walk(spec, *ops)
     else:
         raise ValueError(f"conv2d_folded runs on cuda or cpu tensors, got "
-                         f"{xp.device}")
+                         f"{ops[0].device}")
     return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]

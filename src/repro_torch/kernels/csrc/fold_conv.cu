@@ -1,25 +1,34 @@
 // Fold-streamed fp32 convolution for Hopper (sm_90a): the weight-stationary
-// and output-stationary dataflows of the paper, with the fused
-// bias -> ReLU -> 2x2/2 max-pool epilogue.
+// and output-stationary dataflows of the paper and the depthwise fold, with
+// the fused bias -> BN scale/shift -> residual add -> ReLU or ReLU6 ->
+// 2x2/2 max-pool epilogue.
 //
-// Replaces the Pallas TPU kernels repro/kernels/conv2d_ws.py:_ws_kernel and
-// :_os_kernel (both launched from conv2d_folded).  The Python wrapper
-// (repro_torch/kernels/conv2d_ws.py) pads every operand to the fold plan
-// (fold_kernel_spec), allocates the output and the WS slab, and checks
-// the error code each entry returns.
+// Replaces the Pallas TPU kernels repro/kernels/conv2d_ws.py:_ws_kernel,
+// :_os_kernel and :_dw_kernel (all launched from conv2d_folded).  The
+// Python wrapper (repro_torch/kernels/conv2d_ws.py) pads every operand to
+// the fold plan (fold_kernel_spec), allocates the output and the WS slab,
+// and checks the error code each entry returns.
 //
 // Operands (all fp32, contiguous):
 //   x    (N, C_pad, X_rows, Yp)   pre-padded input
-//   w    (NF_pad, C_pad, R, S)
-//   bias (NF_pad) or null
+//   w    (NF_pad, C_pad, R, S)    dense; (C_pad, 1, R, S) depthwise
+//   vec  (NF_pad, 3)              bias, BN scale, BN shift per filter
+//   res  (N, NF_pad, P_pad, Q)    the shortcut, or null
 //   out  (N, NF_pad, P_pad or P_pad/2, Q or Q/2)
 //   slab (N, NF_pad, P_pad, Q)     WS partial sums while g_c > 1, else null
 //
-// Bound: FFMA throughput (see the wrapper's note).  Each thread owns a 2x2
-// output micro-tile for NFT filters, 4*NFT accumulators in registers.  The
-// sum of one output element runs over channels ascending, then R, then S,
-// and nothing else: no split of the depth across threads or CTAs, so the
-// result does not depend on N, the grid, or the CTA tile.
+// Bound: FFMA throughput for the dense kernels (see the wrapper's note).
+// Each thread owns a 2x2 output micro-tile for NFT filters, 4*NFT
+// accumulators in registers.  The sum of one output element runs over
+// channels ascending, then R, then S, and nothing else: no split of the
+// depth across threads or CTAs, so the result does not depend on N, the
+// grid, or the CTA tile.  The depthwise kernel is bound by bytes; one
+// thread owns one output element and sums its R*S taps, R then S.
+//
+// The WS kernel is compiled twice: for epilogues of bias, ReLU and pool
+// alone (VGG-16's, ResNet-18's without a shortcut) and for every step.  The
+// first needs 128 registers, so two 256-thread CTAs fit an SM; the second
+// needs 166, and one CTA fits.
 
 #include <cuda_runtime.h>
 
@@ -29,16 +38,43 @@ constexpr int NFT = 8;        // filters per CTA sub-fold
 constexpr int OS_CHUNK = 32;  // channels per output-stationary weight restage
 constexpr int MAX_THREADS = 256;
 
+// Epilogue steps, one bit each (EPI_* in conv2d_ws.py)
+constexpr int EPI_BIAS = 1;
+constexpr int EPI_SCALE = 2;
+constexpr int EPI_RESIDUAL = 4;
+constexpr int EPI_RELU = 8;
+constexpr int EPI_RELU6 = 16;
+constexpr int EPI_POOL = 32;
+constexpr int EPI_ALL = 63;
+constexpr int EPI_PLAIN = EPI_BIAS | EPI_RELU | EPI_POOL;
+
 struct Geom {
   int n, c_pad, x_rows, yp;
   int nf_pad, r, s, stride;
   int q, p_pad;
   int nf_b, c_b, p_b;
-  int relu, pool;
+  int epi;       // EPI_* bits
   int mq;        // micro-tile columns per CTA tile
   int q_tiles;   // CTA tiles along Q
   int p_chunk;   // WS: P folds one CTA walks
 };
+
+// _flush_value on one finished sum of filter f: bias -> scale/shift ->
+// residual -> ReLU or ReLU6.  Each step is rounded on its own: __fmul_rn /
+// __fadd_rn keep nvcc from contracting v*scale + shift into one fmaf, so a
+// fused layer gives the bits of the same steps run as separate torch ops.
+__device__ __forceinline__ float epilogue(float v,
+                                          const float* __restrict__ vec,
+                                          int f, int epi, float res) {
+  if (epi & EPI_BIAS) v = __fadd_rn(v, vec[3 * f]);
+  if (epi & EPI_SCALE) {
+    v = __fadd_rn(__fmul_rn(v, vec[3 * f + 1]), vec[3 * f + 2]);
+  }
+  if (epi & EPI_RESIDUAL) v = __fadd_rn(v, res);
+  if (epi & EPI_RELU) v = v < 0.f ? 0.f : v;
+  if (epi & EPI_RELU6) v = fminf(fmaxf(v, 0.f), 6.f);
+  return v;
+}
 
 // One 2x2 micro-tile of the CTA tile: where it sits and which of its four
 // outputs are real (rows past the P fold and columns past Q are not).
@@ -101,27 +137,38 @@ __device__ __forceinline__ void fold_partial(float (&acc)[NFT][4],
   }
 }
 
-// _flush_value: bias -> ReLU -> optional 2x2 max, then the one write of
-// each finished output element.
+// _flush_value: the epilogue, an optional 2x2 max, then the one write of
+// each finished output element.  MASK is the EPI_* bits this instance can
+// run; which of them run is read from g.epi.
+template <int MASK>
 __device__ __forceinline__ void flush_value(const float (&acc)[NFT][4],
                                             float* __restrict__ out,
-                                            const float* __restrict__ bias,
+                                            const float* __restrict__ vec,
+                                            const float* __restrict__ res,
                                             const Geom& g, int nidx, int f0,
                                             int nvalid, const Micro& m) {
-  const int qo = g.pool ? g.q / 2 : g.q;
-  const int po = g.pool ? g.p_pad / 2 : g.p_pad;
+  const int epi = g.epi & MASK;
+  const bool pool = epi & EPI_POOL;
+  const int qo = pool ? g.q / 2 : g.q;
+  const int po = pool ? g.p_pad / 2 : g.p_pad;
 #pragma unroll
   for (int j = 0; j < NFT; ++j) {
     if (j >= nvalid) break;
+    const size_t plane = static_cast<size_t>(nidx) * g.nf_pad + f0 + j;
+    const float* rp = (epi & EPI_RESIDUAL)
+        ? res + plane * g.p_pad * g.q : nullptr;
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      v[k] = acc[j][k];
-      if (bias) v[k] += bias[f0 + j];
-      if (g.relu) v[k] = v[k] < 0.f ? 0.f : v[k];
+      // output k of the micro-tile sits at row prow + k/2, column
+      // qcol + k%2, and is real unless that row or column is not
+      const bool real = ((k & 1) == 0 || m.cv1) && ((k >> 1) == 0 || m.rv1);
+      const float r = rp && real
+          ? rp[(m.prow + (k >> 1)) * g.q + m.qcol + (k & 1)] : 0.f;
+      v[k] = epilogue(acc[j][k], vec, f0 + j, epi, r);
     }
-    float* o = out + (static_cast<size_t>(nidx) * g.nf_pad + f0 + j) * po * qo;
-    if (g.pool) {
+    float* o = out + plane * po * qo;
+    if (pool) {
       // p_b is even, so both rows lie in the fold; the tile's pooled
       // column exists only when both of its columns are real
       if (m.cv1) {
@@ -162,10 +209,11 @@ __device__ __forceinline__ void sub_fold(const Geom& g, int& f0, int& nvalid) {
 // each depth fold the CTA stages its filter sub-fold once and walks its P
 // folds past it; with g_c > 1 the partial sums of the walked rows go to
 // the slab, which no other CTA touches.
+template <int MASK>
 __global__ void __launch_bounds__(MAX_THREADS)
 ws_kernel(const float* __restrict__ x, const float* __restrict__ w,
-          const float* __restrict__ bias, float* __restrict__ out,
-          float* __restrict__ slab, Geom g) {
+          const float* __restrict__ vec, const float* __restrict__ res,
+          float* __restrict__ out, float* __restrict__ slab, Geom g) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   int f0, nvalid;
@@ -207,7 +255,7 @@ ws_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
         fold_partial(acc, xc0, w_s, g.c_b, g, m);
         if (cf == g_c - 1) {
-          flush_value(acc, out, bias, g, nidx, f0, nvalid, m);
+          flush_value<MASK>(acc, out, vec, res, g, nidx, f0, nvalid, m);
         } else {
           for (int j = 0; j < nvalid; ++j) {
             float* sl = slab + (static_cast<size_t>(nidx) * g.nf_pad + f0 + j) *
@@ -228,7 +276,8 @@ ws_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // weights are restaged OS_CHUNK channels at a time for this P tile.
 __global__ void __launch_bounds__(MAX_THREADS)
 os_kernel(const float* __restrict__ x, const float* __restrict__ w,
-          const float* __restrict__ bias, float* __restrict__ out, Geom g) {
+          const float* __restrict__ vec, const float* __restrict__ res,
+          float* __restrict__ out, Geom g) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   int f0, nvalid;
@@ -259,20 +308,90 @@ os_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  if (active) flush_value(acc, out, bias, g, nidx, f0, nvalid, m);
+  if (active) flush_value<EPI_ALL>(acc, out, vec, res, g, nidx, f0, nvalid, m);
+}
+
+struct DwGeom {
+  int n, c, c_pad, x_rows, yp;
+  int r, s, stride;
+  int q, p_pad;
+  int epi;
+};
+
+// Depthwise (replaces _dw_kernel): one thread per output element of the
+// layer's own C channels, a grid-stride loop over (N, C, P_pad, Q), Q
+// fastest so a warp reads neighbouring input columns.  The channel's R*S
+// taps come through the read-only cache (a warp's threads mostly share
+// one channel, so each tap load is a broadcast); the sum runs R then S in
+// one thread, and the epilogue flushes at once: there is no depth fold.
+// Channels C..C_pad-1 of the output are padding and are not written.
+__global__ void __launch_bounds__(MAX_THREADS)
+dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ vec, const float* __restrict__ res,
+          float* __restrict__ out, DwGeom g) {
+  const bool pool = g.epi & EPI_POOL;
+  const int span = pool ? 2 : 1;
+  const int qo = g.q / span;
+  const int po = g.p_pad / span;
+  const long long total = static_cast<long long>(g.n) * g.c * po * qo;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int oq = static_cast<int>(i % qo);
+    long long t = i / qo;
+    const int op = static_cast<int>(t % po);
+    t /= po;
+    const int c = static_cast<int>(t % g.c);
+    const int nidx = static_cast<int>(t / g.c);
+    const size_t plane = static_cast<size_t>(nidx) * g.c_pad + c;
+    const float* xc = x + plane * g.x_rows * g.yp;
+    const float* wc = w + static_cast<size_t>(c) * g.r * g.s;
+    const float* rp = (g.epi & EPI_RESIDUAL)
+        ? res + plane * g.p_pad * g.q : nullptr;
+    float best = 0.f;
+    for (int dp = 0; dp < span; ++dp) {
+      for (int dq = 0; dq < span; ++dq) {
+        const int p = op * span + dp;
+        const int q = oq * span + dq;
+        float acc = 0.f;
+        for (int r = 0; r < g.r; ++r) {
+          const float* row =
+              xc + static_cast<size_t>(p * g.stride + r) * g.yp + q * g.stride;
+          for (int s = 0; s < g.s; ++s) {
+            acc = fmaf(__ldg(row + s), __ldg(wc + r * g.s + s), acc);
+          }
+        }
+        const float v = epilogue(acc, vec, c, g.epi,
+                                 rp ? rp[static_cast<size_t>(p) * g.q + q]
+                                    : 0.f);
+        best = (dp == 0 && dq == 0) ? v : fmaxf(best, v);
+      }
+    }
+    out[(plane * po + op) * qo + oq] = best;
+  }
 }
 
 Geom make_geom(int n, int c_pad, int x_rows, int yp, int nf_pad, int r,
                int s, int stride, int q, int p_pad, int nf_b, int c_b,
-               int p_b, int relu, int pool, int mq, int p_chunk) {
+               int p_b, int epi, int mq, int p_chunk) {
   Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, nf_b, c_b,
-         p_b, relu, pool, mq, 0, p_chunk};
+         p_b, epi, mq, 0, p_chunk};
   g.q_tiles = ((q + 1) / 2 + mq - 1) / mq;
   return g;
 }
 
 int sub_folds(const Geom& g) {
   return (g.nf_pad / g.nf_b) * ((g.nf_b + NFT - 1) / NFT);
+}
+
+// Raise a kernel's dynamic shared memory cap where it needs more than the
+// default 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -283,48 +402,64 @@ const char* fold_conv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int fold_conv_ws(const void* x, const void* w, const void* bias, void* out,
-                 void* slab, int n, int c_pad, int x_rows, int yp, int nf_pad,
-                 int r, int s, int stride, int q, int p_pad, int nf_b, int c_b,
-                 int p_b, int relu, int pool, int mq, int p_chunk, int threads,
-                 void* stream) {
+int fold_conv_ws(const void* x, const void* w, const void* vec,
+                 const void* res, void* out, void* slab, int n, int c_pad,
+                 int x_rows, int yp, int nf_pad, int r, int s, int stride,
+                 int q, int p_pad, int nf_b, int c_b, int p_b, int epi,
+                 int mq, int p_chunk, int threads, void* stream) {
   const Geom g = make_geom(n, c_pad, x_rows, yp, nf_pad, r, s, stride, q,
-                           p_pad, nf_b, c_b, p_b, relu, pool, mq, p_chunk);
+                           p_pad, nf_b, c_b, p_b, epi, mq, p_chunk);
   const int g_p = p_pad / p_b;
   const int chunks = (g_p + p_chunk - 1) / p_chunk;
   const size_t smem = sizeof(float) * NFT * c_b * r * s;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const auto kernel =
+      (epi & ~EPI_PLAIN) ? ws_kernel<EPI_ALL> : ws_kernel<EPI_PLAIN>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.q_tiles * chunks, sub_folds(g), n);
-  ws_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out),
-      static_cast<float*>(slab), g);
+      static_cast<const float*>(vec), static_cast<const float*>(res),
+      static_cast<float*>(out), static_cast<float*>(slab), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-int fold_conv_os(const void* x, const void* w, const void* bias, void* out,
-                 int n, int c_pad, int x_rows, int yp, int nf_pad, int r,
-                 int s, int stride, int q, int p_pad, int nf_b, int c_b,
-                 int p_b, int relu, int pool, int mq, int threads,
-                 void* stream) {
+int fold_conv_os(const void* x, const void* w, const void* vec,
+                 const void* res, void* out, int n, int c_pad, int x_rows,
+                 int yp, int nf_pad, int r, int s, int stride, int q,
+                 int p_pad, int nf_b, int c_b, int p_b, int epi, int mq,
+                 int threads, void* stream) {
   const Geom g = make_geom(n, c_pad, x_rows, yp, nf_pad, r, s, stride, q,
-                           p_pad, nf_b, c_b, p_b, relu, pool, mq, 1);
+                           p_pad, nf_b, c_b, p_b, epi, mq, 1);
   const size_t smem = sizeof(float) * NFT * OS_CHUNK * r * s;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        os_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t err = allow_smem(os_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.q_tiles * (p_pad / p_b), sub_folds(g), n);
   os_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), g);
+      static_cast<const float*>(vec), static_cast<const float*>(res),
+      static_cast<float*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fold_conv_dw(const void* x, const void* w, const void* vec,
+                 const void* res, void* out, int n, int c, int c_pad,
+                 int x_rows, int yp, int r, int s, int stride, int q,
+                 int p_pad, int epi, void* stream) {
+  const DwGeom g{n, c, c_pad, x_rows, yp, r, s, stride, q, p_pad, epi};
+  const int span = (epi & EPI_POOL) ? 2 : 1;
+  const long long total =
+      static_cast<long long>(n) * c * (p_pad / span) * (q / span);
+  // enough CTAs to fill every SM several times over; the grid-stride loop
+  // covers the rest
+  const long long want = (total + MAX_THREADS - 1) / MAX_THREADS;
+  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+  if (blocks > 0) {
+    dw_kernel<<<blocks, MAX_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(vec), static_cast<const float*>(res),
+        static_cast<float*>(out), g);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,9 +3,12 @@
 ``impl`` selects the path:
   "fold_ws"   — weight-stationary fold kernel (the paper's dataflow)
   "fold_os"   — output-stationary fold kernel
+  "fold_dw"   — the depthwise kernel (groups == C == N_F, no depth-fold
+                reduction)
   "fold_auto" — fold kernel with the dataflow picked by the engine's cost
                 model (``core/engine.py``)
-  "direct"    — the plain-torch shifted-product reference
+  "direct"    — the plain-torch shifted-product reference (grouped via
+                ``groups``)
 
 ``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
 passes these in).  The backward passes wait for the training slice
@@ -24,13 +27,15 @@ from repro_torch.kernels.conv2d_ws import conv2d_folded
 
 __all__ = ["conv2d", "conv2d_fused", "FOLD_IMPLS", "IMPLS"]
 
-FOLD_IMPLS = ("fold_ws", "fold_os", "fold_auto")
+FOLD_IMPLS = ("fold_ws", "fold_os", "fold_dw", "fold_auto")
 IMPLS = FOLD_IMPLS + ("direct",)
 
 
 def _resolve_fold_dataflow(x, w, stride: int, pad: int, impl: str, plan,
                            groups: int = 1):
     """Map a fold impl string to (plan, dataflow) for the fold kernel."""
+    if impl == "fold_dw":
+        return plan, "depthwise"
     if impl == "fold_auto":
         from repro_torch.core.engine import plan_and_dataflow, select_dataflow
         from repro_torch.core.loopnest import ConvLoopNest
@@ -50,22 +55,23 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"unknown conv impl {impl!r} (want one of {IMPLS})")
 
 
-def _folded(x, w, b, stride, pad, epi, impl, plan, groups):
+def _folded(x, w, stride, pad, impl, plan, groups, **epilogue_operands):
     plan, dataflow = _resolve_fold_dataflow(x, w, stride, pad, impl, plan,
                                             groups)
     xp = F.pad(x, (pad, pad, pad, pad)) if pad else x
     return conv2d_folded(xp, w, stride=stride, dataflow=dataflow, plan=plan,
-                         bias=b, epilogue=epi, groups=groups)
+                         groups=groups, **epilogue_operands)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
            impl: str = "fold_auto", plan=None,
            groups: int = 1) -> torch.Tensor:
-    """Convolution through the fold framework.  x: NCHW, w: OIHW."""
+    """Convolution through the fold framework.  x: NCHW, w: OIHW (the
+    channel dim is per group, C/groups, when ``groups > 1``)."""
     _check_impl(impl)
     if impl == "direct":
         return _ref.conv2d_direct(x, w, stride, pad, groups)
-    return _folded(x, w, None, stride, pad, None, impl, plan, groups)
+    return _folded(x, w, stride, pad, impl, plan, groups)
 
 
 def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
@@ -76,13 +82,16 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
                  scale: Optional[torch.Tensor] = None,
                  shift: Optional[torch.Tensor] = None,
                  groups: int = 1) -> torch.Tensor:
-    """Convolution with the epilogue flushed in-kernel.  x: NCHW, w: OIHW,
-    b: (NF,) per-filter bias (required when ``epilogue.bias``).
+    """Convolution with the epilogue flushed in-kernel.  x: NCHW, w: OIHW
+    (per-group channel dim when ``groups > 1``), b: (NF,) per-filter bias
+    (required when ``epilogue.bias``), scale/shift: (NF,) folded-BN
+    vectors (required when ``epilogue.scale``), residual: (N, NF, P, Q)
+    shortcut (required when ``epilogue.residual``).
 
-    On the fold impls the whole conv→bias→ReLU(→pool) chain is one kernel
-    launch and the pre-activation never reaches device memory.  Output is
-    (N, NF, P, Q), or (N, NF, P//2, Q//2) when ``epilogue.pool`` fuses the
-    2x2 max-pool.
+    On the fold impls the whole conv→bias/BN(→+shortcut)→ReLU[6](→pool)
+    chain is one kernel launch and the pre-activation never reaches device
+    memory.  Output is (N, NF, P, Q), or (N, NF, P//2, Q//2) when
+    ``epilogue.pool`` fuses the 2x2 max-pool.
     """
     _check_impl(impl)
     epi = epilogue if epilogue is not None else Epilogue(
@@ -97,8 +106,5 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
     if impl == "direct":
         y = _ref.conv2d_direct(x, w, stride, pad, groups)
         return apply_epilogue(y, b, epi, residual, scale, shift)
-    if epi.residual or epi.scale:
-        raise NotImplementedError(
-            "residual and scale epilogues are not ported to the fold "
-            "kernels yet (ROADMAP queue B items 1-2)")
-    return _folded(x, w, b, stride, pad, epi, impl, plan, groups)
+    return _folded(x, w, stride, pad, impl, plan, groups, bias=b,
+                   epilogue=epi, residual=residual, scale=scale, shift=shift)

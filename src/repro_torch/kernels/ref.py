@@ -15,24 +15,37 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     x: (N, C, X, Y)  w: (NF, C, R, S)  ->  (N, NF, P, Q)
 
     Walks the (R, S) loops explicitly and accumulates the partial sums in
-    fp32, mirroring the paper's reduction order.
+    fp32, mirroring the paper's reduction order.  With ``groups > 1`` the
+    weights are (NF, C/groups, R, S) and each filter contracts only its
+    own group's channel slice (depthwise is groups == C).
     """
-    if groups != 1:
-        raise NotImplementedError(
-            "grouped conv2d_direct is not ported yet (ROADMAP queue A "
-            "item 10: grouped and depthwise convs)")
     n, c, _, _ = x.shape
     nf, cw, r, s = w.shape
-    if c != cw:
-        raise ValueError(f"input has {c} channels, weights expect {cw}")
+    if c != cw * groups or nf % groups:
+        raise ValueError(f"input has {c} channels, weights expect "
+                         f"{cw}x{groups} (and groups={groups} must divide "
+                         f"NF={nf})")
     xp = F.pad(x, (pad, pad, pad, pad)) if pad else x
     p = (xp.shape[2] - r) // stride + 1
     q = (xp.shape[3] - s) // stride + 1
-    acc = torch.zeros((n, nf, p, q), dtype=torch.float32, device=x.device)
+    if groups == 1:
+        acc = torch.zeros((n, nf, p, q), dtype=torch.float32,
+                          device=x.device)
+        for ri in range(r):
+            for si in range(s):
+                win = xp[:, :, ri:ri + p * stride:stride,
+                         si:si + q * stride:stride]      # (N, C, P, Q)
+                acc = acc + torch.einsum("ncpq,fc->nfpq", win.float(),
+                                         w[:, :, ri, si].float())
+        return acc.to(x.dtype)
+    xg = xp.reshape(n, groups, cw, xp.shape[2], xp.shape[3])
+    wg = w.reshape(groups, nf // groups, cw, r, s)
+    acc = torch.zeros((n, groups, nf // groups, p, q), dtype=torch.float32,
+                      device=x.device)
     for ri in range(r):
         for si in range(s):
-            win = xp[:, :, ri:ri + p * stride:stride,
-                     si:si + q * stride:stride]          # (N, C, P, Q)
-            acc = acc + torch.einsum("ncpq,fc->nfpq", win.float(),
-                                     w[:, :, ri, si].float())
-    return acc.to(x.dtype)
+            win = xg[:, :, :, ri:ri + p * stride:stride,
+                     si:si + q * stride:stride]          # (N, G, Cg, P, Q)
+            acc = acc + torch.einsum("ngcpq,gfc->ngfpq", win.float(),
+                                     wg[:, :, :, ri, si].float())
+    return acc.reshape(n, nf, p, q).to(x.dtype)

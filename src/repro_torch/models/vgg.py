@@ -8,13 +8,13 @@ other entry by entry.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.core.engine import BucketCompiler, CompiledNetwork
 from repro_torch.core.graph import StreamGraph
+from repro_torch.models.common import normal, zeros
 
 __all__ = ["VGG_LAYERS", "init_params", "vgg_head", "to_graph",
            "compile_forward", "bucket_compiler", "n_classes"]
@@ -30,25 +30,11 @@ VGG_LAYERS: Tuple = (
 n_classes = 1000
 
 
-def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """Truncated normal on [-2, 2] scaled by 1/sqrt(shape[0]) — the JAX
-    package's ``TreeMaker.param`` init (other random bits, same law).  On
-    the ``meta`` device only the shape is made."""
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, device="meta")
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * (1.0 / math.sqrt(shape[0]))).to(device)
-
-
 def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
                 img: int = 224, classes: int = n_classes,
                 device: Any = "cuda") -> Dict[str, Any]:
     """Random VGG-16 parameters drawn with ``generator`` (on the
     generator's device), placed on ``device``.  Biases are zeros."""
-    def zeros(n):
-        return torch.zeros((n,), dtype=torch.float32, device=device)
-
     p: Dict[str, Any] = {}
     pools = 0
     for entry in VGG_LAYERS:
@@ -58,17 +44,17 @@ def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
         name, cin, cout = entry
         cin = max(int(cin * width_mult), 1) if cin != 3 else 3
         cout = max(int(cout * width_mult), 1)
-        p[name] = {"w": _normal(generator, (cout, cin, 3, 3), device),
-                   "b": zeros(cout)}
+        p[name] = {"w": normal(generator, (cout, cin, 3, 3), device),
+                   "b": zeros(cout, device)}
     feat = img // (2 ** pools)
     last = max(int(512 * width_mult), 1)
     fc_dim = max(int(4096 * width_mult), 8)
-    p["fc1"] = {"w": _normal(generator, (last * feat * feat, fc_dim), device),
-                "b": zeros(fc_dim)}
-    p["fc2"] = {"w": _normal(generator, (fc_dim, fc_dim), device),
-                "b": zeros(fc_dim)}
-    p["fc3"] = {"w": _normal(generator, (fc_dim, classes), device),
-                "b": zeros(classes)}
+    p["fc1"] = {"w": normal(generator, (last * feat * feat, fc_dim), device),
+                "b": zeros(fc_dim, device)}
+    p["fc2"] = {"w": normal(generator, (fc_dim, fc_dim), device),
+                "b": zeros(fc_dim, device)}
+    p["fc3"] = {"w": normal(generator, (fc_dim, classes), device),
+                "b": zeros(classes, device)}
     return p
 
 

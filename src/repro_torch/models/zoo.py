@@ -1,7 +1,8 @@
 """Registry of conv models that lower through the streaming-graph IR.
 
-This slice registers ``vgg16``; ResNet-18 and MobileNetV2 come with their
-epilogues (ROADMAP queue A item 10).
+The serving engine and the launcher look models up here by name, so none
+of them hard-codes a network: ``vgg16``, ``resnet18`` and ``mobilenetv2``
+are registered.
 """
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import dataclasses
 from typing import Callable, Dict
 
 __all__ = ["ConvModelSpec", "register_conv_model", "get_conv_model",
-           "compile_forward", "bucket_compiler"]
+           "conv_model_names", "compile_forward", "bucket_compiler"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +31,12 @@ def register_conv_model(name: str, init_params: Callable,
                          to_graph=to_graph)
     _REGISTRY[name] = spec
     return spec
+
+
+def conv_model_names():
+    """Registered model names, sorted (the launcher's --model choices)."""
+    _ensure_builtin()
+    return sorted(_REGISTRY)
 
 
 def get_conv_model(name: str) -> ConvModelSpec:
@@ -66,3 +73,10 @@ def _ensure_builtin() -> None:
     if "vgg16" not in _REGISTRY:
         from repro_torch.models import vgg
         register_conv_model("vgg16", vgg.init_params, vgg.to_graph)
+    if "resnet18" not in _REGISTRY:
+        from repro_torch.models import resnet
+        register_conv_model("resnet18", resnet.init_params, resnet.to_graph)
+    if "mobilenetv2" not in _REGISTRY:
+        from repro_torch.models import mobilenet
+        register_conv_model("mobilenetv2", mobilenet.init_params,
+                            mobilenet.to_graph)

@@ -12,8 +12,11 @@ fold-schedule engine.
 * ``ServingMetrics``: images/s, p50/p95/p99 request latency, slot
   occupancy, and the schedule cache's fold-reuse counters.
 
-The degradation ladder, admission control, chaos, watchdog, tracing and
-the mesh wait for a later slice (ROADMAP queue A item 9).
+``serving_summary`` serves a deterministic mixed-size request stream
+through any registered conv model (``models/zoo.py``) and is what
+``launch/serve.py --vision`` runs.  The degradation ladder, admission
+control, chaos, watchdog, tracing, autotuning and the mesh wait for a
+later slice (ROADMAP queue A item 9).
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import BucketCompiler, ScheduleCache
+from repro_torch.core.engine import (BucketCompiler, ScheduleCache,
+                                     resolve_execution)
 from repro_torch.obs.metrics import LogHistogram
 from repro_torch.serve.batcher import (BucketPolicy, FormedBatch,
                                        ImageBatcher, ImageRequest)
 
-__all__ = ["ServingMetrics", "VisionEngine"]
+__all__ = ["ServingMetrics", "VisionEngine", "serving_summary"]
 
 
 def _latency_hist() -> LogHistogram:
@@ -238,3 +242,52 @@ class VisionEngine:
                               - sum(self.metrics.outcomes.values())
                               - self.pending)
         return d
+
+
+def serving_summary(model: str, *, requests: int = 32, img: int = 32,
+                    width_mult: float = 0.0625, classes: int = 10,
+                    policy: str = "auto",
+                    buckets: Sequence[int] = (1, 2, 4, 8), seed: int = 0,
+                    device: Any = "cuda") -> dict:
+    """Serve a deterministic mixed-size random request stream through a
+    registered model (``models/zoo.py``) with random weights made from
+    ``seed``, and return ``metrics_dict()`` plus the ``workload`` block.
+
+    Request sizes (1 .. the widest bucket) and images come from
+    ``np.random.default_rng(seed)``; every request is submitted, then the
+    queue is drained.  Then each request's served logits are compared
+    with a direct forward of its own images through the same schedule
+    cache: the largest difference and the largest reference magnitude
+    land under ``"verify"``."""
+    from repro_torch.models.zoo import compile_forward, get_conv_model
+    spec = get_conv_model(model)
+    _, dev = resolve_execution(policy, device)     # raises without a GPU
+    gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
+    params = spec.init_params(gen.manual_seed(seed), width_mult=width_mult,
+                              img=img, classes=classes, device=dev)
+    engine = VisionEngine(params, spec.to_graph(), img=img, policy=policy,
+                          buckets=buckets, device=dev)
+    engine.warmup()
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, engine.batcher.policy.max_width + 1, requests)
+    imgs = [rng.standard_normal((int(n), 3, img, img)).astype(np.float32)
+            for n in sizes]
+    reqs = [engine.submit(im) for im in imgs]
+    engine.run()
+    d = engine.metrics_dict()
+    err = ref = 0.0
+    for req, im in zip(reqs, imgs):
+        direct = compile_forward(spec, params, img=img, batch=im.shape[0],
+                                 policy=policy, cache=engine.compiler.cache,
+                                 device=dev)
+        with torch.inference_mode():
+            want = direct(params, torch.from_numpy(im).to(dev))
+        got = torch.from_numpy(req.logits).to(dev)
+        err = max(err, float((got - want).abs().max()))
+        ref = max(ref, float(want.abs().max()))
+    d["verify"] = {"requests": len(reqs), "max_abs_err": err,
+                   "max_abs_ref": ref}
+    d["workload"] = {"model": model, "width_mult": width_mult, "img": img,
+                     "classes": classes, "requests": int(requests),
+                     "policy": policy, "seed": seed, "device": str(dev)}
+    return d

@@ -1,7 +1,9 @@
 """The port's fold conv against the JAX package's: the plain-torch fold
-loop on the CPU against the Pallas kernels in interpret mode, the fused
-conv entry point, the direct-conv oracle, the refusal of unported
-variants, and — on a card — each CUDA kernel against its plain version."""
+loops (WS, OS, depthwise) on the CPU against the Pallas kernels in
+interpret mode, with every epilogue the zoo models fuse, the fused conv
+entry point, the direct-conv oracle (grouped included), the refusal of
+unported variants, and — on a card — each CUDA kernel against its plain
+version."""
 import types
 
 import numpy as np
@@ -10,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.epilogue import Epilogue as TEpilogue  # noqa: E402
+from repro_torch.core.epilogue import apply_epilogue  # noqa: E402
 from repro_torch.core.mapping import ConvBlockPlan as TPlan  # noqa: E402
 from repro_torch.kernels import conv2d_ws as t_kern  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
@@ -45,6 +48,26 @@ FOLD_CASES = [
 ]
 DIRECT_CASES = [c[:9] for c in FOLD_CASES] + [(1, 6, 14, 14, 4, 5, 5, 1, 2)]
 
+# the epilogues ResNet-18 and MobileNetV2 fuse into the WS / OS kernels
+SC, SC6, SCR, BRR = ({"scale": True}, {"scale": True, "relu6": True},
+                     {"scale": True, "residual": True},
+                     {"bias": True, "residual": True, "relu": True})
+# every step at once: no zoo layer fuses it
+BSR6 = {"bias": True, "scale": True, "residual": True, "relu6": True}
+# (N, C, X, Y, NF, R, S, stride, pad, forced (nf_b, c_b, p_b))
+EPI_GEOMS = [
+    (2, 8, 10, 10, 12, 3, 3, 1, 1, (8, 3, 3)),       # g_c = 3, g_nf = 2
+    (2, 6, 9, 9, 10, 1, 1, 2, 0, None),              # 1x1 stride 2, odd
+]
+# depthwise: (N, C, X, Y, R, stride, pad, epilogue, forced (c_b, p_b));
+# a forced c_b that does not divide C pads the channels (c_pad > C)
+DW_CASES = [
+    (2, 8, 9, 9, 3, 1, 1, SC6, None),                # odd width
+    (2, 6, 11, 11, 3, 2, 1, SC6, (4, 3)),            # stride 2, c_pad 8
+    (1, 10, 16, 16, 3, 2, 1, ID, None),              # stride 2, even width
+    (2, 12, 8, 10, 3, 1, 1, SCR, (8, 3)),            # residual, c_pad 16
+]
+
 
 def _inputs(n, c, x, y, nf, r, s, seed=0):
     rng = np.random.default_rng(seed)
@@ -59,6 +82,35 @@ def _plan(cls, forced, nf, c):
     nf_b, c_b, p_b = forced
     return cls(nf_block=nf_b, c_block=c_b, p_block=p_b,
                grid=(-(-nf // nf_b), -(-c // c_b), 1), vmem_bytes=0)
+
+
+def _dw_plan(cls, forced, c):
+    if forced is None:
+        return None
+    c_b, p_b = forced
+    return cls(nf_block=c_b, c_block=c_b, p_block=p_b,
+               grid=(1, -(-c // c_b), 1), vmem_bytes=0, groups=c)
+
+
+def _epi_operands(epi, n, nf, p, q, seed=0):
+    """numpy bias / scale / shift / residual for an epilogue, as named
+    keyword arguments of ``conv2d_folded``."""
+    rng = np.random.default_rng(seed + 100)
+    out = {}
+    if epi.get("bias"):
+        out["bias"] = rng.standard_normal(nf).astype(np.float32)
+    if epi.get("scale"):
+        out["scale"] = (1.0 + 0.2 * rng.standard_normal(nf)).astype(
+            np.float32)
+        out["shift"] = (0.2 * rng.standard_normal(nf)).astype(np.float32)
+    if epi.get("residual"):
+        out["residual"] = rng.standard_normal((n, nf, p, q)).astype(
+            np.float32)
+    return out
+
+
+def _as(fn, operands):
+    return {k: fn(v) for k, v in operands.items()}
 
 
 @pytest.mark.parametrize("dataflow", ["weight_stationary",
@@ -79,6 +131,53 @@ def test_plain_fold_conv_matches_pallas_interpret(jx, case, dataflow):
         dataflow=dataflow, epilogue=TEpilogue(**epi),
         bias=torch.from_numpy(b) if bias else None)
     assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("epi", [SC, SC6, SCR, BRR, BSR6],
+                         ids=["scale", "scale+relu6", "scale+residual",
+                              "bias+residual+relu",
+                              "bias+scale+residual+relu6"])
+@pytest.mark.parametrize("geom", EPI_GEOMS, ids=["3x3_gc3", "1x1_s2"])
+def test_plain_epilogues_match_pallas_interpret(jx, geom, epi, dataflow):
+    """The scale / ReLU6 / residual epilogues of the WS / OS walks."""
+    n, c, x_, y_, nf, r, s, stride, pad, forced = geom
+    x, w, _ = _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, nf, r, s, seed=8)
+    p, q = (x_ + 2 * pad - r) // stride + 1, (y_ + 2 * pad - s) // stride + 1
+    ops = _epi_operands(epi, n, nf, p, q)
+    want = jx.kern.conv2d_folded(
+        jx.jnp.asarray(x), jx.jnp.asarray(w), stride=stride,
+        plan=_plan(jx.Plan, forced, nf, c), dataflow=dataflow,
+        interpret=True, epilogue=jx.Epilogue(**epi),
+        **_as(jx.jnp.asarray, ops))
+    got = t_kern.conv2d_folded(
+        torch.from_numpy(x), torch.from_numpy(w), stride=stride,
+        plan=_plan(TPlan, forced, nf, c), dataflow=dataflow,
+        epilogue=TEpilogue(**epi), **_as(torch.from_numpy, ops))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("case", DW_CASES)
+def test_plain_depthwise_matches_pallas_interpret(jx, case):
+    """The depthwise walk against ``_dw_kernel`` in interpret mode."""
+    n, c, x_, y_, r, stride, pad, epi, forced = case
+    x, w, _ = _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, c, r, r, seed=9)
+    w = np.ascontiguousarray(w[:, :1])                     # (C, 1, R, S)
+    p, q = (x_ + 2 * pad - r) // stride + 1, (y_ + 2 * pad - r) // stride + 1
+    ops = _epi_operands(epi, n, c, p, q)
+    want = jx.kern.conv2d_folded(
+        jx.jnp.asarray(x), jx.jnp.asarray(w), stride=stride,
+        plan=_dw_plan(jx.Plan, forced, c), dataflow="depthwise",
+        interpret=True, epilogue=jx.Epilogue(**epi), groups=c,
+        **_as(jx.jnp.asarray, ops))
+    got = t_kern.conv2d_folded(
+        torch.from_numpy(x), torch.from_numpy(w), stride=stride,
+        plan=_dw_plan(TPlan, forced, c), dataflow="depthwise",
+        epilogue=TEpilogue(**epi), groups=c, **_as(torch.from_numpy, ops))
+    assert tuple(got.shape) == tuple(want.shape) == (n, c, p, q)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -112,6 +211,29 @@ def test_conv2d_direct_matches_reference_package(jx, case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# (N, C, H, W, NF, groups, R, stride, pad)
+GROUPED_DIRECT_CASES = [
+    (2, 8, 13, 13, 16, 4, 3, 1, 1),      # grouped 3x3, odd width
+    (2, 6, 8, 8, 18, 2, 1, 1, 0),        # grouped 1x1
+    (2, 16, 9, 9, 16, 16, 3, 1, 1),      # depthwise, odd width
+    (2, 10, 15, 15, 10, 10, 3, 2, 1),    # depthwise stride 2, odd width
+    (1, 24, 16, 16, 24, 24, 3, 2, 1),    # depthwise stride 2, even width
+]
+
+
+@pytest.mark.parametrize("case", GROUPED_DIRECT_CASES)
+def test_grouped_conv2d_direct_matches_reference_package(jx, case):
+    n, c, h, w_, nf, g, r, stride, pad = case
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((n, c, h, w_)).astype(np.float32)
+    w = rng.standard_normal((nf, c // g, r, r)).astype(np.float32)
+    want = jx.ref.conv2d_direct(jx.jnp.asarray(x), jx.jnp.asarray(w),
+                                stride, pad, g)
+    got = t_ref.conv2d_direct(torch.from_numpy(x), torch.from_numpy(w),
+                              stride, pad, g)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_schedule_cache_binds_and_memoizes_the_fold_kernel():
     from repro_torch.core.engine import ScheduleCache
     from repro_torch.core.loopnest import ConvLoopNest
@@ -128,33 +250,61 @@ def test_schedule_cache_binds_and_memoizes_the_fold_kernel():
                                **TOL)
 
 
+REFUSED = ("psum", "groups", "int8", "psum_spill")
+
+
 @pytest.mark.parametrize("what", ["depthwise", "psum", "groups", "int8",
                                   "residual", "scale", "relu6", "psum_spill",
                                   "direct_groups", "fused_residual"])
 def test_unported_variants_raise(what):
-    x = torch.zeros(1, 4, 6, 6)
-    w = torch.zeros(4, 4, 3, 3)
+    """The variants still to port raise, naming their ROADMAP item.  The
+    ones ported since (depthwise, the residual / scale / ReLU6 epilogues,
+    grouped direct conv) now match the plain reference: the direct conv
+    and the reference epilogue, within TOL (fp32, two sum orders)."""
+    x, w, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 6, 6, 4, 3, 3,
+                                                    seed=11))
+    wdw, wg = w[:, :1].contiguous(), w[:, :2].contiguous()
+    res = torch.from_numpy(_inputs(1, 4, 4, 4, 4, 1, 1, seed=12)[0])
+    scale, shift = torch.linspace(0.5, 1.5, 4), torch.linspace(-1, 1, 4)
     fold = t_kern.conv2d_folded
+    direct = t_ref.conv2d_direct
     calls = {
-        "depthwise": lambda: fold(x, torch.zeros(4, 1, 3, 3), groups=4,
-                                  dataflow="depthwise"),
+        "depthwise": lambda: (
+            fold(x, wdw, groups=4, dataflow="depthwise"),
+            direct(x, wdw, groups=4)),
         "psum": lambda: fold(x, w, dataflow="weight_stationary_psum"),
-        "groups": lambda: fold(x, torch.zeros(4, 2, 3, 3), groups=2),
+        "groups": lambda: fold(x, wg, groups=2),
         "int8": lambda: fold(x.to(torch.int8), w.to(torch.int8)),
-        "residual": lambda: fold(x, w, epilogue=TEpilogue(residual=True)),
-        "scale": lambda: fold(x, w, epilogue=TEpilogue(scale=True)),
-        "relu6": lambda: fold(x, w, epilogue=TEpilogue(relu6=True)),
+        "residual": lambda: (
+            fold(x, w, epilogue=TEpilogue(residual=True), residual=res),
+            direct(x, w) + res),
+        "scale": lambda: (
+            fold(x, w, epilogue=TEpilogue(scale=True), scale=scale,
+                 shift=shift),
+            apply_epilogue(direct(x, w), None, TEpilogue(scale=True),
+                           scale=scale, shift=shift)),
+        "relu6": lambda: (
+            fold(x, w, epilogue=TEpilogue(relu6=True)),
+            torch.clamp(direct(x, w), 0.0, 6.0)),
         # an identity-epilogue WS layer whose accumulator spills lands on
         # the unported psum staging
         "psum_spill": lambda: fold(torch.zeros(1, 1, 1026, 258),
                                    torch.zeros(256, 1, 3, 3)),
-        "direct_groups": lambda: t_ref.conv2d_direct(
-            x, torch.zeros(4, 2, 3, 3), groups=2),
-        "fused_residual": lambda: t_ops.conv2d_fused(
-            x, w, residual=torch.zeros(1, 4, 4, 4), impl="fold_ws"),
+        "direct_groups": lambda: (
+            direct(x, wg, groups=2),
+            torch.cat([direct(x[:, :2], wg[:2]), direct(x[:, 2:], wg[2:])],
+                      dim=1)),
+        "fused_residual": lambda: (
+            t_ops.conv2d_fused(x, w, residual=res, impl="fold_ws"),
+            t_ops.conv2d_fused(x, w, residual=res, impl="direct")),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calls[what]()
+    if what in REFUSED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            calls[what]()
+        return
+    got, want = calls[what]()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 # --------------------------------------------------------------------------
@@ -188,4 +338,54 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, dataflow):
     assert t_kern.launch_counts()[name] == before + 1
     want = t_kern.conv2d_folded_plain(x, w, **kw)
     tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("epi", [SC, SC6, SCR, BRR, BSR6],
+                         ids=["scale", "scale+relu6", "scale+residual",
+                              "bias+residual+relu",
+                              "bias+scale+residual+relu6"])
+@pytest.mark.parametrize("geom", EPI_GEOMS, ids=["3x3_gc3", "1x1_s2"])
+def test_cuda_epilogues_match_plain_version(cuda_device, geom, epi,
+                                            dataflow):
+    """The WS / OS kernels' new epilogue steps against the plain walk:
+    within 1e-4·max|plain| (FFMA against separate multiply and add)."""
+    n, c, x_, y_, nf, r, s, stride, pad, forced = geom
+    x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
+               _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, nf, r, s, seed=8))
+    p, q = (x_ + 2 * pad - r) // stride + 1, (y_ + 2 * pad - s) // stride + 1
+    kw = dict(stride=stride, plan=_plan(TPlan, forced, nf, c),
+              dataflow=dataflow, epilogue=TEpilogue(**epi),
+              **_as(lambda a: torch.from_numpy(a).to(cuda_device),
+                    _epi_operands(epi, n, nf, p, q)))
+    got = t_kern.conv2d_folded(x, w, **kw)
+    want = t_kern.conv2d_folded_plain(x, w, **kw)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES)
+def test_cuda_dw_kernel_matches_plain_version(cuda_device, case):
+    """``fold_conv_dw`` against the plain depthwise walk: within
+    1e-4·max|plain| (FFMA against separate multiply and add)."""
+    n, c, x_, y_, r, stride, pad, epi, forced = case
+    x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
+               _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, c, r, r, seed=9))
+    w = w[:, :1].contiguous()
+    p, q = (x_ + 2 * pad - r) // stride + 1, (y_ + 2 * pad - r) // stride + 1
+    kw = dict(stride=stride, plan=_dw_plan(TPlan, forced, c),
+              dataflow="depthwise", epilogue=TEpilogue(**epi), groups=c,
+              **_as(lambda a: torch.from_numpy(a).to(cuda_device),
+                    _epi_operands(epi, n, c, p, q)))
+    before = t_kern.launch_counts()["fold_conv_dw"]
+    got = t_kern.conv2d_folded(x, w, **kw)
+    torch.cuda.synchronize()
+    assert t_kern.launch_counts()["fold_conv_dw"] == before + 1
+    want = t_kern.conv2d_folded_plain(x, w, **kw)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert got.shape == want.shape == (n, c, p, q)
     assert (got - want).abs().max().item() <= tol

@@ -38,8 +38,9 @@ def test_port_imports_where_jax_cannot_load():
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
-        "from repro_torch.models import vgg, zoo\n"
+        "from repro_torch.models import mobilenet, resnet, vgg, zoo\n"
         "from repro_torch.serve import vision\n"
+        "from repro_torch.launch import serve\n"
         "from repro_torch.kernels import build, conv2d_ws, ops\n"
         "from repro_torch import convert\n"
         "assert not [m for m in sys.modules\n"
@@ -55,20 +56,33 @@ def test_port_imports_where_jax_cannot_load():
 
 
 @pytest.mark.parametrize("entry", ["compile_forward", "vision_engine",
-                                   "bucket_compiler"])
+                                   "bucket_compiler", "resnet18",
+                                   "mobilenetv2", "serving_summary",
+                                   "launcher"])
 def test_cuda_without_a_gpu_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
-    from repro_torch.models import vgg
-    from repro_torch.serve.vision import VisionEngine
+    from repro_torch.launch.serve import main
+    from repro_torch.models import mobilenet, resnet, vgg
+    from repro_torch.serve.vision import VisionEngine, serving_summary
     params = vgg.init_params(torch.Generator(), width_mult=0.0625, img=32,
                              classes=10, device="cpu")
+
+    def zoo_model(module):
+        p = module.init_params(torch.Generator(), width_mult=0.0625,
+                               img=32, device="cpu")
+        return module.compile_forward(p, img=32)
+
     calls = {
         "compile_forward": lambda: vgg.compile_forward(params, img=32),
         "vision_engine": lambda: VisionEngine(params, vgg.to_graph(),
                                               img=32),
         "bucket_compiler": lambda: vgg.bucket_compiler(
             params, img=32).network_for(1),
+        "resnet18": lambda: zoo_model(resnet),
+        "mobilenetv2": lambda: zoo_model(mobilenet),
+        "serving_summary": lambda: serving_summary("mobilenetv2"),
+        "launcher": lambda: main(["--vision", "--model", "resnet18"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

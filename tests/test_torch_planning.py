@@ -159,3 +159,67 @@ def test_fold_kernel_spec_identical_off_the_vgg_path(x_shape, w_shape, groups,
         groups=groups)) == _spec_fields(t_kern.fold_kernel_spec(
             x_shape, w_shape, dataflow=dataflow, epilogue=TEpilogue(**epi),
             groups=groups))
+
+
+def _zoo_compiled(model, width):
+    """Planning only: the JAX package's and the port's compiled networks
+    for a zoo model at img 32, from parameter shapes alone."""
+    import importlib
+    jmod = importlib.import_module(f"repro.models.{model}")
+    tmod = importlib.import_module(f"repro_torch.models.{model}")
+    jparams = jax.eval_shape(
+        lambda k: jmod.init_params(k, width_mult=width, img=32, classes=10),
+        jax.random.PRNGKey(0))
+    jnet = jmod.compile_forward(jparams, img=32, batch=1,
+                                policy="pallas", verify=False)
+    tparams = tmod.init_params(torch.Generator(), width_mult=width, img=32,
+                               classes=10, device="meta")
+    tnet = tmod.compile_forward(tparams, img=32, batch=1, policy="kernel",
+                                device="meta")
+    return jnet, tnet, tmod
+
+
+@pytest.mark.parametrize("model,width,reuse", [
+    ("mobilenet", 0.0625, (52, 27, 25)), ("mobilenet", 1.0, (52, 30, 22)),
+    ("resnet", 0.0625, (20, 11, 9)), ("resnet", 1.0, (20, 11, 9))])
+def test_zoo_schedule_tables_and_launch_specs_identical(model, width, reuse):
+    """Layer by layer: schedule key, dataflow, plan and costs, the fused
+    epilogue, and the fold kernel spec at the layer's own shape."""
+    jnet, tnet, tmod = _zoo_compiled(model, width)
+    fr = tnet.fold_reuse()
+    assert (fr["conv_layers"], fr["distinct_schedules"], fr["hits"]) == \
+        reuse == (tmod.n_convs(), reuse[1], reuse[2])
+    assert jnet.fold_reuse() == fr
+    assert len(jnet.layer_schedules) == len(tnet.layer_schedules)
+    for (jn, js), (tn, ts) in zip(jnet.layer_schedules, tnet.layer_schedules):
+        assert jn == tn and str(js.key) == str(ts.key)
+        assert (js.dataflow, _plan(js.plan), js.costs) == \
+            (ts.dataflow, _plan(ts.plan), ts.costs)
+    # the port's describe() lists every layer with its key and dataflow
+    rows = tnet.describe().splitlines()[1:]
+    assert [r.split()[:3] for r in rows] == \
+        [[n, str(s.key), s.dataflow] for n, s in tnet.layer_schedules]
+    jepis = {nd.name: nd.epilogue for nd in jnet.graph.nodes
+             if nd.op == "conv"}
+    nests = dict(tnet.layer_nests)
+    for tnd in (nd for nd in tnet.graph.nodes if nd.op == "conv"):
+        assert str(jepis[tnd.name]) == str(tnd.epilogue)
+        sched = dict(tnet.layer_schedules)[tnd.name]
+        cv = nests[tnd.name]
+        xs = (1, cv.c, cv.x + 2 * cv.pad, cv.y + 2 * cv.pad)
+        ws = (cv.nf, cv.c // cv.groups, cv.r, cv.s)
+        kw = dict(stride=cv.stride, plan=sched.plan,
+                  dataflow=sched.dataflow, groups=cv.groups)
+        assert _spec_fields(j_kern.fold_kernel_spec(
+            xs, ws, epilogue=jepis[tnd.name], **kw)) == \
+            _spec_fields(t_kern.fold_kernel_spec(xs, ws,
+                                                 epilogue=tnd.epilogue, **kw))
+    if (model, width) == ("mobilenet", 1.0):
+        # b11_dw .. b16_dw: c_block 512 on 576 or 960 channels pads to 1024
+        for i in range(11, 17):
+            cv = nests[f"b{i}_dw"]
+            spec = t_kern.fold_kernel_spec(
+                (1, cv.c, cv.x + 2, cv.y + 2), (cv.nf, 1, 3, 3),
+                stride=cv.stride, plan=dict(tnet.layer_schedules)[
+                    f"b{i}_dw"].plan, dataflow="depthwise", groups=cv.c)
+            assert cv.c in (576, 960) and spec.c_pad == 1024
