@@ -28,12 +28,30 @@ Phases (any failed check raises, and the script exits non-zero):
 8. Serving full-width MobileNetV2 through ``serving_summary`` (what
    ``python -m repro_torch.launch.serve --vision`` runs) over buckets
    (1, 2, 4, 8): none lost, served logits against a direct forward.
+9. Int8 kernels: each int8 kernel (WS, OS, depthwise) bitwise against its
+   plain version on every requant epilogue the zoo fuses, the psum-staging
+   kernel against its plain version (a forced WS spill included), then
+   each int8 kernel timed per layer (device time) beside the fp32 kernel,
+   the plain version and its int8 bound, and psum staging against the
+   in-kernel WS reduction on VGG-16's layers (the paper's Fig. 5).
+10. Int8 forwards at full width: VGG-16 at 224 and ResNet-18 and
+    MobileNetV2 at 32, batch 1 and 4, one calibrated recipe per model:
+    launches per forward equal to the fp32 ones (under the int8 kernels'
+    names), logits against the int8 reference policy and against the fp32
+    forward (top-1 agreement on a batch of 16).
+11. Int8 serving: MobileNetV2 through ``serving_summary(precision=
+    "int8")``: none lost, served logits against a direct forward, the
+    int8 trunk bitwise-identical across the bucket widths.
+12. The psum path: ``ops.conv2d(impl="fold_ws_psum")`` over VGG-16's 13
+    layers at 224, batch 1, and the WS spill of an unfused layer, each
+    against the plain walk on its own inputs and plan.
 
-The kernel launch counts are set to 0 just before phase 3 and read just
-after phase 8: that run is the main path.  The second-to-last line is a
-JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.  Details (per-layer times, serving
-metrics, the compiler's resource report) go to ``build/chip_smoke.json``.
+Each main path is driven with the kernel launch counts set to 0 just
+before it and read just after: phases 3-8 (fp32), 10-11 (int8), 12
+(psum).  The second-to-last line is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
+(per-layer times, serving metrics, the compiler's resource report) go to
+``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -46,13 +64,18 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense int8 on
+# the tensor cores, HBM3 rate
 FP32_PEAK = 67e12
+INT8_PEAK = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 SEED = 0
 TOL_KERNEL = 1e-4      # kernel vs plain: two fp32 sums in different orders
 TOL_MODEL = 1e-4       # kernel path vs reference policy, over the network
 TOL_SERVE = 1e-5       # served vs direct: the same kernels, cuBLAS head
+TOL_INT8_REF = 1e-5    # int8 kernel path vs int8 reference, when not bitwise
+# int8 vs fp32 forward (the JAX package's gate, tests/test_quant.py)
+INT8_TOP1, INT8_SPREAD = 0.98, 0.15
 
 
 def check(cond: bool, msg: str) -> None:
@@ -103,12 +126,12 @@ def time_graph_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def bound(flops, nbytes):
-    """(bound ms, op ms, byte ms) of one call: its fp32 operations over the
-    FFMA peak, its bytes (each operand read once, the output written once;
-    the input without its zero halo, which no conv has to read) over the
-    memory rate."""
-    op_ms, byte_ms = 1e3 * flops / FP32_PEAK, 1e3 * nbytes / HBM_BYTES_PER_S
+def bound(flops, nbytes, peak=FP32_PEAK):
+    """(bound ms, op ms, byte ms) of one call: its operations over the peak
+    rate of their type (fp32 FFMA by default), its bytes (each operand read
+    once, the output written once; the input without its zero halo, which
+    no conv has to read) over the memory rate."""
+    op_ms, byte_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BYTES_PER_S
     return max(op_ms, byte_ms), op_ms, byte_ms
 
 
@@ -263,7 +286,8 @@ def phase_kernels(torch, dev):
                      plan=plan, dataflow="depthwise", epilogue=epi,
                      groups=c, **epi_operands(torch, gen, dev, epi, n, c,
                                               p, q))
-    return errs
+    # the same geometries serve the int8 phase
+    return errs, cases, dw_cases
 
 
 def vgg_layer_specs(img: int, batch: int):
@@ -400,6 +424,13 @@ def summarize(rows, key):
                          else "bytes")}
 
 
+def launches_of(**counts):
+    """Launches per kernel name, every kernel the library has, zero unless
+    given."""
+    from repro_torch.kernels.conv2d_ws import KERNELS
+    return dict(dict.fromkeys(KERNELS, 0), **counts)
+
+
 def forward_counts(torch, net, params, x):
     from repro_torch.kernels import conv2d_ws as cw
     before = cw.launch_counts()
@@ -438,8 +469,7 @@ def phase_model_224(torch, dev, params):
         x = x4[:b]
         y, counts = forward_counts(torch, net, params, x)
         print(f"[model224] batch {b}: launches {counts}")
-        check(counts == {"fold_conv_ws": 13, "fold_conv_os": 0,
-                         "fold_conv_dw": 0},
+        check(counts == launches_of(fold_conv_ws=13),
               f"batch {b}: expected 13 WS launches per forward")
         ref = vgg.compile_forward(params, img=224, batch=b,
                                   policy="reference", device=dev)
@@ -476,8 +506,7 @@ def phase_model_32(torch, dev):
     print(net.describe())
     y, counts = forward_counts(torch, net, params, x)
     print(f"[model32] batch 4: launches {counts}")
-    check(counts == {"fold_conv_ws": 2, "fold_conv_os": 11,
-                     "fold_conv_dw": 0},
+    check(counts == launches_of(fold_conv_ws=2, fold_conv_os=11),
           "expected 2 WS + 11 OS launches per forward at 32x32")
     ref = vgg.compile_forward(params, img=32, batch=4, policy="reference",
                               device=dev)
@@ -568,7 +597,7 @@ def phase_mobilenet(torch, dev):
     x4 = torch.randn(4, 3, 32, 32, device=dev, generator=gen)
     out, nets = model_forwards(
         torch, dev, mobilenet, params, x4,
-        {"fold_conv_ws": 7, "fold_conv_os": 28, "fold_conv_dw": 17},
+        launches_of(fold_conv_ws=7, fold_conv_os=28, fold_conv_dw=17),
         (52, 30, 22), "mobilenetv2")
     unfused = mobilenet.compile_forward(params, img=32, batch=4,
                                         fuse_epilogues=False,
@@ -599,7 +628,7 @@ def phase_resnet(torch, dev):
     x4 = torch.randn(4, 3, 32, 32, device=dev, generator=gen)
     out, _ = model_forwards(
         torch, dev, resnet, params, x4,
-        {"fold_conv_ws": 5, "fold_conv_os": 15, "fold_conv_dw": 0},
+        launches_of(fold_conv_ws=5, fold_conv_os=15),
         (20, 11, 9), "resnet18")
     return out
 
@@ -627,6 +656,451 @@ def phase_serving_mobilenet(torch, dev):
     return d
 
 
+# --------------------------------------------------------------------------
+# int8 and psum staging
+# --------------------------------------------------------------------------
+
+def spill_plan():
+    """The schedule plan of VGG-16's conv1_2 geometry (64 -> 64, 3x3) at
+    288x288, batch 1: on it a WS layer with an identity epilogue keeps
+    nf_b * p_pad * q * 4 = 20.25 MiB of partial sums, over
+    WS_ACC_BYTES_LIMIT, and spills to psum staging."""
+    from repro_torch.core.engine import ScheduleCache
+    from repro_torch.core.loopnest import ConvLoopNest
+    return ScheduleCache().schedule_for(ConvLoopNest(
+        n=1, nf=64, c=64, r=3, s=3, x=288, y=288, stride=1, pad=1)).plan
+
+
+def int8_operands(torch, gen, dev, x, w, epi, n, nf, p, q):
+    """Quantize a layer's fp32 operands as ``conv2d_int8`` does and build
+    its requant vectors: returns (x int8, w int8, keyword arguments of
+    ``conv2d_folded``)."""
+    from repro_torch.core import quant
+    ops = epi_operands(torch, gen, dev, epi, n, nf, p, q)
+    xs = quant.act_scale(x)
+    wq, w_scale = quant.quantize_weight(w)
+    scale, shift = quant.requant_affine(
+        w_scale * torch.tensor(xs, device=dev), epi, ops.pop("bias", None),
+        ops.pop("scale", None), ops.pop("shift", None))
+    return quant.quantize_act(x, xs), wq, dict(
+        epilogue=quant.requant_epilogue(epi), scale=scale, shift=shift,
+        **ops)
+
+
+def check_int8_kernel(torch, cw, name, x, w, what, **kw):
+    """One launch of an int8 kernel against its plain version on the same
+    inputs: bitwise (exact int32 sums, the flush rounded step by step)."""
+    before = cw.launch_counts()[name]
+    got = cw.conv2d_folded(x, w, **kw)
+    torch.cuda.synchronize()
+    check(cw.launch_counts()[name] == before + 1, f"{name} did not launch")
+    want = cw.conv2d_folded_plain(x, w, **kw)
+    err = (got - want).abs().max().item()
+    print(f"[int8 kernels] {name} {what} epi={kw['epilogue']} "
+          f"bitwise={torch.equal(got, want)} max_abs_err={err:.3e}")
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"{name} is not bitwise its plain version")
+    return err
+
+
+def phase_int8_kernels(torch, dev, cases, dw_cases):
+    """The int8 WS / OS / depthwise kernels bitwise against their plain
+    versions on the fp32 phase's geometries, each epilogue in its requant
+    form; the psum kernel within TOL_KERNEL·max(1, max|plain|)."""
+    from repro_torch.core.mapping import ConvBlockPlan
+    from repro_torch.kernels import conv2d_ws as cw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    errs = dict.fromkeys(("fold_conv_ws_i8", "fold_conv_os_i8",
+                          "fold_conv_dw_i8", "fold_conv_psum"), 0.0)
+    for (n, c, h, w_, nf, r, s, st, pad, epi, plan) in cases:
+        x = torch.randn(n, c, h, w_, device=dev, generator=gen)
+        w = torch.randn(nf, c, r, s, device=dev, generator=gen)
+        p, q = (h + 2 * pad - r) // st + 1, (w_ + 2 * pad - s) // st + 1
+        xq, wq, kw = int8_operands(torch, gen, dev, x, w, epi, n, nf, p, q)
+        xq = torch.nn.functional.pad(xq, (pad, pad, pad, pad))
+        for name, df in (("fold_conv_ws_i8", "weight_stationary"),
+                         ("fold_conv_os_i8", "output_stationary")):
+            errs[name] = max(errs[name], check_int8_kernel(
+                torch, cw, name, xq, wq,
+                f"n={n} c={c} {h}x{w_} nf={nf} {r}x{s}/s{st}", stride=st,
+                plan=plan, dataflow=df, **kw))
+    for (n, c, h, w_, st, epi, c_b) in dw_cases:
+        x = torch.randn(n, c, h, w_, device=dev, generator=gen)
+        w = torch.randn(c, 1, 3, 3, device=dev, generator=gen)
+        p, q = (h - 1) // st + 1, (w_ - 1) // st + 1
+        plan = None if c_b is None else ConvBlockPlan(
+            nf_block=c_b, c_block=c_b, p_block=4, grid=(1, -(-c // c_b), 1),
+            vmem_bytes=0, groups=c)
+        xq, wq, kw = int8_operands(torch, gen, dev, x, w, epi, n, c, p, q)
+        errs["fold_conv_dw_i8"] = max(errs["fold_conv_dw_i8"],
+                                      check_int8_kernel(
+            torch, cw, "fold_conv_dw_i8",
+            torch.nn.functional.pad(xq, (1, 1, 1, 1)), wq,
+            f"n={n} c={c} {h}x{w_} 3x3/s{st}", stride=st, plan=plan,
+            dataflow="depthwise", groups=c, **kw))
+    # psum staging: forced g_c > 1 plans, and the WS spill of an
+    # identity-epilogue layer
+    psum_cases = [
+        (3, 40, 18, 18, 30, "weight_stationary_psum",
+         ConvBlockPlan(nf_block=24, c_block=16, p_block=5, grid=(2, 3, 4),
+                       vmem_bytes=0)),
+        (3, 33, 9, 7, 13, "weight_stationary_psum",
+         ConvBlockPlan(nf_block=8, c_block=17, p_block=3, grid=(2, 2, 3),
+                       vmem_bytes=0)),
+        (1, 256, 28, 28, 256, "weight_stationary_psum", None),
+        (1, 64, 288, 288, 64, "weight_stationary", spill_plan()),
+    ]
+    for (n, c, h, w_, nf, df, plan) in psum_cases:
+        x = torch.randn(n, c, h + 2, w_ + 2, device=dev, generator=gen)
+        w = torch.randn(nf, c, 3, 3, device=dev, generator=gen)
+        spec = cw.fold_kernel_spec(tuple(x.shape), tuple(w.shape), plan=plan,
+                                   dataflow=df)
+        check(spec.dataflow == "weight_stationary_psum",
+              f"{df} n={n} c={c} {h}x{w_} did not land on psum staging")
+        what = (f"n={n} c={c} {h}x{w_} nf={nf} g_c={spec.cg_folds}"
+                + (" (WS spill: VGG-16 conv1_2 at 288)"
+                   if df == "weight_stationary" else ""))
+        check_kernel(torch, cw, "fold_conv_psum", x, w, errs, what,
+                     plan=plan, dataflow=df)
+    return errs
+
+
+def int8_bound(n, nf, cg, rs, p, q, x_elems, w_elems, vec, res, out):
+    """The int8 layer bound: ops over the dense int8 tensor-core peak;
+    bytes with x and w at one byte, vector columns, shortcut and output at
+    four."""
+    return bound(2.0 * n * nf * cg * rs * p * q,
+                 1.0 * (x_elems + w_elems) + 4.0 * (vec + res + out),
+                 INT8_PEAK)
+
+
+def time_int8_layers(torch, dev, layers, reps):
+    """Each conv of ``layers`` (``model_layers`` rows) at its main-path
+    shape: the int8 kernel, the fp32 kernel and the int8 plain version as
+    device time (CUDA-graph replay of the bare launch on prepared
+    operands), with the int8 bound.  PyTorch has no int8 convolution on
+    CUDA, so there is no library time."""
+    from repro_torch.kernels import conv2d_ws as cw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows = []
+    for name, sched, cv, epi in layers:
+        pad = cv.pad
+        x = torch.randn(cv.n, cv.c, cv.x, cv.y, device=dev, generator=gen)
+        w = torch.randn(cv.nf, cv.c // cv.groups, cv.r, cv.s, device=dev,
+                        generator=gen)
+        xq, wq, kw = int8_operands(torch, gen, dev, x, w, epi, cv.n, cv.nf,
+                                   cv.p, cv.q)
+        xq = torch.nn.functional.pad(xq, (pad, pad, pad, pad))
+        kw.update(stride=cv.stride, plan=sched.plan, dataflow=sched.dataflow,
+                  groups=cv.groups)
+        row = {"layer": name, "batch": cv.n, "h": cv.x, "c": cv.c,
+               "nf": cv.nf, "rs": f"{cv.r}x{cv.s}", "stride": cv.stride,
+               "groups": cv.groups, "dataflow": sched.dataflow,
+               "epilogue": str(kw["epilogue"])}
+        spec, *prepared = cw.prepare(
+            xq, wq, cv.stride, sched.plan, sched.dataflow, None,
+            kw["epilogue"], cv.groups, kw.get("residual"), kw["scale"],
+            kw["shift"])
+        launch = cw.LAUNCHERS[spec.dataflow]
+        row["ms"] = time_graph_ms(torch, lambda: launch(spec, *prepared),
+                                  reps)
+        row["plain_ms"] = time_graph_ms(
+            torch, lambda: cw.conv2d_folded_plain(xq, wq, **kw), 1)
+        # the fp32 kernel as the fp32 forward runs it: its own epilogue
+        xf = torch.nn.functional.pad(x, (pad, pad, pad, pad))
+        ops32 = epi_operands(torch, gen, dev, epi, cv.n, cv.nf, cv.p, cv.q)
+        spec32, *prep32 = cw.prepare(
+            xf, w, cv.stride, sched.plan, sched.dataflow, ops32.get("bias"),
+            epi, cv.groups, ops32.get("residual"), ops32.get("scale"),
+            ops32.get("shift"))
+        row["fp32_ms"] = time_graph_ms(
+            torch, lambda: launch(spec32, *prep32), reps)
+        row["library_ms"] = None
+        out = launch(spec, *prepared)
+        out_elems = cv.n * cv.nf * spec.p_valid * spec.q_valid
+        check(out.shape[0] == cv.n, "int8 timing launch gave no output")
+        row["bound_ms"], row["op_ms"], row["byte_ms"] = int8_bound(
+            cv.n, cv.nf, cv.c // cv.groups, cv.r * cv.s, cv.p, cv.q,
+            cv.n * cv.c * cv.x * cv.y, w.numel(), 2 * cv.nf,
+            out_elems if kw["epilogue"].residual else 0, out_elems)
+        rows.append(row)
+    return rows
+
+
+def summarize_int8(rows):
+    keys = ("ms", "fp32_ms", "plain_ms", "bound_ms", "op_ms", "byte_ms")
+    tot = {k: sum(r[k] for r in rows) for k in keys}
+    return {"ms": tot["ms"], "fp32_ms": tot["fp32_ms"],
+            "plain_ms": tot["plain_ms"], "library_ms": None,
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["op_ms"] >= tot["byte_ms"]
+                         else "bytes")}
+
+
+def time_psum_vs_ws(torch, dev, layers, reps):
+    """The paper's Fig. 5 comparison on VGG-16's layers at 224, batch 1,
+    identity epilogue: the psum-staging kernel alone and with its
+    ``torch.sum`` over the depth folds, against the in-kernel WS reduction
+    on the same plan (device time), with the psum kernel's bound (fp32
+    operations; bytes of x, w and the staging buffer written once).  The
+    schedules at 224 have one depth fold each, so every layer with C >= 64
+    is timed again with its channels cut into 4 depth folds (``gc4_*``),
+    as the JAX package's kernel benchmark forces g_c > 1."""
+    import dataclasses
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.kernels import conv2d_ws as cw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rows = []
+    for name, sched, _, batch, h in layers:
+        cv = sched.nest
+        x = torch.randn(batch, cv.c, h + 2, h + 2, device=dev, generator=gen)
+        w = torch.randn(cv.nf, cv.c, 3, 3, device=dev, generator=gen)
+        spec, *ops = cw.prepare(x, w, 1, sched.plan, "weight_stationary_psum",
+                                None, Epilogue(), 1, None, None, None)
+        ws_spec, *ws_ops = cw.prepare(x, w, 1, sched.plan,
+                                      "weight_stationary", None, Epilogue(),
+                                      1, None, None, None)
+        row = {"layer": name, "h": h, "c": cv.c, "nf": cv.nf,
+               "g_c": spec.cg_folds}
+        row["ms"] = time_graph_ms(
+            torch, lambda: cw.launch_psum(spec, *ops), reps)
+        row["with_sum_ms"] = time_graph_ms(
+            torch, lambda: cw.launch_psum(spec, *ops).sum(dim=0), reps)
+        row["ws_ms"] = time_graph_ms(
+            torch, lambda: cw.launch_ws(ws_spec, *ws_ops), reps)
+        row["plain_ms"] = time_graph_ms(
+            torch, lambda: cw.conv2d_folded_plain(
+                x, w, plan=sched.plan, dataflow="weight_stationary_psum"), 1)
+        import torch.nn.functional as F
+        xin = x[:, :, 1:-1, 1:-1].contiguous()
+        row["library_ms"] = time_graph_ms(
+            torch, lambda: F.conv2d(xin, w, padding=1), reps)
+        staging = 1
+        for d in spec.output.array_shape:
+            staging *= d
+        row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
+            2.0 * batch * cv.nf * cv.c * 9 * h * h,
+            4.0 * (batch * cv.c * h * h + w.numel() + staging))
+        if cv.c >= 64:
+            plan4 = dataclasses.replace(
+                sched.plan, c_block=cv.c // 4,
+                grid=(sched.plan.grid[0], 4, sched.plan.grid[2]))
+            s4, *o4 = cw.prepare(x, w, 1, plan4, "weight_stationary_psum",
+                                 None, Epilogue(), 1, None, None, None)
+            w4, *wo4 = cw.prepare(x, w, 1, plan4, "weight_stationary", None,
+                                  Epilogue(), 1, None, None, None)
+            check(s4.cg_folds == 4 and w4.cg_folds == 4,
+                  f"{name}: the forced plan has {s4.cg_folds} depth folds")
+            row["gc4_ms"] = time_graph_ms(
+                torch, lambda: cw.launch_psum(s4, *o4), reps)
+            row["gc4_with_sum_ms"] = time_graph_ms(
+                torch, lambda: cw.launch_psum(s4, *o4).sum(dim=0), reps)
+            row["gc4_ws_ms"] = time_graph_ms(
+                torch, lambda: cw.launch_ws(w4, *wo4), reps)
+        rows.append(row)
+    return rows
+
+
+def int8_model_forwards(torch, dev, module, params, img, x16, counts_want,
+                        what):
+    """Int8 forwards of a zoo model at full width: launches per forward at
+    batch 1 and 4, logits against the int8 reference policy (bitwise, else
+    within TOL_INT8_REF·max|ref|) and against the fp32 forward (top-1 on a
+    batch of 16), and the forward times."""
+    # one recipe per model, calibrated as serving calibrates it, shared by
+    # every compile of the model
+    recipe = module.bucket_compiler(params, img=img, device=dev,
+                                    precision="int8").quant
+    out = {"max_abs_err_vs_reference": 0.0}
+    for b in (1, 4):
+        kw = dict(img=img, batch=b, device=dev, precision="int8",
+                  quant=recipe)
+        net = module.compile_forward(params, **kw)
+        if b == 4:
+            print(net.describe())
+            check(all(str(s.key).endswith("/int8")
+                      for _, s in net.layer_schedules),
+                  f"{what}: not every schedule key is int8")
+        x = x16[:b]
+        y, counts = forward_counts(torch, net, params, x)
+        print(f"[{what} int8] batch {b}: launches {counts}")
+        check(counts == counts_want,
+              f"{what} int8 batch {b}: expected launches {counts_want}")
+        ref = module.compile_forward(params, policy="reference", **kw)
+        with torch.inference_mode():
+            want = ref(params, x)
+        check(bool(torch.isfinite(y).all()) and y.shape == want.shape,
+              f"{what} int8: non-finite or misshapen logits")
+        err = (y - want).abs().max().item()
+        tol = TOL_INT8_REF * want.abs().max().item()
+        bitwise = torch.equal(y, want)
+        print(f"[{what} int8] batch {b} vs int8 reference: bitwise="
+              f"{bitwise} max_abs_err={err:.3e} (tol {tol:.3e})")
+        check(bitwise or err <= tol,
+              f"{what} int8 batch {b}: outside tolerance of the reference")
+        out[f"bitwise_vs_reference_b{b}"] = bitwise
+        out["max_abs_err_vs_reference"] = max(
+            out["max_abs_err_vs_reference"], err)
+        with torch.inference_mode():
+            out[f"forward_b{b}_ms"] = time_ms(
+                torch, lambda: net(params, x), 5)
+            out[f"device_b{b}_ms"] = time_graph_ms(
+                torch, lambda: net(params, x), 3)
+        print(f"[{what} int8] batch {b}: forward "
+              f"{out[f'forward_b{b}_ms']:.3f} ms (device work "
+              f"{out[f'device_b{b}_ms']:.3f} ms as a CUDA graph)")
+    # against fp32: the JAX package's accuracy gate on a batch of 16
+    q16 = module.compile_forward(params, img=img, batch=16, device=dev,
+                                 precision="int8", quant=recipe)
+    f16 = module.compile_forward(params, img=img, batch=16, device=dev)
+    with torch.inference_mode():
+        yq, yf = q16(params, x16), f16(params, x16)
+    agree = (yq.argmax(-1) == yf.argmax(-1)).float().mean().item()
+    spread = (yf.max() - yf.min()).item()
+    delta = (yq - yf).abs().max().item()
+    print(f"[{what} int8] vs fp32 at batch 16: top-1 agreement {agree:.4f}"
+          f" (gate {INT8_TOP1}), max|delta| {delta:.4e} <= "
+          f"{INT8_SPREAD} x spread {spread:.4e}")
+    check(agree >= INT8_TOP1, f"{what}: int8 top-1 agreement {agree}")
+    check(delta <= INT8_SPREAD * spread, f"{what}: int8 logits diverge")
+    out.update(top1_agreement_b16=agree, max_abs_delta_vs_fp32=delta,
+               fp32_spread=spread)
+    return out
+
+
+def phase_int8_models(torch, dev, vgg_params):
+    from repro_torch.models import mobilenet, resnet, vgg
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x16 = torch.randn(16, 3, 224, 224, device=dev, generator=gen)
+    out["vgg16_224"] = int8_model_forwards(
+        torch, dev, vgg, vgg_params, 224, x16,
+        launches_of(fold_conv_ws_i8=13),
+        "vgg16 224")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    params = resnet.init_params(gen, img=32, device=dev)
+    x16 = torch.randn(16, 3, 32, 32, device=dev, generator=gen)
+    out["resnet18_32"] = int8_model_forwards(
+        torch, dev, resnet, params, 32, x16,
+        launches_of(fold_conv_ws_i8=5, fold_conv_os_i8=15),
+        "resnet18")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
+                                                       device=dev))
+    x16 = torch.randn(16, 3, 32, 32, device=dev, generator=gen)
+    out["mobilenetv2_32"] = int8_model_forwards(
+        torch, dev, mobilenet, params, 32, x16,
+        launches_of(fold_conv_ws_i8=7, fold_conv_os_i8=28,
+                    fold_conv_dw_i8=17), "mobilenetv2")
+    return out
+
+
+def phase_int8_serving(torch, dev):
+    """MobileNetV2 served in int8 through ``serving_summary`` (what
+    ``launch.serve --vision --precision int8`` runs): none lost, served
+    logits against a direct forward with the same recipe, and the int8
+    conv trunk bitwise-identical across the bucket widths."""
+    from repro_torch.core.engine import compile_network
+    from repro_torch.models import mobilenet
+    from repro_torch.serve.vision import VisionEngine, serving_summary
+    requests = 24
+    d = serving_summary("mobilenetv2", requests=requests, img=32,
+                        width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
+                        device=dev, precision="int8")
+    lat, v = d["latency"], d["verify"]
+    print(f"[serve int8 mobilenetv2] {d['requests']} requests / "
+          f"{d['images']} images in {d['elapsed_s']:.4f} s: "
+          f"{d['images_per_s']:.3f} images/s, p50 "
+          f"{lat['p50_s'] * 1e3:.3f} ms, p99 {lat['p99_s'] * 1e3:.3f} ms, "
+          f"batches per bucket {d['per_bucket_batches']}")
+    tol = TOL_SERVE * v["max_abs_ref"]
+    print(f"[serve int8 mobilenetv2] served vs direct max_abs_err="
+          f"{v['max_abs_err']:.3e} (tol {tol:.3e})")
+    check(d["workload"]["precision"] == "int8", "served in the wrong "
+          "precision")
+    check(d["lost_requests"] == 0 and d["outcomes"] == {"ok": requests},
+          f"int8 serving: outcomes {d['outcomes']}, lost "
+          f"{d['lost_requests']}")
+    check(v["requests"] == requests and v["max_abs_err"] <= tol,
+          "int8 serving: served logits differ from a direct forward")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
+                                                       device=dev))
+    eng = VisionEngine(params, mobilenet.to_graph(), img=32,
+                       buckets=(1, 2, 4, 8), device=dev, precision="int8")
+    check(eng.reference_compiler.quant is eng.compiler.quant,
+          "the reference rung does not share the int8 recipe")
+    x8 = torch.randn(8, 3, 32, 32, device=dev, generator=gen)
+    trunk = mobilenet.to_graph(include_head=False)
+    with torch.inference_mode():
+        rows = {b: compile_network(params, trunk, (b, 3, 32, 32),
+                                   device=dev, precision="int8",
+                                   quant=eng.compiler.quant)
+                for b in (1, 2, 4, 8)}
+        t8 = rows[8](params, x8)
+        for b in (1, 2, 4):
+            for i in range(0, 8, b):
+                check(torch.equal(rows[b](params, x8[i:i + b]), t8[i:i + b]),
+                      f"int8 trunk rows {i}..{i + b} differ between bucket "
+                      f"widths {b} and 8")
+    print("[serve int8 mobilenetv2] int8 trunk rows bitwise-equal at bucket "
+          "widths 1, 2, 4 and 8")
+    return d
+
+
+def phase_psum(torch, dev, layers):
+    """The psum path through the user entry point, as the JAX package's
+    kernel benchmark runs it: ``ops.conv2d(impl="fold_ws_psum")`` on each
+    of VGG-16's 13 layers at 224, batch 1, and an unfused
+    (identity-epilogue) WS layer whose accumulator spills.  Each output is
+    held against the plain psum walk on the same inputs and plan, within
+    TOL_KERNEL·max(1, max|plain|), and, as a second check, against the
+    in-kernel WS (the 13 layers) or OS (the spill) kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d_ws as cw
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    err = err_ws = 0.0
+    for name, sched, _, batch, h in layers:
+        cv = sched.nest
+        x = torch.randn(batch, cv.c, h, h, device=dev, generator=gen)
+        w = torch.randn(cv.nf, cv.c, 3, 3, device=dev, generator=gen)
+        got = ops.conv2d(x, w, pad=1, impl="fold_ws_psum", plan=sched.plan)
+        plain = cw.conv2d_folded_plain(F.pad(x, (1, 1, 1, 1)), w,
+                                       plan=sched.plan,
+                                       dataflow="weight_stationary_psum")
+        e = (got - plain).abs().max().item()
+        check(got.shape == plain.shape
+              and e <= TOL_KERNEL * max(1.0, plain.abs().max().item()),
+              f"psum {name}: outside tolerance of the plain psum walk")
+        err = max(err, e)
+        want = ops.conv2d(x, w, pad=1, impl="fold_ws", plan=sched.plan)
+        e = (got - want).abs().max().item()
+        check(e <= TOL_KERNEL * max(1.0, want.abs().max().item()),
+              f"psum {name}: outside tolerance of fold_ws")
+        err_ws = max(err_ws, e)
+    plan = spill_plan()
+    x = torch.randn(1, 64, 288, 288, device=dev, generator=gen)
+    w = torch.randn(64, 64, 3, 3, device=dev, generator=gen)
+    got = ops.conv2d(x, w, pad=1, impl="fold_ws", plan=plan)
+    plain = cw.conv2d_folded_plain(F.pad(x, (1, 1, 1, 1)), w, plan=plan,
+                                   dataflow="weight_stationary")
+    e_spill = (got - plain).abs().max().item()
+    check(got.shape == plain.shape
+          and e_spill <= TOL_KERNEL * max(1.0, plain.abs().max().item()),
+          "WS spill to psum: outside tolerance of the plain WS walk")
+    want = ops.conv2d(x, w, pad=1, impl="fold_os", plan=plan)
+    e_os = (got - want).abs().max().item()
+    check(e_os <= TOL_KERNEL * max(1.0, want.abs().max().item()),
+          "WS spill to psum: outside tolerance of fold_os")
+    print(f"[psum] 13 VGG-16 layers at 224 vs the plain psum walk "
+          f"max_abs_err {err:.3e} (vs fold_ws {err_ws:.3e}); WS spill "
+          f"(conv1_2 geometry at 288) vs the plain WS walk {e_spill:.3e} "
+          f"(vs fold_os {e_os:.3e})")
+    return {"max_abs_err_vs_plain": max(err, e_spill),
+            "max_abs_err_vs_ws": err, "spill_max_abs_err_vs_os": e_os}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -644,7 +1118,8 @@ def main() -> int:
     report = {"nvidia_smi": smi_line()}
 
     report["env"] = phase_environment(torch)
-    errs = phase_kernels(torch, dev)
+    errs, cases, dw_cases = phase_kernels(torch, dev)
+    errs.update(phase_int8_kernels(torch, dev, cases, dw_cases))
 
     from repro_torch.kernels import conv2d_ws as cw
     from repro_torch.models import vgg
@@ -706,8 +1181,79 @@ def main() -> int:
     report["serving_mobilenetv2"] = phase_serving_mobilenet(torch, dev)
     launches = cw.launch_counts()
     print(f"[main path] launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
+    for name in ("fold_conv_ws", "fold_conv_os", "fold_conv_dw"):
+        check(launches[name] > 0, f"{name} never launched on the main path")
+
+    # -- the int8 main path: counts from 0 just before, read just after ---
+    cw.reset_launch_counts()
+    report["int8"] = phase_int8_models(torch, dev, params)
+    report["serving_int8_mobilenetv2"] = phase_int8_serving(torch, dev)
+    int8_launches = cw.launch_counts()
+    print(f"[int8 main path] launches {int8_launches}")
+    for name in ("fold_conv_ws_i8", "fold_conv_os_i8", "fold_conv_dw_i8"):
+        check(int8_launches[name] > 0,
+              f"{name} never launched on the int8 main path")
+    launches.update({k: v for k, v in int8_launches.items()
+                     if k.endswith("_i8")})
+
+    # -- the psum path: counts from 0 just before, read just after --------
+    cw.reset_launch_counts()
+    report["psum"] = phase_psum(torch, dev, ws_layers)
+    launches["fold_conv_psum"] = cw.launch_counts()["fold_conv_psum"]
+    errs["fold_conv_psum"] = max(errs["fold_conv_psum"],
+                                 report["psum"]["max_abs_err_vs_plain"])
+    print(f"[psum path] launches {cw.launch_counts()}")
+    check(launches["fold_conv_psum"] == 14,
+          "expected 14 psum launches: 13 VGG layers and the WS spill")
+
+    # -- int8 and psum kernel times (not a main path) ----------------------
+    i8_rows = {
+        "vgg16_224_b1": time_int8_layers(torch, dev,
+                                         model_layers("vgg16", 224, 1), 5),
+        "vgg16_32_b4": time_int8_layers(
+            torch, dev, [r for r in model_layers("vgg16", 32, 4)
+                         if r[1].dataflow == "output_stationary"], 10),
+        "mobilenetv2_32_b4": time_int8_layers(
+            torch, dev, model_layers("mobilenetv2", 32, 4), 10),
+        "resnet18_32_b4": time_int8_layers(
+            torch, dev, model_layers("resnet18", 32, 4), 10),
+    }
+    for m, rows in i8_rows.items():
+        print(f"[int8 kernels] {m} per layer (ms, device time):")
+        for r in rows:
+            print(f"  {r['layer']:<9} {r['rs']}/s{r['stride']} "
+                  f"c={r['c']:<4} nf={r['nf']:<4} h={r['h']:<4} "
+                  f"{r['dataflow']:<18} {r['epilogue']:<20} "
+                  f"int8={r['ms']:.4f} fp32={r['fp32_ms']:.4f} "
+                  f"plain={r['plain_ms']:.4f} bound={r['bound_ms']:.5f}")
+        for df in ("weight_stationary", "output_stationary", "depthwise"):
+            sel = [r for r in rows if r["dataflow"] == df]
+            if sel:
+                t = summarize_int8(sel)
+                print(f"[int8 kernels] {m} {df}: {len(sel)} layers, int8 "
+                      f"{t['ms']:.4f} ms, fp32 {t['fp32_ms']:.4f}, plain "
+                      f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f} "
+                      f"({t['bound_by']})")
+        report[f"int8_layers_{m}"] = rows
+    psum_rows = time_psum_vs_ws(torch, dev, ws_layers, 5)
+    print("[psum] VGG-16 at 224, batch 1, identity epilogue (ms, device):")
+    for r in psum_rows:
+        gc4 = (f" | g_c=4: psum={r['gc4_ms']:.4f} psum+sum="
+               f"{r['gc4_with_sum_ms']:.4f} ws={r['gc4_ws_ms']:.4f}"
+               if "gc4_ms" in r else "")
+        print(f"  {r['layer']:<8} c={r['c']:<4} nf={r['nf']:<4} h={r['h']:<4}"
+              f" g_c={r['g_c']} psum={r['ms']:.4f} psum+sum="
+              f"{r['with_sum_ms']:.4f} in-kernel ws={r['ws_ms']:.4f} "
+              f"plain={r['plain_ms']:.4f} F.conv2d={r['library_ms']:.4f} "
+              f"bound={r['bound_ms']:.4f}{gc4}")
+    tot = {k: sum(r.get(k, 0.0) for r in psum_rows)
+           for k in ("ms", "with_sum_ms", "ws_ms", "gc4_ms",
+                     "gc4_with_sum_ms", "gc4_ws_ms")}
+    print(f"[psum] sums: schedule plans psum {tot['ms']:.4f} / psum+sum "
+          f"{tot['with_sum_ms']:.4f} / in-kernel ws {tot['ws_ms']:.4f} ms; "
+          f"g_c=4 (12 layers) psum {tot['gc4_ms']:.4f} / psum+sum "
+          f"{tot['gc4_with_sum_ms']:.4f} / ws {tot['gc4_ws_ms']:.4f} ms")
+    report["psum_vs_ws_224_b1"] = psum_rows
 
     # ms_kind: "eager" times the wrapper call, host work included (the
     # VGG layers' kernels run long enough to hide it); "device" replays the
@@ -725,6 +1271,25 @@ def main() -> int:
                  "ms_kind": kind}
         entry.update(summarize(rows, key))
         kernels.append(entry)
+    for name, rows, line in (
+            ("fold_conv_ws_i8", i8_rows["vgg16_224_b1"], 131),
+            ("fold_conv_os_i8", i8_rows["vgg16_32_b4"], 176),
+            ("fold_conv_dw_i8", [r for r in i8_rows["mobilenetv2_32_b4"]
+                                 if r["dataflow"] == "depthwise"], 202)):
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
+                 "replaces": f"src/repro/kernels/conv2d_ws.py:{line}",
+                 "launches": launches[name], "max_abs_err": errs[name],
+                 "ms_kind": "device"}
+        entry.update(summarize_int8(rows))
+        kernels.append(entry)
+    entry = {"name": "fold_conv_psum", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
+             "replaces": "src/repro/kernels/conv2d_ws.py:234",
+             "launches": launches["fold_conv_psum"],
+             "max_abs_err": errs["fold_conv_psum"], "ms_kind": "device"}
+    entry.update(summarize(psum_rows, "ms"))
+    kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "build"

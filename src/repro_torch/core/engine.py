@@ -14,7 +14,9 @@ models describe themselves as streaming graphs (``core/graph.py``).
 * ``ScheduleCache`` is the registry; its hit/miss counters are the paper's
   fold-reuse metric.
 * ``compile_network`` lowers a ``StreamGraph`` through one shared cache
-  and returns an eager forward with the schedules baked in.
+  and returns an eager forward with the schedules baked in, in fp32 or,
+  with ``precision="int8"``, through the quantized fold stream
+  (``core/quant.py``).
 
 The cost model prices traffic with the paper's accelerator constants
 (``MavecConfig``), exactly as the JAX package does, so the two packages
@@ -42,6 +44,7 @@ __all__ = [
     "ConvSchedule",
     "CacheStats",
     "ScheduleCache",
+    "stream_bytes_per_elem",
     "traffic_components",
     "dataflow_costs",
     "dataflow_traffic_bytes",
@@ -71,15 +74,21 @@ class ScheduleKey:
     stride: int
     dilation: int = 1
     groups: int = 1
+    precision: str = "fp32"   # streamed dtype: an int8 filter fold is a
+    #                           different resident tensor (1 byte/elem,
+    #                           int32 sums), so a different schedule
 
     @classmethod
-    def from_loopnest(cls, cv: ConvLoopNest) -> "ScheduleKey":
+    def from_loopnest(cls, cv: ConvLoopNest,
+                      precision: str = "fp32") -> "ScheduleKey":
         return cls(nf=cv.nf, c=cv.c, r=cv.r, s=cv.s, stride=cv.stride,
-                   dilation=cv.dilation, groups=cv.groups)
+                   dilation=cv.dilation, groups=cv.groups,
+                   precision=precision)
 
     def __str__(self) -> str:
         g = f"/g{self.groups}" if self.groups > 1 else ""
-        return f"{self.r}x{self.s}x{self.c}->{self.nf}/s{self.stride}{g}"
+        pr = f"/{self.precision}" if self.precision != "fp32" else ""
+        return f"{self.r}x{self.s}x{self.c}->{self.nf}/s{self.stride}{g}{pr}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,13 +114,28 @@ class ConvSchedule:
 # Dataflow selection from the traffic model
 # --------------------------------------------------------------------------
 
+def stream_bytes_per_elem(precision: str, bytes_per_elem: int = 4) -> int:
+    """Bytes per streamed weight/activation element at a precision.  The
+    outputs (and the accumulator) stay at ``bytes_per_elem``: the int8
+    path dequantizes at the flush and writes fp32."""
+    if precision == "int8":
+        return 1
+    if precision == "fp32":
+        return bytes_per_elem
+    raise ValueError(f"unknown precision {precision!r} (want fp32|int8)")
+
+
 def traffic_components(cv: ConvLoopNest, plan: ConvBlockPlan, dataflow: str,
-                       bytes_per_elem: int = 4) -> Dict[str, float]:
-    """Per-tensor-class off-chip byte split for one dataflow (fp32)."""
+                       bytes_per_elem: int = 4,
+                       precision: str = "fp32") -> Dict[str, float]:
+    """Per-tensor-class off-chip byte split for one dataflow: weights and
+    input at the streamed dtype, output and staged partial sums at the
+    accumulator / write width."""
     bpe = bytes_per_elem
+    sbpe = stream_bytes_per_elem(precision, bytes_per_elem)
     sizes = cv.tensor_sizes()
-    w_bytes = sizes["filter"] * bpe
-    in_bytes = cv.n * cv.c * cv.padded_x * cv.padded_y * bpe
+    w_bytes = sizes["filter"] * sbpe
+    in_bytes = cv.n * cv.c * cv.padded_x * cv.padded_y * sbpe
     out_bytes = sizes["output"] * bpe
     clamped = plan.clamped(cv.nf, cv.c, cv.p)
     g_nf, g_c, g_p = clamped.grid
@@ -139,25 +163,28 @@ def traffic_components(cv: ConvLoopNest, plan: ConvBlockPlan, dataflow: str,
 
 
 def dataflow_traffic_bytes(cv: ConvLoopNest, plan: ConvBlockPlan,
-                           bytes_per_elem: int = 4) -> Dict[str, float]:
-    """Modeled off-chip bytes per dataflow formulation."""
+                           bytes_per_elem: int = 4,
+                           precision: str = "fp32") -> Dict[str, float]:
+    """Modeled off-chip bytes per dataflow formulation (``precision=
+    "int8"`` prices the weight and input streams at one byte)."""
     dws = (("depthwise",) if cv.depthwise else
            ("weight_stationary", "weight_stationary_psum",
             "output_stationary"))
-    return {df: sum(traffic_components(cv, plan, df,
-                                       bytes_per_elem).values())
+    return {df: sum(traffic_components(cv, plan, df, bytes_per_elem,
+                                       precision).values())
             for df in dws}
 
 
 def dataflow_costs(cv: ConvLoopNest, plan: ConvBlockPlan,
-                   cfg: Optional[MavecConfig] = None) -> Dict[str, float]:
+                   cfg: Optional[MavecConfig] = None,
+                   precision: str = "fp32") -> Dict[str, float]:
     """Estimated cycles of each dataflow for this layer: the shared compute
     term (MACs over the tile's PEs) plus the modeled traffic over the
     ``MavecConfig`` off-chip bandwidth.  Weight-stationary fetches weights
     once and re-streams the input per NF fold; output-stationary re-fetches
     the weight block for every P fold."""
     cfg = cfg or MavecConfig()
-    traffic = dataflow_traffic_bytes(cv, plan, cfg.bytes_per_elem)
+    traffic = dataflow_traffic_bytes(cv, plan, cfg.bytes_per_elem, precision)
 
     def cycles(traffic_bytes: float) -> float:
         return traffic_bytes / (cfg.offchip_gbps * 1e9) * (cfg.freq_ghz * 1e9)
@@ -173,11 +200,13 @@ def dataflow_costs(cv: ConvLoopNest, plan: ConvBlockPlan,
 
 def select_dataflow(cv: ConvLoopNest, plan: ConvBlockPlan,
                     cfg: Optional[MavecConfig] = None,
-                    costs: Optional[Dict[str, float]] = None) -> str:
+                    costs: Optional[Dict[str, float]] = None,
+                    precision: str = "fp32") -> str:
     """Pick the cheaper dataflow; ties go to ``output_stationary``."""
     if cv.depthwise:
         return "depthwise"
-    costs = costs if costs is not None else dataflow_costs(cv, plan, cfg)
+    costs = (costs if costs is not None
+             else dataflow_costs(cv, plan, cfg, precision))
     if costs["output_stationary"] <= costs["weight_stationary"]:
         return "output_stationary"
     return "weight_stationary"
@@ -265,13 +294,14 @@ class ScheduleCache:
 
     def _build(self, cv: ConvLoopNest, key: ScheduleKey) -> ConvSchedule:
         plan = plan_conv_blocks(cv, vmem_limit=self.vmem_limit)
-        costs = dataflow_costs(cv, plan, self.cfg)
+        costs = dataflow_costs(cv, plan, self.cfg, key.precision)
         dataflow = select_dataflow(cv, plan, self.cfg, costs=costs)
         return ConvSchedule(key=key, nest=cv, plan=plan, dataflow=dataflow,
                             costs=tuple(sorted(costs.items())))
 
-    def schedule_for(self, cv: ConvLoopNest) -> ConvSchedule:
-        key = ScheduleKey.from_loopnest(cv)
+    def schedule_for(self, cv: ConvLoopNest,
+                     precision: str = "fp32") -> ConvSchedule:
+        key = ScheduleKey.from_loopnest(cv, precision)
         hit = self._entries.get(key)
         if hit is not None:
             if (cv.padded_x > hit.nest.padded_x
@@ -326,6 +356,8 @@ class CompiledNetwork:
     fused: bool = False
     graph: Optional[StreamGraph] = None
     layer_nests: Tuple[Tuple[str, ConvLoopNest], ...] = ()
+    precision: str = "fp32"  # streamed conv dtype ("fp32" | "int8")
+    quant: Optional[Any] = None  # the QuantRecipe the int8 lowering baked in
 
     def __call__(self, params: Dict[str, Any], x: torch.Tensor
                  ) -> torch.Tensor:
@@ -344,7 +376,8 @@ class CompiledNetwork:
 
     def describe(self) -> str:
         lines = [f"CompiledNetwork(mode={self.mode}, device={self.device}, "
-                 f"fused={self.fused}, layers={len(self.layer_schedules)}, "
+                 f"fused={self.fused}, precision={self.precision}, "
+                 f"layers={len(self.layer_schedules)}, "
                  f"schedules={self.distinct_schedules})"]
         for name, sched in self.layer_schedules:
             lines.append(f"  {name:<10} {str(sched.key):<24} "
@@ -358,7 +391,8 @@ def compile_network(params: Dict[str, Any], graph,
                     cache: Optional[ScheduleCache] = None,
                     head: Optional[Callable] = None,
                     fuse_epilogues: bool = True,
-                    device: Any = "cuda") -> CompiledNetwork:
+                    device: Any = "cuda", precision: str = "fp32",
+                    quant=None) -> CompiledNetwork:
     """Lower a streaming graph into a static fold schedule + eager forward.
 
     ``graph`` is a ``StreamGraph`` (or a legacy conv-spec sequence).  Conv
@@ -376,13 +410,27 @@ def compile_network(params: Dict[str, Any], graph,
     small to pool (P or Q < 2) is demoted to a standalone op.  The forward
     runs on ``device`` (default "cuda"; "cpu" runs the plain-torch fold
     loop in kernel mode).
+
+    ``precision="int8"`` lowers every conv through ``conv2d_int8``: int8
+    weight and activation blocks, int32 sums, dequant folded into the
+    epilogue's scale/shift slot.  ``quant`` is the calibrated
+    ``QuantRecipe``; without one, ``default_recipe`` runs the fp32
+    reference forward of the pre-fusion graph once to record each conv's
+    activation scale.  Schedules live under int8 ``ScheduleKey``s, priced
+    with one-byte streams.
     """
+    from repro_torch.core.quant import check_precision, default_recipe
+    check_precision(precision)
     cache = cache if cache is not None else ScheduleCache()
     mode, dev = resolve_execution(policy, device)
     stats_before = dataclasses.replace(cache.stats)
     fused = fuse_epilogues and mode == "kernel"
     base_graph = as_graph(graph)
     g = fuse_graph(base_graph) if fused else base_graph
+    if precision == "int8" and quant is None:
+        # self-contained calibration on the pre-fusion graph (fusion keeps
+        # the conv names, so the recipe's keys match the fused lowering)
+        quant = default_recipe(base_graph, params, input_shape, device=dev)
 
     shapes: Dict[str, Tuple[int, ...]] = {g.input: tuple(input_shape)}
     layer_schedules: List[Tuple[str, ConvSchedule]] = []
@@ -423,14 +471,16 @@ def compile_network(params: Dict[str, Any], graph,
                     raise GraphError(
                         f"{nd.name}: fused shortcut {nd.residual!r} has "
                         f"shape {got}, conv output is {want}")
-            sched = cache.schedule_for(cv)
+            sched = cache.schedule_for(cv, precision=precision)
+            x_scale = (quant.scale_for(nd.name) if precision == "int8"
+                       else None)
             layer_schedules.append((nd.name, sched))
             layer_nests.append((nd.name, cv))
             shapes[nd.name] = (n_, nf) + epilogue_out_hw(nd.epilogue, cv.p,
                                                          cv.q)
             steps.append(("conv", nd.name, nd.all_inputs(),
                           (sched, epi, nd.stride, nd.pad, nd.param,
-                           demoted_pool, groups, nd.bn_param)))
+                           demoted_pool, groups, nd.bn_param, x_scale)))
         elif nd.op in ("bias", "batchnorm", "relu", "relu6"):
             shapes[nd.name] = s_in
             steps.append((nd.op, nd.name, nd.inputs, nd.param))
@@ -465,7 +515,7 @@ def compile_network(params: Dict[str, Any], graph,
     out_name = g.output
 
     def forward(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        from repro_torch.kernels.ops import conv2d, conv2d_fused
+        from repro_torch.kernels.ops import conv2d, conv2d_fused, conv2d_int8
         if x.device.type != dev.type:
             raise ValueError(f"network compiled for {dev}, input is on "
                              f"{x.device}")
@@ -473,10 +523,26 @@ def compile_network(params: Dict[str, Any], graph,
         for op, out, ins, info in steps_t:
             if op == "conv":
                 (sched, epi, stride, pad, pname, demoted_pool, groups,
-                 bn_param) = info
+                 bn_param, x_scale) = info
                 xin, w = env[ins[0]], p[pname]["w"]
                 impl = "direct" if mode == "reference" else sched.impl()
-                if epi is not None:
+                if x_scale is not None:
+                    # the int8 stream: weights quantize per channel here,
+                    # activations with the calibrated scale; bias, BN and
+                    # dequant fold into one flush affine
+                    b = p[pname]["b"] if epi is not None and epi.bias \
+                        else None
+                    scale = shift = None
+                    if epi is not None and epi.scale:
+                        scale, shift = bn_scale_shift(p[bn_param])
+                    res = env[ins[1]] if epi is not None and epi.residual \
+                        else None
+                    y = conv2d_int8(xin, w, b, x_scale=x_scale,
+                                    stride=stride, pad=pad, epilogue=epi,
+                                    impl=impl, plan=sched.plan,
+                                    residual=res, scale=scale, shift=shift,
+                                    groups=groups)
+                elif epi is not None:
                     # an epilogue on a conv node is graph semantics and is
                     # honored in every mode
                     b = p[pname]["b"] if epi.bias else None
@@ -526,7 +592,8 @@ def compile_network(params: Dict[str, Any], graph,
                            layer_schedules=tuple(layer_schedules),
                            build_stats=build_stats, cache=cache, mode=mode,
                            device=dev, fused=fused, graph=g,
-                           layer_nests=tuple(layer_nests))
+                           layer_nests=tuple(layer_nests),
+                           precision=precision, quant=quant)
 
 
 # --------------------------------------------------------------------------
@@ -537,13 +604,21 @@ class BucketCompiler:
     """Memoized ``compile_network`` per batch width over one shared
     ``ScheduleCache``.  ``ScheduleKey`` excludes the batch, so the first
     bucket's compile plans every schedule and every later bucket compiles
-    with 100% schedule-cache hits."""
+    with 100% schedule-cache hits.
+
+    ``precision="int8"``: one ``QuantRecipe`` is calibrated here, once (or
+    taken from ``quant``), and handed to every bucket, so every bucket
+    width bakes in the same activation scales: a request's logits cannot
+    depend on the bucket its batch was padded to."""
 
     def __init__(self, params: Dict[str, Any], graph, img: int, *,
                  chan: int = 3, policy: str = "auto",
                  cache: Optional[ScheduleCache] = None,
                  head: Optional[Callable] = None,
-                 fuse_epilogues: bool = True, device: Any = "cuda"):
+                 fuse_epilogues: bool = True, device: Any = "cuda",
+                 precision: str = "fp32", quant=None):
+        from repro_torch.core.quant import check_precision, default_recipe
+        check_precision(precision)
         self.params = params
         self.graph = as_graph(graph)
         self.img = int(img)
@@ -553,6 +628,13 @@ class BucketCompiler:
         self.head = head
         self.fuse_epilogues = fuse_epilogues
         self.device = device
+        self.precision = precision
+        if precision == "int8" and quant is None:
+            _, dev = resolve_execution(policy, device)
+            quant = default_recipe(self.graph, params,
+                                   (1, self.chan, self.img, self.img),
+                                   device=dev)
+        self.quant = quant
         self._nets: Dict[int, CompiledNetwork] = {}
 
     @property
@@ -572,7 +654,8 @@ class BucketCompiler:
                 self.params, self.graph,
                 (batch, self.chan, self.img, self.img),
                 policy=self.policy, cache=self.cache, head=self.head,
-                fuse_epilogues=self.fuse_epilogues, device=self.device)
+                fuse_epilogues=self.fuse_epilogues, device=self.device,
+                precision=self.precision, quant=self.quant)
             self._nets[batch] = net
         return net
 

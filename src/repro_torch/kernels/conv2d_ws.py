@@ -29,6 +29,21 @@ NF fold: ``w (C, 1, R, S)``, one filter per channel, no depth reduction,
 the R*S taps multiplied elementwise and the epilogue flushed for every
 output at once.
 
+The fourth, ``weight_stationary_psum`` (replaces ``_ws_psum_kernel``), is
+the paper's Fig. 5 formulation and the WS accumulator's spill for an
+identity epilogue: every depth fold writes its fp32 partial sums to a
+``(g_c, N, NF_pad, P_pad, Q)`` staging buffer in device memory, and
+``conv2d_folded`` sums the folds afterwards with ``torch.sum``.
+
+**Int8** ``x`` and ``w`` select the quantized stream of the WS, OS and
+depthwise kernels: each operand widens to int32 before the multiply, the
+depth folds accumulate in int32 (exact in any order), and the flush
+converts to fp32 and applies the requant affine the caller put in the
+scale/shift slot (``core/quant.py:requant_affine``;
+``kernels/ops.py:conv2d_int8`` is the packaged entry point).  The output
+is fp32.  The psum staging has no flush to dequantize at and refuses
+int8, as the JAX package does.
+
 The source is ``csrc/fold_conv.cu``; ``build.py`` compiles it at first
 use.  On a CPU tensor ``conv2d_folded`` runs the plain-torch version of the
 same fold loop (``conv2d_folded_plain``: ``_fold_partial`` +
@@ -38,7 +53,8 @@ tensor it launches the kernel or raises.
 The order of the sum for one output element is channel-ascending, then
 R, then S, in the dense kernels, and R then S in the depthwise one.  It
 depends only on the fold plan — never on N, the grid or the CTA tile — so
-a layer gives bitwise-identical rows at every batch width.  The epilogue
+a layer gives bitwise-identical rows at every batch width (int8 sums are
+exact, so their order does not matter at all).  The epilogue
 rounds each step on its own (no fused multiply-add), so a fused layer
 gives the bits of the same steps run as separate torch ops.
 
@@ -61,8 +77,8 @@ from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
 
 __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "OperandSpec", "FoldKernelSpec", "fold_kernel_spec", "launch_ws",
-           "launch_os", "launch_dw", "LAUNCHERS", "launch_counts",
-           "reset_launch_counts", "prepare"]
+           "launch_os", "launch_dw", "launch_psum", "LAUNCHERS", "KERNELS",
+           "launch_counts", "reset_launch_counts", "prepare"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
 
@@ -406,26 +422,27 @@ def _pad_to(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
 # What this slice ports, and what it refuses
 # --------------------------------------------------------------------------
 
-def _refuse_unported(x_padded: torch.Tensor, w: torch.Tensor,
-                     dataflow: str, groups: int) -> None:
-    """Every variant of the TPU kernels that the port does not carry yet
-    raises here, naming its ROADMAP item; nothing falls back."""
-    if x_padded.dtype == torch.int8 or w.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 fold streaming is not ported yet (ROADMAP queue A item "
-            "11, queue B items 1-3 int8 variants)")
-    if x_padded.dtype != torch.float32 or w.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the fold kernels take fp32 operands, got x {x_padded.dtype} "
-            f"and w {w.dtype} (ROADMAP queue B items 1-3)")
+def _check_operands(x_padded: torch.Tensor, w: torch.Tensor,
+                    dataflow: str, groups: int) -> None:
+    """Refuse what the kernels do not take: operand types other than fp32
+    and int8 (``ValueError``), and the variant the port does not carry yet,
+    grouped 1 < G < C on WS / OS (``NotImplementedError``, naming its
+    ROADMAP item); nothing falls back."""
+    if x_padded.dtype == torch.int8:
+        if w.dtype != torch.int8:
+            raise ValueError(f"int8 activations need int8 weights, got "
+                             f"w dtype {w.dtype}")
+        if dataflow == "weight_stationary_psum":
+            raise ValueError("the legacy psum dataflow cannot stream int8 "
+                             "(its HBM-staged partial sums have no flush "
+                             "hook to apply the dequant scale at)")
+    elif x_padded.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"the fold kernels take fp32 or int8 operands, got "
+                         f"x {x_padded.dtype} and w {w.dtype}")
     if groups != 1 and dataflow != "depthwise":
         raise NotImplementedError(
             "grouped convolution with 1 < G < C on the WS / OS kernels is "
             "not ported yet (ROADMAP queue B items 1-2 grouped variants)")
-    if dataflow == "weight_stationary_psum":
-        raise NotImplementedError(
-            "the psum-staging kernel is not ported yet (ROADMAP queue B "
-            "item 6: _ws_psum_kernel)")
 
 
 def _vector_block(nf: int, nf_pad: int, epi: Epilogue,
@@ -449,31 +466,43 @@ def _vector_block(nf: int, nf_pad: int, epi: Epilogue,
 # The plain-torch fold loop (the CPU path and the kernels' oracle)
 # --------------------------------------------------------------------------
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The accumulator type of a stream: int32 for int8, else fp32."""
+    return torch.int32 if x.dtype == torch.int8 else torch.float32
+
+
 def _fold_partial(xv: torch.Tensor, w: torch.Tensor, i_p: int, *, r: int,
                   s: int, stride: int, p_block: int, q: int) -> torch.Tensor:
     """One fold interaction (Fig 4): R*S stationary taps against a strided
     window of the image rows.  xv (N, c_b, rows, Y), w (nf_b, c_b, R, S)
-    -> (N, nf_b, p_block, q) in fp32."""
+    -> (N, nf_b, p_block, q) in fp32, or in int32 for int8 operands: each
+    tap's contraction then runs in float64 (exact for int8 products at any
+    depth a layer has; PyTorch has no integer matmul on CUDA) and adds
+    into the int32 sum."""
     row0 = i_p * p_block * stride
     rows = (p_block - 1) * stride + r
     xwin = xv[:, :, row0:row0 + rows]
+    acc_dtype = _acc_dtype(xv)
+    tap_dtype = torch.float64 if acc_dtype == torch.int32 else torch.float32
     acc = xv.new_zeros((xv.shape[0], w.shape[0], p_block, q),
-                       dtype=torch.float32)
+                       dtype=acc_dtype)
     for ri in range(r):
         for si in range(s):
             win = xwin[:, :, ri:ri + p_block * stride:stride,
                        si:si + q * stride:stride]        # (N, c_b, p_b, q)
-            acc += torch.einsum("fc,ncpq->nfpq", w[:, :, ri, si].float(),
-                                win.float())
+            acc += torch.einsum("fc,ncpq->nfpq", w[:, :, ri, si].to(tap_dtype),
+                                win.to(tap_dtype)).to(acc_dtype)
     return acc
 
 
 def _flush_value(v: torch.Tensor, vec: torch.Tensor, epi: Epilogue,
                  res: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply the fused epilogue to a finished fp32 fold (N, nf_b, p_b, q),
-    in the JAX order: bias -> scale/shift -> residual -> ReLU or ReLU6 ->
-    2x2 pool.  ``vec`` is the fold's (nf_b, 3) slice of the vector block,
+    """Apply the fused epilogue to a finished fold (N, nf_b, p_b, q), fp32
+    or the int32 sums of an int8 stream (converted to fp32 first), in the
+    JAX order: bias -> scale/shift -> residual -> ReLU or ReLU6 -> 2x2
+    pool.  ``vec`` is the fold's (nf_b, 3) slice of the vector block,
     ``res`` the fold's slice of the shortcut."""
+    v = v.float()
     if epi.bias:
         v = v + vec[:, 0][None, :, None, None]
     if epi.scale:                            # inference BN: y*scale + shift
@@ -506,7 +535,7 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
         if spec.dataflow == "weight_stationary":
             # grid (N, nf, c, p), p fastest: the full-height accumulator
             acc = xp.new_empty((xp.shape[0], nf_b, spec.p_pad, q),
-                               dtype=torch.float32)
+                               dtype=_acc_dtype(xp))
             for c in range(g_c):
                 cs = slice(c * c_b, (c + 1) * c_b)
                 for i_p in range(g_p):
@@ -532,30 +561,51 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     return out
 
 
+def _plain_psum_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
+                     wp: torch.Tensor, vec: Optional[torch.Tensor] = None,
+                     res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The grid walk (N, nf, c, p) of ``_ws_psum_kernel``: each depth fold's
+    fp32 partial sums land in their own slice of the (g_c, N, NF_pad,
+    P_pad, Q) staging buffer, unsummed."""
+    nf_b, c_b = spec.plan.nf_block, spec.plan.c_block
+    p_b, g_c = spec.p_block, spec.cg_folds
+    kw = dict(r=spec.r, s=spec.s, stride=spec.stride, p_block=p_b, q=spec.q)
+    out = xp.new_empty(spec.output.array_shape, dtype=torch.float32)
+    for f in range(spec.nf_pad // nf_b):
+        fs = slice(f * nf_b, (f + 1) * nf_b)
+        for c in range(g_c):
+            cs = slice(c * c_b, (c + 1) * c_b)
+            for i_p in range(spec.p_pad // p_b):
+                out[c, :, fs, i_p * p_b:(i_p + 1) * p_b] = _fold_partial(
+                    xp[:, cs], wp[fs, cs], i_p, **kw)
+    return out
+
+
 def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
                    wp: torch.Tensor, vec: torch.Tensor,
                    res: Optional[torch.Tensor]) -> torch.Tensor:
     """The depthwise grid walk (N, c folds, p folds) of ``_dw_kernel``: no
     depth reduction, R*S elementwise taps per channel, R then S, and the
-    epilogue flushed at every step."""
+    epilogue flushed at every step.  Int8 operands widen to int32 before
+    the product."""
     epi = spec.epilogue
     c_b, p_b, q, st = spec.plan.c_block, spec.p_block, spec.q, spec.stride
     p_bo = p_b // 2 if epi.pool == "max2" else p_b
     rows = (p_b - 1) * st + spec.r
+    acc_dtype = _acc_dtype(xp)
     out = xp.new_empty(spec.output.array_shape, dtype=torch.float32)
     for cc in range(spec.c_pad // c_b):
         cs = slice(cc * c_b, (cc + 1) * c_b)
         for i_p in range(spec.p_pad // p_b):
             row0 = i_p * p_b * st
-            xwin = xp[:, cs, row0:row0 + rows].float()
-            acc = xp.new_zeros((xp.shape[0], c_b, p_b, q),
-                               dtype=torch.float32)
+            xwin = xp[:, cs, row0:row0 + rows].to(acc_dtype)
+            acc = xp.new_zeros((xp.shape[0], c_b, p_b, q), dtype=acc_dtype)
             for ri in range(spec.r):
                 for si in range(spec.s):
                     win = xwin[:, :, ri:ri + p_b * st:st,
                                si:si + q * st:st]          # (N, c_b, p_b, q)
-                    acc += win * wp[cs, 0, ri, si].float()[None, :, None,
-                                                           None]
+                    acc += win * wp[cs, 0, ri, si].to(acc_dtype)[
+                        None, :, None, None]
             p_rows = slice(i_p * p_b, (i_p + 1) * p_b)
             r_ = res[:, cs, p_rows] if epi.residual else None
             out[:, cs, i_p * p_bo:(i_p + 1) * p_bo] = \
@@ -583,6 +633,19 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # reads, far below the ridge.  One thread per output element reads its
 # window through the read-only cache, coalesced along Q, so the kernel
 # moves each input byte from device memory about once.
+#
+# The int8 instances (``*_i8``) run the same loops on int32 IMAD: the
+# operands stream at one byte each, which cuts the input and weight bytes
+# 4x, but the bound of the dense layers is the card's int8 tensor-core
+# rate (1979 TOP/s), which IMAD on the CUDA cores does not reach
+# (``dp4a`` or ``mma.sync`` s8 is the redesign).  32-bit IMAD issues at
+# half the FFMA rate, yet on VGG-16 the int8 kernels run as fast as the
+# fp32 ones: neither is bound by its issue rate (PERF.md).
+#
+# The psum kernel is the WS fold sum without the in-kernel reduction: each
+# depth fold writes an fp32 partial-sum tensor, so the bytes grow by
+# 2*g_c+1 output-sized transfers (with the ``torch.sum``) — the cost the
+# paper's reserved-column reduction removes.
 
 NFT = 8                 # filters per CTA sub-fold (NFT in csrc/fold_conv.cu)
 OS_CHUNK = 32           # channels per OS weight restage (OS_CHUNK there too)
@@ -613,15 +676,30 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check_cuda_operands(*tensors: Optional[torch.Tensor]) -> None:
-    dev = tensors[0].device
-    for t in tensors:
+def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
+                         *fp32: Optional[torch.Tensor]) -> None:
+    """x and w of one type (fp32 or int8), the other operands fp32, all
+    contiguous on one device."""
+    dev = xp.device
+    for t, want in [(xp, xp.dtype), (wp, xp.dtype)] + \
+            [(t, torch.float32) for t in fp32]:
         if t is None:
             continue
-        if t.device != dev or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("fold kernels take contiguous fp32 operands on "
-                             f"one device, got {t.dtype} on {t.device}")
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"fold kernel operands must be contiguous on "
+                             f"{dev}: {want} expected, got {t.dtype} on "
+                             f"{t.device}")
+
+
+# Launches so far, by the name of the kernel's C entry point
+KERNELS = ("fold_conv_ws", "fold_conv_os", "fold_conv_dw", "fold_conv_ws_i8",
+           "fold_conv_os_i8", "fold_conv_dw_i8", "fold_conv_psum")
+_LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def _entry(base: str, xp: torch.Tensor) -> str:
+    """The C entry point of a kernel for x's type."""
+    return base + "_i8" if xp.dtype == torch.int8 else base
 
 
 def _raise_on_error(lib, err: int, name: str) -> None:
@@ -649,7 +727,7 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
             f"the WS kernel keeps {NFT} filters x c_block={spec.plan.c_block}"
             f" x {spec.r}x{spec.s} taps resident: {smem} bytes exceed the "
             f"{SMEM_LIMIT}-byte shared memory of one CTA")
-    n = xp.shape[0]
+    n, name = xp.shape[0], _entry("fold_conv_ws", xp)
     mq, q_tiles, threads = _cta_tile(spec.p_block, spec.q)
     g_p = spec.p_pad // spec.p_block
     # split the P walk only as far as it takes to give every SM two CTAs;
@@ -663,14 +741,14 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     slab = None
     if spec.cg_folds > 1:
         slab = torch.empty((n, spec.nf_pad, spec.p_pad, spec.q),
-                           device=xp.device, dtype=torch.float32)
+                           device=xp.device, dtype=_acc_dtype(xp))
     lib = build.library()
-    err = lib.fold_conv_ws(
+    err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out), _ptr(slab),
         *_common_args(spec, n, mq), p_chunk, threads,
         torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, "fold_conv_ws")
-    launch_ws.launches += 1
+    _raise_on_error(lib, err, name)
+    _LAUNCHES[name] += 1
     return out
 
 
@@ -684,17 +762,17 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
         raise ValueError(
             f"the OS kernel holds one P fold in registers: p_block="
             f"{spec.p_block} needs more than {MAX_THREADS} threads")
-    n = xp.shape[0]
+    n, name = xp.shape[0], _entry("fold_conv_os", xp)
     mq, _, threads = _cta_tile(spec.p_block, spec.q)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=torch.float32)
     lib = build.library()
-    err = lib.fold_conv_os(
+    err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
         *_common_args(spec, n, mq), threads,
         torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, "fold_conv_os")
-    launch_os.launches += 1
+    _raise_on_error(lib, err, name)
+    _LAUNCHES[name] += 1
     return out
 
 
@@ -706,38 +784,63 @@ def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     (``c_pad``) are left unwritten and sliced away by the caller."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
+    name = _entry("fold_conv_dw", xp)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=torch.float32)
     lib = build.library()
-    err = lib.fold_conv_dw(
+    err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
         xp.shape[0], spec.c, spec.c_pad, spec.x_rows,
         spec.inputs[0].array_shape[3], spec.r, spec.s, spec.stride, spec.q,
         spec.p_pad, _epi_flags(spec.epilogue),
         torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, "fold_conv_dw")
-    launch_dw.launches += 1
+    _raise_on_error(lib, err, name)
+    _LAUNCHES[name] += 1
     return out
 
 
-# The launcher of each resolved dataflow's kernel, with the name of the
-# kernel's C entry point and its launch counter
+def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
+                vec: Optional[torch.Tensor] = None,
+                res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the psum-staging kernel on padded fp32 CUDA operands; returns
+    the (g_c, N, NF_pad, P_pad, Q) staging buffer, unsummed."""
+    from repro_torch.kernels import build
+    _check_cuda_operands(xp, wp)
+    smem = NFT * spec.plan.c_block * spec.r * spec.s * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the psum kernel keeps {NFT} filters x c_block="
+            f"{spec.plan.c_block} x {spec.r}x{spec.s} taps resident: {smem} "
+            f"bytes exceed the {SMEM_LIMIT}-byte shared memory of one CTA")
+    n = xp.shape[0]
+    mq, _, threads = _cta_tile(spec.p_block, spec.q)
+    out = torch.empty(spec.output.array_shape, device=xp.device,
+                      dtype=torch.float32)
+    lib = build.library()
+    err = lib.fold_conv_psum(
+        _ptr(xp), _ptr(wp), _ptr(out), *_common_args(spec, n, mq)[:-2], mq,
+        threads, torch.cuda.current_stream(xp.device).cuda_stream)
+    _raise_on_error(lib, err, "fold_conv_psum")
+    _LAUNCHES["fold_conv_psum"] += 1
+    return out
+
+
+# The launcher of each resolved dataflow's kernel; each picks its C entry
+# point by the operands' type and counts its launches under that name
 LAUNCHERS: Dict[str, Callable] = {"weight_stationary": launch_ws,
                                   "output_stationary": launch_os,
-                                  "depthwise": launch_dw}
-for _fn, _kernel in zip(LAUNCHERS.values(),
-                        ("fold_conv_ws", "fold_conv_os", "fold_conv_dw")):
-    _fn.kernel, _fn.launches = _kernel, 0
+                                  "depthwise": launch_dw,
+                                  "weight_stationary_psum": launch_psum}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {fn.kernel: fn.launches for fn in LAUNCHERS.values()}
+    return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for fn in LAUNCHERS.values():
-        fn.launches = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -751,7 +854,7 @@ def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
     n, c, xp_, yp_ = x_padded.shape
     nf, cw, r, s = w.shape
     epi = epilogue or Epilogue()
-    _refuse_unported(x_padded, w, dataflow, groups)
+    _check_operands(x_padded, w, dataflow, groups)
     if c != cw * groups or nf % groups:
         raise ValueError(f"input has {c} channels, weights expect "
                          f"{cw}x{groups} (and groups={groups} must divide "
@@ -771,11 +874,15 @@ def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
         if tuple(residual.shape) != (n, nf, spec.p, spec.q):
             raise ValueError(f"residual shape {tuple(residual.shape)} != "
                              f"conv output {(n, nf, spec.p, spec.q)}")
-    if spec.dataflow == "weight_stationary_psum":
+    if x_padded.dtype == torch.int8 and \
+            spec.dataflow == "weight_stationary_psum":
         # the WS accumulator spill lands on psum staging only for an
-        # identity epilogue
-        _refuse_unported(x_padded, w, spec.dataflow, groups)
-    # the operands in the spec's order: x, w, vec[, residual]
+        # identity epilogue, which an int8 stream never has (its requant
+        # affine is a scale)
+        raise ValueError("int8 weight_stationary spilled to psum staging, "
+                         "which cannot dequantize; use output_stationary")
+    # the operands in the spec's order: x, w[, vec][, residual]; int8 x
+    # and w pad in int8, before the kernel
     arrays = {"x": x_padded, "w": w, "residual": residual}
     ops = []
     for op in spec.inputs:
@@ -784,14 +891,26 @@ def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
                                      scale, shift, x_padded.device))
         else:
             ops.append(_pad_to(arrays[op.role], op.array_shape))
+    if spec.dataflow == "weight_stationary_psum":
+        ops.append(None)                  # no vector block: nothing flushes
     if not epi.residual:
         ops.append(None)
     return (spec, *ops)
 
 
-def _walk(spec, xp, wp, vec, res):
-    walk = _plain_dw_walk if spec.dataflow == "depthwise" else _plain_walk
-    return walk(spec, xp, wp, vec, res)
+_PLAIN_WALKS = {"weight_stationary": _plain_walk,
+                "output_stationary": _plain_walk,
+                "depthwise": _plain_dw_walk,
+                "weight_stationary_psum": _plain_psum_walk}
+
+
+def _finish(spec: "FoldKernelSpec", out: torch.Tensor) -> torch.Tensor:
+    """Slice the padded kernel output to the layer's own extent; psum
+    staging first sums its depth folds through device memory, as the JAX
+    package does outside its kernel."""
+    if spec.dataflow == "weight_stationary_psum":
+        return out.sum(dim=0)[:, :spec.nf, :spec.p]
+    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]
 
 
 def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
@@ -808,8 +927,7 @@ def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
     spec, the same padding, the fold loop in torch ops."""
     spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
                           epilogue, groups, residual, scale, shift)
-    out = _walk(spec, *ops)
-    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]
+    return _finish(spec, _PLAIN_WALKS[spec.dataflow](spec, *ops))
 
 
 def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
@@ -835,17 +953,20 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
     ``epilogue.bias``, ``scale``/``shift`` (the folded batch-norm vectors)
     when ``epilogue.scale`` and ``residual`` (an (N, NF, P, Q) shortcut)
     when ``epilogue.residual``.  ``dataflow="depthwise"`` (groups == C ==
-    NF) selects the no-reduction kernel.  On a CUDA tensor this launches
-    the WS, OS or depthwise kernel; on a CPU tensor it runs the plain-torch
-    fold loop.  Unported variants raise ``NotImplementedError``.
+    NF) selects the no-reduction kernel, ``"weight_stationary_psum"`` the
+    partial-sum staging (identity epilogue, fp32 only).  Int8 ``x`` and
+    ``w`` stream through the int8 kernels and give fp32 (the caller puts
+    the requant affine in ``scale``/``shift``).  On a CUDA tensor this
+    launches the kernel; on a CPU tensor it runs the plain-torch fold loop.
+    Grouped 1 < G < C on WS / OS raises ``NotImplementedError``.
     """
     spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
                           epilogue, groups, residual, scale, shift)
     if ops[0].device.type == "cuda":
         out = LAUNCHERS[spec.dataflow](spec, *ops)
     elif ops[0].device.type == "cpu":
-        out = _walk(spec, *ops)
+        out = _PLAIN_WALKS[spec.dataflow](spec, *ops)
     else:
         raise ValueError(f"conv2d_folded runs on cuda or cpu tensors, got "
                          f"{ops[0].device}")
-    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]
+    return _finish(spec, out)

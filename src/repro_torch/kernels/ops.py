@@ -1,14 +1,19 @@
-"""Public conv entry points over the fold kernels (forward only, fp32).
+"""Public conv entry points over the fold kernels (forward only; fp32,
+and int8 through ``conv2d_int8``).
 
 ``impl`` selects the path:
-  "fold_ws"   — weight-stationary fold kernel (the paper's dataflow)
-  "fold_os"   — output-stationary fold kernel
-  "fold_dw"   — the depthwise kernel (groups == C == N_F, no depth-fold
-                reduction)
-  "fold_auto" — fold kernel with the dataflow picked by the engine's cost
-                model (``core/engine.py``)
-  "direct"    — the plain-torch shifted-product reference (grouped via
-                ``groups``)
+  "fold_ws"      — weight-stationary fold kernel (the paper's dataflow)
+  "fold_os"      — output-stationary fold kernel
+  "fold_dw"      — the depthwise kernel (groups == C == N_F, no depth-fold
+                   reduction)
+  "fold_auto"    — fold kernel with the dataflow picked by the engine's
+                   cost model (``core/engine.py``)
+  "fold_ws_psum" — the weight-stationary formulation that stages every
+                   depth fold's partial sums in device memory (the paper's
+                   Fig. 5; kept as the comparison for the in-kernel
+                   reduction)
+  "direct"       — the plain-torch shifted-product reference (grouped via
+                   ``groups``)
 
 ``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
 passes these in).  The backward passes wait for the training slice
@@ -25,15 +30,17 @@ from repro_torch.core.epilogue import Epilogue, apply_epilogue
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv2d_ws import conv2d_folded
 
-__all__ = ["conv2d", "conv2d_fused", "FOLD_IMPLS", "IMPLS"]
+__all__ = ["conv2d", "conv2d_fused", "conv2d_int8", "FOLD_IMPLS", "IMPLS"]
 
-FOLD_IMPLS = ("fold_ws", "fold_os", "fold_dw", "fold_auto")
+FOLD_IMPLS = ("fold_ws", "fold_os", "fold_dw", "fold_auto", "fold_ws_psum")
 IMPLS = FOLD_IMPLS + ("direct",)
 
 
 def _resolve_fold_dataflow(x, w, stride: int, pad: int, impl: str, plan,
                            groups: int = 1):
     """Map a fold impl string to (plan, dataflow) for the fold kernel."""
+    if impl == "fold_ws_psum":
+        return plan, "weight_stationary_psum"
     if impl == "fold_dw":
         return plan, "depthwise"
     if impl == "fold_auto":
@@ -108,3 +115,53 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
         return apply_epilogue(y, b, epi, residual, scale, shift)
     return _folded(x, w, stride, pad, impl, plan, groups, bias=b,
                    epilogue=epi, residual=residual, scale=scale, shift=shift)
+
+
+def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None, *, x_scale: float,
+                stride: int = 1, pad: int = 0,
+                epilogue: Optional[Epilogue] = None,
+                impl: str = "fold_auto", plan=None,
+                residual: Optional[torch.Tensor] = None,
+                scale: Optional[torch.Tensor] = None,
+                shift: Optional[torch.Tensor] = None,
+                groups: int = 1) -> torch.Tensor:
+    """Int8 convolution with the requantizing epilogue (inference only, as
+    in the JAX package: no autograd).
+
+    ``x``/``w`` are the fp32 tensors; ``x_scale`` is the calibrated
+    per-tensor activation scale (``core/quant.py:quantize_graph``).  The
+    weights quantize per output channel from the params of this call, the
+    activations with the static ``x_scale`` — before the spatial pad,
+    since ``Q(0) == 0`` — and the dequant ``w_scale * x_scale`` folds with
+    bias and batch-norm into the flush affine (``requant_affine``), so
+    residual / ReLU[6] / pool run in fp32 after it.  The fold impls stream
+    int8 blocks through one kernel launch per conv, accumulating in int32;
+    ``"direct"`` takes the exact int32 reference conv and the same
+    epilogue chain.  Output is fp32.
+    """
+    from repro_torch.core.quant import (quantize_act, quantize_weight,
+                                        requant_affine, requant_epilogue,
+                                        scalar)
+    _check_impl(impl)
+    epi = epilogue or Epilogue()
+    if epi.bias and b is None:
+        raise ValueError("epilogue.bias=True needs a bias vector")
+    if epi.scale != (scale is not None and shift is not None):
+        raise ValueError("epilogue.scale and the scale/shift arguments "
+                         "must be supplied together")
+    if epi.residual != (residual is not None):
+        raise ValueError("epilogue.residual and the residual argument must "
+                         "be supplied together")
+    wq, w_scale = quantize_weight(w)
+    xq = quantize_act(x, x_scale)
+    comb_scale, comb_shift = requant_affine(
+        w_scale * scalar(x_scale, x.device), epi, b, scale, shift)
+    epi_q = requant_epilogue(epi)
+    if impl == "direct":
+        acc = _ref.conv2d_direct(xq, wq, stride, pad, groups)
+        return apply_epilogue(acc.float(), None, epi_q, residual,
+                              comb_scale, comb_shift)
+    return _folded(xq, wq, stride, pad, impl, plan, groups,
+                   epilogue=epi_q, residual=residual, scale=comb_scale,
+                   shift=comb_shift)

@@ -18,6 +18,13 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     fp32, mirroring the paper's reduction order.  With ``groups > 1`` the
     weights are (NF, C/groups, R, S) and each filter contracts only its
     own group's channel slice (depthwise is groups == C).
+
+    Int8 ``x`` and ``w`` give the exact int32 accumulator (the
+    ``"reference"`` policy's int8 conv, the counterpart of
+    ``lax.conv_general_dilated(..., preferred_element_type=int32)``): the
+    partial sums accumulate in float64, which holds every integer below
+    2^53 exactly, far above the worst case 127*127*(C/G)*R*S, and are
+    returned as int32.  ``F.conv2d`` has no int8 path on either device.
     """
     n, c, _, _ = x.shape
     nf, cw, r, s = w.shape
@@ -28,24 +35,29 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     xp = F.pad(x, (pad, pad, pad, pad)) if pad else x
     p = (xp.shape[2] - r) // stride + 1
     q = (xp.shape[3] - s) // stride + 1
+    quantized = x.dtype == torch.int8
+    if quantized and w.dtype != torch.int8:
+        raise ValueError(f"int8 activations need int8 weights, got w dtype "
+                         f"{w.dtype}")
+    acc_dtype = torch.float64 if quantized else torch.float32
+    out_dtype = torch.int32 if quantized else x.dtype
     if groups == 1:
-        acc = torch.zeros((n, nf, p, q), dtype=torch.float32,
-                          device=x.device)
+        acc = torch.zeros((n, nf, p, q), dtype=acc_dtype, device=x.device)
         for ri in range(r):
             for si in range(s):
                 win = xp[:, :, ri:ri + p * stride:stride,
                          si:si + q * stride:stride]      # (N, C, P, Q)
-                acc = acc + torch.einsum("ncpq,fc->nfpq", win.float(),
-                                         w[:, :, ri, si].float())
-        return acc.to(x.dtype)
+                acc = acc + torch.einsum("ncpq,fc->nfpq", win.to(acc_dtype),
+                                         w[:, :, ri, si].to(acc_dtype))
+        return acc.to(out_dtype)
     xg = xp.reshape(n, groups, cw, xp.shape[2], xp.shape[3])
     wg = w.reshape(groups, nf // groups, cw, r, s)
-    acc = torch.zeros((n, groups, nf // groups, p, q), dtype=torch.float32,
+    acc = torch.zeros((n, groups, nf // groups, p, q), dtype=acc_dtype,
                       device=x.device)
     for ri in range(r):
         for si in range(s):
             win = xg[:, :, :, ri:ri + p * stride:stride,
                      si:si + q * stride:stride]          # (N, G, Cg, P, Q)
-            acc = acc + torch.einsum("ngcpq,gfc->ngfpq", win.float(),
-                                     wg[:, :, :, ri, si].float())
-    return acc.reshape(n, nf, p, q).to(x.dtype)
+            acc = acc + torch.einsum("ngcpq,gfc->ngfpq", win.to(acc_dtype),
+                                     wg[:, :, :, ri, si].to(acc_dtype))
+    return acc.reshape(n, nf, p, q).to(out_dtype)

@@ -4,13 +4,16 @@ continuous-batching vision engine (``serve/vision.py``).
     python -m repro_torch.launch.serve --vision --model mobilenetv2
     python -m repro_torch.launch.serve --vision --model resnet18 --width 1.0
     python -m repro_torch.launch.serve --vision --model vgg16 --device cpu
+    python -m repro_torch.launch.serve --vision --precision int8 \
+        --device cpu --width 0.0625
 
 It serves a deterministic mixed-size request stream through the bucketed
 compiled forwards of any registered conv model (``models/zoo.py``,
 ``--model``) and prints the summary (images/s, latency percentiles, slot
-occupancy, fold reuse, served-vs-direct check) as one JSON object.  It
-writes no file.  Token serving and ``--chaos`` wait for their slices
-(ROADMAP queue A item 9).
+occupancy, fold reuse, served-vs-direct check) as one JSON object; with
+``--precision int8`` that object sits under the key ``serving_int8`` (the
+JAX launcher's section name).  It writes no file.  Token serving and
+``--chaos`` wait for their slices (ROADMAP queue A item 9).
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain-torch "
                          "versions)")
+    ap.add_argument("--precision", choices=("fp32", "int8"), default="fp32",
+                    help="streamed conv precision of the compiled forwards")
     args = ap.parse_args(argv)
     if not args.vision:
         ap.error("token serving is not ported yet (ROADMAP queue A item "
@@ -52,8 +57,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         args.model, requests=args.requests, img=args.img,
         width_mult=args.width, policy=args.policy,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
-        seed=args.seed, device=args.device)
-    print(json.dumps(summary, indent=1, sort_keys=True))
+        seed=args.seed, device=args.device, precision=args.precision)
+    # an int8 summary prints under its own key, as the JAX launcher files
+    # it under its own section beside the fp32 one
+    out = summary if args.precision == "fp32" else \
+        {f"serving_{args.precision}": summary}
+    print(json.dumps(out, indent=1, sort_keys=True))
     return summary
 
 

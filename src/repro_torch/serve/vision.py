@@ -13,10 +13,12 @@ fold-schedule engine.
   occupancy, and the schedule cache's fold-reuse counters.
 
 ``serving_summary`` serves a deterministic mixed-size request stream
-through any registered conv model (``models/zoo.py``) and is what
-``launch/serve.py --vision`` runs.  The degradation ladder, admission
-control, chaos, watchdog, tracing, autotuning and the mesh wait for a
-later slice (ROADMAP queue A item 9).
+through any registered conv model (``models/zoo.py``), in fp32 or int8,
+and is what ``launch/serve.py --vision`` runs.  Of the degradation ladder
+only its compile surface is here (``reference_compiler``, the reference
+rung's compiled forwards); the ladder itself, admission control, chaos,
+watchdog, tracing, autotuning and the mesh wait for a later slice
+(ROADMAP queue A item 9).
 """
 from __future__ import annotations
 
@@ -112,12 +114,15 @@ class VisionEngine:
                  buckets: Sequence[int] = (1, 2, 4, 8),
                  cache: Optional[ScheduleCache] = None,
                  head: Optional[Callable] = None,
-                 fuse_epilogues: bool = True, device: Any = "cuda"):
+                 fuse_epilogues: bool = True, device: Any = "cuda",
+                 precision: str = "fp32"):
         self.params = params
         self.batcher = ImageBatcher(BucketPolicy(buckets), img, chan)
         self.compiler = BucketCompiler(
             params, graph, img, chan=chan, policy=policy, cache=cache,
-            head=head, fuse_epilogues=fuse_epilogues, device=device)
+            head=head, fuse_epilogues=fuse_epilogues, device=device,
+            precision=precision)
+        self._ref_compiler: Optional[BucketCompiler] = None
         # compile the first bucket now: it resolves the device (raising
         # when a requested GPU is absent) before any request is taken
         self.device = self.compiler.network_for(
@@ -147,6 +152,24 @@ class VisionEngine:
             self.metrics.expired += 1
             self._account(req)
         self.batcher.expired.clear()
+
+    @property
+    def reference_compiler(self) -> BucketCompiler:
+        """The reference rung's compile surface: reference-policy compiled
+        forwards per bucket, built on first use, sharing the primary
+        compiler's ``ScheduleCache``.  It takes the same precision and the
+        same ``QuantRecipe`` object, so a request run on the reference rung
+        sees the same activation scales.  When the primary policy already
+        is the reference, the primary compiler is returned."""
+        c = self.compiler
+        if c.policy == "reference":
+            return c
+        if self._ref_compiler is None:
+            self._ref_compiler = BucketCompiler(
+                self.params, c.graph, c.img, chan=c.chan,
+                policy="reference", cache=c.cache, head=c.head,
+                device=c.device, precision=c.precision, quant=c.quant)
+        return self._ref_compiler
 
     # -- device side -------------------------------------------------------
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
@@ -248,7 +271,7 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
                     width_mult: float = 0.0625, classes: int = 10,
                     policy: str = "auto",
                     buckets: Sequence[int] = (1, 2, 4, 8), seed: int = 0,
-                    device: Any = "cuda") -> dict:
+                    device: Any = "cuda", precision: str = "fp32") -> dict:
     """Serve a deterministic mixed-size random request stream through a
     registered model (``models/zoo.py``) with random weights made from
     ``seed``, and return ``metrics_dict()`` plus the ``workload`` block.
@@ -257,8 +280,9 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     ``np.random.default_rng(seed)``; every request is submitted, then the
     queue is drained.  Then each request's served logits are compared
     with a direct forward of its own images through the same schedule
-    cache: the largest difference and the largest reference magnitude
-    land under ``"verify"``."""
+    cache (and, for int8, the same ``QuantRecipe``): the largest
+    difference and the largest reference magnitude land under
+    ``"verify"``."""
     from repro_torch.models.zoo import compile_forward, get_conv_model
     spec = get_conv_model(model)
     _, dev = resolve_execution(policy, device)     # raises without a GPU
@@ -266,7 +290,7 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     params = spec.init_params(gen.manual_seed(seed), width_mult=width_mult,
                               img=img, classes=classes, device=dev)
     engine = VisionEngine(params, spec.to_graph(), img=img, policy=policy,
-                          buckets=buckets, device=dev)
+                          buckets=buckets, device=dev, precision=precision)
     engine.warmup()
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, engine.batcher.policy.max_width + 1, requests)
@@ -279,7 +303,8 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     for req, im in zip(reqs, imgs):
         direct = compile_forward(spec, params, img=img, batch=im.shape[0],
                                  policy=policy, cache=engine.compiler.cache,
-                                 device=dev)
+                                 device=dev, precision=precision,
+                                 quant=engine.compiler.quant)
         with torch.inference_mode():
             want = direct(params, torch.from_numpy(im).to(dev))
         got = torch.from_numpy(req.logits).to(dev)
@@ -289,5 +314,6 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
                    "max_abs_ref": ref}
     d["workload"] = {"model": model, "width_mult": width_mult, "img": img,
                      "classes": classes, "requests": int(requests),
-                     "policy": policy, "seed": seed, "device": str(dev)}
+                     "policy": policy, "precision": precision,
+                     "seed": seed, "device": str(dev)}
     return d

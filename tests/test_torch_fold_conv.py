@@ -1,9 +1,9 @@
 """The port's fold conv against the JAX package's: the plain-torch fold
-loops (WS, OS, depthwise) on the CPU against the Pallas kernels in
-interpret mode, with every epilogue the zoo models fuse, the fused conv
-entry point, the direct-conv oracle (grouped included), the refusal of
-unported variants, and — on a card — each CUDA kernel against its plain
-version."""
+loops (WS, OS, depthwise, psum staging; fp32 and int8) on the CPU against
+the Pallas kernels in interpret mode, with every epilogue the zoo models
+fuse, the fused and int8 conv entry points, the direct-conv oracle
+(grouped included), the refusal of the unported grouped variant, and — on
+a card — each CUDA kernel against its plain version."""
 import types
 
 import numpy as np
@@ -27,10 +27,11 @@ def jx():
     import jax.numpy as jnp
     from repro.core.epilogue import Epilogue
     from repro.core.mapping import ConvBlockPlan
+    from repro.core import quant
     from repro.kernels import conv2d_ws, ops, ref
     return types.SimpleNamespace(jnp=jnp, Epilogue=Epilogue,
                                  Plan=ConvBlockPlan, kern=conv2d_ws,
-                                 ops=ops, ref=ref)
+                                 ops=ops, ref=ref, quant=quant)
 
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 at these sizes, two sum orders
@@ -250,17 +251,19 @@ def test_schedule_cache_binds_and_memoizes_the_fold_kernel():
                                **TOL)
 
 
-REFUSED = ("psum", "groups", "int8", "psum_spill")
+REFUSED = ("groups",)
 
 
 @pytest.mark.parametrize("what", ["depthwise", "psum", "groups", "int8",
                                   "residual", "scale", "relu6", "psum_spill",
                                   "direct_groups", "fused_residual"])
 def test_unported_variants_raise(what):
-    """The variants still to port raise, naming their ROADMAP item.  The
-    ones ported since (depthwise, the residual / scale / ReLU6 epilogues,
-    grouped direct conv) now match the plain reference: the direct conv
-    and the reference epilogue, within TOL (fp32, two sum orders)."""
+    """The variant still to port (grouped 1 < G < C on WS / OS) raises,
+    naming its ROADMAP item.  The ones ported since (depthwise, psum
+    staging and the WS spill to it, int8, the residual / scale / ReLU6
+    epilogues, grouped direct conv) now match the plain reference: the
+    direct conv (exact int32 for int8) and the reference epilogue, within
+    TOL (fp32, two sum orders)."""
     x, w, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 6, 6, 4, 3, 3,
                                                     seed=11))
     wdw, wg = w[:, :1].contiguous(), w[:, :2].contiguous()
@@ -268,13 +271,20 @@ def test_unported_variants_raise(what):
     scale, shift = torch.linspace(0.5, 1.5, 4), torch.linspace(-1, 1, 4)
     fold = t_kern.conv2d_folded
     direct = t_ref.conv2d_direct
+    xs = torch.from_numpy(_inputs(1, 1, 132, 132, 1, 1, 1, seed=13)[0])
+    ws_ = torch.from_numpy(_inputs(1, 1, 1, 1, 256, 3, 3, seed=14)[1])
+    spill = t_kern.fold_kernel_spec(tuple(xs.shape), tuple(ws_.shape))
+    assert spill.dataflow == "weight_stationary_psum"
     calls = {
         "depthwise": lambda: (
             fold(x, wdw, groups=4, dataflow="depthwise"),
             direct(x, wdw, groups=4)),
-        "psum": lambda: fold(x, w, dataflow="weight_stationary_psum"),
+        "psum": lambda: (fold(x, w, dataflow="weight_stationary_psum"),
+                         direct(x, w)),
         "groups": lambda: fold(x, wg, groups=2),
-        "int8": lambda: fold(x.to(torch.int8), w.to(torch.int8)),
+        "int8": lambda: (
+            fold(x.to(torch.int8), w.to(torch.int8)),
+            direct(x.to(torch.int8), w.to(torch.int8)).float()),
         "residual": lambda: (
             fold(x, w, epilogue=TEpilogue(residual=True), residual=res),
             direct(x, w) + res),
@@ -287,9 +297,9 @@ def test_unported_variants_raise(what):
             fold(x, w, epilogue=TEpilogue(relu6=True)),
             torch.clamp(direct(x, w), 0.0, 6.0)),
         # an identity-epilogue WS layer whose accumulator spills lands on
-        # the unported psum staging
-        "psum_spill": lambda: fold(torch.zeros(1, 1, 1026, 258),
-                                   torch.zeros(256, 1, 3, 3)),
+        # psum staging
+        "psum_spill": lambda: (
+            fold(xs, ws_), direct(xs, ws_)),
         "direct_groups": lambda: (
             direct(x, wg, groups=2),
             torch.cat([direct(x[:, :2], wg[:2]), direct(x[:, 2:], wg[2:])],
@@ -305,6 +315,152 @@ def test_unported_variants_raise(what):
     got, want = calls[what]()
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# --------------------------------------------------------------------------
+# int8 fold streaming and psum staging against the Pallas kernels
+# --------------------------------------------------------------------------
+
+# the epilogues the zoo fuses into the int8 WS / OS kernels
+INT8_EPIS = {"bias+relu": BR, "scale": SC, "bias+residual+relu": BRR,
+             "bias+relu+pool": BRP}
+# (N, C, X, Y, NF, R, stride, pad, forced (nf_b, c_b, p_b)): g_c = 3
+INT8_GEOM = (2, 8, 9, 9, 8, 3, 1, 1, (4, 3, 3))
+
+
+def _int8_operands(epi, n, nf, p, q, seed=0):
+    """Epilogue operands for ``conv2d_int8``: bias and the BN scale/shift
+    (which the requant affine folds) and the shortcut."""
+    ops = _epi_operands(epi, n, nf, p, q, seed)
+    b = ops.pop("bias", None)
+    return b, ops
+
+
+def _int8_tol(want):
+    return 1e-5 * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("impl", ["fold_ws", "fold_os"])
+@pytest.mark.parametrize("epi", list(INT8_EPIS.values()),
+                         ids=list(INT8_EPIS))
+def test_plain_int8_fold_matches_pallas_interpret(jx, epi, impl):
+    """``conv2d_int8`` on the plain int32 fold walk against the JAX
+    package's ``conv2d_int8`` on the Pallas kernels in interpret mode, with
+    the same fp32 operands and calibrated scale: within
+    1e-5·max(1, max|ref|) (the sums are exact; the flush rounds the same
+    steps)."""
+    n, c, x_, y_, nf, r, stride, pad, forced = INT8_GEOM
+    x, w, _ = _inputs(n, c, x_, y_, nf, r, r, seed=15)
+    p, q = x_ + 2 * pad - r + 1, y_ + 2 * pad - r + 1
+    b, ops = _int8_operands(epi, n, nf, p, q, seed=15)
+    xs = jx.quant.act_scale(jx.jnp.asarray(x))
+    want = jx.ops.conv2d_int8(
+        jx.jnp.asarray(x), jx.jnp.asarray(w),
+        None if b is None else jx.jnp.asarray(b), x_scale=xs, stride=stride,
+        pad=pad, epilogue=jx.Epilogue(**epi), impl=impl,
+        plan=_plan(jx.Plan, forced, nf, c), interpret=True,
+        **_as(jx.jnp.asarray, ops))
+    got = t_ops.conv2d_int8(
+        torch.from_numpy(x), torch.from_numpy(w),
+        None if b is None else torch.from_numpy(b), x_scale=xs,
+        stride=stride, pad=pad, epilogue=TEpilogue(**epi), impl=impl,
+        plan=_plan(TPlan, forced, nf, c), **_as(torch.from_numpy, ops))
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= _int8_tol(want)
+
+
+def test_plain_int8_depthwise_matches_pallas_interpret(jx):
+    """The int8 depthwise walk (widened before the product) with BN+ReLU6
+    against ``_dw_kernel``'s int8 body in interpret mode, c_pad > C."""
+    n, c, x_, r, stride, pad = 2, 6, 11, 3, 2, 1
+    x, w, _ = _inputs(n, c, x_, x_, c, r, r, seed=16)
+    w = np.ascontiguousarray(w[:, :1])
+    p = (x_ + 2 * pad - r) // stride + 1
+    _, ops = _int8_operands(SC6, n, c, p, p, seed=16)
+    xs = jx.quant.act_scale(jx.jnp.asarray(x))
+    want = np.asarray(jx.ops.conv2d_int8(
+        jx.jnp.asarray(x), jx.jnp.asarray(w), x_scale=xs, stride=stride,
+        pad=pad, epilogue=jx.Epilogue(**SC6), impl="fold_dw",
+        plan=_dw_plan(jx.Plan, (4, 3), c), interpret=True, groups=c,
+        **_as(jx.jnp.asarray, ops)))
+    got = t_ops.conv2d_int8(
+        torch.from_numpy(x), torch.from_numpy(w), x_scale=xs, stride=stride,
+        pad=pad, epilogue=TEpilogue(**SC6), impl="fold_dw",
+        plan=_dw_plan(TPlan, (4, 3), c), groups=c,
+        **_as(torch.from_numpy, ops))
+    assert got.shape == want.shape == (n, c, p, p)
+    assert np.abs(got.numpy() - want).max() <= _int8_tol(want)
+
+
+def test_int8_direct_impl_matches_the_fold_walk():
+    """``conv2d_int8(impl="direct")`` (the exact int32 reference conv and
+    the unfused epilogue) gives the fold walk's bits: the same int32 sums,
+    the same affine steps."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs(2, 6, 10, 10, 8, 3, 3,
+                                                    seed=17))
+    xs = float(x.abs().max()) / 127 + 1e-12
+    kw = dict(x_scale=xs, pad=1, epilogue=TEpilogue(**BRP))
+    got = t_ops.conv2d_int8(x, w, b, impl="fold_ws", **kw)
+    want = t_ops.conv2d_int8(x, w, b, impl="direct", **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("forced", [(4, 3, 3), (8, 2, 4)],
+                         ids=["gc3_gnf2", "gc4"])
+def test_plain_psum_matches_pallas_interpret(jx, forced):
+    """The psum-staging walk (g_c >= 2) against ``_ws_psum_kernel`` in
+    interpret mode, through ``impl="fold_ws_psum"``: within
+    1e-5·max|ref| (fp32, the folds summed in another order)."""
+    x, w, _ = _inputs(2, 8, 9, 10, 8, 3, 3, seed=18)
+    want = np.asarray(jx.ops.conv2d(
+        jx.jnp.asarray(x), jx.jnp.asarray(w), pad=1, impl="fold_ws_psum",
+        plan=_plan(jx.Plan, forced, 8, 8), interpret=True))
+    got = t_ops.conv2d(torch.from_numpy(x), torch.from_numpy(w), pad=1,
+                       impl="fold_ws_psum", plan=_plan(TPlan, forced, 8, 8))
+    spec = t_kern.fold_kernel_spec((2, 8, 11, 12), (8, 8, 3, 3),
+                                   plan=_plan(TPlan, forced, 8, 8),
+                                   dataflow="weight_stationary_psum")
+    assert spec.cg_folds >= 2
+    assert spec.output.array_shape[0] == spec.cg_folds
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_int8_on_psum_raises_as_the_reference_does(jx):
+    x, w, _ = _inputs(1, 4, 6, 6, 4, 3, 3, seed=19)
+    xq, wq = (np.clip(np.round(a * 20), -127, 127).astype(np.int8)
+              for a in (x, w))
+    with pytest.raises(ValueError, match="legacy psum dataflow cannot "
+                                         "stream int8") as got:
+        t_kern.conv2d_folded(torch.from_numpy(xq), torch.from_numpy(wq),
+                             dataflow="weight_stationary_psum")
+    with pytest.raises(ValueError) as want:
+        jx.kern.conv2d_folded(jx.jnp.asarray(xq), jx.jnp.asarray(wq),
+                              dataflow="weight_stationary_psum",
+                              interpret=True)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="int8 activations need int8"):
+        t_kern.conv2d_folded(torch.from_numpy(xq), torch.from_numpy(w))
+    # an int8 identity-epilogue layer whose WS accumulator would spill
+    xs = torch.zeros(1, 1, 132, 132, dtype=torch.int8)
+    ws_ = torch.zeros(256, 1, 3, 3, dtype=torch.int8)
+    with pytest.raises(ValueError, match="spilled to psum staging"):
+        t_kern.conv2d_folded(xs, ws_)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_grouped_variant_still_raises(precision):
+    """Grouped 1 < G < C on the WS / OS kernels is the one variant of the
+    three fold kernels not ported: it raises for fp32 and for int8."""
+    x, w, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 6, 6, 4, 3, 3,
+                                                    seed=20))
+    wg = w[:, :2].contiguous()
+    if precision == "int8":
+        x, wg = x.to(torch.int8), wg.to(torch.int8)
+    for df in ("weight_stationary", "output_stationary"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_kern.conv2d_folded(x, wg, groups=2, dataflow=df)
 
 
 # --------------------------------------------------------------------------
@@ -388,4 +544,97 @@ def test_cuda_dw_kernel_matches_plain_version(cuda_device, case):
     want = t_kern.conv2d_folded_plain(x, w, **kw)
     tol = 1e-4 * max(1.0, want.abs().max().item())
     assert got.shape == want.shape == (n, c, p, q)
+    assert (got - want).abs().max().item() <= tol
+
+
+def _int8_kernel_case(device, epi, impl, forced, geom=INT8_GEOM, seed=21):
+    """Quantized operands and the requant vectors of one int8 layer, as
+    ``conv2d_folded`` keyword arguments, on ``device``."""
+    from repro_torch.core import quant as t_quant
+    n, c, x_, y_, nf, r, stride, pad, _ = geom
+    x, w, _b = (torch.from_numpy(a).to(device) for a in
+                _inputs(n, c, x_, y_, nf, r, r, seed=seed))
+    p, q = x_ + 2 * pad - r + 1, y_ + 2 * pad - r + 1
+    b, ops = _int8_operands(epi, n, nf, p, q, seed=seed)
+    ops = _as(lambda a: torch.from_numpy(a).to(device), ops)
+    b = None if b is None else torch.from_numpy(b).to(device)
+    xs = t_quant.act_scale(x)
+    wq, w_scale = t_quant.quantize_weight(w)
+    xq = torch.nn.functional.pad(t_quant.quantize_act(x, xs),
+                                 (pad, pad, pad, pad))
+    epi_t = TEpilogue(**epi)
+    scale, shift = t_quant.requant_affine(
+        w_scale * torch.tensor(xs, device=device), epi_t, b,
+        ops.pop("scale", None), ops.pop("shift", None))
+    kw = dict(stride=stride, plan=_plan(TPlan, forced, nf, c),
+              dataflow=impl, epilogue=t_quant.requant_epilogue(epi_t),
+              scale=scale, shift=shift, **ops)
+    return xq, wq, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("epi", list(INT8_EPIS.values()),
+                         ids=list(INT8_EPIS))
+@pytest.mark.parametrize("forced", [None, (4, 3, 3)], ids=["auto", "gc3"])
+def test_cuda_int8_kernel_is_bitwise_its_plain_version(cuda_device, epi,
+                                                       dataflow, forced):
+    """``fold_conv_ws_i8`` / ``fold_conv_os_i8`` against the plain int32
+    walk: bitwise (exact int32 sums, the flush rounded step by step)."""
+    xq, wq, kw = _int8_kernel_case(cuda_device, epi, dataflow, forced)
+    name = ("fold_conv_ws_i8" if dataflow == "weight_stationary"
+            else "fold_conv_os_i8")
+    before = t_kern.launch_counts()[name]
+    got = t_kern.conv2d_folded(xq, wq, **kw)
+    torch.cuda.synchronize()
+    assert t_kern.launch_counts()[name] == before + 1
+    assert torch.equal(got, t_kern.conv2d_folded_plain(xq, wq, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES)
+def test_cuda_int8_dw_kernel_is_bitwise_its_plain_version(cuda_device,
+                                                          case):
+    from repro_torch.core import quant as t_quant
+    n, c, x_, y_, r, stride, pad, epi, forced = case
+    x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
+               _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, c, r, r, seed=9))
+    wq, w_scale = t_quant.quantize_weight(w[:, :1].contiguous())
+    xs = t_quant.act_scale(x)
+    p, q = (x_ + 2 * pad - r) // stride + 1, (y_ + 2 * pad - r) // stride + 1
+    ops = _as(lambda a: torch.from_numpy(a).to(cuda_device),
+              _epi_operands(epi, n, c, p, q))
+    epi_t = TEpilogue(**epi)
+    scale, shift = t_quant.requant_affine(
+        w_scale * torch.tensor(xs, device=cuda_device), epi_t, None,
+        ops.pop("scale", None), ops.pop("shift", None))
+    kw = dict(stride=stride, plan=_dw_plan(TPlan, forced, c),
+              dataflow="depthwise", epilogue=t_quant.requant_epilogue(epi_t),
+              groups=c, scale=scale, shift=shift, **ops)
+    xq = t_quant.quantize_act(x, xs)
+    before = t_kern.launch_counts()["fold_conv_dw_i8"]
+    got = t_kern.conv2d_folded(xq, wq, **kw)
+    torch.cuda.synchronize()
+    assert t_kern.launch_counts()["fold_conv_dw_i8"] == before + 1
+    assert torch.equal(got, t_kern.conv2d_folded_plain(xq, wq, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, (4, 3, 3), (8, 2, 4)],
+                         ids=["auto", "gc3_gnf2", "gc4"])
+def test_cuda_psum_kernel_matches_plain_version(cuda_device, forced):
+    """``fold_conv_psum`` against the plain psum walk: within
+    1e-4·max(1, max|plain|) (FFMA against separate multiply and add)."""
+    x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
+               _inputs(2, 8, 11, 12, 8, 3, 3, seed=18))
+    kw = dict(plan=_plan(TPlan, forced, 8, 8),
+              dataflow="weight_stationary_psum")
+    before = t_kern.launch_counts()["fold_conv_psum"]
+    got = t_kern.conv2d_folded(x, w, **kw)
+    torch.cuda.synchronize()
+    assert t_kern.launch_counts()["fold_conv_psum"] == before + 1
+    want = t_kern.conv2d_folded_plain(x, w, **kw)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert got.shape == want.shape
     assert (got - want).abs().max().item() <= tol

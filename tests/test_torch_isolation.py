@@ -41,7 +41,8 @@ def test_port_imports_where_jax_cannot_load():
         "from repro_torch.models import mobilenet, resnet, vgg, zoo\n"
         "from repro_torch.serve import vision\n"
         "from repro_torch.launch import serve\n"
-        "from repro_torch.kernels import build, conv2d_ws, ops\n"
+        "from repro_torch.kernels import build, conv2d_ws, ops, ref\n"
+        "from repro_torch.core import engine, quant\n"
         "from repro_torch import convert\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
