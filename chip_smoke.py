@@ -45,11 +45,26 @@ Phases (any failed check raises, and the script exits non-zero):
 12. The psum path: ``ops.conv2d(impl="fold_ws_psum")`` over VGG-16's 13
     layers at 224, batch 1, and the WS spill of an unfused layer, each
     against the plain walk on its own inputs and plan.
+13. LM kernels: the causal conv1d kernel bitwise against its plain
+    version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
+    K = 2 and 3, T < K - 1, the cache-prefixed form) and the fold-attention
+    kernel against its plain version (fp32 and bf16; zamba2's causal case,
+    GQA, MQA, a 1024-token window, non-causal, a ragged T, hd 128).
+14. Prefill: zamba2-1.2b at full width, bf16, random weights, B = 2 x
+    2048 tokens through ``make_prefill_step``: 38 conv1d launches per
+    prefill, prefill ms and prompt tokens/s.
+15. Consistency: the same model in fp32, prefill 32 tokens and decode 8,
+    against ``forward`` on the 40 within 2e-3·max|logits|.
+16. Token serving: ``BatchEngine`` at full width, bf16, batch 4, 8
+    requests of 16 prompt and 16 new tokens: none lost; decode launches
+    no kernel.  A functional check; its tokens/s is no serving rate.
+17. The fold-attention op at zamba2's shared-attention shape (no model
+    calls it), then both LM kernels timed at the prefill cell's shapes.
 
 Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32), 10-11 (int8), 12
-(psum).  The second-to-last line is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
+(psum), 14-16 (the LM path), 17 (the attention op).  The second-to-last
+line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report) go to
 ``build/chip_smoke.json``.
 """
@@ -64,10 +79,11 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense int8 on
-# the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense int8 and
+# bf16 on the tensor cores, HBM3 rate
 FP32_PEAK = 67e12
 INT8_PEAK = 1979e12
+BF16_TC_PEAK = 989e12
 HBM_BYTES_PER_S = 3.35e12
 SEED = 0
 TOL_KERNEL = 1e-4      # kernel vs plain: two fp32 sums in different orders
@@ -1101,6 +1117,375 @@ def phase_psum(torch, dev, layers):
             "max_abs_err_vs_ws": err, "spill_max_abs_err_vs_os": e_os}
 
 
+# --------------------------------------------------------------------------
+# the LM side: the causal conv1d and fold-attention kernels, zamba2-1.2b
+# --------------------------------------------------------------------------
+
+ZAMBA = "zamba2-1.2b"
+PREFILL_B, PREFILL_T = 2, 2048       # the prefill cell: batch 2, 2048 tokens
+# zamba2's shared attention at the prefill cell: (B, T, H, KV, hd)
+ZAMBA_ATTN = (PREFILL_B, PREFILL_T, 32, 32, 64)
+# the attention kernel against its plain version: tests/test_attention_
+# kernel.py's tolerances (fp32 sums in another order; bf16 output
+# rounding), scaled by max(1, max|plain|).  bf16 is held element by element
+# as well: both sides do fp32 math on the same bf16 inputs and round once,
+# so each output lies within one bf16 step (2^-7 of its value) of the
+# plain one, plus the fp32 tolerance for the sums' order.
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 3e-2}
+BF16_STEP = 2.0 ** -7
+TOL_DECODE = 2e-3    # decode vs forward (tests/test_decode_consistency.py)
+
+
+def conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix):
+    """Random x (B, T, D) and w (K, D) in ``dtype``; with ``prefix`` the
+    model's cache-prefixed form: K-1 random cached rows in front of x,
+    their outputs dropped after the conv."""
+    x = torch.randn(b, t, d, device=dev, generator=gen).to(dtype)
+    w = torch.randn(k, d, device=dev, generator=gen).to(dtype)
+    if prefix:
+        tail = torch.randn(b, k - 1, d, device=dev, generator=gen).to(dtype)
+        x = torch.cat([tail, x], dim=1)
+    return x, w
+
+
+def phase_lm_kernels(torch, dev):
+    """The conv1d kernel bitwise against its plain version, the attention
+    kernel within TOL_ATTN of its plain version, in fp32 and bf16 (bf16
+    also element by element within BF16_STEP)."""
+    from repro_torch.kernels import attention_fold as af
+    from repro_torch.kernels import conv1d_causal as cc
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    # (B, T, D, K, cache prefix)
+    conv_cases = [
+        (PREFILL_B, PREFILL_T, 4224, 4, False),   # zamba2's prefill shape
+        (2, 100, 300, 4, False),                  # D not a multiple of 128
+        (2, 1, 4224, 4, False),                   # T = 1
+        (2, 77, 256, 2, False), (2, 77, 256, 3, False),   # K = 2, 3
+        (1, 2, 64, 4, False),                     # T < K - 1
+        (2, 16, 4224, 4, True),                   # the cache-prefixed form
+    ]
+    errs = {cc.KERNEL: 0.0, af.KERNEL: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, d, k, prefix in conv_cases:
+            x, w = conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix)
+            before = cc.launch_counts()[cc.KERNEL]
+            got = cc.conv1d_causal_folded(x, w)
+            torch.cuda.synchronize()
+            check(cc.launch_counts()[cc.KERNEL] == before + 1,
+                  "conv1d_causal did not launch")
+            want = cc.conv1d_causal_plain(x, w)
+            if prefix:
+                got, want = got[:, k - 1:], want[:, k - 1:]
+            same = got.shape == want.shape and torch.equal(got, want)
+            print(f"[lm kernels] conv1d_causal {str(dtype)[6:]} B={b} T={t} "
+                  f"D={d} K={k}{' cache-prefixed' if prefix else ''} "
+                  f"bitwise={same}")
+            check(same, "conv1d_causal is not bitwise its plain version")
+    # (B, T, H, KV, hd, causal, window)
+    attn_cases = [
+        ZAMBA_ATTN + (True, 0),                   # zamba2's causal case
+        (1, 512, 32, 8, 64, True, 0),             # GQA
+        (1, 256, 8, 1, 64, True, 0),              # MQA
+        (1, PREFILL_T, 8, 8, 64, True, 1024),     # a 1024-token window
+        (1, 512, 8, 4, 64, False, 0),             # non-causal
+        (2, 1000, 4, 2, 64, True, 0),             # T not a multiple of 64
+        (1, 256, 4, 4, 128, True, 0),             # hd 128
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b, t, h, kv, hd, causal, window in attn_cases:
+            q = torch.randn(b, t, h, hd, device=dev, generator=gen).to(dtype)
+            k = torch.randn(b, t, kv, hd, device=dev, generator=gen).to(dtype)
+            v = torch.randn(b, t, kv, hd, device=dev, generator=gen).to(dtype)
+            kw = dict(causal=causal, window=window)
+            before = af.launch_counts()[af.KERNEL]
+            got = af.flash_attention_folded(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(af.launch_counts()[af.KERNEL] == before + 1,
+                  "attention_fold did not launch")
+            want = af.flash_attention_folded_plain(q, k, v, **kw)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  "attention_fold: wrong output shape or type")
+            diff = (got.float() - want.float()).abs()
+            scale = max(1.0, want.float().abs().max().item())
+            err, tol = diff.max().item(), TOL_ATTN[name] * scale
+            worst = 0.0     # the largest share of its element-wise limit
+            if dtype == torch.bfloat16:
+                limit = (BF16_STEP * want.float().abs()
+                         + TOL_ATTN["float32"] * scale)
+                worst = (diff / limit).max().item()
+            print(f"[lm kernels] attention_fold {name} B={b} T={t} H={h} "
+                  f"KV={kv} hd={hd} causal={causal} window={window} "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e})"
+                  + (f" worst/element-limit={worst:.3f}"
+                     if dtype == torch.bfloat16 else ""))
+            check(err <= tol and worst <= 1.0,
+                  "attention_fold disagrees with its plain version")
+            errs[af.KERNEL] = max(errs[af.KERNEL], err)
+    return errs
+
+
+def time_lm_kernels(torch, dev):
+    """Each LM kernel at the prefill cell's shape: the bare launch, the
+    plain version and one PyTorch call of the same function, device time
+    by CUDA-graph replay, and the bound from this run's inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_fold as af
+    from repro_torch.kernels import conv1d_causal as cc
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rows = {}
+    b, t, d, k = PREFILL_B, PREFILL_T, 4224, 4
+    x = torch.randn(b, t, d, device=dev, generator=gen).bfloat16()
+    w = torch.randn(k, d, device=dev, generator=gen).bfloat16()
+    xt, wt = x.transpose(1, 2), w.T[:, None, :].contiguous()
+    op_ms = 1e3 * 2.0 * k * b * t * d / FP32_PEAK
+    byte_ms = 1e3 * 2.0 * (2 * x.numel() + w.numel()) / HBM_BYTES_PER_S
+    rows[cc.KERNEL] = {
+        "shape": f"x ({b}, {t}, {d}) bf16, w ({k}, {d}) bf16",
+        "ms": time_graph_ms(torch, lambda: cc.launch(x, w), 20),
+        "plain_ms": time_graph_ms(
+            torch, lambda: cc.conv1d_causal_plain(x, w), 5),
+        "library_ms": time_graph_ms(
+            torch, lambda: F.conv1d(xt, wt, groups=d, padding=k - 1)
+            [..., :t], 20),
+        "bound_ms": max(op_ms, byte_ms), "op_ms": op_ms, "byte_ms": byte_ms,
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    b, t, h, kv, hd = ZAMBA_ATTN
+    pairs = b * h * t * (t + 1) / 2          # causal: the visible (q, k)
+    flops = 4.0 * hd * pairs                 # q.k and p.v, 2 each
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, t, h, hd, device=dev, generator=gen).to(dtype)
+        k_ = torch.randn(b, t, kv, hd, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, t, kv, hd, device=dev, generator=gen).to(dtype)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k_, v))
+        op_ms = 1e3 * flops / FP32_PEAK
+        byte_ms = 1e3 * q.element_size() * 4 * q.numel() / HBM_BYTES_PER_S
+        rows[f"{af.KERNEL}_{str(dtype)[6:]}"] = {
+            "shape": f"q, k, v ({b}, {t}, {h}, {hd}) {str(dtype)[6:]}, "
+                     "causal",
+            "ms": time_graph_ms(
+                torch, lambda: af.launch(q, k_, v, causal=True, window=0),
+                5),
+            "plain_ms": time_graph_ms(
+                torch, lambda: af.flash_attention_folded_plain(q, k_, v), 2),
+            "library_ms": time_graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), 5),
+            "bound_ms": max(op_ms, byte_ms), "op_ms": op_ms,
+            "byte_ms": byte_ms,
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            # the same operations at the dense bf16 tensor-core rate, what
+            # a redesign on the tensor cores could reach
+            "bound_tc_ms": max(1e3 * flops / BF16_TC_PEAK, byte_ms)}
+    for name, r in rows.items():
+        print(f"[lm kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})"
+              + (f", tensor-core bound {r['bound_tc_ms']:.4f}"
+                 if "bound_tc_ms" in r else ""))
+    return rows
+
+
+def phase_attention_op(torch, dev):
+    """The fold-attention kernel's path: the op itself (no model calls
+    it), once at zamba2's shared-attention shape in bf16."""
+    from repro_torch.kernels import attention_fold as af
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    b, t, h, kv, hd = ZAMBA_ATTN
+    q = torch.randn(b, t, h, hd, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, t, kv, hd, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, t, kv, hd, device=dev, generator=gen).bfloat16()
+    out = af.flash_attention_folded(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+          "attention op: bad output")
+
+
+def lm_params(torch, dev, cfg, policy, seed):
+    from repro_torch.models import api
+    return api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dtype_policy=policy, device=dev)
+
+
+def phase_prefill(torch, dev):
+    """zamba2-1.2b at full width, bf16 policy, random weights: prefill of
+    B=2 x 2048 tokens through ``make_prefill_step``, 38 conv1d launches
+    per prefill (one per Mamba2 layer).  Returns the summary, the prefill
+    call and a call of 4 decode steps after it, to be profiled once the
+    launch counts are read."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import conv1d_causal as cc
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.serve.steps import make_prefill_step
+    cfg = get_config(ZAMBA)
+    params = lm_params(torch, dev, cfg, DTypePolicy(), SEED + 23)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_T), device=dev,
+                           generator=gen)
+    step = make_prefill_step(cfg)
+
+    def run():
+        cache = api.init_cache(cfg, PREFILL_B, PREFILL_T + 8, device=dev)
+        with torch.inference_mode():
+            return step(params, {"tokens": tokens}, cache)
+    reps, out = 3, {}
+    before = cc.launch_counts()[cc.KERNEL]
+    tok, logits, cache = run()                    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tok, logits, cache = run()
+    torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    launches = cc.launch_counts()[cc.KERNEL] - before
+    per = cfg.n_layers
+    print(f"[prefill] {ZAMBA} B={PREFILL_B} T={PREFILL_T} bf16: "
+          f"{launches} conv1d launches over {reps + 1} prefills")
+    check(launches == per * (reps + 1),
+          f"expected {per} conv1d launches per prefill")
+    check(logits.shape == (PREFILL_B, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+          and bool((logits[:, cfg.vocab:] < -1e29).all())
+          and bool(((tok >= 0) & (tok < cfg.vocab)).all()),
+          "prefill: bad logits or tokens")
+    check(bool(torch.isfinite(cache["mamba"]["h"]).all())
+          and int(cache["attn"]["k"][:, :, :PREFILL_T].abs().sum(-1)
+                  .eq(0).sum()) == 0,
+          "prefill: the cache is not filled")
+    out["prompt_tokens_per_s"] = PREFILL_B * PREFILL_T \
+        / (out["prefill_ms"] / 1e3)
+    out["conv1d_launches_per_prefill"] = per
+    print(f"[prefill] {out['prefill_ms']:.3f} ms per prefill (eager, host "
+          f"clock), {out['prompt_tokens_per_s']:.1f} prompt tokens/s")
+
+    def decode():
+        nxt, c = tok, cache
+        with torch.inference_mode():
+            for i in range(4):
+                lg, c = api.decode_step(params, cfg, nxt, c, PREFILL_T + i)
+                nxt = lg.argmax(dim=-1)
+        torch.cuda.synchronize()
+    return out, run, decode
+
+
+def profile_device(torch, fn, top=6):
+    """One call of ``fn`` under ``torch.profiler``: the summed device time
+    of its kernels (ms), their number, and the kernels that take most of
+    it; (None, 0, []) where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        return None, 0, []
+    total = sum(r[0] for r in rows)
+    return total, sum(r[2] for r in rows), [
+        {"kernel": k[:90], "ms": ms, "calls": n, "share": ms / total}
+        for ms, k, n in rows[:top]]
+
+
+def phase_lm_device(torch, pre, prefill_run, decode_run):
+    """Where the LM path's time goes, once the main path's counts are
+    read: the prefill replayed as a CUDA graph (its device work and busy
+    share), and the prefill and 4 decode steps under ``torch.profiler``
+    (device time by kernel; the decode steps' host-clock time beside
+    their device time)."""
+    pre["device_ms"] = time_graph_ms(torch, prefill_run, 1)
+    pre["busy_share"] = pre["device_ms"] / pre["prefill_ms"]
+    print(f"[prefill] device work {pre['device_ms']:.3f} ms per prefill "
+          f"when replayed as a CUDA graph: busy share "
+          f"{pre['busy_share']:.3f}")
+    pre["profile_device_ms"], pre["kernels"], pre["top_kernels"] = \
+        profile_device(torch, prefill_run)
+    decode_run()                                  # warm-up
+    t0 = time.perf_counter()
+    decode_run()
+    dec = {"step_ms": 1e3 * (time.perf_counter() - t0) / 4}
+    dev_ms, n, dec["top_kernels"] = profile_device(torch, decode_run)
+    dec["device_ms"] = None if dev_ms is None else dev_ms / 4
+    dec["kernels"] = n / 4
+    for what, d, total in (("prefill", pre, pre["profile_device_ms"]),
+                           ("decode step", dec, dec["device_ms"])):
+        if total is None:
+            print(f"[profile] {what}: torch.profiler recorded no device "
+                  "time")
+            continue
+        print(f"[profile] {what}: {total:.3f} ms of kernels in "
+              f"{d['kernels']:.0f} launches; top: "
+              + "; ".join(f"{r['kernel'][:48]} {r['ms']:.3f} ms "
+                          f"({r['share']:.3f}, {r['calls']} calls)"
+                          for r in d["top_kernels"][:4]))
+    if dec["device_ms"] is not None:
+        dec["busy_share"] = dec["device_ms"] / dec["step_ms"]
+        print(f"[profile] decode step (B={PREFILL_B}, after the prefill): "
+              f"{dec['step_ms']:.3f} ms host clock, {dec['device_ms']:.3f} "
+              f"ms of kernels: busy share {dec['busy_share']:.3f}")
+    return dec
+
+
+def phase_consistency(torch, dev):
+    """fp32 policy at full width: prefill 32 tokens, decode 8, against
+    ``forward`` on the 40 within TOL_DECODE·max|logits|.  The prefill and
+    the forward run the conv1d kernel; decode its window einsum."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.models.common import DTypePolicy
+    cfg = get_config(ZAMBA)
+    params = lm_params(torch, dev, cfg, DTypePolicy.fp32(), SEED + 25)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    b, k, s = 2, 32, 40
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    with torch.inference_mode():
+        logits_f = transformer.forward(params, cfg, tokens)
+        cache = api.init_cache(cfg, b, s, dtype=torch.float32, device=dev)
+        lp, cache = api.prefill(params, cfg, {"tokens": tokens[:, :k]},
+                                cache)
+        got = [lp]
+        for i in range(k, s):
+            lg, cache = api.decode_step(params, cfg, tokens[:, i], cache, i)
+            got.append(lg)
+    # the real vocabulary's logits: the padded rows are -1e30 on both sides
+    v = cfg.vocab
+    scale = logits_f[..., :v].abs().max().item()
+    errs = [(g[:, :v] - logits_f[:, k - 1 + j, :v]).abs().max().item()
+            for j, g in enumerate(got)]
+    print(f"[consistency] {ZAMBA} fp32, prefill {k} + decode {s - k} vs "
+          f"forward on {s}: max_abs_err {max(errs):.3e} (tol "
+          f"{TOL_DECODE * scale:.3e}, max|logits| {scale:.3e})")
+    check(bool(torch.isfinite(logits_f).all())
+          and max(errs) <= TOL_DECODE * scale,
+          "decode disagrees with forward")
+    return {"max_abs_err": max(errs), "max_abs_logits": scale}
+
+
+def phase_lm_serving(torch, dev):
+    """``BatchEngine`` at full width (what ``python -m repro_torch.launch.
+    serve --full`` runs), bf16, batch 4: 8 requests, prompt 16, 16 new
+    tokens each.  A functional check: so few tokens are dominated by
+    prompt stepping and refill, so the rate it prints is no serving
+    throughput."""
+    from repro_torch.serve.engine import token_serving_summary
+    d = token_serving_summary(ZAMBA, full=True, batch=4, max_len=64,
+                              prompt_len=16, new_tokens=16, requests=8,
+                              seed=SEED + 27, device=dev)
+    print(f"[serve {ZAMBA}] {d['requests_done']}/{d['requests']} requests "
+          f"done, {d['requests_lost']} lost, {d['tokens']} tokens in "
+          f"{d['elapsed_s']:.3f} s: {d['tokens_per_s']:.3f} tokens/s, "
+          f"decode step {d['decode_step_ms']:.3f} ms, {d['prefill_calls']} "
+          f"prompt-stepping decode calls in {d['prefill_ms']:.3f} ms "
+          f"(a functional check's reading, not a serving rate)")
+    check(d["requests_done"] == 8 and d["requests_lost"] == 0
+          and d["tokens"] == 8 * 16, "token serving lost requests")
+    return d
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1255,6 +1640,46 @@ def main() -> int:
           f"{tot['gc4_with_sum_ms']:.4f} / ws {tot['gc4_ws_ms']:.4f} ms")
     report["psum_vs_ws_224_b1"] = psum_rows
 
+    # -- the LM kernels against their plain versions (not a main path) ----
+    from repro_torch.kernels import attention_fold as af
+    from repro_torch.kernels import conv1d_causal as cc
+    errs.update(phase_lm_kernels(torch, dev))
+
+    # -- the LM main path: counts from 0 just before, read just after -----
+    cc.reset_launch_counts()
+    af.reset_launch_counts()
+    report["prefill_zamba2"], prefill_run, decode_run = phase_prefill(
+        torch, dev)
+    n_prefill = cc.launch_counts()[cc.KERNEL]
+    report["consistency_zamba2"] = phase_consistency(torch, dev)
+    n_check = cc.launch_counts()[cc.KERNEL] - n_prefill
+    report["serving_zamba2"] = phase_lm_serving(torch, dev)
+    n_serve = cc.launch_counts()[cc.KERNEL] - n_prefill - n_check
+    n_layers = report["prefill_zamba2"]["conv1d_launches_per_prefill"]
+    print(f"[lm main path] conv1d_causal launches: prefill {n_prefill}, "
+          f"consistency {n_check} (one forward and one prefill), serving "
+          f"{n_serve}: decode launches no kernel (the engine steps prompts "
+          f"through the decode step, as the JAX engine does); "
+          f"attention_fold {af.launch_counts()[af.KERNEL]} (no model calls "
+          "it)")
+    check(n_check == 2 * n_layers and n_serve == 0,
+          "unexpected conv1d launches off the prefill")
+    check(af.launch_counts()[af.KERNEL] == 0,
+          "a model path launched the attention kernel")
+    launches[cc.KERNEL] = cc.launch_counts()[cc.KERNEL]
+    report["decode_zamba2"] = phase_lm_device(
+        torch, report["prefill_zamba2"], prefill_run, decode_run)
+    del prefill_run, decode_run
+
+    # -- the attention kernel's path, the op itself: counts from 0 --------
+    af.reset_launch_counts()
+    phase_attention_op(torch, dev)
+    launches[af.KERNEL] = af.launch_counts()[af.KERNEL]
+    print(f"[attention op] {af.KERNEL} launches {launches[af.KERNEL]}")
+    check(launches[af.KERNEL] == 1, "the attention op did not launch once")
+    lm_rows = time_lm_kernels(torch, dev)
+    report["lm_kernels"] = lm_rows
+
     # ms_kind: "eager" times the wrapper call, host work included (the
     # VGG layers' kernels run long enough to hide it); "device" replays the
     # bare launch on prepared operands as a CUDA graph
@@ -1290,6 +1715,23 @@ def main() -> int:
              "max_abs_err": errs["fold_conv_psum"], "ms_kind": "device"}
     entry.update(summarize(psum_rows, "ms"))
     kernels.append(entry)
+    # the LM kernels at the prefill cell's shape: conv1d in bf16 (the
+    # model's type), attention in fp32 (the kernel's arithmetic; its bf16
+    # times are in the report)
+    for name, row, src, line in (
+            (cc.KERNEL, lm_rows[cc.KERNEL], "conv1d_causal", 28),
+            (af.KERNEL, lm_rows[f"{af.KERNEL}_float32"], "attention_fold",
+             41)):
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                 "replaces": f"src/repro/kernels/{src}.py:{line}",
+                 "launches": launches[name], "max_abs_err": errs[name],
+                 "ms_kind": "device"}
+        entry.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")})
+        if "bound_tc_ms" in row:
+            entry["bound_tc_ms"] = row["bound_tc_ms"]
+        kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "build"

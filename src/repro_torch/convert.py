@@ -19,10 +19,17 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cuda"
                     ) -> Dict[str, Any]:
     """Turn a (nested dict) parameter tree of arrays — numpy arrays, or
     anything ``np.asarray`` reads — into the port's dict of tensors on
-    ``device``, leaf for leaf."""
+    ``device``, leaf for leaf.  A bfloat16 leaf (numpy reads a JAX bf16
+    array as the ``bfloat16`` extension type, which torch cannot take)
+    crosses by way of float32, which holds every bf16 value exactly, and
+    lands as ``torch.bfloat16``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
 def recipe_from_jax(recipe: Any, device: Any = "cuda"):

@@ -38,6 +38,7 @@ from repro_torch.core.loopnest import ConvLoopNest
 from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
                                       plan_conv_blocks)
 from repro_torch.core.perfmodel import MavecConfig
+from repro_torch.device import resolve_device
 
 __all__ = [
     "ScheduleKey",
@@ -238,12 +239,8 @@ def resolve_execution(policy: str = "auto",
     if policy not in POLICIES:
         raise ValueError(f"unknown execution policy {policy!r} "
                          f"(want one of {POLICIES})")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was requested but no CUDA device "
-                           "is available; pass device='cpu' to run the "
-                           "plain-torch path")
-    return ("reference" if policy == "reference" else "kernel"), dev
+    return ("reference" if policy == "reference" else "kernel"), \
+        resolve_device(device)
 
 
 # --------------------------------------------------------------------------

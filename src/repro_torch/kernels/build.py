@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``library()`` compiles ``csrc/*.cu`` with ``nvcc`` into a shared library
-with a plain C interface, at first use, into
+``library()`` compiles each ``csrc/*.cu`` with its own ``nvcc`` process,
+all started together, and links the objects into one shared library with
+a plain C interface, at first use, into
 ``build/repro_torch_kernels/<hash of the sources>/`` at the repository root,
 and loads it with ``ctypes``.  A source change gets a new directory, so a
 stale build is never loaded.  A missing ``nvcc`` or a failed build raises.
@@ -18,13 +19,14 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["library", "build_info", "nvcc_path", "CSRC", "BUILD_ROOT"]
+__all__ = ["library", "build_info", "nvcc_path", "raise_on_error", "CSRC",
+           "BUILD_ROOT"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB_NAME = "libfoldconv.so"
 
 
@@ -37,7 +39,7 @@ def nvcc_path() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME "
-                       f"({home}); the fold kernels cannot be built")
+                       f"({home}); the port's kernels cannot be built")
 
 
 def _sources():
@@ -67,7 +69,58 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fold_conv_psum.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]
     lib.fold_conv_error_string.restype = ctypes.c_char_p
+    for dt in ("f32", "bf16"):
+        conv1d = getattr(lib, f"conv1d_causal_{dt}")   # x, w, out, b .. k
+        conv1d.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        conv1d.restype = i32
+        attn = getattr(lib, f"attention_fold_{dt}")   # q, k, v, out, b .. scale
+        attn.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_float, ptr]
+        attn.restype = i32
     return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.fold_conv_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _compile_all(lib_path: pathlib.Path) -> str:
+    """Compile every source to an object, one ``nvcc`` each, all at once,
+    link them into the library at ``lib_path``, and return the compilers'
+    resource reports.  Everything is built in a private directory and the
+    library renamed into place: a reader never sees half a library, and
+    two processes building at once never share a file."""
+    nvcc = nvcc_path()
+    work = pathlib.Path(tempfile.mkdtemp(dir=lib_path.parent))
+    try:
+        procs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(work / _LIB_NAME),
+               *[str(obj) for _, obj, _ in procs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(work / _LIB_NAME, lib_path)
+        return "".join(logs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,19 +132,7 @@ def _build() -> tuple:
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # build to a private name, then rename: a reader never sees half
-        # a library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *[str(p) for p in _sources() if p.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        log_path.write_text(proc.stderr)
-        os.replace(tmp, lib_path)
+        log_path.write_text(_compile_all(lib_path))
         seconds = time.perf_counter() - t0
     log = log_path.read_text() if log_path.exists() else ""
     return _declare(ctypes.CDLL(str(lib_path))), str(lib_path), log, seconds

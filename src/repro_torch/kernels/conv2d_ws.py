@@ -702,12 +702,6 @@ def _entry(base: str, xp: torch.Tensor) -> str:
     return base + "_i8" if xp.dtype == torch.int8 else base
 
 
-def _raise_on_error(lib, err: int, name: str) -> None:
-    if err != 0:
-        msg = lib.fold_conv_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-
-
 def _common_args(spec: "FoldKernelSpec", n: int, mq: int) -> list:
     return [n, spec.c_pad, spec.x_rows, spec.inputs[0].array_shape[3],
             spec.nf_pad, spec.r, spec.s, spec.stride, spec.q, spec.p_pad,
@@ -747,7 +741,7 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out), _ptr(slab),
         *_common_args(spec, n, mq), p_chunk, threads,
         torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, name)
+    build.raise_on_error(lib, err, name)
     _LAUNCHES[name] += 1
     return out
 
@@ -771,7 +765,7 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
         *_common_args(spec, n, mq), threads,
         torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, name)
+    build.raise_on_error(lib, err, name)
     _LAUNCHES[name] += 1
     return out
 
@@ -794,7 +788,7 @@ def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
         spec.inputs[0].array_shape[3], spec.r, spec.s, spec.stride, spec.q,
         spec.p_pad, _epi_flags(spec.epilogue),
         torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, name)
+    build.raise_on_error(lib, err, name)
     _LAUNCHES[name] += 1
     return out
 
@@ -820,7 +814,7 @@ def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     err = lib.fold_conv_psum(
         _ptr(xp), _ptr(wp), _ptr(out), *_common_args(spec, n, mq)[:-2], mq,
         threads, torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_on_error(lib, err, "fold_conv_psum")
+    build.raise_on_error(lib, err, "fold_conv_psum")
     _LAUNCHES["fold_conv_psum"] += 1
     return out
 

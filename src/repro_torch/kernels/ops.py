@@ -16,8 +16,9 @@ and int8 through ``conv2d_int8``).
                    ``groups``)
 
 ``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
-passes these in).  The backward passes wait for the training slice
-(ROADMAP queue A item 6).
+passes these in).  ``conv1d_causal`` is the Mamba2 mixer's causal
+depthwise conv1d (``kernels/conv1d_causal.py``).  The backward passes wait
+for the training slice (ROADMAP queue A items 6 and 15d).
 """
 from __future__ import annotations
 
@@ -28,12 +29,19 @@ import torch.nn.functional as F
 
 from repro_torch.core.epilogue import Epilogue, apply_epilogue
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.conv1d_causal import conv1d_causal_folded
 from repro_torch.kernels.conv2d_ws import conv2d_folded
 
-__all__ = ["conv2d", "conv2d_fused", "conv2d_int8", "FOLD_IMPLS", "IMPLS"]
+__all__ = ["conv2d", "conv2d_fused", "conv2d_int8", "conv1d_causal",
+           "FOLD_IMPLS", "IMPLS"]
 
 FOLD_IMPLS = ("fold_ws", "fold_os", "fold_dw", "fold_auto", "fold_ws_psum")
 IMPLS = FOLD_IMPLS + ("direct",)
+
+# The Mamba2 mixer's causal depthwise conv1d, x (B, T, D), w (K, D): the
+# CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
+# Forward only.
+conv1d_causal = conv1d_causal_folded
 
 
 def _resolve_fold_dataflow(x, w, stride: int, pad: int, impl: str, plan,

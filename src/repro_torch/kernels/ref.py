@@ -1,11 +1,11 @@
-"""Plain-torch oracle for the fold kernels: the ``"reference"`` policy's
-conv and the tests' semantics oracle."""
+"""Plain-torch oracles: the fold kernels' (the ``"reference"`` policy's
+conv and the tests' semantics oracle) and the causal conv1d's."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d_direct"]
+__all__ = ["conv2d_direct", "conv1d_causal_ref"]
 
 
 def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -61,3 +61,21 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             acc = acc + torch.einsum("ngcpq,gfc->ngfpq", win.to(acc_dtype),
                                      wg[:, :, :, ri, si].to(acc_dtype))
     return acc.reshape(n, nf, p, q).to(out_dtype)
+
+
+def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d (the Mamba2 / Zamba2 block).
+
+    x: (B, T, D)   w: (K, D)   ->  (B, T, D)
+    out[b, t, d] = sum_k w[k, d] * x[b, t - K + 1 + k, d]
+
+    The sum starts at 0 and adds the taps k = 0 .. K-1 in fp32 (w widened
+    to fp32), each product and sum rounded on its own; the result is cast
+    to x's type.
+    """
+    k, t = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for ki in range(k):
+        acc = acc + xp[:, ki:ki + t, :].float() * w[ki].float()
+    return acc.to(x.dtype)

@@ -39,9 +39,13 @@ def test_port_imports_where_jax_cannot_load():
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "from repro_torch.models import mobilenet, resnet, vgg, zoo\n"
-        "from repro_torch.serve import vision\n"
+        "from repro_torch.models import (api, attention, common, layers,\n"
+        "                                mlp, settings, ssm, transformer)\n"
+        "from repro_torch.configs import base, registry\n"
+        "from repro_torch.serve import engine, steps, vision\n"
         "from repro_torch.launch import serve\n"
-        "from repro_torch.kernels import build, conv2d_ws, ops, ref\n"
+        "from repro_torch.kernels import (attention_fold, build,\n"
+        "                                 conv1d_causal, conv2d_ws, ops, ref)\n"
         "from repro_torch.core import engine, quant\n"
         "from repro_torch import convert\n"
         "assert not [m for m in sys.modules\n"
@@ -59,15 +63,21 @@ def test_port_imports_where_jax_cannot_load():
 @pytest.mark.parametrize("entry", ["compile_forward", "vision_engine",
                                    "bucket_compiler", "resnet18",
                                    "mobilenetv2", "serving_summary",
-                                   "launcher"])
+                                   "launcher", "lm_init_params",
+                                   "lm_init_cache", "batch_engine",
+                                   "token_serving_summary",
+                                   "token_launcher"])
 def test_cuda_without_a_gpu_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import main
-    from repro_torch.models import mobilenet, resnet, vgg
+    from repro_torch.models import api, mobilenet, resnet, vgg
+    from repro_torch.serve.engine import BatchEngine, token_serving_summary
     from repro_torch.serve.vision import VisionEngine, serving_summary
     params = vgg.init_params(torch.Generator(), width_mult=0.0625, img=32,
                              classes=10, device="cpu")
+    lm = get_config("zamba2-1.2b", reduced=True)
 
     def zoo_model(module):
         p = module.init_params(torch.Generator(), width_mult=0.0625,
@@ -84,6 +94,13 @@ def test_cuda_without_a_gpu_raises(entry):
         "mobilenetv2": lambda: zoo_model(mobilenet),
         "serving_summary": lambda: serving_summary("mobilenetv2"),
         "launcher": lambda: main(["--vision", "--model", "resnet18"]),
+        # the prefill step's caller makes its weights and cache first
+        "lm_init_params": lambda: api.init_params(lm),
+        "lm_init_cache": lambda: api.init_cache(lm, 1, 8),
+        "batch_engine": lambda: BatchEngine(
+            lm, api.init_params(lm, device="cpu"), batch=1, max_len=8),
+        "token_serving_summary": lambda: token_serving_summary(),
+        "token_launcher": lambda: main(["--arch", "zamba2-1.2b"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

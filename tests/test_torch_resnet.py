@@ -153,6 +153,9 @@ def test_launcher_serves_resnet18(capsys):
 
 
 def test_launcher_refuses_the_unported_token_path():
+    """Without ``--vision`` the launcher serves tokens; an LM family the
+    port has not reached is refused, naming its ROADMAP item."""
     from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit):
-        main(["--model", "resnet18", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["--model", "resnet18", "--arch", "llama3-8b", "--device",
+              "cpu"])
