@@ -10,9 +10,12 @@ Phases (any failed check raises, and the script exits non-zero):
    ``src/repro_torch/kernels/csrc/`` into ``build/``.
 2. Kernels: each CUDA kernel (WS, OS, depthwise) against its plain-torch
    version on the card over random shapes and every epilogue the zoo
-   models fuse, then the kernel, its plain version and
-   ``torch.nn.functional.conv2d`` timed at the 13 VGG-16 layer shapes and
-   at every conv of full-width MobileNetV2 and ResNet-18 at 32x32, batch 4.
+   models fuse, grouped 1 < G < C included (the JAX tests' shapes and
+   ResNeXt-50 32x4d's grouped 3x3), then the kernel, its plain version and
+   ``torch.nn.functional.conv2d`` timed (device time) at the 13 VGG-16
+   layer shapes, at every conv of full-width MobileNetV2 and ResNet-18 at
+   32x32, batch 4, and at the ResNeXt layer beside
+   ``F.conv2d(groups=32)``.
 3. Full-width VGG-16 at 224x224, batch 1 and 4: fold reuse, one WS launch
    per conv, logits against the reference policy, and the conv trunk
    bitwise-identical across batch widths.
@@ -29,7 +32,8 @@ Phases (any failed check raises, and the script exits non-zero):
    ``python -m repro_torch.launch.serve --vision`` runs) over buckets
    (1, 2, 4, 8): none lost, served logits against a direct forward.
 9. Int8 kernels: each int8 kernel (WS, OS, depthwise) bitwise against its
-   plain version on every requant epilogue the zoo fuses, the psum-staging
+   plain version on every requant epilogue the zoo fuses and on the
+   grouped layers of phase 2, the psum-staging
    kernel against its plain version (a forced WS spill included), then
    each int8 kernel timed per layer (device time) beside the fp32 kernel,
    the plain version and its int8 bound, and psum staging against the
@@ -65,7 +69,8 @@ Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32), 10-11 (int8), 12
 (psum), 14-16 (the LM path), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
-(per-layer times, serving metrics, the compiler's resource report) go to
+(per-layer times, serving metrics, the compiler's resource report and
+the registers and spills of every fold_conv instance) go to
 ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -201,11 +206,45 @@ def phase_environment(torch):
     print(f"[env] kernel library {info['path']} built in "
           f"{info['seconds']:.2f} s ({time.perf_counter() - t0:.2f} s "
           "with loading)")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line \
-                or "spill" in line:
-            print(f"[env] ptxas: {line.strip()}")
-    return {"build_s": info["seconds"], "ptxas": info["ptxas"]}
+    return {"build_s": info["seconds"], "ptxas": info["ptxas"],
+            "fold_conv_resources": kernel_resources(info["ptxas"])}
+
+
+def kernel_resources(log: str):
+    """Registers and spill bytes of every fold_conv kernel instance, from
+    the compiler's ``-Xptxas -v`` report (names demangled by ``c++filt``
+    where it exists)."""
+    import re
+    import shutil
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"mangled": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    keep = [e for e in out if any(k in e["mangled"] for k in (
+        "ws_kernel", "os_kernel", "dw_kernel", "psum_kernel"))]
+    if keep and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(e["mangled"] for e in keep),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for e, name in zip(keep, names):
+            e["name"] = name
+    for e in keep:
+        print(f"[env] ptxas {e.get('name', e['mangled'])}: "
+              f"{e.get('registers')} registers, spill stores "
+              f"{e.get('spill_stores')} B, loads {e.get('spill_loads')} B")
+    return keep
 
 
 def check_kernel(torch, cw, name, x, w, errs, what, **kw):
@@ -302,8 +341,48 @@ def phase_kernels(torch, dev):
                      plan=plan, dataflow="depthwise", epilogue=epi,
                      groups=c, **epi_operands(torch, gen, dev, epi, n, c,
                                               p, q))
+    for (n, c, h, nf, g, r, st, pad, epi) in grouped_cases():
+        x = torch.randn(n, c, h + 2 * pad, h + 2 * pad, device=dev,
+                        generator=gen)
+        w = torch.randn(nf, c // g, r, r, device=dev, generator=gen)
+        p = (h + 2 * pad - r) // st + 1
+        ops = epi_operands(torch, gen, dev, epi, n, nf, p, p)
+        for name, df in (("fold_conv_ws", "weight_stationary"),
+                         ("fold_conv_os", "output_stationary")):
+            check_kernel(torch, cw, name, x, w, errs,
+                         f"grouped n={n} c={c} {h}x{h} nf={nf} G={g} "
+                         f"{r}x{r}/s{st}", stride=st, dataflow=df,
+                         epilogue=epi, groups=g, **ops)
     # the same geometries serve the int8 phase
     return errs, cases, dw_cases
+
+
+def grouped_cases():
+    """Grouped 1 < G < C layers: (n, c, h, nf, G, r, stride, pad,
+    epilogue).  The JAX package's grouped shapes (tests/test_mobilenet.py's
+    three, tests/test_quant.py's int8 one) and ResNeXt-50 32x4d's
+    first-stage grouped 3x3 (C = NF = 128, G = 32, 56x56; arXiv:1611.05431,
+    Table 1) with its BN + ReLU."""
+    from repro_torch.core.epilogue import Epilogue
+    br = Epilogue(bias=True, relu=True)
+    return [(2, 8, 13, 16, 4, 3, 1, 1, br),
+            (2, 12, 17, 12, 3, 3, 2, 1,
+             Epilogue(bias=True, relu=True, pool="max2")),
+            (2, 6, 8, 18, 2, 1, 1, 0, Epilogue(scale=True, residual=True)),
+            (2, 8, 6, 8, 2, 3, 1, 1, br),
+            (1, 128, 56, 128, 32, 3, 1, 1, Epilogue(scale=True, relu=True))]
+
+
+def resnext_layer():
+    """ResNeXt-50 32x4d's first-stage grouped 3x3 at batch 1 as the engine
+    schedules it: (name, schedule, loop nest, epilogue), a
+    ``model_layers`` row."""
+    from repro_torch.core.engine import ScheduleCache
+    from repro_torch.core.loopnest import ConvLoopNest
+    n, c, h, nf, g, r, st, pad, epi = grouped_cases()[-1]
+    cv = ConvLoopNest(n=n, nf=nf, c=c, r=r, s=r, x=h, y=h, stride=st,
+                      pad=pad, groups=g)
+    return ("resnext50_conv2_g32", ScheduleCache().schedule_for(cv), cv, epi)
 
 
 def vgg_layer_specs(img: int, batch: int):
@@ -327,8 +406,11 @@ def vgg_layer_specs(img: int, batch: int):
 
 
 def time_layers(torch, dev, layers, dataflows, reps):
-    """Time the kernel(s), the plain version and F.conv2d at each layer's
-    main-path shape.  Returns per-layer rows."""
+    """Time the kernel(s) (``<dataflow>_ms``: device time, CUDA-graph
+    replay of the bare launch on prepared operands; ``<dataflow>_call_ms``:
+    the eager ``conv2d_folded`` call, host work included), the plain
+    version and F.conv2d at each layer's main-path shape.  Returns
+    per-layer rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import conv2d_ws as cw
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -342,14 +424,19 @@ def time_layers(torch, dev, layers, dataflows, reps):
                "c": cv.c, "nf": cv.nf, "epilogue": str(epi)}
         for df in dataflows:
             kw = dict(plan=sched.plan, dataflow=df, epilogue=epi, bias=b)
-            row[f"{df}_ms"] = time_ms(
+            spec, *prepared = cw.prepare(x, w, 1, sched.plan, df, b, epi, 1,
+                                         None, None, None)
+            launch = cw.LAUNCHERS[spec.dataflow]
+            row[f"{df}_ms"] = time_graph_ms(
+                torch, lambda: launch(spec, *prepared), reps)
+            row[f"{df}_call_ms"] = time_ms(
                 torch, lambda: cw.conv2d_folded(x, w, **kw), reps)
         kw = dict(plan=sched.plan, dataflow=dataflows[0], epilogue=epi,
                   bias=b)
-        row["plain_ms"] = time_ms(
+        row["plain_ms"] = time_graph_ms(
             torch, lambda: cw.conv2d_folded_plain(x, w, **kw), 2)
         xin = x[:, :, 1:-1, 1:-1].contiguous()
-        row["library_ms"] = time_ms(
+        row["library_ms"] = time_graph_ms(
             torch, lambda: F.conv2d(xin, w, b, padding=1), max(reps, 10))
         out = cw.conv2d_folded(x, w, **kw)
         row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
@@ -754,6 +841,18 @@ def phase_int8_kernels(torch, dev, cases, dw_cases):
             torch.nn.functional.pad(xq, (1, 1, 1, 1)), wq,
             f"n={n} c={c} {h}x{w_} 3x3/s{st}", stride=st, plan=plan,
             dataflow="depthwise", groups=c, **kw))
+    for (n, c, h, nf, g, r, st, pad, epi) in grouped_cases():
+        x = torch.randn(n, c, h, h, device=dev, generator=gen)
+        w = torch.randn(nf, c // g, r, r, device=dev, generator=gen)
+        p = (h + 2 * pad - r) // st + 1
+        xq, wq, kw = int8_operands(torch, gen, dev, x, w, epi, n, nf, p, p)
+        xq = torch.nn.functional.pad(xq, (pad, pad, pad, pad))
+        for name, df in (("fold_conv_ws_i8", "weight_stationary"),
+                         ("fold_conv_os_i8", "output_stationary")):
+            errs[name] = max(errs[name], check_int8_kernel(
+                torch, cw, name, xq, wq,
+                f"grouped n={n} c={c} {h}x{h} nf={nf} G={g} {r}x{r}/s{st}",
+                stride=st, dataflow=df, groups=g, **kw))
     # psum staging: forced g_c > 1 plans, and the WS spill of an
     # identity-epilogue layer
     psum_cases = [
@@ -1550,6 +1649,18 @@ def main() -> int:
                       f"F.conv2d {t['library_ms']:.4f}, bound "
                       f"{t['bound_ms']:.4f} ({t['bound_by']})")
         report[f"layers_{m}_32_b4"] = rows
+    # grouped 1 < G < C at a public model's full width: ResNeXt-50 32x4d
+    rx = resnext_layer()
+    report["grouped_resnext50"] = {
+        "fp32": time_model_layers(torch, dev, [rx], 10),
+        "int8": time_int8_layers(torch, dev, [rx], 10)}
+    r, r8 = (report["grouped_resnext50"][k][0] for k in ("fp32", "int8"))
+    print(f"[kernels] grouped {r['layer']} (C=NF=128, G=32, 56x56, b1, "
+          f"{r['dataflow']}): kernel {r['ms']:.4f} ms (eager call "
+          f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f}, "
+          f"F.conv2d(groups=32) {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.5f}; int8 kernel {r8['ms']:.4f}, bound "
+          f"{r8['bound_ms']:.6f}")
     dw_rows = [r for r in zoo_rows["mobilenetv2"]
                if r["dataflow"] == "depthwise"]
     check(len(dw_rows) == 17, "expected 17 depthwise layers in MobileNetV2")
@@ -1680,21 +1791,21 @@ def main() -> int:
     lm_rows = time_lm_kernels(torch, dev)
     report["lm_kernels"] = lm_rows
 
-    # ms_kind: "eager" times the wrapper call, host work included (the
-    # VGG layers' kernels run long enough to hide it); "device" replays the
-    # bare launch on prepared operands as a CUDA graph
+    # ms_kind "device": CUDA-graph replay of the bare launch on prepared
+    # operands, beside F.conv2d and the plain version replayed the same
+    # way; call_ms is the eager wrapper call, host work included
     kernels = []
-    for name, key, rows, line, kind in (
-            ("fold_conv_ws", "weight_stationary_ms", rows224, 131, "eager"),
-            ("fold_conv_os", "output_stationary_ms", rows32_os, 176,
-             "eager"),
-            ("fold_conv_dw", "ms", dw_rows, 202, "device")):
+    for name, key, rows, line in (
+            ("fold_conv_ws", "weight_stationary_", rows224, 131),
+            ("fold_conv_os", "output_stationary_", rows32_os, 176),
+            ("fold_conv_dw", "", dw_rows, 202)):
         entry = {"name": name, "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
                  "replaces": f"src/repro/kernels/conv2d_ws.py:{line}",
                  "launches": launches[name], "max_abs_err": errs[name],
-                 "ms_kind": kind}
-        entry.update(summarize(rows, key))
+                 "ms_kind": "device",
+                 "call_ms": sum(r[f"{key}call_ms"] for r in rows)}
+        entry.update(summarize(rows, f"{key}ms"))
         kernels.append(entry)
     for name, rows, line in (
             ("fold_conv_ws_i8", i8_rows["vgg16_224_b1"], 131),

@@ -56,16 +56,16 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    common = [i32] * 15                # n .. mq, see csrc/fold_conv.cu
+    geom = [i32] * 13               # n .. epi, see csrc/fold_conv.cu
     for suffix in ("", "_i8"):             # the fp32 and int8 instances
         ws, os_, dw = (getattr(lib, f"fold_conv_{k}{suffix}")
                        for k in ("ws", "os", "dw"))
-        ws.argtypes = [ptr] * 6 + common + [i32, i32, ptr]
-        os_.argtypes = [ptr] * 5 + common + [i32, ptr]
+        ws.argtypes = [ptr] * 6 + geom + [i32, i32, ptr]   # tile, m_per_cta
+        os_.argtypes = [ptr] * 5 + geom + [i32, ptr]       # tile
         dw.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
         ws.restype = os_.restype = dw.restype = i32
-    # n .. p_block, then mq and threads
-    lib.fold_conv_psum.argtypes = [ptr] * 3 + [i32] * 15 + [ptr]
+    # n .. p_pad, then nf_block, c_block, p_block
+    lib.fold_conv_psum.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
     lib.fold_conv_psum.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]
     lib.fold_conv_error_string.restype = ctypes.c_char_p

@@ -16,13 +16,19 @@ it.  Bias, scale and shift ride in one ``(NF_pad, 3)`` vector block
 dense kernels differ in loop order, as the paper's dataflows do:
 
 * ``weight_stationary`` (replaces ``repro/kernels/conv2d_ws.py:_ws_kernel``):
-  a CTA keeps a sub-fold of the filter fold resident in shared memory and
-  walks the image folds (P rows) past it.  With more than one depth fold
-  the partial sums of the full output height live in an fp32 slab that
+  per depth fold a CTA keeps its filter tile resident in shared memory
+  and walks its share of the image's pixel tiles past it.  With more
+  than one depth fold the partial sums live in an fp32 (int32) slab that
   only that CTA reads and writes, in a fixed order.
 * ``output_stationary`` (replaces ``_os_kernel``): a CTA owns an output
-  tile held in registers and loops over the depth folds, restaging the
-  weights for every P tile.
+  tile held in registers across the whole depth and streams the weights
+  and the input through shared memory.
+
+Both run one tile core, an implicit GEMM over (pixels, one group's
+filters, the group's taps) with a register tile per thread; the CTA tile
+of each launch comes from ``fold_tile``, a pure function of the launch
+spec and the SM count.  Grouped layers (1 < G < C) run on both: a filter
+tile never straddles a group and reads its own group's channels.
 
 The third, ``depthwise`` (replaces ``_dw_kernel``), is the groups == C ==
 NF fold: ``w (C, 1, R, S)``, one filter per channel, no depth reduction,
@@ -51,10 +57,11 @@ same fold loop (``conv2d_folded_plain``: ``_fold_partial`` +
 tensor it launches the kernel or raises.
 
 The order of the sum for one output element is channel-ascending, then
-R, then S, in the dense kernels, and R then S in the depthwise one.  It
-depends only on the fold plan — never on N, the grid or the CTA tile — so
-a layer gives bitwise-identical rows at every batch width (int8 sums are
-exact, so their order does not matter at all).  The epilogue
+R, then S, from 0, in the dense kernels, and R then S in the depthwise
+one.  It depends only on (C/G, R, S) — never on N, the grid, the CTA
+tile or the dataflow — so a layer gives bitwise-identical rows at every
+batch width (int8 sums are exact, so their order does not matter at
+all).  The epilogue
 rounds each step on its own (no fused multiply-add), so a fused layer
 gives the bits of the same steps run as separate torch ops.
 
@@ -78,7 +85,8 @@ from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
 __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "OperandSpec", "FoldKernelSpec", "fold_kernel_spec", "launch_ws",
            "launch_os", "launch_dw", "launch_psum", "LAUNCHERS", "KERNELS",
-           "launch_counts", "reset_launch_counts", "prepare"]
+           "launch_counts", "reset_launch_counts", "prepare", "FoldTile",
+           "fold_tile", "tile_candidates", "tile_cycles", "TILES"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
 
@@ -419,15 +427,13 @@ def _pad_to(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# What this slice ports, and what it refuses
+# What the kernels take
 # --------------------------------------------------------------------------
 
 def _check_operands(x_padded: torch.Tensor, w: torch.Tensor,
-                    dataflow: str, groups: int) -> None:
-    """Refuse what the kernels do not take: operand types other than fp32
-    and int8 (``ValueError``), and the variant the port does not carry yet,
-    grouped 1 < G < C on WS / OS (``NotImplementedError``, naming its
-    ROADMAP item); nothing falls back."""
+                    dataflow: str) -> None:
+    """Refuse operand types other than fp32 and int8 (``ValueError``);
+    nothing falls back."""
     if x_padded.dtype == torch.int8:
         if w.dtype != torch.int8:
             raise ValueError(f"int8 activations need int8 weights, got "
@@ -439,10 +445,6 @@ def _check_operands(x_padded: torch.Tensor, w: torch.Tensor,
     elif x_padded.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError(f"the fold kernels take fp32 or int8 operands, got "
                          f"x {x_padded.dtype} and w {w.dtype}")
-    if groups != 1 and dataflow != "depthwise":
-        raise NotImplementedError(
-            "grouped convolution with 1 < G < C on the WS / OS kernels is "
-            "not ported yet (ROADMAP queue B items 1-2 grouped variants)")
 
 
 def _vector_block(nf: int, nf_pad: int, epi: Epilogue,
@@ -522,7 +524,8 @@ def _flush_value(v: torch.Tensor, vec: torch.Tensor, epi: Epilogue,
 def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 vec: torch.Tensor, res: Optional[torch.Tensor]
                 ) -> torch.Tensor:
-    """The WS / OS grid walk of the TPU kernels, fold by fold, in torch."""
+    """The WS / OS grid walk of the TPU kernels, fold by fold, in torch;
+    grouped layers read each filter fold's own group of input channels."""
     epi = spec.epilogue
     nf_b, c_b = spec.plan.nf_block, spec.plan.c_block
     p_b, q, g_c = spec.p_block, spec.q, spec.cg_folds
@@ -532,6 +535,11 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     out = xp.new_empty(spec.output.array_shape, dtype=torch.float32)
     for f in range(g_nf):
         fs = slice(f * nf_b, (f + 1) * nf_b)
+        # the input channels of depth fold c of this filter fold's group
+        # (``_ix_ws_x``); the weights are channel-indexed within the group
+        grp = f // spec.nfg_folds
+        xs = [slice((grp * g_c + c) * c_b, (grp * g_c + c + 1) * c_b)
+              for c in range(g_c)]
         if spec.dataflow == "weight_stationary":
             # grid (N, nf, c, p), p fastest: the full-height accumulator
             acc = xp.new_empty((xp.shape[0], nf_b, spec.p_pad, q),
@@ -540,7 +548,7 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 cs = slice(c * c_b, (c + 1) * c_b)
                 for i_p in range(g_p):
                     rows = slice(i_p * p_b, (i_p + 1) * p_b)
-                    part = _fold_partial(xp[:, cs], wp[fs, cs], i_p, **kw)
+                    part = _fold_partial(xp[:, xs[c]], wp[fs, cs], i_p, **kw)
                     acc[:, :, rows] = part if c == 0 else acc[:, :, rows] + part
                     if c == g_c - 1:
                         r_ = res[:, fs, rows] if epi.residual else None
@@ -552,7 +560,7 @@ def _plain_walk(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 acc = None
                 for c in range(g_c):
                     cs = slice(c * c_b, (c + 1) * c_b)
-                    part = _fold_partial(xp[:, cs], wp[fs, cs], i_p, **kw)
+                    part = _fold_partial(xp[:, xs[c]], wp[fs, cs], i_p, **kw)
                     acc = part if acc is None else acc + part
                 rows = slice(i_p * p_b, (i_p + 1) * p_b)
                 r_ = res[:, fs, rows] if epi.residual else None
@@ -619,14 +627,21 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 #
 # Bound on the H100: the FFMA rate.  A 3x3 VGG layer does 2*C*9 flops per
 # output element for 4 bytes written, far above the card's ~20 flop/byte
-# fp32 ridge, so both kernels are compute-bound by the 67 TFLOP/s fp32
-# CUDA-core peak.  What the design does about it: each thread owns a 2x2
-# output micro-tile for NFT filters, i.e. 4*NFT fp32 accumulators in
-# registers, so one weight vector read from shared memory (two 16-byte
-# broadcasts) feeds 4*NFT FMAs and each input element read through L1
-# feeds NFT FMAs.  Loads stay off the critical path as long as the FMA
-# pipes are fed; there is no tensor-core path in true fp32.
-
+# fp32 ridge, so the dense kernels are compute-bound by the 67 TFLOP/s
+# fp32 CUDA-core peak (``wgmma`` takes no fp32 operands, and TF32 is not
+# fp32).  What the design does about it (the note at the head of
+# ``csrc/fold_conv.cu``): the WS and OS kernels share one tile core, an
+# implicit GEMM of M = output pixels (n, p, q) by N = one group's filters
+# over K = the group's (c, r, s) taps, with a TM x TN register tile per
+# thread fed by 16-byte shared-memory reads, the input gathered a chunk
+# ahead and the OS weights streamed PB chunks ahead.  ``fold_tile`` picks
+# the CTA tile of each launch from ``TILES`` by ``tile_cycles``, a model
+# of issue slots, latency and rounds fitted to the card, so a 4x4 layer at
+# batch 4 gets small tiles and a 224x224 one large tiles.  The sum of each
+# output runs c, r, s from 0 in one thread whatever the tile, so the tile
+# changes no bit.  What binds the kernels short of the FFMA rate is the
+# gather (one 4-byte load per tap and pixel) and, on the smallest layers,
+# too few outputs to fill the card: nothing splits K (PERF.md).
 #
 # The depthwise kernel is bound by bytes instead: 2*R*S flops per output
 # element (18 at 3x3) against the 4 bytes it writes and about as many it
@@ -634,23 +649,28 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # window through the read-only cache, coalesced along Q, so the kernel
 # moves each input byte from device memory about once.
 #
-# The int8 instances (``*_i8``) run the same loops on int32 IMAD: the
-# operands stream at one byte each, which cuts the input and weight bytes
-# 4x, but the bound of the dense layers is the card's int8 tensor-core
-# rate (1979 TOP/s), which IMAD on the CUDA cores does not reach
-# (``dp4a`` or ``mma.sync`` s8 is the redesign).  32-bit IMAD issues at
-# half the FFMA rate, yet on VGG-16 the int8 kernels run as fast as the
-# fp32 ones: neither is bound by its issue rate (PERF.md).
+# The int8 instances (``*_i8``) run the same tile core on int32 IMAD: the
+# operands are widened to int32 as they are staged, so their sums are
+# exact.  Their bound is the card's int8 tensor-core rate (1979 TOP/s),
+# which IMAD on the CUDA cores does not reach (``mma.sync`` s8 is the
+# redesign).
 #
 # The psum kernel is the WS fold sum without the in-kernel reduction: each
 # depth fold writes an fp32 partial-sum tensor, so the bytes grow by
 # 2*g_c+1 output-sized transfers (with the ``torch.sum``) — the cost the
-# paper's reserved-column reduction removes.
+# paper's reserved-column reduction removes.  It keeps the micro-tile loop
+# the WS and OS kernels had before the tile core.
 
-NFT = 8                 # filters per CTA sub-fold (NFT in csrc/fold_conv.cu)
-OS_CHUNK = 32           # channels per OS weight restage (OS_CHUNK there too)
-MAX_THREADS = 256       # __launch_bounds__ of every kernel
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
+SMEM_PER_SM = 233_472   # shared memory of one SM that CTAs may take
+# taps per K chunk, chunks of the OS weights copied ahead (BK, PB in
+# csrc/fold_conv.cu); the input's ring has two stages
+BK, PB = 32, 8
+# The CTA tiles of the WS / OS kernels, (TM, TN, MG, NG): MG x NG threads,
+# each with TM pixels x TN filters (Tile0..Tile6 in csrc/fold_conv.cu):
+# the tiles some conv of the zoo runs fastest with (fold_tiles.py, PERF.md)
+TILES = ((2, 4, 32, 4), (1, 4, 64, 2), (4, 2, 32, 4), (4, 2, 64, 4),
+         (4, 4, 32, 4), (4, 4, 64, 4), (4, 1, 16, 8))
 # Epilogue flags, one bit per step (EPI_* in csrc/fold_conv.cu)
 EPI_BIAS, EPI_SCALE, EPI_RESIDUAL, EPI_RELU, EPI_RELU6, EPI_POOL = \
     1, 2, 4, 8, 16, 32
@@ -662,14 +682,132 @@ def _epi_flags(epi: Epilogue) -> int:
             | EPI_RELU6 * epi.relu6 | EPI_POOL * (epi.pool == "max2"))
 
 
-def _cta_tile(p_block: int, q: int) -> Tuple[int, int, int]:
-    """The CTA tile inside one P fold: all ceil(p_block/2) micro-tile rows
-    by ``mq`` micro-tile columns (2x2 outputs each).  Returns (mq, number
-    of Q tiles, threads per CTA)."""
-    mrows, mcols = -(-p_block // 2), -(-q // 2)
-    mq = max(1, min(mcols, MAX_THREADS // mrows))
-    threads = min(MAX_THREADS, -(-(mrows * mq) // 32) * 32)
-    return mq, -(-mcols // mq), threads
+@dataclasses.dataclass(frozen=True)
+class FoldTile:
+    """The CTA tile of one WS / OS launch, as the kernel will run it.
+
+    ``m`` output pixels (four per pooled output where the pool is fused)
+    are cut into ``m_tiles`` tiles of ``bm``; each group's ``nfg`` filters
+    into tiles of ``bn``, so ``n_tiles`` = groups x ceil(nfg / bn) and no
+    filter tile straddles a group.  An OS CTA owns one (M tile, filter
+    tile); a WS CTA walks ``m_per_cta`` consecutive M tiles past its
+    resident filter tile.  ``resident`` CTAs of ``smem`` bytes fit one SM.
+    Each output's sum is ``k_len`` taps long, c then r then s."""
+    index: int                 # into TILES
+    tm: int
+    tn: int
+    bm: int
+    bn: int
+    threads: int
+    m: int
+    m_tiles: int
+    groups: int
+    nfg: int
+    n_tiles: int
+    m_per_cta: int
+    grid: Tuple[int, int]
+    smem: int
+    resident: int
+    k_len: int
+
+
+def tile_candidates(spec: "FoldKernelSpec", n: int,
+                    sm_count: int) -> list:
+    """Every tile of ``TILES`` the WS / OS kernel can run this launch with
+    (its shared memory fits one CTA; whole 2x2 quads per thread where the
+    pool is fused), as ``FoldTile``s: the mirror of ``launch_tile`` in
+    ``csrc/fold_conv.cu``.  A pure function of the launch spec, the batch
+    and the card's SM count."""
+    return list(_candidates(*_launch_key(spec, n, sm_count)))
+
+
+def _launch_key(spec: "FoldKernelSpec", n: int, sm_count: int) -> tuple:
+    """What of a launch the tile depends on."""
+    return (spec.dataflow == "weight_stationary",
+            spec.epilogue.pool == "max2", spec.groups, spec.c_pad, spec.r,
+            spec.s, spec.plan.c_block, spec.nf_pad, spec.p_pad, spec.q, n,
+            sm_count)
+
+
+@functools.lru_cache(maxsize=None)
+def _candidates(ws: bool, pool: bool, g: int, c_pad: int, r: int, s: int,
+                c_block: int, nf_pad: int, p_pad: int, q: int, n: int,
+                sm_count: int) -> Tuple[FoldTile, ...]:
+    k_len, kf = c_pad // g * r * s, c_block * r * s
+    nfg = nf_pad // g
+    po, qo = (p_pad // 2, q // 2) if pool else (p_pad, q)
+    m = (4 if pool else 1) * n * po * qo
+    out = []
+    for idx, (tm, tn, mg, ng) in enumerate(TILES):
+        bm, bn, threads = tm * mg, tn * ng, mg * ng
+        bnp = bn + 4 if bn >= 32 else bn
+        smem = 4 * (((kf * bnp) if ws else (PB + 1) * BK * bnp)
+                    + 2 * BK * bm + k_len)
+        if (pool and tm % 4) or smem > SMEM_LIMIT:
+            continue
+        m_tiles, n_tiles = -(-m // bm), g * -(-nfg // bn)
+        resident = max(1, min(SMEM_PER_SM // (smem + 1024),
+                              2048 // threads, 32))
+        m_per_cta = 1
+        if ws:
+            # one wave of CTAs, each walking its share of the M tiles past
+            # its resident filter tile
+            chunks = max(1, min(m_tiles,
+                                -(-sm_count * resident // n_tiles)))
+            m_per_cta = -(-m_tiles // chunks)
+        out.append(FoldTile(
+            index=idx, tm=tm, tn=tn, bm=bm, bn=bn, threads=threads, m=m,
+            m_tiles=m_tiles, groups=g, nfg=nfg, n_tiles=n_tiles,
+            m_per_cta=m_per_cta, grid=(-(-m_tiles // m_per_cta), n_tiles),
+            smem=smem, resident=resident, k_len=k_len))
+    return tuple(out)
+
+
+def tile_cycles(tile: FoldTile, sm_count: int) -> float:
+    """The tile model: estimated cycles of one launch with ``tile``.
+
+    A thread issues about TM*TN + 8 instructions per tap (its FFMAs, the
+    shared reads and its share of the gather); the warps on one SM
+    scheduler issue one instruction a cycle between them, and a warp
+    alone needs about 2*TM*TN cycles a tap.  Each tile's flush costs
+    about 300 cycles per accumulator.  A launch takes as many rounds of
+    resident CTAs as its grid needs, each CTA walking its M tiles' K taps
+    in series.  Fitted to the card's per-layer times of every tile over
+    the zoo's convs (``fold_tiles.py --sweep``, PERF.md)."""
+    per_sm = -(-tile.grid[0] * tile.grid[1] // sm_count)
+    rounds = -(-per_sm // tile.resident)
+    warps = min(per_sm, tile.resident) * tile.threads / 32 / 4
+    acc = tile.tm * tile.tn
+    per_tap = max(warps * (acc + 8), 2 * acc)
+    return rounds * tile.m_per_cta * (tile.k_len * per_tap + 300 * acc)
+
+
+def fold_tile(spec: "FoldKernelSpec", n: int, sm_count: int,
+              index: Optional[int] = None) -> FoldTile:
+    """Pick the CTA tile of a WS / OS launch: the candidate with the least
+    ``tile_cycles``, among those whose filter tile is no wider than a
+    group (where any is); or, with ``index``, that tile of ``TILES``.
+    Raises where no tile (or not that one) fits the launch."""
+    key = _launch_key(spec, n, sm_count)
+    if index is None:
+        tile = _pick(*key)
+    else:
+        tile = next((t for t in _candidates(*key) if t.index == index),
+                    None)
+    if tile is None:
+        raise ValueError(
+            f"no CTA tile{'' if index is None else f' {index}'} of the "
+            f"{spec.dataflow} kernel fits this launch in {SMEM_LIMIT} bytes "
+            f"of shared memory (c_block={spec.plan.c_block}, "
+            f"{spec.r}x{spec.s}, C/G={spec.c_pad // spec.groups})")
+    return tile
+
+
+@functools.lru_cache(maxsize=None)
+def _pick(*key) -> Optional[FoldTile]:
+    cands = _candidates(*key)
+    fit = [t for t in cands if t.bn <= max(t.nfg, 4)] or cands
+    return min(fit, key=lambda t: tile_cycles(t, key[-1]), default=None)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -679,7 +817,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
                          *fp32: Optional[torch.Tensor]) -> None:
     """x and w of one type (fp32 or int8), the other operands fp32, all
-    contiguous on one device."""
+    contiguous on one device, every offset within 32 bits."""
     dev = xp.device
     for t, want in [(xp, xp.dtype), (wp, xp.dtype)] + \
             [(t, torch.float32) for t in fp32]:
@@ -689,6 +827,9 @@ def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
             raise ValueError(f"fold kernel operands must be contiguous on "
                              f"{dev}: {want} expected, got {t.dtype} on "
                              f"{t.device}")
+    if xp.numel() >= 2 ** 31:
+        raise ValueError(f"the fold kernels index x with 32-bit offsets: "
+                         f"{xp.numel()} elements")
 
 
 # Launches so far, by the name of the kernel's C entry point
@@ -702,34 +843,25 @@ def _entry(base: str, xp: torch.Tensor) -> str:
     return base + "_i8" if xp.dtype == torch.int8 else base
 
 
-def _common_args(spec: "FoldKernelSpec", n: int, mq: int) -> list:
+def _geom_args(spec: "FoldKernelSpec", n: int) -> list:
     return [n, spec.c_pad, spec.x_rows, spec.inputs[0].array_shape[3],
-            spec.nf_pad, spec.r, spec.s, spec.stride, spec.q, spec.p_pad,
-            spec.plan.nf_block, spec.plan.c_block, spec.p_block,
-            _epi_flags(spec.epilogue), mq]
+            spec.nf_pad, spec.r, spec.s, spec.stride, spec.q, spec.p_pad]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
-              vec: torch.Tensor, res: Optional[torch.Tensor]
-              ) -> torch.Tensor:
-    """Launch the weight-stationary kernel on padded CUDA operands."""
+              vec: torch.Tensor, res: Optional[torch.Tensor],
+              tile: Optional[int] = None) -> torch.Tensor:
+    """Launch the weight-stationary kernel on padded CUDA operands, with
+    the CTA tile ``fold_tile`` picks (or tile ``tile`` of ``TILES``)."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
-    smem = NFT * spec.plan.c_block * spec.r * spec.s * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the WS kernel keeps {NFT} filters x c_block={spec.plan.c_block}"
-            f" x {spec.r}x{spec.s} taps resident: {smem} bytes exceed the "
-            f"{SMEM_LIMIT}-byte shared memory of one CTA")
     n, name = xp.shape[0], _entry("fold_conv_ws", xp)
-    mq, q_tiles, threads = _cta_tile(spec.p_block, spec.q)
-    g_p = spec.p_pad // spec.p_block
-    # split the P walk only as far as it takes to give every SM two CTAs;
-    # the split never changes the order of any output's sum
-    subs = spec.nf_pad // spec.plan.nf_block * -(-spec.plan.nf_block // NFT)
-    target = 2 * torch.cuda.get_device_properties(xp.device).multi_processor_count
-    chunks = min(g_p, max(1, -(-target // (q_tiles * subs * n))))
-    p_chunk = -(-g_p // chunks)
+    tile = fold_tile(spec, n, _sm_count(xp.device), tile)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=torch.float32)
     slab = None
@@ -739,7 +871,8 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     lib = build.library()
     err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out), _ptr(slab),
-        *_common_args(spec, n, mq), p_chunk, threads,
+        *_geom_args(spec, n), spec.groups, spec.plan.c_block,
+        _epi_flags(spec.epilogue), tile.index, tile.m_per_cta,
         torch.cuda.current_stream(xp.device).cuda_stream)
     build.raise_on_error(lib, err, name)
     _LAUNCHES[name] += 1
@@ -747,23 +880,21 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
 
 
 def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
-              vec: torch.Tensor, res: Optional[torch.Tensor]
-              ) -> torch.Tensor:
-    """Launch the output-stationary kernel on padded CUDA operands."""
+              vec: torch.Tensor, res: Optional[torch.Tensor],
+              tile: Optional[int] = None) -> torch.Tensor:
+    """Launch the output-stationary kernel on padded CUDA operands, with
+    the CTA tile ``fold_tile`` picks (or tile ``tile`` of ``TILES``)."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
-    if -(-spec.p_block // 2) > MAX_THREADS:
-        raise ValueError(
-            f"the OS kernel holds one P fold in registers: p_block="
-            f"{spec.p_block} needs more than {MAX_THREADS} threads")
     n, name = xp.shape[0], _entry("fold_conv_os", xp)
-    mq, _, threads = _cta_tile(spec.p_block, spec.q)
+    tile = fold_tile(spec, n, _sm_count(xp.device), tile)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=torch.float32)
     lib = build.library()
     err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
-        *_common_args(spec, n, mq), threads,
+        *_geom_args(spec, n), spec.groups, spec.plan.c_block,
+        _epi_flags(spec.epilogue), tile.index,
         torch.cuda.current_stream(xp.device).cuda_stream)
     build.raise_on_error(lib, err, name)
     _LAUNCHES[name] += 1
@@ -797,23 +928,19 @@ def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 vec: Optional[torch.Tensor] = None,
                 res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the psum-staging kernel on padded fp32 CUDA operands; returns
-    the (g_c, N, NF_pad, P_pad, Q) staging buffer, unsummed."""
+    the (g_c, N, NF_pad, P_pad, Q) staging buffer, unsummed.  The entry
+    refuses (``RuntimeError``) a depth fold whose 8-filter weight sub-fold
+    does not fit one CTA's shared memory."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp)
-    smem = NFT * spec.plan.c_block * spec.r * spec.s * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the psum kernel keeps {NFT} filters x c_block="
-            f"{spec.plan.c_block} x {spec.r}x{spec.s} taps resident: {smem} "
-            f"bytes exceed the {SMEM_LIMIT}-byte shared memory of one CTA")
     n = xp.shape[0]
-    mq, _, threads = _cta_tile(spec.p_block, spec.q)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=torch.float32)
     lib = build.library()
     err = lib.fold_conv_psum(
-        _ptr(xp), _ptr(wp), _ptr(out), *_common_args(spec, n, mq)[:-2], mq,
-        threads, torch.cuda.current_stream(xp.device).cuda_stream)
+        _ptr(xp), _ptr(wp), _ptr(out), *_geom_args(spec, n),
+        spec.plan.nf_block, spec.plan.c_block, spec.p_block,
+        torch.cuda.current_stream(xp.device).cuda_stream)
     build.raise_on_error(lib, err, "fold_conv_psum")
     _LAUNCHES["fold_conv_psum"] += 1
     return out
@@ -848,7 +975,7 @@ def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
     n, c, xp_, yp_ = x_padded.shape
     nf, cw, r, s = w.shape
     epi = epilogue or Epilogue()
-    _check_operands(x_padded, w, dataflow, groups)
+    _check_operands(x_padded, w, dataflow)
     if c != cw * groups or nf % groups:
         raise ValueError(f"input has {c} channels, weights expect "
                          f"{cw}x{groups} (and groups={groups} must divide "
@@ -952,7 +1079,8 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
     ``w`` stream through the int8 kernels and give fp32 (the caller puts
     the requant affine in ``scale``/``shift``).  On a CUDA tensor this
     launches the kernel; on a CPU tensor it runs the plain-torch fold loop.
-    Grouped 1 < G < C on WS / OS raises ``NotImplementedError``.
+    Grouped layers (1 < G < C) run on the WS and OS kernels like dense
+    ones, each filter fold on its own group's channels.
     """
     spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
                           epilogue, groups, residual, scale, shift)

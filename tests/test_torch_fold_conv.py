@@ -1,9 +1,10 @@
 """The port's fold conv against the JAX package's: the plain-torch fold
 loops (WS, OS, depthwise, psum staging; fp32 and int8) on the CPU against
 the Pallas kernels in interpret mode, with every epilogue the zoo models
-fuse, the fused and int8 conv entry points, the direct-conv oracle
-(grouped included), the refusal of the unported grouped variant, and — on
-a card — each CUDA kernel against its plain version."""
+fuse, the grouped 1 < G < C walk, the fused and int8 conv entry points,
+the direct-conv oracle (grouped included), the CTA tile chooser over every
+conv of the zoo, and — on a card — each CUDA kernel (every tile, grouped
+included) against its plain version."""
 import types
 
 import numpy as np
@@ -251,19 +252,16 @@ def test_schedule_cache_binds_and_memoizes_the_fold_kernel():
                                **TOL)
 
 
-REFUSED = ("groups",)
-
-
 @pytest.mark.parametrize("what", ["depthwise", "psum", "groups", "int8",
                                   "residual", "scale", "relu6", "psum_spill",
                                   "direct_groups", "fused_residual"])
 def test_unported_variants_raise(what):
-    """The variant still to port (grouped 1 < G < C on WS / OS) raises,
-    naming its ROADMAP item.  The ones ported since (depthwise, psum
-    staging and the WS spill to it, int8, the residual / scale / ReLU6
-    epilogues, grouped direct conv) now match the plain reference: the
-    direct conv (exact int32 for int8) and the reference epilogue, within
-    TOL (fp32, two sum orders)."""
+    """Every variant once refused is ported now and matches the plain
+    reference (the direct conv, exact int32 for int8, and the reference
+    epilogue) within TOL (fp32, two sum orders): depthwise, psum staging
+    and the WS spill to it, int8, the residual / scale / ReLU6 epilogues,
+    grouped direct conv and, last, grouped 1 < G < C on the WS / OS fold
+    (``groups``), which raised until the tile core took it."""
     x, w, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 6, 6, 4, 3, 3,
                                                     seed=11))
     wdw, wg = w[:, :1].contiguous(), w[:, :2].contiguous()
@@ -281,7 +279,8 @@ def test_unported_variants_raise(what):
             direct(x, wdw, groups=4)),
         "psum": lambda: (fold(x, w, dataflow="weight_stationary_psum"),
                          direct(x, w)),
-        "groups": lambda: fold(x, wg, groups=2),
+        "groups": lambda: (fold(x, wg, groups=2),
+                           direct(x, wg, groups=2)),
         "int8": lambda: (
             fold(x.to(torch.int8), w.to(torch.int8)),
             direct(x.to(torch.int8), w.to(torch.int8)).float()),
@@ -308,10 +307,6 @@ def test_unported_variants_raise(what):
             t_ops.conv2d_fused(x, w, residual=res, impl="fold_ws"),
             t_ops.conv2d_fused(x, w, residual=res, impl="direct")),
     }
-    if what in REFUSED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            calls[what]()
-        return
     got, want = calls[what]()
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
@@ -451,16 +446,141 @@ def test_int8_on_psum_raises_as_the_reference_does(jx):
 
 @pytest.mark.parametrize("precision", ["fp32", "int8"])
 def test_grouped_variant_still_raises(precision):
-    """Grouped 1 < G < C on the WS / OS kernels is the one variant of the
-    three fold kernels not ported: it raises for fp32 and for int8."""
+    """Grouped 1 < G < C on the WS / OS kernels, which raised until the
+    tile core took it, now runs for fp32 and for int8 on both dataflows:
+    the fold walk against the grouped direct conv (exact int32 for int8,
+    TOL for fp32)."""
     x, w, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 6, 6, 4, 3, 3,
                                                     seed=20))
     wg = w[:, :2].contiguous()
     if precision == "int8":
-        x, wg = x.to(torch.int8), wg.to(torch.int8)
+        x, wg = (torch.round(a * 20).clamp(-127, 127).to(torch.int8)
+                 for a in (x, wg))
+    want = t_ref.conv2d_direct(x, wg, groups=2).float()
     for df in ("weight_stationary", "output_stationary"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_kern.conv2d_folded(x, wg, groups=2, dataflow=df)
+        got = t_kern.conv2d_folded(x, wg, groups=2, dataflow=df)
+        assert got.shape == want.shape
+        if precision == "int8":
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# --------------------------------------------------------------------------
+# grouped 1 < G < C: the plain walk against the Pallas kernels
+# --------------------------------------------------------------------------
+
+# tests/test_mobilenet.py's grouped shapes: (C, NF, G, R, stride, pad, HW)
+GROUPED_CASES = [(8, 16, 4, 3, 1, 1, 13), (12, 12, 3, 3, 2, 1, 17),
+                 (6, 18, 2, 1, 1, 0, 8)]
+GROUPED_TOL = dict(rtol=2e-5, atol=2e-5)    # tests/test_mobilenet.py's
+GROUPED_EPIS = {"bias+relu": BR, "bias+relu+pool": BRP,
+                "scale+residual": SCR}
+
+
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("epi", list(GROUPED_EPIS.values()),
+                         ids=list(GROUPED_EPIS))
+@pytest.mark.parametrize("case", GROUPED_CASES,
+                         ids=["3x3_g4", "3x3_s2_g3", "1x1_g2"])
+def test_plain_grouped_walk_matches_pallas_interpret(jx, case, epi,
+                                                     dataflow):
+    """The grouped WS / OS walk (each filter fold on its own group's
+    channels) against ``repro``'s ``conv2d_folded(..., groups=g)`` in
+    interpret mode, with the epilogues the zoo fuses."""
+    c, nf, g, r, stride, pad, hw = case
+    x, w, _ = _inputs(2, c, hw + 2 * pad, hw + 2 * pad, nf, r, r, seed=22)
+    w = np.ascontiguousarray(w[:, :c // g])
+    p = (hw + 2 * pad - r) // stride + 1
+    ops = _epi_operands(epi, 2, nf, p, p, seed=22)
+    want = jx.kern.conv2d_folded(
+        jx.jnp.asarray(x), jx.jnp.asarray(w), stride=stride,
+        dataflow=dataflow, interpret=True, epilogue=jx.Epilogue(**epi),
+        groups=g, **_as(jx.jnp.asarray, ops))
+    got = t_kern.conv2d_folded(
+        torch.from_numpy(x), torch.from_numpy(w), stride=stride,
+        dataflow=dataflow, epilogue=TEpilogue(**epi), groups=g,
+        **_as(torch.from_numpy, ops))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GROUPED_TOL)
+
+
+# --------------------------------------------------------------------------
+# the CTA tile chooser over every conv of the zoo
+# --------------------------------------------------------------------------
+
+def _zoo_specs(model, img, batch):
+    """(layer, launch spec) of every WS / OS conv of a zoo model at full
+    width, from the engine's own schedules (meta tensors: no data)."""
+    from repro_torch.models import zoo
+    spec = zoo.get_conv_model(model)
+    params = spec.init_params(torch.Generator(), img=img, device="meta")
+    net = zoo.compile_forward(spec, params, img=img, batch=batch,
+                              device="meta")
+    epis = {nd.name: nd.epilogue or TEpilogue() for nd in net.graph.nodes
+            if nd.op == "conv"}
+    nests = dict(net.layer_nests)
+    out = []
+    for name, sched in net.layer_schedules:
+        cv = nests[name]
+        if sched.dataflow == "depthwise":
+            continue
+        out.append((name, t_kern.fold_kernel_spec(
+            (batch, cv.c, cv.x + 2 * cv.pad, cv.y + 2 * cv.pad),
+            (cv.nf, cv.c // cv.groups, cv.r, cv.s), stride=cv.stride,
+            plan=sched.plan, dataflow=sched.dataflow, epilogue=epis[name],
+            groups=cv.groups)))
+    return out
+
+
+def _m_ranges(tile):
+    """The [m0, m1) pixel ranges of the M tiles, CTA column by CTA column,
+    as the kernel walks them."""
+    out = []
+    for cx in range(tile.grid[0]):
+        lo = cx * tile.m_per_cta
+        out += [(t * tile.bm, min(tile.m, (t + 1) * tile.bm))
+                for t in range(lo, min(tile.m_tiles, lo + tile.m_per_cta))]
+    return out
+
+
+def _filter_ranges(tile):
+    """The [f0, f1) real filters of each CTA row."""
+    tpg = -(-tile.nfg // tile.bn)
+    return [(g * tile.nfg + t * tile.bn,
+             min((g + 1) * tile.nfg, g * tile.nfg + (t + 1) * tile.bn))
+            for g in range(tile.groups) for t in range(tpg)]
+
+
+@pytest.mark.parametrize("model,img", [("vgg16", 224), ("vgg16", 32),
+                                       ("resnet18", 32),
+                                       ("mobilenetv2", 32)])
+def test_tile_chooser_covers_every_zoo_conv(model, img):
+    """For every WS / OS conv of the model at full width, batch 1 and 4,
+    on an H100's 132 SMs: the CTAs' M tiles cover the layer's pixels
+    exactly once and its filters exactly once, no filter tile straddles a
+    group, shared memory stays within one CTA's, and the length of each
+    output's sum (its K order: c, then r, then s, in one thread) is the
+    same at both batches."""
+    orders = {}
+    for batch in (1, 4):
+        for name, spec in _zoo_specs(model, img, batch):
+            tile = t_kern.fold_tile(spec, batch, 132)
+            assert tile.smem <= t_kern.SMEM_LIMIT, name
+            ms = _m_ranges(tile)
+            assert ms[0][0] == 0 and ms[-1][1] == tile.m, name
+            assert all(a[1] == b[0] for a, b in zip(ms, ms[1:])), name
+            assert all(a < b for a, b in ms), name
+            fs = _filter_ranges(tile)
+            assert len(fs) == tile.n_tiles == tile.grid[1], name
+            covered = sorted(f for a, b in fs for f in range(a, b))
+            assert covered == list(range(spec.nf_pad)), name
+            nfg = spec.nf_pad // spec.groups
+            assert all(a // nfg == (b - 1) // nfg for a, b in fs), name
+            assert tile.k_len == spec.c_pad // spec.groups * spec.r * spec.s
+            orders.setdefault(batch, []).append((name, tile.k_len))
+    assert orders[1] == orders[4]
 
 
 # --------------------------------------------------------------------------
@@ -638,3 +758,95 @@ def test_cuda_psum_kernel_matches_plain_version(cuda_device, forced):
     tol = 1e-4 * max(1.0, want.abs().max().item())
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("epi", list(GROUPED_EPIS.values()),
+                         ids=list(GROUPED_EPIS))
+@pytest.mark.parametrize("case", GROUPED_CASES,
+                         ids=["3x3_g4", "3x3_s2_g3", "1x1_g2"])
+def test_cuda_grouped_kernel_matches_plain_version(cuda_device, case, epi,
+                                                   dataflow):
+    """Grouped 1 < G < C on ``fold_conv_ws`` / ``fold_conv_os`` against the
+    grouped plain walk: within 1e-4·max(1, max|plain|) (FFMA against
+    separate multiply and add)."""
+    c, nf, g, r, stride, pad, hw = case
+    x, w, _ = _inputs(2, c, hw + 2 * pad, hw + 2 * pad, nf, r, r, seed=22)
+    x, w = (torch.from_numpy(a).to(cuda_device)
+            for a in (x, np.ascontiguousarray(w[:, :c // g])))
+    p = (hw + 2 * pad - r) // stride + 1
+    kw = dict(stride=stride, dataflow=dataflow, epilogue=TEpilogue(**epi),
+              groups=g, **_as(lambda a: torch.from_numpy(a).to(cuda_device),
+                              _epi_operands(epi, 2, nf, p, p, seed=22)))
+    name = ("fold_conv_ws" if dataflow == "weight_stationary"
+            else "fold_conv_os")
+    before = t_kern.launch_counts()[name]
+    got = t_kern.conv2d_folded(x, w, **kw)
+    torch.cuda.synchronize()
+    assert t_kern.launch_counts()[name] == before + 1
+    want = t_kern.conv2d_folded_plain(x, w, **kw)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= \
+        1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("case", GROUPED_CASES,
+                         ids=["3x3_g4", "3x3_s2_g3", "1x1_g2"])
+def test_cuda_grouped_int8_kernel_is_bitwise_its_plain_version(
+        cuda_device, case, dataflow):
+    """Grouped int8 on ``fold_conv_ws_i8`` / ``fold_conv_os_i8``: bitwise
+    the plain int32 walk, bias+ReLU+pool in its requant form."""
+    c, nf, g, r, stride, pad, hw = case
+    xq, wq, kw = _int8_kernel_case(
+        cuda_device, BRP if r == 3 and stride == 1 else BR, dataflow, None,
+        geom=(2, c, hw, hw, nf, r, stride, pad, None), seed=23)
+    wq = wq[:, :c // g].contiguous()
+    kw["groups"] = g
+    got = t_kern.conv2d_folded(xq, wq, **kw)
+    assert torch.equal(got, t_kern.conv2d_folded_plain(xq, wq, **kw))
+
+
+# a geometry every tile can run (no pool): g_c = 3, ragged NF, stride 1
+TILE_GEOM = (2, 40, 9, 11, 30, 3, 1, 1, (24, 16, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "output_stationary"])
+@pytest.mark.parametrize("tile", range(len(t_kern.TILES)))
+def test_cuda_every_tile_matches_plain_version(cuda_device, tile, dataflow,
+                                               precision):
+    """Each CTA tile of the tile core, forced through the launcher, against
+    the plain walk with the scale + residual epilogue: fp32 within
+    1e-4·max(1, max|plain|), int8 bitwise."""
+    n, c, x_, y_, nf, r, stride, pad, plan = TILE_GEOM
+    if precision == "int8":
+        x, w, kw = _int8_kernel_case(cuda_device, SCR, dataflow, plan,
+                                     geom=TILE_GEOM, seed=24)
+    else:
+        x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
+                   _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, nf, r, r,
+                           seed=24))
+        p, q = x_ + 2 * pad - r + 1, y_ + 2 * pad - r + 1
+        kw = dict(stride=stride, plan=_plan(TPlan, plan, nf, c),
+                  dataflow=dataflow, epilogue=TEpilogue(**SCR),
+                  **_as(lambda a: torch.from_numpy(a).to(cuda_device),
+                        _epi_operands(SCR, n, nf, p, q, seed=24)))
+    spec, *ops = t_kern.prepare(
+        x, w, kw["stride"], kw["plan"], kw["dataflow"], kw.get("bias"),
+        kw["epilogue"], 1, kw.get("residual"), kw.get("scale"),
+        kw.get("shift"))
+    got = t_kern._finish(spec, t_kern.LAUNCHERS[spec.dataflow](
+        spec, *ops, tile=tile))
+    want = t_kern.conv2d_folded_plain(x, w, **kw)
+    if precision == "int8":
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= \
+            1e-4 * max(1.0, want.abs().max().item())

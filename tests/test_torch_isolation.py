@@ -1,4 +1,5 @@
-"""The port stands alone: no file of it (nor ``chip_smoke.py``) imports
+"""The port stands alone: no file of it (nor ``chip_smoke.py`` and
+``fold_tiles.py``) imports
 jax or the JAX package, it imports in a process where jax cannot load,
 and asking for a GPU that is not there raises instead of falling back."""
 import ast
@@ -12,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "fold_tiles.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -115,3 +116,15 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                          cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_fold_tiles_refuses_to_run_without_a_gpu(tmp_path):
+    """The per-layer timing script exits non-zero without a card and
+    prints no summary."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run([sys.executable, str(ROOT / "fold_tiles.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"card"' not in out.stdout

@@ -1,7 +1,8 @@
 """The port's int8 path against the JAX package's: the quantizers and the
 requant affine, the exact int32 reference accumulator, the calibration
 pass, the int8 schedule tables of the three zoo models, whole-network
-int8 logits with the JAX recipe carried across, and the serving surface
+int8 logits with the JAX recipe carried across, the grouped 1 < G < C
+int8 fold, and the serving surface
 (one recipe for every bucket and for the reference rung), on the CPU.
 Width 0.0625, img 32."""
 import numpy as np
@@ -136,6 +137,48 @@ def test_int32_accumulator_at_saturation(sign):
     assert 0 < bound <= t_quant.INT32_ACC_MAX
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.flatten().tolist() == [sign * bound] * 4
+
+
+# tests/test_quant.py's grouped int8 layer: NF = C = 8, 6x6, G = 2, 3x3
+GROUPED_EPIS = {"bias+relu": {"bias": True, "relu": True},
+                "bias+relu+pool": {"bias": True, "relu": True,
+                                   "pool": "max2"},
+                "scale+residual": {"scale": True, "residual": True}}
+
+
+@pytest.mark.parametrize("impl", ["fold_ws", "fold_os"])
+@pytest.mark.parametrize("epi", list(GROUPED_EPIS.values()),
+                         ids=list(GROUPED_EPIS))
+def test_grouped_int8_fold_matches_the_reference(epi, impl):
+    """Grouped 1 < G < C int8 through ``conv2d_int8`` on the plain int32
+    fold walk against the JAX package's ``conv2d_int8(..., groups=2)`` on
+    the Pallas kernels in interpret mode, the same numpy operands and
+    calibrated scale: within 1e-5 (tests/test_quant.py's tolerance; the
+    int32 sums are exact, the flush rounds the same steps)."""
+    n, c, nf, hw, g = 2, 8, 8, 6, 2
+    x, w = _rng_tensor((n, c, hw, hw), 30), _rng_tensor((nf, c // g, 3, 3),
+                                                       31)
+    ops = {}
+    if epi.get("bias"):
+        ops["b"] = _rng_tensor(nf, 32)
+    if epi.get("scale"):
+        ops["scale"] = 1 + _rng_tensor(nf, 33, 0.2)
+        ops["shift"] = _rng_tensor(nf, 34, 0.2)
+    if epi.get("residual"):
+        ops["residual"] = _rng_tensor((n, nf, hw, hw), 35)
+    xs = j_quant.act_scale(jnp.asarray(x))
+    from repro.kernels.ops import conv2d_int8 as j_conv2d_int8
+    from repro_torch.kernels.ops import conv2d_int8 as t_conv2d_int8
+    want = np.asarray(j_conv2d_int8(
+        jnp.asarray(x), jnp.asarray(w), x_scale=xs, pad=1,
+        epilogue=JEpilogue(**epi), impl=impl, interpret=True, groups=g,
+        **{k: jnp.asarray(v) for k, v in ops.items()}))
+    got = t_conv2d_int8(
+        torch.from_numpy(x), torch.from_numpy(w), x_scale=xs, pad=1,
+        epilogue=TEpilogue(**epi), impl=impl, groups=g,
+        **{k: torch.from_numpy(v) for k, v in ops.items()})
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------------------
