@@ -403,8 +403,11 @@ def compile_network(params: Dict[str, Any], graph,
     ReLU[6] / 2x2-pool chain flushes inside the conv's kernel — one launch
     per conv block; batch-norm statistics fold to the epilogue's
     scale/shift (``bn_scale_shift``) at every call.  Reference mode runs
-    the plain-torch conv and standalone ops.  A fused pool on an output too
-    small to pool (P or Q < 2) is demoted to a standalone op.  The forward
+    the plain-torch conv and standalone ops.  Dense layers run the head
+    kernel (``kernels/dense.py``) in both modes, as the JAX package runs
+    one dense op in both: its rows do not depend on the batch.  A fused
+    pool on an output too small to pool (P or Q < 2) is demoted to a
+    standalone op.  The forward
     runs on ``device`` (default "cuda"; "cpu" runs the plain-torch fold
     loop in kernel mode).
 
@@ -512,6 +515,7 @@ def compile_network(params: Dict[str, Any], graph,
     out_name = g.output
 
     def forward(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels.dense import dense
         from repro_torch.kernels.ops import conv2d, conv2d_fused, conv2d_int8
         if x.device.type != dev.type:
             raise ValueError(f"network compiled for {dev}, input is on "
@@ -575,9 +579,11 @@ def compile_network(params: Dict[str, Any], graph,
             elif op == "flatten":
                 v = env[ins[0]]
                 env[out] = v.reshape(v.shape[0], -1)
-            else:                                 # dense: x @ w, as in JAX
-                env[out] = torch.matmul(env[ins[0]], p[info]["w"]) \
-                    + p[info]["b"]
+            else:
+                # dense: x @ w + b, as in JAX, in every mode, through the
+                # head kernel: one sum order per row whatever the batch, so
+                # served logits equal a direct forward bitwise
+                env[out] = dense(env[ins[0]], p[info]["w"], p[info]["b"])
         y = env[out_name]
         return head(p, y) if head is not None else y
 

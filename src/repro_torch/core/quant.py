@@ -283,6 +283,9 @@ def quantize_graph(graph, params: Dict[str, Any],
             elif nd.op == "flatten":
                 env[nd.name] = x.reshape(x.shape[0], -1)
             elif nd.op == "dense":
+                # no scale is taken from a dense output: scales are read at
+                # conv inputs, which are NCHW, and nothing turns a dense
+                # layer's (N, K) output back into an image
                 pd = params[nd.param]
                 env[nd.name] = torch.matmul(x, pd["w"]) + pd["b"]
             else:  # pragma: no cover — StreamGraph construction validates ops

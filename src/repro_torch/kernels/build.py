@@ -64,9 +64,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         os_.argtypes = [ptr] * 5 + geom + [i32, ptr]       # tile
         dw.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
         ws.restype = os_.restype = dw.restype = i32
-    # n .. p_pad, then nf_block, c_block, p_block
+    # n .. p_pad, then c_block, the tile, the M tiles one CTA walks
     lib.fold_conv_psum.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
     lib.fold_conv_psum.restype = i32
+    # x, w, b, part, out, then rows, k, n, the K chunk (csrc/dense.cu)
+    lib.dense_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.dense_f32.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]
     lib.fold_conv_error_string.restype = ctypes.c_char_p
     for dt in ("f32", "bf16"):

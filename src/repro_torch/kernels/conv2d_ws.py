@@ -39,7 +39,8 @@ The fourth, ``weight_stationary_psum`` (replaces ``_ws_psum_kernel``), is
 the paper's Fig. 5 formulation and the WS accumulator's spill for an
 identity epilogue: every depth fold writes its fp32 partial sums to a
 ``(g_c, N, NF_pad, P_pad, Q)`` staging buffer in device memory, and
-``conv2d_folded`` sums the folds afterwards with ``torch.sum``.
+``conv2d_folded`` sums the folds afterwards with ``torch.sum``.  It runs
+on the WS / OS tile core, its depth folds side by side on the grid.
 
 **Int8** ``x`` and ``w`` select the quantized stream of the WS, OS and
 depthwise kernels: each operand widens to int32 before the multiply, the
@@ -645,9 +646,11 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 #
 # The depthwise kernel is bound by bytes instead: 2*R*S flops per output
 # element (18 at 3x3) against the 4 bytes it writes and about as many it
-# reads, far below the ridge.  One thread per output element reads its
-# window through the read-only cache, coalesced along Q, so the kernel
-# moves each input byte from device memory about once.
+# reads, far below the ridge, so its instructions per output are what to
+# keep down: a CTA owns (image, channels, rows), a thread 4 consecutive
+# outputs along Q (``DW_TQ`` in ``csrc/fold_conv.cu``) with its channel's
+# weights in registers, each input row's window its outputs share loaded
+# once, and its indices come from the block and thread ids in 32 bits.
 #
 # The int8 instances (``*_i8``) run the same tile core on int32 IMAD: the
 # operands are widened to int32 as they are staged, so their sums are
@@ -658,8 +661,11 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # The psum kernel is the WS fold sum without the in-kernel reduction: each
 # depth fold writes an fp32 partial-sum tensor, so the bytes grow by
 # 2*g_c+1 output-sized transfers (with the ``torch.sum``) — the cost the
-# paper's reserved-column reduction removes.  It keeps the micro-tile loop
-# the WS and OS kernels had before the tile core.
+# paper's reserved-column reduction removes.  It is a third instance of
+# the WS / OS tile core: its grid gains the depth folds as a third axis, a
+# CTA keeps one fold's filter tile resident and stores its tiles' raw sums
+# to that fold's slice, so the folds run in parallel and the comparison
+# with WS measures the two reductions, not two cores.
 
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
 SMEM_PER_SM = 233_472   # shared memory of one SM that CTAs may take
@@ -684,15 +690,18 @@ def _epi_flags(epi: Epilogue) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FoldTile:
-    """The CTA tile of one WS / OS launch, as the kernel will run it.
+    """The CTA tile of one WS / OS / psum launch, as the kernel will run it.
 
     ``m`` output pixels (four per pooled output where the pool is fused)
     are cut into ``m_tiles`` tiles of ``bm``; each group's ``nfg`` filters
     into tiles of ``bn``, so ``n_tiles`` = groups x ceil(nfg / bn) and no
     filter tile straddles a group.  An OS CTA owns one (M tile, filter
     tile); a WS CTA walks ``m_per_cta`` consecutive M tiles past its
-    resident filter tile.  ``resident`` CTAs of ``smem`` bytes fit one SM.
-    Each output's sum is ``k_len`` taps long, c then r then s."""
+    resident filter tile, a psum CTA the same for one of ``folds`` depth
+    folds (the grid's third axis; 1 for WS and OS).  ``resident`` CTAs of
+    ``smem`` bytes fit one SM.  Each sum a CTA finishes is ``k_len`` taps
+    long, c then r then s: the whole depth for WS and OS, one depth fold
+    for psum."""
     index: int                 # into TILES
     tm: int
     tn: int
@@ -706,6 +715,7 @@ class FoldTile:
     n_tiles: int
     m_per_cta: int
     grid: Tuple[int, int]
+    folds: int
     smem: int
     resident: int
     k_len: int
@@ -713,9 +723,9 @@ class FoldTile:
 
 def tile_candidates(spec: "FoldKernelSpec", n: int,
                     sm_count: int) -> list:
-    """Every tile of ``TILES`` the WS / OS kernel can run this launch with
-    (its shared memory fits one CTA; whole 2x2 quads per thread where the
-    pool is fused), as ``FoldTile``s: the mirror of ``launch_tile`` in
+    """Every tile of ``TILES`` the WS / OS / psum kernel can run this launch
+    with (its shared memory fits one CTA; whole 2x2 quads per thread where
+    the pool is fused), as ``FoldTile``s: the mirror of ``launch_tile`` in
     ``csrc/fold_conv.cu``.  A pure function of the launch spec, the batch
     and the card's SM count."""
     return list(_candidates(*_launch_key(spec, n, sm_count)))
@@ -723,17 +733,21 @@ def tile_candidates(spec: "FoldKernelSpec", n: int,
 
 def _launch_key(spec: "FoldKernelSpec", n: int, sm_count: int) -> tuple:
     """What of a launch the tile depends on."""
-    return (spec.dataflow == "weight_stationary",
-            spec.epilogue.pool == "max2", spec.groups, spec.c_pad, spec.r,
-            spec.s, spec.plan.c_block, spec.nf_pad, spec.p_pad, spec.q, n,
-            sm_count)
+    return (spec.dataflow, spec.epilogue.pool == "max2", spec.groups,
+            spec.c_pad, spec.r, spec.s, spec.plan.c_block, spec.nf_pad,
+            spec.p_pad, spec.q, n, sm_count)
 
 
 @functools.lru_cache(maxsize=None)
-def _candidates(ws: bool, pool: bool, g: int, c_pad: int, r: int, s: int,
-                c_block: int, nf_pad: int, p_pad: int, q: int, n: int,
+def _candidates(dataflow: str, pool: bool, g: int, c_pad: int, r: int,
+                s: int, c_block: int, nf_pad: int, p_pad: int, q: int, n: int,
                 sm_count: int) -> Tuple[FoldTile, ...]:
+    # WS and psum keep a depth fold's filter tile resident; psum runs its
+    # depth folds side by side, each CTA summing one fold
+    ws = dataflow != "output_stationary"
     k_len, kf = c_pad // g * r * s, c_block * r * s
+    folds = c_pad // g // c_block if dataflow == "weight_stationary_psum" \
+        else 1
     nfg = nf_pad // g
     po, qo = (p_pad // 2, q // 2) if pool else (p_pad, q)
     m = (4 if pool else 1) * n * po * qo
@@ -752,14 +766,15 @@ def _candidates(ws: bool, pool: bool, g: int, c_pad: int, r: int, s: int,
         if ws:
             # one wave of CTAs, each walking its share of the M tiles past
             # its resident filter tile
-            chunks = max(1, min(m_tiles,
-                                -(-sm_count * resident // n_tiles)))
+            chunks = max(1, min(m_tiles, -(-sm_count * resident
+                                           // (n_tiles * folds))))
             m_per_cta = -(-m_tiles // chunks)
         out.append(FoldTile(
             index=idx, tm=tm, tn=tn, bm=bm, bn=bn, threads=threads, m=m,
             m_tiles=m_tiles, groups=g, nfg=nfg, n_tiles=n_tiles,
             m_per_cta=m_per_cta, grid=(-(-m_tiles // m_per_cta), n_tiles),
-            smem=smem, resident=resident, k_len=k_len))
+            folds=folds, smem=smem, resident=resident,
+            k_len=kf if folds > 1 else k_len))
     return tuple(out)
 
 
@@ -771,10 +786,11 @@ def tile_cycles(tile: FoldTile, sm_count: int) -> float:
     scheduler issue one instruction a cycle between them, and a warp
     alone needs about 2*TM*TN cycles a tap.  Each tile's flush costs
     about 300 cycles per accumulator.  A launch takes as many rounds of
-    resident CTAs as its grid needs, each CTA walking its M tiles' K taps
-    in series.  Fitted to the card's per-layer times of every tile over
-    the zoo's convs (``fold_tiles.py --sweep``, PERF.md)."""
-    per_sm = -(-tile.grid[0] * tile.grid[1] // sm_count)
+    resident CTAs as its grid needs (a psum grid has a third axis, its
+    depth folds), each CTA walking its M tiles' K taps in series.  Fitted
+    to the card's per-layer times of every WS / OS tile over the zoo's
+    convs (``fold_tiles.py --sweep``, PERF.md)."""
+    per_sm = -(-tile.grid[0] * tile.grid[1] * tile.folds // sm_count)
     rounds = -(-per_sm // tile.resident)
     warps = min(per_sm, tile.resident) * tile.threads / 32 / 4
     acc = tile.tm * tile.tn
@@ -784,7 +800,8 @@ def tile_cycles(tile: FoldTile, sm_count: int) -> float:
 
 def fold_tile(spec: "FoldKernelSpec", n: int, sm_count: int,
               index: Optional[int] = None) -> FoldTile:
-    """Pick the CTA tile of a WS / OS launch: the candidate with the least
+    """Pick the CTA tile of a WS / OS / psum launch: the candidate with the
+    least
     ``tile_cycles``, among those whose filter tile is no wider than a
     group (where any is); or, with ``index``, that tile of ``TILES``.
     Raises where no tile (or not that one) fits the launch."""
@@ -906,7 +923,9 @@ def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
               ) -> torch.Tensor:
     """Launch the depthwise kernel on padded CUDA operands.  Only the
     layer's own C channels are computed: the output's channels past C
-    (``c_pad``) are left unwritten and sliced away by the caller."""
+    (``c_pad``) are left unwritten and sliced away by the caller.  The
+    entry refuses (``RuntimeError``) an output row wider than 512 columns
+    (128 threads of ``DW_TQ`` = 4): one CTA holds a whole row."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
     name = _entry("fold_conv_dw", xp)
@@ -926,20 +945,21 @@ def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
 
 def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 vec: Optional[torch.Tensor] = None,
-                res: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the psum-staging kernel on padded fp32 CUDA operands; returns
-    the (g_c, N, NF_pad, P_pad, Q) staging buffer, unsummed.  The entry
-    refuses (``RuntimeError``) a depth fold whose 8-filter weight sub-fold
-    does not fit one CTA's shared memory."""
+                res: Optional[torch.Tensor] = None,
+                tile: Optional[int] = None) -> torch.Tensor:
+    """Launch the psum-staging kernel on padded fp32 CUDA operands, with
+    the CTA tile ``fold_tile`` picks (or tile ``tile`` of ``TILES``);
+    returns the (g_c, N, NF_pad, P_pad, Q) staging buffer, unsummed."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp)
     n = xp.shape[0]
+    tile = fold_tile(spec, n, _sm_count(xp.device), tile)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=torch.float32)
     lib = build.library()
     err = lib.fold_conv_psum(
         _ptr(xp), _ptr(wp), _ptr(out), *_geom_args(spec, n),
-        spec.plan.nf_block, spec.plan.c_block, spec.p_block,
+        spec.plan.c_block, tile.index, tile.m_per_cta,
         torch.cuda.current_stream(xp.device).cuda_stream)
     build.raise_on_error(lib, err, "fold_conv_psum")
     _LAUNCHES["fold_conv_psum"] += 1

@@ -31,8 +31,9 @@
 // order.  The fp32 and int8 kernels are one template on the operand type T
 // and the accumulator type A.
 //
-// The WS and OS kernels (ws_kernel, os_kernel; they replace _ws_kernel and
-// _os_kernel, fp32 and int8) share one tile core: a fold interaction as an
+// The WS, OS and psum kernels (ws_kernel, os_kernel, psum_kernel; they
+// replace _ws_kernel, _os_kernel, fp32 and int8, and _ws_psum_kernel)
+// share one tile core: a fold interaction as an
 // implicit GEMM, M = output pixels flattened over (n, p, q) (2x2 quads of
 // them where the pool is fused, so each pool window is finished in one
 // thread), N = the filters of one group, K = the group's (c, r, s) taps.
@@ -54,6 +55,9 @@
 //       M tiles (the paper's Filter Fold held while Image Folds stream);
 //       with g_c > 1 the partial sums of each tile go through the slab,
 //       which only that CTA touches.
+//   psum: as WS for one depth fold per CTA, the folds on the grid's third
+//       axis and so in parallel; each tile's raw sums go to its fold's
+//       slice of the staging buffer, and the caller sums the folds.
 // Grouped (1 < G < C): a CTA's filter tile never straddles a group, and
 // its channel base is group(f0) * C/G (the counterpart of _ix_ws_x); where
 // NF/G < BN the tile's last filters are masked.  The wrapper picks the
@@ -77,16 +81,19 @@
 // whatever the tile, the grid, N, the dataflow or the epilogue: no split
 // of K across threads or CTAs, no atomics.  So a conv trunk gives the same
 // bits at every batch width and the two dataflows give the same bits.  The
-// depthwise kernel is bound by bytes; one thread owns one output element
-// and sums its R*S taps, R then S.
+// depthwise kernel is bound by bytes; a thread owns DW_TQ outputs along Q,
+// loads the input window they share once per row, and sums each output's
+// R*S taps, R then S (dw_kernel below).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int MAX_THREADS = 256;     // __launch_bounds__ of dw / psum
+constexpr int DW_THREADS = 128;     // threads of a depthwise CTA
+constexpr int DW_TQ = 4;            // outputs along Q a depthwise thread owns
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory of one CTA
 constexpr int BK = 32;               // taps per K chunk of the tile core
 constexpr int PB = 8;                // OS weight chunks copied ahead
@@ -592,10 +599,54 @@ ws_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// Partial-sum staging (the paper's Fig. 5 formulation): grid (M-tile
+// shares, filter tiles, depth folds).  A CTA stages depth fold
+// blockIdx.z's filter tile as WS does, runs that fold's Kf taps from zero
+// for each of its M tiles, and stores the raw sums to the fold's own slice
+// of the (g_c, N, NF_pad, P_pad, Q) staging buffer.  Nothing is flushed
+// and no slab is read: the folds are independent and run in parallel
+// across the grid, and the caller sums them afterwards, through device
+// memory.  Dense, identity epilogue, fp32 only.
 template <class TL>
-size_t tile_smem(bool ws, const Dims& d) {
-  const size_t words = (ws ? static_cast<size_t>(d.Kf) * TL::BNP
-                           : static_cast<size_t>(SB) * BK * TL::BNP) +
+__global__ void __launch_bounds__(TL::THREADS)
+psum_kernel(const float* __restrict__ x, const float* __restrict__ w,
+            float* __restrict__ psum, Geom g) {
+  extern __shared__ float4 smem4[];
+  const Dims d = make_dims(g, TL::BN);
+  int f0, nvalid, cbase;
+  filter_tile(d, TL::BN, f0, nvalid, cbase);
+  float* b_res = reinterpret_cast<float*>(smem4);
+  float* a_ring = b_res + d.Kf * TL::BNP;
+  int* koff = reinterpret_cast<int*>(a_ring + 2 * BK * TL::BM);
+  fill_koff(koff, g, d, TL::THREADS);
+  const int cf = blockIdx.z;
+  float* fold = psum + static_cast<size_t>(cf) * g.n * g.nf_pad * g.p_pad * g.q;
+  load_b_resident<TL>(b_res, w, d.K, d.Kf, cf * d.Kf, f0, nvalid);
+  commit();
+  const int m_tiles = (d.M + TL::BM - 1) / TL::BM;
+  const int mt_lo = blockIdx.x * g.m_per_cta;
+  const int mt_hi = min(m_tiles, mt_lo + g.m_per_cta);
+  const int tm = threadIdx.x % TL::MG;
+  const int tn = threadIdx.x / TL::MG;
+  for (int mt = mt_lo; mt < mt_hi; ++mt) {
+    const int m0 = mt * TL::BM;
+    const int mb = row_base(g, d, m0 + threadIdx.x % TL::BM, cbase);
+    __syncthreads();  // the last tile's ring is no longer read
+    float acc[TL::TM][TL::TN];
+    zero<TL>(acc);
+    run_k<TL, false>(acc, x, w, a_ring, b_res, koff, mb, d.K, cf * d.Kf,
+                     (cf + 1) * d.Kf, f0, nvalid, tm, tn);
+    slab_io<TL, true>(acc, fold, g, d, m0, f0, nvalid, tm, tn);
+  }
+}
+
+// What a launch runs: the dataflow's kernel
+enum Kind { KIND_OS = 0, KIND_WS = 1, KIND_PSUM = 2 };
+
+template <class TL>
+size_t tile_smem(int kind, const Dims& d) {
+  const size_t words = (kind != KIND_OS ? static_cast<size_t>(d.Kf) * TL::BNP
+                                        : static_cast<size_t>(SB) * BK * TL::BNP) +
                        static_cast<size_t>(2) * BK * TL::BM + d.K;
   return 4 * words;
 }
@@ -611,18 +662,21 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <class TL, typename T, typename A>
-int launch_tile(bool ws, const void* x, const void* w, const void* vec,
+int launch_tile(int kind, const void* x, const void* w, const void* vec,
                 const void* res, void* out, void* slab, const Geom& g,
                 cudaStream_t stream) {
   const Dims d = make_dims(g, TL::BN);
-  const size_t smem = tile_smem<TL>(ws, d);
+  const size_t smem = tile_smem<TL>(kind, d);
   if (smem > SMEM_LIMIT || g.c_pad % g.groups || g.nf_pad % g.groups ||
-      d.cg % g.c_b || (d.pool && TL::TM % 4) || g.m_per_cta < 1) {
+      d.cg % g.c_b || (d.pool && TL::TM % 4) || g.m_per_cta < 1 ||
+      (kind == KIND_PSUM && (g.groups != 1 || g.epi != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int m_tiles = (d.M + TL::BM - 1) / TL::BM;
-  const int gx = ws ? (m_tiles + g.m_per_cta - 1) / g.m_per_cta : m_tiles;
-  const dim3 grid(gx, g.groups * d.tiles_per_group);
+  const int gx = kind != KIND_OS ? (m_tiles + g.m_per_cta - 1) / g.m_per_cta
+                                 : m_tiles;
+  const dim3 grid(gx, g.groups * d.tiles_per_group,
+                  kind == KIND_PSUM ? d.cg / g.c_b : 1);
   if (gx == 0) return static_cast<int>(cudaSuccess);
   const auto* xt = static_cast<const T*>(x);
   const auto* wt = static_cast<const T*>(w);
@@ -630,7 +684,16 @@ int launch_tile(bool ws, const void* x, const void* w, const void* vec,
   const auto* rf = static_cast<const float*>(res);
   auto* of = static_cast<float*>(out);
   cudaError_t err;
-  if (ws) {
+  if (kind == KIND_PSUM) {
+    if constexpr (std::is_same<T, float>::value) {
+      err = allow_smem(psum_kernel<TL>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      psum_kernel<TL><<<grid, TL::THREADS, smem, stream>>>(
+          xt, wt, static_cast<float*>(slab), g);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (kind == KIND_WS) {
     err = allow_smem(ws_kernel<TL, T, A>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     ws_kernel<TL, T, A><<<grid, TL::THREADS, smem, stream>>>(
@@ -645,161 +708,19 @@ int launch_tile(bool ws, const void* x, const void* w, const void* vec,
 }
 
 template <typename T, typename A>
-int launch_fold(int tile, bool ws, const void* x, const void* w,
+int launch_fold(int tile, int kind, const void* x, const void* w,
                 const void* vec, const void* res, void* out, void* slab,
                 const Geom& g, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 0: return launch_tile<Tile0, T, A>(ws, x, w, vec, res, out, slab, g, s);
-    case 1: return launch_tile<Tile1, T, A>(ws, x, w, vec, res, out, slab, g, s);
-    case 2: return launch_tile<Tile2, T, A>(ws, x, w, vec, res, out, slab, g, s);
-    case 3: return launch_tile<Tile3, T, A>(ws, x, w, vec, res, out, slab, g, s);
-    case 4: return launch_tile<Tile4, T, A>(ws, x, w, vec, res, out, slab, g, s);
-    case 5: return launch_tile<Tile5, T, A>(ws, x, w, vec, res, out, slab, g, s);
-    case 6: return launch_tile<Tile6, T, A>(ws, x, w, vec, res, out, slab, g, s);
+    case 0: return launch_tile<Tile0, T, A>(kind, x, w, vec, res, out, slab, g, s);
+    case 1: return launch_tile<Tile1, T, A>(kind, x, w, vec, res, out, slab, g, s);
+    case 2: return launch_tile<Tile2, T, A>(kind, x, w, vec, res, out, slab, g, s);
+    case 3: return launch_tile<Tile3, T, A>(kind, x, w, vec, res, out, slab, g, s);
+    case 4: return launch_tile<Tile4, T, A>(kind, x, w, vec, res, out, slab, g, s);
+    case 5: return launch_tile<Tile5, T, A>(kind, x, w, vec, res, out, slab, g, s);
+    case 6: return launch_tile<Tile6, T, A>(kind, x, w, vec, res, out, slab, g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Partial-sum staging: its own micro-tile loop (the one the WS and OS
-// kernels had before the tile core), so that its numbers stay where they
-// were
-// ---------------------------------------------------------------------------
-
-constexpr int PSUM_NFT = 8;  // filters per CTA sub-fold
-
-struct PsumGeom {
-  int n, c_pad, x_rows, yp;
-  int nf_pad, r, s, stride;
-  int q, p_pad;
-  int nf_b, c_b, p_b;
-  int mq;        // micro-tile columns per CTA tile
-  int q_tiles;   // CTA tiles along Q
-};
-
-// One 2x2 micro-tile of the CTA tile: where it sits and which of its four
-// outputs are real (rows past the P fold and columns past Q are not).
-struct Micro {
-  int prow, qcol;
-  bool rv1, cv1;
-};
-
-// Copy the weight sub-fold [f0, f0+nvalid) x [c0, c0+nch) x R x S into
-// shared memory as [c][r][s][PSUM_NFT]: one tap of all the sub-fold's
-// filters is two 16-byte words, read as a broadcast.  Missing filters are
-// zeros.
-__device__ void psum_stage_weights(float* w_s, const float* __restrict__ w,
-                                   const PsumGeom& g, int f0, int nvalid,
-                                   int c0, int nch) {
-  const int rs = g.r * g.s;
-  const int total = nch * rs * PSUM_NFT;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int j = i % PSUM_NFT;
-    const int crs = i / PSUM_NFT;
-    const int c = crs / rs;
-    const int k = crs % rs;
-    w_s[i] = j < nvalid
-        ? w[(static_cast<size_t>(f0 + j) * g.c_pad + c0 + c) * rs + k]
-        : 0.f;
-  }
-}
-
-// _fold_partial: R*S stationary taps of nch channels against the strided
-// input window of one micro-tile, accumulated into acc in fixed order.
-__device__ __forceinline__ void psum_fold_partial(
-    float (&acc)[PSUM_NFT][4], const float* __restrict__ xc0,
-    const float* w_s, int nch, const PsumGeom& g, const Micro& m) {
-  const size_t plane = static_cast<size_t>(g.x_rows) * g.yp;
-  const int col0 = m.qcol * g.stride;
-  for (int c = 0; c < nch; ++c) {
-    const float* xc = xc0 + c * plane;
-    for (int r = 0; r < g.r; ++r) {
-      const float* row0 =
-          xc + static_cast<size_t>(m.prow * g.stride + r) * g.yp + col0;
-      const float* row1 = row0 + static_cast<size_t>(g.stride) * g.yp;
-      for (int s = 0; s < g.s; ++s) {
-        const float4* wp = reinterpret_cast<const float4*>(
-            w_s + ((c * g.r + r) * g.s + s) * PSUM_NFT);
-        const float4 wa = wp[0];
-        const float4 wb = wp[1];
-        const float wv[PSUM_NFT] = {wa.x, wa.y, wa.z, wa.w,
-                                    wb.x, wb.y, wb.z, wb.w};
-        float xv[4];
-        xv[0] = __ldg(row0 + s);
-        xv[1] = m.cv1 ? __ldg(row0 + s + g.stride) : 0.f;
-        xv[2] = m.rv1 ? __ldg(row1 + s) : 0.f;
-        xv[3] = (m.rv1 && m.cv1) ? __ldg(row1 + s + g.stride) : 0.f;
-#pragma unroll
-        for (int f = 0; f < PSUM_NFT; ++f) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[f][k] = fmaf(wv[f], xv[k], acc[f][k]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ bool micro_tile(const PsumGeom& g, int t,
-                                           int q_tile, int pf, Micro& m) {
-  const int mrow = t / g.mq;
-  const int mcol = t % g.mq;
-  const int pl = 2 * mrow;
-  m.qcol = 2 * (q_tile * g.mq + mcol);
-  if (pl >= g.p_b || m.qcol >= g.q) return false;
-  m.prow = pf * g.p_b + pl;
-  m.rv1 = pl + 1 < g.p_b;
-  m.cv1 = m.qcol + 1 < g.q;
-  return true;
-}
-
-// Partial-sum staging (replaces _ws_psum_kernel, the paper's Fig. 5
-// formulation): grid (Q tiles x P folds, filter sub-folds, N x depth
-// folds).  A CTA stages one depth fold of its filter sub-fold, sums that
-// fold's c_b channels x R x S taps for each micro-tile, c then r then s,
-// and writes the fold's partial sums to its own slice of the staging
-// buffer (g_c, N, NF_pad, P_pad, Q).  Nothing is flushed: the caller sums
-// the folds afterwards, through device memory.
-__global__ void __launch_bounds__(MAX_THREADS)
-psum_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            float* __restrict__ psum, PsumGeom g) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  const int subs = (g.nf_b + PSUM_NFT - 1) / PSUM_NFT;
-  const int sub = blockIdx.y % subs;
-  const int f0 = (blockIdx.y / subs) * g.nf_b + sub * PSUM_NFT;
-  const int nvalid = min(PSUM_NFT, g.nf_b - sub * PSUM_NFT);
-  const int g_c = g.c_pad / g.c_b;
-  const int cf = blockIdx.z % g_c;
-  const int nidx = blockIdx.z / g_c;
-  const int q_tile = blockIdx.x % g.q_tiles;
-  const int pf = blockIdx.x / g.q_tiles;
-  const int tile = ((g.p_b + 1) / 2) * g.mq;
-  const size_t plane = static_cast<size_t>(g.x_rows) * g.yp;
-  psum_stage_weights(w_s, w, g, f0, nvalid, cf * g.c_b, g.c_b);
-  __syncthreads();
-  const float* xc0 =
-      x + (static_cast<size_t>(nidx) * g.c_pad + cf * g.c_b) * plane;
-  float* fold =
-      psum + static_cast<size_t>(cf) * g.n * g.nf_pad * g.p_pad * g.q;
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-    Micro m;
-    if (!micro_tile(g, t, q_tile, pf, m)) continue;
-    float acc[PSUM_NFT][4];
-#pragma unroll
-    for (int j = 0; j < PSUM_NFT; ++j) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
-    }
-    psum_fold_partial(acc, xc0, w_s, g.c_b, g, m);
-    for (int j = 0; j < nvalid; ++j) {
-      float* o = fold + (static_cast<size_t>(nidx) * g.nf_pad + f0 + j) *
-                            g.p_pad * g.q;
-      o[m.prow * g.q + m.qcol] = acc[j][0];
-      if (m.cv1) o[m.prow * g.q + m.qcol + 1] = acc[j][1];
-      if (m.rv1) o[(m.prow + 1) * g.q + m.qcol] = acc[j][2];
-      if (m.rv1 && m.cv1) o[(m.prow + 1) * g.q + m.qcol + 1] = acc[j][3];
-    }
   }
 }
 
@@ -808,109 +729,151 @@ struct DwGeom {
   int r, s, stride;
   int q, p_pad;
   int epi;
+  int strips;  // thread strips per output row
+  int rows;    // output rows per CTA (pooled rows where the pool is fused)
+  int chans;   // channels per CTA
 };
 
-// Depthwise (replaces _dw_kernel): one thread per output element of the
-// layer's own C channels, a grid-stride loop over (N, C, P_pad, Q), Q
-// fastest so a warp reads neighbouring input columns.  The channel's R*S
-// taps come through the read-only cache (a warp's threads mostly share
-// one channel, so each tap load is a broadcast); the sum runs R then S in
-// one thread, and the epilogue flushes at once: there is no depth fold.
+// Depthwise (replaces _dw_kernel): grid (row strips, channel blocks,
+// images), a CTA owning CHANS channels x ROWS output rows of one image.  A
+// thread owns DW_TQ consecutive outputs along Q of one row (and the row
+// below it where the pool is fused, so each 2x2 window is finished in one
+// thread), with its channel's R*S weights in registers.  Per input row it
+// loads the window of (DW_TQ - 1) * stride + S values its outputs share
+// once, into registers, and runs its outputs' taps from there: at 3x3,
+// stride 1, 6 loads for 12 multiply-adds, against 2 loads per
+// multiply-add for one thread per output.  All index arithmetic is
+// 32-bit, from blockIdx and threadIdx (the wrapper keeps every offset
+// below 2^31).
+// Each output's sum runs R then S from 0, one fmaf (integer multiply-add)
+// per tap, and the epilogue flushes at once: there is no depth fold.
 // Channels C..C_pad-1 of the output are padding and are not written.
-template <typename T, typename A>
-__global__ void __launch_bounds__(MAX_THREADS)
+// KR, KS, ST fix the taps and the stride at compile time (3x3, stride 1
+// or 2: every depthwise layer of the zoo); KR = 0 takes them from g and
+// reads each tap from the read-only cache instead of a register window.
+template <typename T, typename A, int KR, int KS, int ST>
+__global__ void __launch_bounds__(DW_THREADS)
 dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
           const float* __restrict__ vec, const float* __restrict__ res,
           float* __restrict__ out, DwGeom g) {
+  constexpr bool FIXED = KR > 0;
+  const int R = FIXED ? KR : g.r;
+  const int S = FIXED ? KS : g.s;
+  const int st = FIXED ? ST : g.stride;
+  const int strip = threadIdx.x % g.strips;
+  const int u = threadIdx.x / g.strips;
+  const int rl = u % g.rows;
+  const int cl = u / g.rows;
   const bool pool = g.epi & EPI_POOL;
   const int span = pool ? 2 : 1;
-  const int qo = g.q / span;
   const int po = g.p_pad / span;
-  const long long total = static_cast<long long>(g.n) * g.c * po * qo;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int oq = static_cast<int>(i % qo);
-    long long t = i / qo;
-    const int op = static_cast<int>(t % po);
-    t /= po;
-    const int c = static_cast<int>(t % g.c);
-    const int nidx = static_cast<int>(t / g.c);
-    const size_t plane = static_cast<size_t>(nidx) * g.c_pad + c;
-    const T* xc = x + plane * g.x_rows * g.yp;
-    const T* wc = w + static_cast<size_t>(c) * g.r * g.s;
-    const float* rp = (g.epi & EPI_RESIDUAL)
-        ? res + plane * g.p_pad * g.q : nullptr;
-    float best = 0.f;
-    for (int dp = 0; dp < span; ++dp) {
-      for (int dq = 0; dq < span; ++dq) {
-        const int p = op * span + dp;
-        const int q = oq * span + dq;
-        A acc = A(0);
-        for (int r = 0; r < g.r; ++r) {
-          const T* row =
-              xc + static_cast<size_t>(p * g.stride + r) * g.yp + q * g.stride;
-          for (int s = 0; s < g.s; ++s) {
-            acc = mac(static_cast<A>(__ldg(row + s)),
-                      static_cast<A>(__ldg(wc + r * g.s + s)), acc);
+  const int qo = g.q / span;
+  const int qlim = span * qo;  // pre-pool columns an output needs
+  const int op = blockIdx.x * g.rows + rl;
+  const int c = blockIdx.y * g.chans + cl;
+  if (cl >= g.chans || op >= po || c >= g.c) return;
+  const int plane = blockIdx.z * g.c_pad + c;
+  const T* xc = x + plane * g.x_rows * g.yp;
+  const T* wc = w + c * R * S;
+  const float* rp = (g.epi & EPI_RESIDUAL) ? res + plane * g.p_pad * g.q
+                                           : nullptr;
+  const int q0 = strip * DW_TQ;
+  A wr[FIXED ? KR * KS : 1];
+  if constexpr (FIXED) {
+#pragma unroll
+    for (int k = 0; k < KR * KS; ++k) wr[k] = static_cast<A>(__ldg(wc + k));
+  }
+  float best[DW_TQ];
+  for (int dp = 0; dp < span; ++dp) {
+    const int p = op * span + dp;
+    A acc[DW_TQ];
+#pragma unroll
+    for (int j = 0; j < DW_TQ; ++j) acc[j] = A(0);
+    for (int r = 0; r < R; ++r) {
+      const T* row = xc + (p * st + r) * g.yp;
+      if constexpr (FIXED) {
+        constexpr int WIN = (DW_TQ - 1) * ST + KS;
+        A win[WIN];
+#pragma unroll
+        for (int i = 0; i < WIN; ++i) {
+          const int col = q0 * ST + i;
+          win[i] = col < g.yp ? static_cast<A>(__ldg(row + col)) : A(0);
+        }
+#pragma unroll
+        for (int j = 0; j < DW_TQ; ++j) {
+#pragma unroll
+          for (int s = 0; s < KS; ++s) {
+            acc[j] = mac(win[j * ST + s], wr[r * KS + s], acc[j]);
           }
         }
-        const float v = epilogue(to_float(acc), vec, c, g.epi,
-                                 rp ? rp[static_cast<size_t>(p) * g.q + q]
-                                    : 0.f);
-        best = (dp == 0 && dq == 0) ? v : fmaxf(best, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < DW_TQ; ++j) {
+          if (q0 + j >= qlim) break;
+          for (int s = 0; s < S; ++s) {
+            acc[j] = mac(static_cast<A>(__ldg(row + (q0 + j) * st + s)),
+                         static_cast<A>(__ldg(wc + r * S + s)), acc[j]);
+          }
+        }
       }
     }
-    out[(plane * po + op) * qo + oq] = best;
+#pragma unroll
+    for (int j = 0; j < DW_TQ; ++j) {
+      const int q = q0 + j;
+      const float v = q < qlim
+          ? epilogue(to_float(acc[j]), vec, c, g.epi,
+                     rp ? rp[p * g.q + q] : 0.f)
+          : 0.f;
+      best[j] = dp == 0 ? v : fmaxf(best[j], v);
+    }
+  }
+  float* o = out + (plane * po + op) * qo;
+  if (pool) {
+#pragma unroll
+    for (int j = 0; j < DW_TQ; j += 2) {
+      if (q0 + j < qlim) o[(q0 + j) / 2] = fmaxf(best[j], best[j + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < DW_TQ; ++j) {
+      if (q0 + j < qlim) o[q0 + j] = best[j];
+    }
   }
 }
-
 
 template <typename T, typename A>
 int launch_dw(const void* x, const void* w, const void* vec, const void* res,
               void* out, int n, int c, int c_pad, int x_rows, int yp, int r,
               int s, int stride, int q, int p_pad, int epi, void* stream) {
-  const DwGeom g{n, c, c_pad, x_rows, yp, r, s, stride, q, p_pad, epi};
   const int span = (epi & EPI_POOL) ? 2 : 1;
-  const long long total =
-      static_cast<long long>(n) * c * (p_pad / span) * (q / span);
-  // enough CTAs to fill every SM several times over; the grid-stride loop
-  // covers the rest
-  const long long want = (total + MAX_THREADS - 1) / MAX_THREADS;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-  if (blocks > 0) {
-    dw_kernel<T, A>
-        <<<blocks, MAX_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(x), static_cast<const T*>(w),
-            static_cast<const float*>(vec), static_cast<const float*>(res),
-            static_cast<float*>(out), g);
+  const int po = p_pad / span;
+  const int strips = (span * (q / span) + DW_TQ - 1) / DW_TQ;
+  if (n == 0 || c == 0 || po == 0 || strips == 0) {
+    return static_cast<int>(cudaSuccess);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_psum(const void* x, const void* w, void* psum, int n, int c_pad,
-                int x_rows, int yp, int nf_pad, int r, int s, int stride,
-                int q, int p_pad, int nf_b, int c_b, int p_b, void* stream) {
-  // the CTA tile inside one P fold: all ceil(p_b/2) micro-tile rows by mq
-  // micro-tile columns (2x2 outputs each)
-  const int mrows = (p_b + 1) / 2;
-  const int mcols = (q + 1) / 2;
-  const int mq = max(1, min(mcols, MAX_THREADS / mrows));
-  const int threads = min(MAX_THREADS, (mrows * mq + 31) / 32 * 32);
-  const size_t smem = sizeof(float) * PSUM_NFT * c_b * r * s;
-  if (mrows > MAX_THREADS || smem > SMEM_LIMIT) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (strips > DW_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  // DW_THREADS threads a CTA: whole rows of one channel, or every row of
+  // a few channels where a channel has fewer outputs
+  const int per_chan = po * strips;
+  const int chans = per_chan >= DW_THREADS ? 1 : min(c, DW_THREADS / per_chan);
+  const int rows = per_chan >= DW_THREADS ? DW_THREADS / strips : po;
+  const DwGeom g{n, c, c_pad, x_rows, yp, r, s, stride, q, p_pad, epi,
+                 strips, rows, chans};
+  const dim3 grid((po + rows - 1) / rows, (c + chans - 1) / chans, n);
+  const int threads = chans * rows * strips;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wt = static_cast<const T*>(w);
+  const auto* vf = static_cast<const float*>(vec);
+  const auto* rf = static_cast<const float*>(res);
+  auto* of = static_cast<float*>(out);
+  if (r == 3 && s == 3 && stride == 1) {
+    dw_kernel<T, A, 3, 3, 1><<<grid, threads, 0, st>>>(xt, wt, vf, rf, of, g);
+  } else if (r == 3 && s == 3 && stride == 2) {
+    dw_kernel<T, A, 3, 3, 2><<<grid, threads, 0, st>>>(xt, wt, vf, rf, of, g);
+  } else {
+    dw_kernel<T, A, 0, 0, 0><<<grid, threads, 0, st>>>(xt, wt, vf, rf, of, g);
   }
-  const PsumGeom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad,
-                   nf_b, c_b, p_b, mq, (mcols + mq - 1) / mq};
-  const cudaError_t err = allow_smem(psum_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(g.q_tiles * (p_pad / p_b),
-                  (nf_pad / nf_b) * ((nf_b + PSUM_NFT - 1) / PSUM_NFT),
-                  n * (c_pad / c_b));
-  psum_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(psum), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -933,7 +896,7 @@ int fold_conv_ws(const void* x, const void* w, const void* vec,
                  int m_per_cta, void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
                c_b, epi, m_per_cta};
-  return launch_fold<float, float>(tile, true, x, w, vec, res, out, slab, g,
+  return launch_fold<float, float>(tile, KIND_WS, x, w, vec, res, out, slab, g,
                                    stream);
 }
 
@@ -944,7 +907,7 @@ int fold_conv_ws_i8(const void* x, const void* w, const void* vec,
                     int m_per_cta, void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
                c_b, epi, m_per_cta};
-  return launch_fold<int8_t, int>(tile, true, x, w, vec, res, out, slab, g,
+  return launch_fold<int8_t, int>(tile, KIND_WS, x, w, vec, res, out, slab, g,
                                   stream);
 }
 
@@ -955,7 +918,7 @@ int fold_conv_os(const void* x, const void* w, const void* vec,
                  void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
                c_b, epi, 1};
-  return launch_fold<float, float>(tile, false, x, w, vec, res, out, nullptr,
+  return launch_fold<float, float>(tile, KIND_OS, x, w, vec, res, out, nullptr,
                                    g, stream);
 }
 
@@ -966,7 +929,7 @@ int fold_conv_os_i8(const void* x, const void* w, const void* vec,
                     void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
                c_b, epi, 1};
-  return launch_fold<int8_t, int>(tile, false, x, w, vec, res, out, nullptr,
+  return launch_fold<int8_t, int>(tile, KIND_OS, x, w, vec, res, out, nullptr,
                                   g, stream);
 }
 
@@ -986,12 +949,15 @@ int fold_conv_dw_i8(const void* x, const void* w, const void* vec,
                                 yp, r, s, stride, q, p_pad, epi, stream);
 }
 
+// n .. p_pad as above, then c_b, the tile and the M tiles one CTA walks
 int fold_conv_psum(const void* x, const void* w, void* psum, int n,
                    int c_pad, int x_rows, int yp, int nf_pad, int r, int s,
-                   int stride, int q, int p_pad, int nf_b, int c_b, int p_b,
-                   void* stream) {
-  return launch_psum(x, w, psum, n, c_pad, x_rows, yp, nf_pad, r, s, stride,
-                     q, p_pad, nf_b, c_b, p_b, stream);
+                   int stride, int q, int p_pad, int c_b, int tile,
+                   int m_per_cta, void* stream) {
+  const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, 1,
+               c_b, 0, m_per_cta};
+  return launch_fold<float, float>(tile, KIND_PSUM, x, w, nullptr, nullptr,
+                                   nullptr, psum, g, stream);
 }
 
 }  // extern "C"

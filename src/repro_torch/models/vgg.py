@@ -60,11 +60,13 @@ def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
 
 def vgg_head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Flatten + the 3-layer fc classifier head (the callable form of the
-    flatten/dense tail ``to_graph`` expresses as graph nodes)."""
+    flatten/dense tail ``to_graph`` expresses as graph nodes), through the
+    head kernel as the graph's dense nodes run it."""
+    from repro_torch.kernels.dense import dense
     x = x.reshape(x.shape[0], -1)
-    x = torch.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
-    x = torch.relu(x @ params["fc2"]["w"] + params["fc2"]["b"])
-    return x @ params["fc3"]["w"] + params["fc3"]["b"]
+    x = torch.relu(dense(x, params["fc1"]["w"], params["fc1"]["b"]))
+    x = torch.relu(dense(x, params["fc2"]["w"], params["fc2"]["b"]))
+    return dense(x, params["fc3"]["w"], params["fc3"]["b"])
 
 
 def to_graph(*, include_head: bool = True) -> StreamGraph:

@@ -67,6 +67,12 @@ class ServingMetrics:
     outcomes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
+    def kips(self) -> float:
+        """Measured kilo-images per second: the paper's eq (13) unit, from
+        the wall clock rather than the cycle model."""
+        return self.images / self.elapsed_s / 1e3 if self.elapsed_s else 0.0
+
+    @property
     def images_per_s(self) -> float:
         return self.images / self.elapsed_s if self.elapsed_s else 0.0
 
@@ -78,23 +84,33 @@ class ServingMetrics:
         h = self.latency_hist
         if not h.count:
             return {"p50_s": 0.0, "p95_s": 0.0, "p99_s": 0.0, "mean_s": 0.0}
-        return {"p50_s": h.percentile(50), "p95_s": h.percentile(95),
-                "p99_s": h.percentile(99), "mean_s": h.mean}
+        return {"p50_s": round(h.percentile(50), 6),
+                "p95_s": round(h.percentile(95), 6),
+                "p99_s": round(h.percentile(99), 6),
+                "mean_s": round(h.mean, 6)}
 
     def as_dict(self) -> dict:
+        """The JAX package's keys, nesting and rounding.  Its robust-serving
+        counters (shed, failed, degraded / non-finite / hung batches,
+        straggler events, deadlines) come with the admission controller
+        and the degradation ladder, which the port does not have yet."""
         return {
             "images": self.images,
             "requests": self.requests,
             "batches": self.batches,
-            "elapsed_s": self.elapsed_s,
-            "images_per_s": self.images_per_s,
+            "elapsed_s": round(self.elapsed_s, 4),
+            "kips": round(self.kips, 6),
+            "images_per_s": round(self.images_per_s, 3),
             "latency": self.latency_percentiles(),
-            "slot_occupancy": self.slot_occupancy,
+            "slot_occupancy": round(self.slot_occupancy, 4),
             "per_bucket_batches": {str(k): v for k, v
                                    in sorted(self.per_bucket.items())},
-            "submitted": self.submitted,
-            "expired": self.expired,
-            "outcomes": {k: self.outcomes[k] for k in sorted(self.outcomes)},
+            "robustness": {
+                "submitted": self.submitted,
+                "expired": self.expired,
+                "outcomes": {k: self.outcomes[k]
+                             for k in sorted(self.outcomes)},
+            },
         }
 
 
@@ -102,11 +118,10 @@ class VisionEngine:
     """Serve a stream of image requests through bucketed compiled forwards.
 
     ``submit`` then ``run`` (or ``step`` one batch at a time).  Outputs land
-    on each request's ``logits``.  The conv trunk gives bitwise-identical
-    rows at every bucket width (the fold kernels' sum order does not depend
-    on the batch); the dense head runs through ``torch.matmul``, whose
-    algorithm may change with the batch width, so served logits match a
-    direct forward of the same images to rounding, not bitwise.
+    on each request's ``logits``, bitwise equal to a direct forward of the
+    same images: neither the fold kernels nor the head kernel
+    (``kernels/dense.py``) let a row's sum order depend on the batch, so
+    the bucket a batch is padded to changes no bit.
     """
 
     def __init__(self, params: Dict[str, Any], graph, *,
@@ -261,9 +276,10 @@ class VisionEngine:
         d["compile"] = self.compiler.stats()
         d["buckets"] = list(self.batcher.policy.widths)
         d["device"] = str(self.device)
-        d["lost_requests"] = (self.metrics.submitted
-                              - sum(self.metrics.outcomes.values())
-                              - self.pending)
+        # zero-loss invariant: submitted == terminal + still queued
+        d["robustness"]["lost_requests"] = (
+            self.metrics.submitted - sum(self.metrics.outcomes.values())
+            - self.pending)
         return d
 
 
@@ -280,9 +296,9 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     ``np.random.default_rng(seed)``; every request is submitted, then the
     queue is drained.  Then each request's served logits are compared
     with a direct forward of its own images through the same schedule
-    cache (and, for int8, the same ``QuantRecipe``): the largest
-    difference and the largest reference magnitude land under
-    ``"verify"``."""
+    cache (and, for int8, the same ``QuantRecipe``): whether every request
+    matched bitwise, the largest difference and the largest reference
+    magnitude land under ``"verify"``."""
     from repro_torch.models.zoo import compile_forward, get_conv_model
     spec = get_conv_model(model)
     _, dev = resolve_execution(policy, device)     # raises without a GPU
@@ -300,6 +316,7 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     engine.run()
     d = engine.metrics_dict()
     err = ref = 0.0
+    bitwise = True
     for req, im in zip(reqs, imgs):
         direct = compile_forward(spec, params, img=img, batch=im.shape[0],
                                  policy=policy, cache=engine.compiler.cache,
@@ -308,10 +325,11 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
         with torch.inference_mode():
             want = direct(params, torch.from_numpy(im).to(dev))
         got = torch.from_numpy(req.logits).to(dev)
+        bitwise = bitwise and torch.equal(got, want)
         err = max(err, float((got - want).abs().max()))
         ref = max(ref, float(want.abs().max()))
-    d["verify"] = {"requests": len(reqs), "max_abs_err": err,
-                   "max_abs_ref": ref}
+    d["verify"] = {"requests": len(reqs), "bitwise": bitwise,
+                   "max_abs_err": err, "max_abs_ref": ref}
     d["workload"] = {"model": model, "width_mult": width_mult, "img": img,
                      "classes": classes, "requests": int(requests),
                      "policy": policy, "precision": precision,

@@ -1,0 +1,118 @@
+"""The port's dense head against the JAX package's: the plain version
+against ``x @ w + b`` in jax.numpy, and the invariant the head exists for —
+row ``i`` gives the same bits at every batch width — on the CPU; on a card,
+the CUDA kernel against its plain version, bitwise across batch widths."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import dense as t_dense  # noqa: E402
+
+# (K, N): VGG-16's fc layers at width 0.0625 and 32x32, the zoo's heads
+# at that width (ResNet-18 and MobileNetV2, 10 classes), a ragged N
+SHAPES = [(32, 256), (256, 256), (256, 10), (32, 10), (80, 10), (300, 13)]
+# VGG-16's fc shapes at full width and 224x224, and the zoo heads at full
+# width and 32x32
+CARD_SHAPES = [(25088, 4096), (4096, 4096), (4096, 1000), (512, 4096),
+               (512, 10), (1280, 10), (300, 13)]
+
+
+def _operands(b, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((b, k)) / np.sqrt(k)).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+@pytest.mark.parametrize("k,n", SHAPES)
+def test_plain_dense_matches_reference_package(k, n):
+    """``dense_plain`` against the JAX package's dense (``x @ w + b`` in
+    jax.numpy, what its compiled forward runs): within 1e-6 of max|ref|
+    (fp32, two sum orders)."""
+    jnp = pytest.importorskip("jax.numpy")
+    x, w, b = _operands(5, k, n)
+    want = np.asarray(jnp.asarray(x) @ jnp.asarray(w) + jnp.asarray(b))
+    got = t_dense.dense(*(torch.from_numpy(a) for a in (x, w, b))).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("k,n", SHAPES)
+def test_plain_dense_rows_bitwise_across_batch_widths(k, n):
+    """Row i of a batch of 8 equals row i of every narrower batch, bit for
+    bit: the bucket a request is padded to changes none of its logits."""
+    x, w, b = (torch.from_numpy(a) for a in _operands(8, k, n, seed=1))
+    full = t_dense.dense(x, w, b)
+    for rows in range(1, 8):
+        assert torch.equal(t_dense.dense(x[:rows], w, b), full[:rows])
+
+
+def test_k_chunk_depends_on_the_layer_alone():
+    """The kernel's K chunk (its sum order) is a function of (K, N): a
+    multiple of 8 taps within the kernel's limits, and the chunks cover K."""
+    for k, n in SHAPES + CARD_SHAPES:
+        kc = t_dense.k_chunk(k, n)
+        assert kc % 8 == 0 and 32 <= kc <= 1024
+        assert -(-k // kc) * kc >= k
+    # fc1 at 224 spreads its 411 MB over about 512 CTAs (8 column tiles)
+    kc = t_dense.k_chunk(25088, 4096)
+    assert 450 <= 8 * -(-25088 // kc) <= 560
+
+
+@pytest.mark.parametrize("model", ["vgg16", "resnet18", "mobilenetv2"])
+def test_no_recipe_scale_comes_from_a_dense_output(model):
+    """The int8 calibration keeps ``torch.matmul`` for dense layers: no
+    activation scale is read downstream of a dense output (scales are
+    read at conv inputs, and no conv follows a dense layer), so the head's
+    sum order cannot move a recipe."""
+    from repro_torch.core.quant import default_recipe
+    from repro_torch.models import zoo
+    spec = zoo.get_conv_model(model)
+    graph = spec.to_graph()
+    after_dense = set()
+    for nd in graph.nodes:
+        srcs = set(nd.all_inputs())
+        if nd.op == "dense" or srcs & after_dense:
+            after_dense.add(nd.name)
+    convs = {nd.name for nd in graph.nodes if nd.op == "conv"}
+    assert after_dense and not convs & after_dense
+    params = spec.init_params(torch.Generator().manual_seed(0),
+                              width_mult=0.0625, img=32, classes=10,
+                              device="cpu")
+    recipe = default_recipe(graph, params, (2, 3, 32, 32), device="cpu")
+    assert set(recipe.act_scales) == convs
+
+
+def test_dense_refuses_a_mismatched_shape():
+    x, w, b = (torch.from_numpy(a) for a in _operands(2, 16, 4))
+    with pytest.raises(ValueError, match="dense takes"):
+        t_dense.dense(x, w[:8], b)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the head kernel is CUDA-only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", CARD_SHAPES)
+def test_cuda_dense_kernel_matches_plain_version(cuda_device, k, n):
+    """The head kernel against its plain version within 1e-5·max|plain|
+    (fp32, chunked against unchunked sums), and row i bitwise equal at
+    batch widths 1 to 11 (more than one 8-row tile)."""
+    x, w, b = (torch.from_numpy(a).to(cuda_device)
+               for a in _operands(11, k, n, seed=2))
+    before = t_dense.launch_counts()[t_dense.KERNEL]
+    full = t_dense.dense(x, w, b)
+    torch.cuda.synchronize()
+    assert t_dense.launch_counts()[t_dense.KERNEL] == before + 1
+    want = t_dense.dense_plain(x, w, b)
+    assert full.shape == want.shape
+    assert (full - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+    for rows in range(1, 11):
+        assert torch.equal(t_dense.dense(x[:rows], w, b), full[:rows])

@@ -69,6 +69,18 @@ DW_CASES = [
     (1, 10, 16, 16, 3, 2, 1, ID, None),              # stride 2, even width
     (2, 12, 8, 10, 3, 1, 1, SCR, (8, 3)),            # residual, c_pad 16
 ]
+# the depthwise kernel's cases on the card: DW_CASES, and its thread strips
+# of DW_TQ outputs along Q against stride 2, the fused pool, the residual
+# and Q not a multiple of DW_TQ (the 5x5 layer takes its generic path)
+SC6P = {"scale": True, "relu6": True, "pool": "max2"}
+DW_CUDA_CASES = DW_CASES + [
+    (2, 5, 9, 11, 3, 1, 1, SC6P, None),              # pool, odd P and Q
+    (1, 4, 12, 14, 3, 2, 1, SC6P, None),             # stride 2 + pool
+    (2, 12, 8, 10, 3, 2, 1, SCR, None),              # stride 2 + residual
+    (2, 7, 6, 13, 3, 1, 1, SCR, (4, 3)),             # Q 13, c_pad 8
+    (1, 40, 4, 4, 3, 1, 1, SC6, None),               # 4x4: many channels
+    (2, 3, 7, 13, 5, 1, 2, SCR, None),               # 5x5, generic path
+]
 
 
 def _inputs(n, c, x, y, nf, r, s, seed=0):
@@ -583,6 +595,35 @@ def test_tile_chooser_covers_every_zoo_conv(model, img):
     assert orders[1] == orders[4]
 
 
+@pytest.mark.parametrize("g_c", [1, 4])
+def test_psum_tile_runs_the_depth_folds_side_by_side(g_c):
+    """The psum launch of each VGG-16 conv at 224, batch 1, on the WS / OS
+    tile core: its grid's third axis is the depth folds, each CTA's sum is
+    one fold long, the M tiles cover the pixels once and the resident
+    filter tile fits one CTA."""
+    import dataclasses
+    seen = 0
+    for name, spec in _zoo_specs("vgg16", 224, 1):
+        if spec.c < 4 * g_c:
+            continue
+        plan = dataclasses.replace(
+            spec.plan, c_block=spec.c // g_c,
+            grid=(spec.plan.grid[0], g_c, spec.plan.grid[2]))
+        psum = t_kern.fold_kernel_spec(
+            (1, spec.c, spec.x_rows, spec.inputs[0].array_shape[3]),
+            (spec.nf, spec.c, 3, 3), plan=plan,
+            dataflow="weight_stationary_psum")
+        assert psum.cg_folds == g_c, name
+        tile = t_kern.fold_tile(psum, 1, 132)
+        assert tile.folds == g_c and tile.smem <= t_kern.SMEM_LIMIT, name
+        assert tile.k_len == spec.c // g_c * 9, name
+        ms = _m_ranges(tile)
+        assert ms[0][0] == 0 and ms[-1][1] == tile.m == psum.p_pad * psum.q
+        assert all(a[1] == b[0] for a, b in zip(ms, ms[1:])), name
+        seen += 1
+    assert seen == 12                        # conv1_1 has 3 channels
+
+
 # --------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # --------------------------------------------------------------------------
@@ -644,7 +685,7 @@ def test_cuda_epilogues_match_plain_version(cuda_device, geom, epi,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", DW_CASES)
+@pytest.mark.parametrize("case", DW_CUDA_CASES)
 def test_cuda_dw_kernel_matches_plain_version(cuda_device, case):
     """``fold_conv_dw`` against the plain depthwise walk: within
     1e-4·max|plain| (FFMA against separate multiply and add)."""
@@ -663,7 +704,8 @@ def test_cuda_dw_kernel_matches_plain_version(cuda_device, case):
     assert t_kern.launch_counts()["fold_conv_dw"] == before + 1
     want = t_kern.conv2d_folded_plain(x, w, **kw)
     tol = 1e-4 * max(1.0, want.abs().max().item())
-    assert got.shape == want.shape == (n, c, p, q)
+    span = 2 if epi.get("pool") else 1
+    assert got.shape == want.shape == (n, c, p // span, q // span)
     assert (got - want).abs().max().item() <= tol
 
 
@@ -713,7 +755,7 @@ def test_cuda_int8_kernel_is_bitwise_its_plain_version(cuda_device, epi,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", DW_CASES)
+@pytest.mark.parametrize("case", DW_CUDA_CASES)
 def test_cuda_int8_dw_kernel_is_bitwise_its_plain_version(cuda_device,
                                                           case):
     from repro_torch.core import quant as t_quant
@@ -741,17 +783,26 @@ def test_cuda_int8_dw_kernel_is_bitwise_its_plain_version(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("forced", [None, (4, 3, 3), (8, 2, 4)],
-                         ids=["auto", "gc3_gnf2", "gc4"])
-def test_cuda_psum_kernel_matches_plain_version(cuda_device, forced):
-    """``fold_conv_psum`` against the plain psum walk: within
-    1e-4·max(1, max|plain|) (FFMA against separate multiply and add)."""
+@pytest.mark.parametrize("tile", [None] + list(range(len(t_kern.TILES))),
+                         ids=["picked"] + [f"tile{i}" for i in
+                                           range(len(t_kern.TILES))])
+@pytest.mark.parametrize("forced", [None, (8, 8, 4), (4, 3, 3), (8, 2, 4)],
+                         ids=["auto", "gc1", "gc3_gnf2", "gc4"])
+def test_cuda_psum_kernel_matches_plain_version(cuda_device, forced, tile):
+    """``fold_conv_psum`` against the plain psum walk, with the tile the
+    chooser picks and with each CTA tile forced, at g_c = 1, 3 and 4 and a
+    ragged P and Q (9 x 10 outputs): within 1e-4·max(1, max|plain|) (FFMA
+    against separate multiply and add)."""
     x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
                _inputs(2, 8, 11, 12, 8, 3, 3, seed=18))
-    kw = dict(plan=_plan(TPlan, forced, 8, 8),
-              dataflow="weight_stationary_psum")
+    plan = _plan(TPlan, forced, 8, 8)
+    kw = dict(plan=plan, dataflow="weight_stationary_psum")
+    spec, *ops = t_kern.prepare(x, w, 1, plan, "weight_stationary_psum",
+                                None, TEpilogue(), 1, None, None, None)
+    assert forced is None or spec.cg_folds == 8 // forced[1] + (
+        8 % forced[1] > 0)
     before = t_kern.launch_counts()["fold_conv_psum"]
-    got = t_kern.conv2d_folded(x, w, **kw)
+    got = t_kern._finish(spec, t_kern.launch_psum(spec, *ops, tile=tile))
     torch.cuda.synchronize()
     assert t_kern.launch_counts()["fold_conv_psum"] == before + 1
     want = t_kern.conv2d_folded_plain(x, w, **kw)

@@ -178,7 +178,7 @@ def test_served_logits_equal_direct_forward(params):
                        device="cpu")
     reqs = [eng.submit(im) for im in imgs]
     eng.run()
-    assert eng.metrics_dict()["lost_requests"] == 0
+    assert eng.metrics_dict()["robustness"]["lost_requests"] == 0
     for req, im in zip(reqs, imgs):
         direct = t_mnv2.compile_forward(params, img=IMG, batch=im.shape[0],
                                         cache=eng.compiler.cache,
@@ -208,7 +208,8 @@ def test_serving_summary_and_launcher(entry, capsys):
             json.loads(json.dumps(d))
     assert d["workload"]["model"] == "mobilenetv2"
     assert d["requests"] == 5 and d["images"] >= 5
-    assert d["lost_requests"] == 0 and d["outcomes"] == {"ok": 5}
+    assert d["robustness"]["lost_requests"] == 0
+    assert d["robustness"]["outcomes"] == {"ok": 5}
     assert d["compile"]["distinct_schedules"] == 27
     assert d["verify"]["requests"] == 5
     assert d["verify"]["max_abs_err"] <= TOL * d["verify"]["max_abs_ref"]

@@ -416,7 +416,8 @@ def test_int8_serving_on_the_cpu(capsys):
     printed = json.loads(capsys.readouterr().out)
     assert list(printed) == ["serving_int8"]
     assert printed["serving_int8"]["workload"]["precision"] == "int8"
-    assert d["lost_requests"] == 0 and d["outcomes"] == {"ok": 4}
+    assert d["robustness"]["lost_requests"] == 0
+    assert d["robustness"]["outcomes"] == {"ok": 4}
     assert d["compile"]["distinct_schedules"] == 8
     assert d["verify"]["max_abs_err"] <= 1e-5 * d["verify"]["max_abs_ref"]
 

@@ -147,7 +147,8 @@ def test_launcher_serves_resnet18(capsys):
     d = main(["--vision", "--model", "resnet18", "--requests", "4",
               "--buckets", "2,4", "--device", "cpu"])
     assert '"resnet18"' in capsys.readouterr().out
-    assert d["lost_requests"] == 0 and d["outcomes"] == {"ok": 4}
+    assert d["robustness"]["lost_requests"] == 0
+    assert d["robustness"]["outcomes"] == {"ok": 4}
     assert d["compile"]["distinct_schedules"] == 11
     assert d["verify"]["max_abs_err"] <= TOL * d["verify"]["max_abs_ref"]
 

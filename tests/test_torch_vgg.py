@@ -147,7 +147,8 @@ def test_vision_engine_fifo_and_logits(params, jax_reference):
     assert [r.rid for r in done] == [r.rid for r in reqs]   # FIFO
     assert (m.images, m.requests) == (11, 5)
     d = eng.metrics_dict()
-    assert d["lost_requests"] == 0 and d["outcomes"] == {"ok": 5}
+    assert d["robustness"]["lost_requests"] == 0
+    assert d["robustness"]["outcomes"] == {"ok": 5}
     assert d["compile"]["distinct_schedules"] == 8
     assert sum(d["per_bucket_batches"].values()) == m.batches
     for req, im in zip(reqs, imgs):
@@ -172,7 +173,8 @@ def test_vision_engine_expires_and_steps(params):
     clock[0] = 5.0
     assert eng.step() == 2 and eng.step() == 0
     assert late.outcome.value == "expired" and ok.outcome.value == "ok"
-    assert eng.metrics_dict()["outcomes"] == {"expired": 1, "ok": 1}
+    assert eng.metrics_dict()["robustness"]["outcomes"] == \
+        {"expired": 1, "ok": 1}
 
 
 # --------------------------------------------------------------------------
