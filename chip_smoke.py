@@ -6,8 +6,11 @@
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Environment: the card's name and power limit, the CUDA version, whether
-   ``triton`` imports, ``nvcc``, and the build of the fold kernels from
-   ``src/repro_torch/kernels/csrc/`` into ``build/``.
+   ``triton`` imports, ``nvcc``, the build of the kernels from
+   ``src/repro_torch/kernels/csrc/`` into ``build/``, every kernel
+   instance's registers and spills, and the tensor-core (``HMMA``) and
+   ``FFMA`` instructions of each attention instance in its SASS
+   (``cuobjdump -sass``): the bf16 instances must hold ``HMMA``.
 2. Kernels: each CUDA kernel (WS, OS, depthwise) against its plain-torch
    version on the card over random shapes and every epilogue the zoo
    models fuse, grouped 1 < G < C included (the JAX tests' shapes and
@@ -18,8 +21,11 @@ Phases (any failed check raises, and the script exits non-zero):
    ``F.conv2d(groups=32)``; the dense head kernel against its plain
    version at every head shape of the main paths (VGG-16's three fc
    layers at 224, its fc1 at 32, the ResNet-18 and MobileNetV2
-   classifiers), row i bitwise across batch widths 1, 2, 4 and 8, and
-   timed beside ``torch.addmm`` at batch 1 and 4.
+   classifiers), row i bitwise across batch widths 1, 2, 4 and 8, with
+   each layer's K chunks, CTAs and a checksum of its outputs (equal
+   across commits that keep the sum order), one device kernel per call
+   (the nodes of a captured CUDA graph), and timed beside ``torch.addmm``
+   at batch 1 and 4.
 3. Full-width VGG-16 at 224x224, batch 1 and 4: fold reuse, one WS launch
    per conv and one head launch per dense layer, logits against the
    reference policy, and the conv trunk bitwise-identical across batch
@@ -60,7 +66,8 @@ Phases (any failed check raises, and the script exits non-zero):
     version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
     K = 2 and 3, T < K - 1, the cache-prefixed form) and the fold-attention
     kernel against its plain version (fp32 and bf16; zamba2's causal case,
-    GQA, MQA, a 1024-token window, non-causal, a ragged T, hd 128).
+    GQA, MQA, a 1024-token window, non-causal, a ragged T, hd 128), and
+    one device kernel per attention call.
 14. Prefill: zamba2-1.2b at full width, bf16, random weights, B = 2 x
     2048 tokens through ``make_prefill_step``: 38 conv1d launches per
     prefill, prefill ms and prompt tokens/s.
@@ -70,7 +77,10 @@ Phases (any failed check raises, and the script exits non-zero):
     requests of 16 prompt and 16 new tokens: none lost; decode launches
     no kernel.  A functional check; its tokens/s is no serving rate.
 17. The fold-attention op at zamba2's shared-attention shape (no model
-    calls it), then both LM kernels timed at the prefill cell's shapes.
+    calls it), then both LM kernels timed at the prefill cell's shapes,
+    then the prefill replayed as a CUDA graph and the prefill and decode
+    steps under ``torch.profiler``: last, because once the profiler has
+    run every kernel of the process reads slower.
 
 Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32, the head kernel's
@@ -102,7 +112,9 @@ HBM_BYTES_PER_S = 3.35e12
 # parent commit on an H100 80GB HBM3 at 700 W, printed beside this run's
 # (compare two versions only within one run of both, on one card)
 BEFORE_REDESIGN = {"fold_conv_psum": 6.667, "fold_conv_dw": 0.1047,
-                   "fold_conv_dw_i8": 0.1019}
+                   "fold_conv_dw_i8": 0.1019, "dense_b1": 0.1876,
+                   "dense_b4": 0.1931, "attention_fold_float32": 2.8094,
+                   "attention_fold_bfloat16": 3.09}
 SEED = 0
 TOL_KERNEL = 1e-4      # kernel vs plain: two fp32 sums in different orders
 TOL_MODEL = 1e-4       # kernel path vs reference policy, over the network
@@ -158,6 +170,29 @@ def time_graph_ms(torch, fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_kernels(torch, fn, what):
+    """Device kernels in one call of ``fn``, which must be one: the call
+    captured as a CUDA graph (after one eager warm-up call) and its nodes
+    counted by ``cuGraphGetNodes`` of ``libcuda`` (the wrappers allocate
+    through the caching allocator, which adds no node); None where this
+    torch cannot hand the captured graph out."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    nodes = count.value if err == 0 else None
+    check(nodes in (None, 1), f"{what}: {nodes} kernels in one call")
+    return nodes
 
 
 def bound(flops, nbytes, peak=FP32_PEAK):
@@ -220,15 +255,15 @@ def phase_environment(torch):
           f"{info['seconds']:.2f} s ({time.perf_counter() - t0:.2f} s "
           "with loading)")
     return {"build_s": info["seconds"], "ptxas": info["ptxas"],
-            "fold_conv_resources": kernel_resources(info["ptxas"])}
+            "fold_conv_resources": kernel_resources(info["ptxas"]),
+            "attention_sass": attention_sass(info["path"])}
 
 
 def kernel_resources(log: str):
-    """Registers and spill bytes of every fold_conv kernel instance, from
-    the compiler's ``-Xptxas -v`` report (names demangled by ``c++filt``
+    """Registers and spill bytes of every kernel instance, from the
+    compiler's ``-Xptxas -v`` report (names demangled by ``c++filt``
     where it exists)."""
     import re
-    import shutil
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -246,18 +281,70 @@ def kernel_resources(log: str):
         if m:
             cur["registers"] = int(m.group(1))
     keep = [e for e in out if any(k in e["mangled"] for k in (
-        "ws_kernel", "os_kernel", "dw_kernel", "psum_kernel", "dense_"))]
-    if keep and shutil.which("c++filt"):
-        names = subprocess.run(
-            ["c++filt"], input="\n".join(e["mangled"] for e in keep),
-            capture_output=True, text=True, timeout=60).stdout.splitlines()
-        for e, name in zip(keep, names):
-            e["name"] = name
+        "ws_kernel", "os_kernel", "dw_kernel", "psum_kernel", "dense_",
+        "attention_"))]
+    for e, name in zip(keep, demangle([e["mangled"] for e in keep])):
+        e["name"] = name
     for e in keep:
         print(f"[env] ptxas {e.get('name', e['mangled'])}: "
               f"{e.get('registers')} registers, spill stores "
               f"{e.get('spill_stores')} B, loads {e.get('spill_loads')} B")
     return keep
+
+
+def demangle(names):
+    """``c++filt`` of each name, where it exists; else the names."""
+    import shutil
+    if not names or not shutil.which("c++filt"):
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def attention_sass(lib_path: str):
+    """The tensor-core (HMMA, HGMMA) and FFMA instructions of every
+    attention kernel instance in the built library, from ``cuobjdump
+    -sass``; fails if a bf16 (tensor-core) instance holds no HMMA.  An
+    empty dict where ``cuobjdump`` is not there to ask."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(build.nvcc_path()).parent / "cuobjdump")
+    if not pathlib.Path(tool).exists():
+        print("[env] cuobjdump not found: SASS not read")
+        return {}
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        print(f"[env] cuobjdump -sass failed: {proc.stderr.strip()[:200]}")
+        return {}
+    counts, cur = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "attention_" in m.group(1) else None
+            if cur:
+                counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+            continue
+        if cur:
+            m = re.search(r"\s(HMMA|HGMMA|FFMA)\b", line)
+            if m:
+                counts[cur][m.group(1)] += 1
+    names = demangle(list(counts))
+    out = {}
+    for mangled, name in zip(counts, names):
+        out[name] = counts[mangled]
+        print(f"[env] SASS {name}: HMMA {counts[mangled]['HMMA']}, HGMMA "
+              f"{counts[mangled]['HGMMA']}, FFMA {counts[mangled]['FFMA']}")
+        if "attention_tc_kernel" in name:
+            check(counts[mangled]["HMMA"] + counts[mangled]["HGMMA"] > 0,
+                  f"{name} runs no tensor-core instruction")
+    check(any("attention_tc_kernel" in n for n in out),
+          "no tensor-core attention instance in the SASS")
+    return out
 
 
 def check_kernel(torch, cw, name, x, w, errs, what, **kw):
@@ -409,10 +496,15 @@ def phase_dense(torch, dev):
     """The head kernel against its plain version at every head shape of
     the main paths, batch 8, 4, 2 and 1: within TOL_DENSE·max|plain|, and
     row i of each narrower batch bitwise equal to row i of the batch of
-    8.  Returns the largest error."""
+    8; then one call at batch 1, which must be one device kernel
+    (``graph_kernels``).  Prints each layer's K chunks and groups, its
+    CTAs and a checksum of its batch-8 outputs (the inputs are seeded, so
+    two commits with one sum order print one checksum).  Returns the
+    largest error and the checksums."""
+    import hashlib
     from repro_torch.kernels import dense as dn
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
-    err = 0.0
+    err, sums = 0.0, {}
     for label, k, n in head_shapes():
         w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
         b = torch.randn(n, device=dev, generator=gen)
@@ -437,10 +529,19 @@ def phase_dense(torch, dev):
             else:
                 check(torch.equal(got, full[:rows]),
                       f"head {label}: rows differ between batch {rows} and 8")
-        print(f"[kernels] dense {label} K={k} N={n} (K chunk "
-              f"{dn.k_chunk(k, n)}): within {worst:.2e}·max|plain| of the "
-              "plain version, rows bitwise at batch 1, 2, 4 and 8")
-    return err
+        cols, groups, row_tiles = dn.launch_grid(8, k, n)
+        sums[label] = hashlib.sha256(
+            full.cpu().numpy().tobytes()).hexdigest()[:16]
+        per_call = graph_kernels(torch, lambda: dn.launch(x8[:1], w, b),
+                                 f"head {label}")
+        print(f"[kernels] dense {label} K={k} N={n}: K chunk "
+              f"{dn.k_chunk(k, n)}, {-(-k // dn.k_chunk(k, n))} chunks in "
+              f"{groups} groups, {cols * groups} CTAs per row tile "
+              f"({cols * groups * row_tiles} at batch 8), "
+              f"device kernels per call {per_call}, within "
+              f"{worst:.2e}·max|plain| of the plain version, rows bitwise "
+              f"at batch 1, 2, 4 and 8, output checksum {sums[label]}")
+    return err, sums
 
 
 def time_dense(torch, dev, batch, reps):
@@ -1369,7 +1470,8 @@ def phase_lm_kernels(torch, dev):
         (1, 2, 64, 4, False),                     # T < K - 1
         (2, 16, 4224, 4, True),                   # the cache-prefixed form
     ]
-    errs = {cc.KERNEL: 0.0, af.KERNEL: 0.0}
+    # the fp32 and bf16 attention instances: af.KERNEL and its _bf16 entry
+    errs = {cc.KERNEL: 0.0, af.KERNEL: 0.0, f"{af.KERNEL}_bf16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for b, t, d, k, prefix in conv_cases:
             x, w = conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix)
@@ -1426,14 +1528,28 @@ def phase_lm_kernels(torch, dev):
                      if dtype == torch.bfloat16 else ""))
             check(err <= tol and worst <= 1.0,
                   "attention_fold disagrees with its plain version")
-            errs[af.KERNEL] = max(errs[af.KERNEL], err)
-    return errs
+            key = af.KERNEL + ("_bf16" if dtype == torch.bfloat16 else "")
+            errs[key] = max(errs[key], err)
+    # one device kernel per call, at zamba2's shape
+    per_call = {}
+    b, t, h, kv, hd = ZAMBA_ATTN
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(b, t, n, hd, device=dev, generator=gen)
+                   .to(dtype) for n in (h, kv, kv))
+        per_call[str(dtype)[6:]] = graph_kernels(
+            torch, lambda: af.launch(q, k, v, causal=True, window=0),
+            f"attention {str(dtype)[6:]}")
+        print(f"[lm kernels] attention_fold {str(dtype)[6:]}: device kernels "
+              f"per call {per_call[str(dtype)[6:]]}")
+    return errs, per_call
 
 
-def time_lm_kernels(torch, dev):
+def time_lm_kernels(torch, dev, attn_per_call):
     """Each LM kernel at the prefill cell's shape: the bare launch, the
     plain version and one PyTorch call of the same function, device time
-    by CUDA-graph replay, and the bound from this run's inputs."""
+    by CUDA-graph replay, and the bound from this run's inputs;
+    ``attn_per_call`` holds the attention kernels' device kernels per call
+    (``phase_lm_kernels``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_fold as af
     from repro_torch.kernels import conv1d_causal as cc
@@ -1459,11 +1575,14 @@ def time_lm_kernels(torch, dev):
     pairs = b * h * t * (t + 1) / 2          # causal: the visible (q, k)
     flops = 4.0 * hd * pairs                 # q.k and p.v, 2 each
     for dtype in (torch.float32, torch.bfloat16):
+        # fp32 runs FFMA; bf16 the tensor cores, bounded by the function's
+        # work at their rate (the hi / lo split's second P.V not counted)
+        peak = FP32_PEAK if dtype == torch.float32 else BF16_TC_PEAK
         q = torch.randn(b, t, h, hd, device=dev, generator=gen).to(dtype)
         k_ = torch.randn(b, t, kv, hd, device=dev, generator=gen).to(dtype)
         v = torch.randn(b, t, kv, hd, device=dev, generator=gen).to(dtype)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k_, v))
-        op_ms = 1e3 * flops / FP32_PEAK
+        op_ms = 1e3 * flops / peak
         byte_ms = 1e3 * q.element_size() * 4 * q.numel() / HBM_BYTES_PER_S
         rows[f"{af.KERNEL}_{str(dtype)[6:]}"] = {
             "shape": f"q, k, v ({b}, {t}, {h}, {hd}) {str(dtype)[6:]}, "
@@ -1479,15 +1598,19 @@ def time_lm_kernels(torch, dev):
             "bound_ms": max(op_ms, byte_ms), "op_ms": op_ms,
             "byte_ms": byte_ms,
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            # the same operations at the dense bf16 tensor-core rate, what
-            # a redesign on the tensor cores could reach
-            "bound_tc_ms": max(1e3 * flops / BF16_TC_PEAK, byte_ms)}
+            "kernels_per_call": attn_per_call[str(dtype)[6:]],
+            # the same operations at the fp32 FFMA rate
+            "bound_ffma_ms": max(1e3 * flops / FP32_PEAK, byte_ms),
+            "before_redesign_ms": BEFORE_REDESIGN[
+                f"{af.KERNEL}_{str(dtype)[6:]}"]}
     for name, r in rows.items():
         print(f"[lm kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} ({r['bound_by']})"
-              + (f", tensor-core bound {r['bound_tc_ms']:.4f}"
-                 if "bound_tc_ms" in r else ""))
+              + (f", FFMA bound {r['bound_ffma_ms']:.4f}, device kernels "
+                 f"per call {r['kernels_per_call']}, "
+                 f"before the redesign {r['before_redesign_ms']}"
+                 if "bound_ffma_ms" in r else ""))
     return rows
 
 
@@ -1713,7 +1836,7 @@ def main() -> int:
 
     from repro_torch.kernels import conv2d_ws as cw
     from repro_torch.kernels import dense as dn
-    errs[dn.KERNEL] = phase_dense(torch, dev)
+    errs[dn.KERNEL], report["dense_checksums"] = phase_dense(torch, dev)
     dense_rows = {b: time_dense(torch, dev, b, 10) for b in (1, 4)}
     for b, rows in dense_rows.items():
         t = summarize(rows, "ms")
@@ -1723,7 +1846,8 @@ def main() -> int:
                           f"{r['bound_ms']:.4f})" for r in rows)
               + f"; sum kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f},"
               f" torch.addmm {t['library_ms']:.4f}, bound "
-              f"{t['bound_ms']:.4f} ({t['bound_by']})")
+              f"{t['bound_ms']:.4f} ({t['bound_by']}), before the redesign "
+              f"{BEFORE_REDESIGN[f'dense_b{b}']}")
     report["dense_vgg16_224"] = dense_rows
     from repro_torch.models import vgg
     ws_layers = vgg_layer_specs(224, 1)
@@ -1888,7 +2012,8 @@ def main() -> int:
     # -- the LM kernels against their plain versions (not a main path) ----
     from repro_torch.kernels import attention_fold as af
     from repro_torch.kernels import conv1d_causal as cc
-    errs.update(phase_lm_kernels(torch, dev))
+    lm_errs, attn_per_call = phase_lm_kernels(torch, dev)
+    errs.update(lm_errs)
 
     # -- the LM main path: counts from 0 just before, read just after -----
     cc.reset_launch_counts()
@@ -1912,9 +2037,6 @@ def main() -> int:
     check(af.launch_counts()[af.KERNEL] == 0,
           "a model path launched the attention kernel")
     launches[cc.KERNEL] = cc.launch_counts()[cc.KERNEL]
-    report["decode_zamba2"] = phase_lm_device(
-        torch, report["prefill_zamba2"], prefill_run, decode_run)
-    del prefill_run, decode_run
 
     # -- the attention kernel's path, the op itself: counts from 0 --------
     af.reset_launch_counts()
@@ -1922,8 +2044,13 @@ def main() -> int:
     launches[af.KERNEL] = af.launch_counts()[af.KERNEL]
     print(f"[attention op] {af.KERNEL} launches {launches[af.KERNEL]}")
     check(launches[af.KERNEL] == 1, "the attention op did not launch once")
-    lm_rows = time_lm_kernels(torch, dev)
+    lm_rows = time_lm_kernels(torch, dev, attn_per_call)
     report["lm_kernels"] = lm_rows
+    # torch.profiler last: once it has run, every kernel of the process
+    # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
+    report["decode_zamba2"] = phase_lm_device(
+        torch, report["prefill_zamba2"], prefill_run, decode_run)
+    del prefill_run, decode_run
 
     # ms_kind "device": CUDA-graph replay of the bare launch on prepared
     # operands, beside F.conv2d and the plain version replayed the same
@@ -1970,21 +2097,23 @@ def main() -> int:
     entry.update(summarize(dense_rows[1], "ms"))
     kernels.append(entry)
     # the LM kernels at the prefill cell's shape: conv1d in bf16 (the
-    # model's type), attention in fp32 (the kernel's arithmetic; its bf16
-    # times are in the report)
+    # model's type), attention in fp32 (FFMA) and in bf16 (the tensor
+    # cores); both attention instances share one launch counter, and the
+    # op's run is bf16
     for name, row, src, line in (
             (cc.KERNEL, lm_rows[cc.KERNEL], "conv1d_causal", 28),
             (af.KERNEL, lm_rows[f"{af.KERNEL}_float32"], "attention_fold",
-             41)):
+             41),
+            (f"{af.KERNEL}_bf16", lm_rows[f"{af.KERNEL}_bfloat16"],
+             "attention_fold", 41)):
+        base = name if name == cc.KERNEL else af.KERNEL
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}.cu",
                  "replaces": f"src/repro/kernels/{src}.py:{line}",
-                 "launches": launches[name], "max_abs_err": errs[name],
+                 "launches": launches[base], "max_abs_err": errs[name],
                  "ms_kind": "device"}
         entry.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")})
-        if "bound_tc_ms" in row:
-            entry["bound_tc_ms"] = row["bound_tc_ms"]
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -67,8 +67,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # n .. p_pad, then c_block, the tile, the M tiles one CTA walks
     lib.fold_conv_psum.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
     lib.fold_conv_psum.restype = i32
-    # x, w, b, part, out, then rows, k, n, the K chunk (csrc/dense.cu)
-    lib.dense_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    # x, w, b, part, out, counters, then rows, k, n, the K chunk
+    # (csrc/dense.cu)
+    lib.dense_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.dense_f32.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]
     lib.fold_conv_error_string.restype = ctypes.c_char_p

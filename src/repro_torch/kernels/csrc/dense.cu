@@ -1,5 +1,5 @@
 // The dense head y = x @ w + b for Hopper (sm_90a), fp32, with one order
-// of sum per output whatever the number of rows.
+// of sum per output whatever the number of rows, in one launch.
 //
 // No TPU kernel stands behind it: in the JAX package the head runs inside
 // the one compiled program of a forward (XLA), which keeps the served
@@ -8,25 +8,38 @@
 // bucket its batch was padded to; this kernel restores the invariant.
 //
 // Operands (contiguous, fp32): x (B, K), w (K, N), b (N), out (B, N);
-// part (splits, B, N) holds the chunk sums.
+// part (groups, B, N) holds the group sums; counters holds one int per
+// (row tile, column tile), 0 between launches.
 //
 // Sum order: K is cut into chunks of kc taps, kc a function of (K, N)
-// alone (dense.py: k_chunk).  The sum of chunk j of output (i, n) starts
-// at 0 and runs k ascending, one fmaf per tap, in one thread; the chunks
-// are then added in ascending order, each add rounded on its own, and the
-// bias last.  No atomics, and nothing depends on B or on which row tile a
-// row falls into, so row i gives the same bits at every batch width.
+// alone (dense.py: k_chunk), and the chunks into groups of GROUP.  The sum
+// of chunk j of output (i, n) starts at 0 and runs k ascending, one fmaf
+// per tap, in one thread.  The chunk sums of a group are added in
+// ascending order, then the group sums in ascending order, each add
+// rounded on its own, and the bias last (one group: its chunk sums, then
+// the bias).  No float atomics, and nothing depends on B, on the row tile
+// a row falls into, or on which CTA finishes first, so row i gives the
+// same bits at every batch width.
 //
 // Bound: bytes.  At batch 1-8 the head does 2B flops per weight of 4
 // bytes, far below the card's ridge, so the weights' read sets the time
 // (VGG-16's fc1 at 224 is 25088 x 4096, 411 MB).  The design reads w
-// once per call for up to ROWS rows: a thread owns V consecutive columns
-// of one chunk and keeps ROWS x V sums in registers, the chunk's x rows
-// sit in shared memory (two 16-byte broadcast reads a tap), the w rows
-// stream by 16-byte loads UNROLL taps ahead, and a warp reads 512
-// contiguous bytes of a w row.  The K split puts enough CTAs on the card
-// to keep its memory busy where N alone gives only a few thousand
-// threads.  More than ROWS rows are tiled, each tile reading w again.
+// once per call for up to ROWS rows: a CTA owns 32 V columns and one
+// group of chunks, a warp one chunk; a lane owns V consecutive columns and
+// keeps ROWS x V sums in registers, the warp's x rows sit in shared memory
+// (two 16-byte broadcast reads a tap), the w rows stream by 16-byte loads
+// UNROLL taps ahead, and a warp reads 512 contiguous bytes of a w row.
+// The K split puts enough warps on the card to keep its memory busy where
+// N alone gives only a few thousand threads.  More than ROWS rows are
+// tiled, each tile reading w again.
+//
+// One launch, and the chunk sums reduced where they are made: the warps
+// of a CTA meet in shared memory, where each thread adds one output's
+// group, in warp order.  A layer of one group is then done.  Otherwise
+// each CTA stores its group sums, fences, and takes a ticket from its
+// tile's counter; the CTA that arrives last adds the tile's group sums
+// (from L2, one round trip: each of its threads owns one output), the
+// bias, stores the outputs and sets the counter back to 0.
 
 #include <cuda_runtime.h>
 
@@ -34,10 +47,15 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // threads per CTA, V columns each
-constexpr int ROWS = 8;       // rows of x per CTA (a row tile)
-constexpr int UNROLL = 8;     // w rows loaded ahead
-constexpr int KC_MAX = 1024;  // largest chunk: ROWS x KC_MAX floats of x
+constexpr int GROUP = 8;             // chunks per group = warps per CTA
+constexpr int THREADS = 32 * GROUP;  // V columns a lane
+constexpr int ROWS = 8;              // rows of x per CTA (a row tile)
+constexpr int UNROLL = 16;           // w rows loaded ahead
+// largest chunk: the CTA stages GROUP x ROWS x KC_MAX floats of x, and two
+// CTAs share an SM
+constexpr int KC_MAX = 448;
+
+static_assert(ROWS == GROUP, "the group sums give each thread one row");
 
 template <int V> struct WVec;
 template <> struct WVec<4> {
@@ -53,107 +71,190 @@ template <> struct WVec<1> {
   }
 };
 
-// grid (column tiles, K chunks, row tiles).  Shared memory: the chunk's x
-// rows as [k][ROWS], zeros past B and past K.
-template <int V>
-__global__ void __launch_bounds__(THREADS)
-dense_chunk(const float* __restrict__ x, const float* __restrict__ w,
-            float* __restrict__ part, int rows, int k_len, int n_len,
-            int kc) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const int r0 = blockIdx.z * ROWS;
-  const int k0 = blockIdx.y * kc;
-  const int kn = min(kc, k_len - k0);
-  for (int e = threadIdx.x; e < ROWS * kc; e += THREADS) {
-    const int k = e / ROWS;
-    const int r = e - k * ROWS;
-    xs[e] = (r0 + r < rows && k < kn)
-        ? x[static_cast<size_t>(r0 + r) * k_len + k0 + k] : 0.f;
+// Whether this CTA is the last of `expected` to take a ticket from
+// *ticket (which it then sets back to 0); every thread of the CTA calls
+// it after its stores, and learns the same answer.  The fences order the
+// CTAs' sums before the ticket and the last CTA's reads after it.
+__device__ __forceinline__ bool arrive_last(int* ticket, int expected) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == expected - 1;
+    if (last) *ticket = 0;
   }
   __syncthreads();
-  const int n0 = (blockIdx.x * THREADS + threadIdx.x) * V;
-  if (n0 >= n_len) return;
+  const bool out = last;
+  if (out) __threadfence();
+  return out;
+}
+
+// grid (column tiles, groups, row tiles).  Warp w of group g sums chunk
+// g * GROUP + w over the tile's columns: lane l owns columns n0 .. n0 + V.
+// Shared memory: each warp's x rows as [k][ROWS] (zeros past B; only the
+// chunk's taps are read), then, reused, each warp's chunk sums.
+template <int V>
+__global__ void __launch_bounds__(THREADS, 2)
+dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ b, float* __restrict__ part,
+             float* __restrict__ out, int* __restrict__ counters, int rows,
+             int k_len, int n_len, int kc, int splits) {
+  using WT = typename WVec<V>::type;
+  constexpr int COLS = 32 * V;  // the tile's columns
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.y;
+  const int groups = gridDim.y;
+  const int chunk = g * GROUP + warp;
+  const int r0 = blockIdx.z * ROWS;
+  const int k0 = chunk * kc;
+  const int kn = chunk < splits ? min(kc, k_len - k0) : 0;
+  // the chunk's x rows, a lane a tap: coalesced loads, the rows past B
+  // zero, each tap's ROWS values stored as two 16-byte words
+  float* xs = sm + warp * ROWS * kc;
+  const float* xb = x + static_cast<size_t>(r0) * k_len + k0;
+#pragma unroll 2
+  for (int k = lane; k < kn; k += 32) {
+    float v[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      v[r] = r0 + r < rows ? xb[static_cast<size_t>(r) * k_len + k] : 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(xs + k * ROWS);
+    d[0] = make_float4(v[0], v[1], v[2], v[3]);
+    d[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  __syncwarp();
+  const int n0 = (blockIdx.x * 32 + lane) * V;
+  const bool live = n0 < n_len;
   float acc[ROWS][V];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
   }
-  using WT = typename WVec<V>::type;
-  const WT* wp = reinterpret_cast<const WT*>(
-      w + static_cast<size_t>(k0) * n_len + n0);
-  const int stride = n_len / V;   // one w row, in WT words
-  for (int k = 0; k < kn; k += UNROLL) {
-    WT wv[UNROLL];
+  if (live) {
+    const WT* wp = reinterpret_cast<const WT*>(
+        w + static_cast<size_t>(k0) * n_len + n0);
+    const int stride = n_len / V;   // one w row, in WT words
+    for (int k = 0; k < kn; k += UNROLL) {
+      WT wv[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (k + u < kn) wv[u] = __ldg(wp + static_cast<size_t>(k + u) * stride);
+      for (int u = 0; u < UNROLL; ++u) {
+        if (k + u < kn) {
+          wv[u] = __ldg(wp + static_cast<size_t>(k + u) * stride);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (k + u < kn) {
+          float wf[V];
+          WVec<V>::split(wv[u], wf);
+          const float4* xr =
+              reinterpret_cast<const float4*>(xs + (k + u) * ROWS);
+          const float4 xa = xr[0], xb = xr[1];
+          const float xv[ROWS] = {xa.x, xa.y, xa.z, xa.w,
+                                  xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              acc[r][j] = fmaf(xv[r], wf[j], acc[r][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // the group's chunk sums meet in shared memory, [warp][row][column]
+  __syncthreads();  // every warp is done with its x rows
+  float* red = sm;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      red[(warp * ROWS + r) * COLS + lane * V + j] = acc[r][j];
+    }
+  }
+  __syncthreads();
+
+  // thread (row = warp, lane): its output's group sum, chunks ascending
+  const int row = r0 + warp;
+  const bool mine = live && row < rows;
+  const size_t at = static_cast<size_t>(row) * n_len + n0;
+  const int members = min(GROUP, splits - g * GROUP);
+  float s[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) s[j] = red[warp * COLS + lane * V + j];
+  for (int m = 1; m < members; ++m) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s[j] = __fadd_rn(s[j], red[(m * ROWS + warp) * COLS + lane * V + j]);
+    }
+  }
+  if (groups == 1) {
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[at + j] = __fadd_rn(s[j], b[n0 + j]);
+    }
+    return;
+  }
+  const size_t plane = static_cast<size_t>(rows) * n_len;
+  if (mine) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) part[g * plane + at + j] = s[j];
+  }
+
+  // the last group of the tile adds the group sums, ascending, then the
+  // bias; the loads run GROUP ahead and bypass L1, which is not coherent
+  // with the other SMs' stores
+  if (!arrive_last(counters + blockIdx.z * gridDim.x + blockIdx.x, groups) ||
+      !mine) {
+    return;
+  }
+  const float* p = part + at;
+  for (int u0 = 0; u0 < groups; u0 += GROUP) {
+    WT pv[GROUP];
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) {
+      if (u0 + u < groups) {
+        pv[u] = __ldcg(reinterpret_cast<const WT*>(p + (u0 + u) * plane));
+      }
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (k + u < kn) {
-        float wf[V];
-        WVec<V>::split(wv[u], wf);
-        const float4* xr = reinterpret_cast<const float4*>(xs + (k + u) * ROWS);
-        const float4 xa = xr[0], xb = xr[1];
-        const float xv[ROWS] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+    for (int u = 0; u < GROUP; ++u) {
+      if (u0 + u < groups) {
+        float f[V];
+        WVec<V>::split(pv[u], f);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[r][j] = fmaf(xv[r], wf[j], acc[r][j]);
+        for (int j = 0; j < V; ++j) {
+          s[j] = u0 + u == 0 ? f[j] : __fadd_rn(s[j], f[j]);
         }
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r0 + r >= rows) break;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      part[(static_cast<size_t>(blockIdx.y) * rows + r0 + r) * n_len + n0 +
-           j] = acc[r][j];
-    }
-  }
-}
-
-// The chunk sums of each output in ascending order, then the bias; the
-// loads run UNROLL chunks ahead of the adds
-__global__ void __launch_bounds__(256)
-dense_sum(const float* __restrict__ part, const float* __restrict__ b,
-          float* __restrict__ out, int rows, int n_len, int splits) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= rows * n_len) return;
-  const size_t plane = static_cast<size_t>(rows) * n_len;
-  const float* p = part + i;
-  float acc = p[0];
-  int s = 1;
-  for (; s + UNROLL <= splits; s += UNROLL) {
-    float v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) v[u] = p[(s + u) * plane];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) acc = __fadd_rn(acc, v[u]);
-  }
-  for (; s < splits; ++s) acc = __fadd_rn(acc, p[s * plane]);
-  out[i] = __fadd_rn(acc, b[i % n_len]);
+  for (int j = 0; j < V; ++j) out[at + j] = __fadd_rn(s[j], b[n0 + j]);
 }
 
 template <int V>
 int launch(const float* x, const float* w, const float* b, float* part,
-           float* out, int rows, int k_len, int n_len, int kc,
+           float* out, int* counters, int rows, int k_len, int n_len, int kc,
            cudaStream_t stream) {
   const int splits = (k_len + kc - 1) / kc;
-  const dim3 grid((n_len + THREADS * V - 1) / (THREADS * V), splits,
-                  (rows + ROWS - 1) / ROWS);
-  const size_t smem = sizeof(float) * ROWS * kc;
-  dense_chunk<V><<<grid, THREADS, smem, stream>>>(x, w, part, rows, k_len,
-                                                  n_len, kc);
-  const cudaError_t err = cudaGetLastError();
+  const dim3 grid((n_len + 32 * V - 1) / (32 * V),
+                  (splits + GROUP - 1) / GROUP, (rows + ROWS - 1) / ROWS);
+  const size_t smem = sizeof(float) * GROUP * ROWS * max(kc, 32 * V);
+  const auto kernel = dense_kernel<V>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dense_sum<<<(rows * n_len + 255) / 256, 256, 0, stream>>>(part, b, out,
-                                                            rows, n_len,
-                                                            splits);
+  kernel<<<grid, THREADS, smem, stream>>>(x, w, b, part, out, counters, rows,
+                                          k_len, n_len, kc, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -162,10 +263,12 @@ int launch(const float* x, const float* w, const float* b, float* part,
 extern "C" {
 
 // x (rows, k_len), w (k_len, n_len), b (n_len), out (rows, n_len); part
-// (ceil(k_len / kc), rows, n_len), the chunk sums
+// (groups = ceil(ceil(k_len / kc) / 8), rows, n_len), the group sums;
+// counters (ceil(rows / 8) x ceil(n_len / 128) ints, or / 32 when n_len % 4
+// != 0), all 0, and left at 0
 int dense_f32(const void* x, const void* w, const void* b, void* part,
-              void* out, int rows, int k_len, int n_len, int kc,
-              void* stream) {
+              void* out, void* counters, int rows, int k_len, int n_len,
+              int kc, void* stream) {
   if (rows < 1 || k_len < 1 || n_len < 1 || kc < 1 || kc > KC_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -175,10 +278,12 @@ int dense_f32(const void* x, const void* w, const void* b, void* part,
   const auto* bf = static_cast<const float*>(b);
   auto* pf = static_cast<float*>(part);
   auto* of = static_cast<float*>(out);
-  if (n_len % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0) {
-    return launch<4>(xf, wf, bf, pf, of, rows, k_len, n_len, kc, s);
+  auto* cf = static_cast<int*>(counters);
+  if (n_len % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
+      reinterpret_cast<size_t>(part) % 16 == 0) {
+    return launch<4>(xf, wf, bf, pf, of, cf, rows, k_len, n_len, kc, s);
   }
-  return launch<1>(xf, wf, bf, pf, of, rows, k_len, n_len, kc, s);
+  return launch<1>(xf, wf, bf, pf, of, cf, rows, k_len, n_len, kc, s);
 }
 
 }  // extern "C"

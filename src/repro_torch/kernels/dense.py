@@ -9,10 +9,15 @@ the head runs inside one compiled program).  A library matrix product
 does not promise that: its algorithm may change with the row count.
 
 The kernel splits K into chunks of ``k_chunk(K, N)`` taps, a function of
-(K, N) alone: each chunk's sum runs k ascending from 0 in one thread, the
-chunk sums are added in ascending order, then the bias.  It reads ``w``
-once per call for up to 8 rows and keeps their sums in registers; more
-rows are tiled.  The plain version computes row by row
+(K, N) alone: each chunk's sum runs k ascending from 0 in one thread; the
+chunk sums are added in a fixed two-level tree, each group of 8 chunks
+in ascending order, then the group sums in ascending order, then the
+bias.  It reads ``w`` once per call for up to 8 rows and keeps their
+sums in registers; more rows are tiled.  It is one launch: a CTA's 8
+warps sum the 8 chunks of one group and add them in shared memory, and
+the last CTA of a column tile adds the group sums, found through
+per-device arrival counters that the wrapper zeroes once and every
+launch leaves at zero.  The plain version computes row by row
 (``x[i:i+1] @ w + b``), which is batch-invariant on the CPU too.
 
 No TPU kernel stands behind this one.  Forward only, fp32.
@@ -23,25 +28,37 @@ from typing import Dict
 
 import torch
 
-__all__ = ["dense", "dense_plain", "launch", "k_chunk", "launch_counts",
-           "reset_launch_counts", "KERNEL"]
+__all__ = ["dense", "dense_plain", "launch", "k_chunk", "launch_grid",
+           "launch_counts", "reset_launch_counts", "KERNEL"]
 
 KERNEL = "dense"
-_COLS_PER_CTA = 512       # 128 threads x 4 columns (csrc/dense.cu)
-# CTAs per row tile the K split aims at: the fastest of 256 to 2048 on
-# VGG-16's fc layers at 224 (an H100 sweep)
-_TARGET_CTAS = 512
-_KC_MIN, _KC_MAX = 32, 1024
+_COLS_PER_CTA = 128       # 32 lanes x 4 columns (csrc/dense.cu)
+_COLS_NARROW = 32         # 32 lanes x 1 column, where N % 4 != 0
+_ROWS_PER_CTA = 8
+_GROUP = 8                # chunks per group (a CTA's warps), the first level
+# warps (chunk x column tile) per row tile the K split aims at: 2048 was
+# the fastest of 1024 to 8192 on VGG-16's fc layers at 224 (H100 sweeps,
+# at 4 warps a CTA)
+_TARGET_WARPS = 2048
+# at most this many chunks (16 groups) where the chunk size allows: the
+# last CTA of a tile adds one group sum per group (128 rather than 64:
+# faster on VGG-16's fc3 and ResNet-18's head, level on the rest; an H100
+# sweep)
+_MAX_SPLITS = 128
+_KC_MIN, _KC_MAX = 32, 448
 _LAUNCHES: Dict[str, int] = {KERNEL: 0}
+# the arrival counters of each device, zeroed once (csrc/dense.cu)
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def k_chunk(k: int, n: int) -> int:
     """Taps per K chunk of the kernel: a function of (K, N) alone, so the
     order of every output's sum is fixed by the layer's shape.  Enough
-    chunks that about ``_TARGET_CTAS`` CTAs share the weights' read, each
-    chunk a multiple of 8 taps between ``_KC_MIN`` and ``_KC_MAX``."""
+    chunks that about ``_TARGET_WARPS`` warps share the weights' read, but
+    no more than ``_MAX_SPLITS`` chunks unless K needs more, each a
+    multiple of 8 taps between ``_KC_MIN`` and ``_KC_MAX``."""
     col_tiles = -(-n // _COLS_PER_CTA)
-    splits = max(1, _TARGET_CTAS // col_tiles)
+    splits = max(1, min(_MAX_SPLITS, _TARGET_WARPS // col_tiles))
     kc = -(-k // splits)
     return min(_KC_MAX, max(_KC_MIN, -(-kc // 8) * 8))
 
@@ -62,6 +79,26 @@ def dense_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.cat([x[i:i + 1] @ w + b for i in range(x.shape[0])])
 
 
+def launch_grid(rows: int, k: int, n: int) -> tuple:
+    """The kernel's grid for x (rows, k) @ w (k, n): (column tiles, groups
+    of chunks, row tiles), with 16-byte aligned w (as torch allocates
+    it)."""
+    cols = _COLS_PER_CTA if n % 4 == 0 else _COLS_NARROW
+    chunks = -(-k // k_chunk(k, n))
+    return -(-n // cols), -(-chunks // _GROUP), -(-rows // _ROWS_PER_CTA)
+
+
+def _counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """The device's arrival counters, at least ``tiles`` of them: zeroed
+    when first made (or grown), never per call; each launch leaves them at
+    zero."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 4096), device=device, dtype=torch.int32)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on fp32 CUDA operands on one device; returns the
     (B, N) output."""
@@ -78,12 +115,16 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"offsets: x {tuple(x.shape)}, w {tuple(w.shape)}")
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     kc = k_chunk(k, n)
+    _, groups, row_tiles = launch_grid(rows, k, n)
     out = torch.empty((rows, n), device=x.device, dtype=torch.float32)
-    part = torch.empty((-(-k // kc), rows, n), device=x.device,
+    part = torch.empty((groups, rows, n), device=x.device,
                        dtype=torch.float32)
+    # one counter per (row tile, column tile of the narrowest kind)
+    counters = _counters(x.device, row_tiles * -(-n // _COLS_NARROW))
     lib = build.library()
     err = lib.dense_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        part.data_ptr(), out.data_ptr(), rows, k, n, kc,
+                        part.data_ptr(), out.data_ptr(), counters.data_ptr(),
+                        rows, k, n, kc,
                         torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error(lib, err, KERNEL)
     _LAUNCHES[KERNEL] += 1

@@ -13,9 +13,10 @@ from repro_torch.kernels import dense as t_dense  # noqa: E402
 # at that width (ResNet-18 and MobileNetV2, 10 classes), a ragged N
 SHAPES = [(32, 256), (256, 256), (256, 10), (32, 10), (80, 10), (300, 13)]
 # VGG-16's fc shapes at full width and 224x224, and the zoo heads at full
-# width and 32x32
+# width and 32x32; a single-chunk layer (one group: its CTA stores the
+# outputs with no ticket taken)
 CARD_SHAPES = [(25088, 4096), (4096, 4096), (4096, 1000), (512, 4096),
-               (512, 10), (1280, 10), (300, 13)]
+               (512, 10), (1280, 10), (300, 13), (32, 256)]
 
 
 def _operands(b, k, n, seed=0):
@@ -50,12 +51,15 @@ def test_plain_dense_rows_bitwise_across_batch_widths(k, n):
 
 def test_k_chunk_depends_on_the_layer_alone():
     """The kernel's K chunk (its sum order) is a function of (K, N): a
-    multiple of 8 taps within the kernel's limits, and the chunks cover K."""
+    multiple of 8 taps within the kernel's limits, and the chunks cover K
+    in at most 128 chunks (16 group sums for the last CTA to add)."""
     for k, n in SHAPES + CARD_SHAPES:
         kc = t_dense.k_chunk(k, n)
-        assert kc % 8 == 0 and 32 <= kc <= 1024
+        assert kc % 8 == 0 and 32 <= kc <= 448
         assert -(-k // kc) * kc >= k
-    # fc1 at 224 spreads its 411 MB over about 512 CTAs (8 column tiles)
+        assert -(-k // kc) <= 128
+    # fc1 at 224 (K 25088) runs about 64 chunks: about 2048 warps share
+    # its 411 MB of weights
     kc = t_dense.k_chunk(25088, 4096)
     assert 450 <= 8 * -(-25088 // kc) <= 560
 

@@ -2,7 +2,9 @@
 plain version against ``conv1d_causal_folded`` (Pallas, interpret mode)
 and ``conv1d_causal_ref``, the fold attention's plain version against
 ``flash_attention_folded`` (interpret mode) on the JAX kernel test's cases,
-and — on a card — each CUDA kernel against its plain version."""
+the bf16 attention kernel's rounding points (emulated in torch ops)
+against both, and — on a card — each CUDA kernel against its plain
+version."""
 import types
 
 import numpy as np
@@ -42,6 +44,19 @@ ATTN_CASES = [
 # that file's tolerances: fp32 sums in another order; bf16 output rounding
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 BF16_STEP = 2.0 ** -7     # one bf16 step (ulp) relative to the value
+# on the card only: the CUDA kernels' tile paths (64-row q and kv tiles)
+# that the cases above do not reach, same fields (the blocks are the plain
+# version's kv block)
+CUDA_ATTN_CASES = [
+    (2, 1000, 4, 2, 64, True, 0, 64, 256),      # ragged last q and kv tile
+    (1, 2048, 4, 4, 64, True, 1024, 64, 256),   # a 1024-token window
+    (1, 300, 4, 2, 16, True, 0, 64, 256),       # hd 16
+    (1, 300, 4, 2, 32, True, 0, 64, 256),       # hd 32
+    (1, 300, 4, 2, 128, True, 0, 64, 256),      # hd 128
+    (2, 256, 8, 1, 64, True, 0, 64, 256),       # MQA, KV = 1
+    (1, 512, 8, 4, 64, False, 0, 64, 256),      # non-causal
+    (1, 200, 4, 1, 32, False, 100, 64, 256),    # non-causal window, MQA
+]
 
 
 def _conv_inputs(t, d, k, seed=0):
@@ -61,6 +76,57 @@ def _bf16_np(a):
     """An fp32 array rounded to bf16 and back (the same values on both
     sides)."""
     return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _tensor_core_arithmetic(q, k, v, *, causal, window, kv_tile=64):
+    """The bf16 attention kernel's rounding points in torch ops
+    (``csrc/attention_fold.cu``, ``attention_tc_kernel``): q.k of the bf16
+    inputs with fp32 sums (the products are exact), hd^-1/2 · log2 e applied
+    to the fp32 scores, the online softmax in fp32 (base 2) over kv tiles
+    of ``kv_tile`` rows, P split into bf16 hi and lo parts for P.V with
+    fp32 sums, and one bf16 rounding of acc / max(den, 1e-30)."""
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    sl2 = torch.tensor(hd ** -0.5, dtype=torch.float32) \
+        * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qpos = torch.arange(t)[:, None]
+    m = torch.full((b, h, t), -1e30)
+    den = torch.zeros((b, h, t))
+    acc = torch.zeros((b, h, t, hd))
+    for k0 in range(0, s, kv_tile):
+        k1 = min(s, k0 + kv_tile)
+        sc = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * sl2
+        kpos = torch.arange(k0, k1)[None, :]
+        mask = torch.ones((t, k1 - k0), dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        sc = torch.where(mask, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp2(sc - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        den = den * corr + p.sum(dim=-1)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        vt = vf[:, :, k0:k1]
+        acc = acc * corr[..., None] + (hi @ vt + lo @ vt)
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+def _within_one_bf16_step(got, want):
+    """Each element within one bf16 step of ``want`` plus the fp32
+    tolerance for the sums' order (chip_smoke.py holds the card to it)."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, want.abs().max().item())
+    return bool(((got - want).abs() <= BF16_STEP * want.abs()
+                 + ATTN_TOL["float32"] * scale).all())
 
 
 # --------------------------------------------------------------------------
@@ -146,6 +212,27 @@ def test_attention_plain_dtypes_match_reference(jx, dtype):
                                atol=tol)
 
 
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_bf16_kernel_arithmetic_within_one_bf16_step(jx, case):
+    """The tensor-core kernel's arithmetic, emulated, on bf16 inputs:
+    within one bf16 step (plus the fp32 tolerance) of the JAX kernel in
+    interpret mode and of the port's plain version, element by element.
+    P rounded to bf16 once, without its lo part, misses that limit."""
+    b, t, h, kv, hd, causal, window, qb, kb = case
+    q, k, v = (_bf16_np(a) for a in _attn_inputs(b, t, h, kv, hd))
+    qt, kt, vt = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = _tensor_core_arithmetic(qt, kt, vt, causal=causal, window=window)
+    assert got.shape == qt.shape and got.dtype == torch.bfloat16
+    plain = t_attn.flash_attention_folded_plain(qt, kt, vt, causal=causal,
+                                                window=window, k_block=kb)
+    ref = np.asarray(jx.attention(*(jx.jnp.asarray(a, jx.jnp.bfloat16)
+                                    for a in (q, k, v)),
+                                  causal=causal, window=window, q_block=qb,
+                                  k_block=kb), np.float32)
+    assert _within_one_bf16_step(got, plain)
+    assert _within_one_bf16_step(got, torch.from_numpy(ref))
+
+
 # --------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # --------------------------------------------------------------------------
@@ -175,7 +262,7 @@ def test_cuda_conv1d_kernel_is_bitwise_its_plain_version(cuda_device, t, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + CUDA_ATTN_CASES)
 def test_cuda_attention_kernel_matches_plain_version(cuda_device, case,
                                                      dtype):
     b, t, h, kv, hd, causal, window, _, kb = case
