@@ -31,8 +31,9 @@ Phases (any failed check raises, and the script exits non-zero):
    reference policy, and the conv trunk bitwise-identical across batch
    widths.
 4. Full-width VGG-16 at 32x32, batch 4: 2 WS + 11 OS launches per forward.
-5. Serving: ``VisionEngine`` at 224 over buckets (1, 2, 4): served logits
-   bitwise equal to a direct forward.
+5. Serving: ``VisionEngine`` at 224 over buckets (1, 2, 4), its bucket
+   forwards CUDA graphs (``jit``, the default) and then eager: served
+   logits bitwise equal to an eager direct forward.
 6. Full-width MobileNetV2 at 32x32 with random batch-norm statistics,
    batch 1 and 4: fold reuse 52/30/22, 17 depthwise + 7 WS + 28 OS
    launches per forward, logits against the reference policy, the conv
@@ -42,8 +43,8 @@ Phases (any failed check raises, and the script exits non-zero):
    5 WS + 15 OS launches per forward, logits against the reference policy.
 8. Serving full-width MobileNetV2 through ``serving_summary`` (what
    ``python -m repro_torch.launch.serve --vision`` runs) over buckets
-   (1, 2, 4, 8): none lost, served logits bitwise equal to a direct
-   forward.
+   (1, 2, 4, 8), jitted and then eager: none lost, served logits bitwise
+   equal to an eager direct forward.
 9. Int8 kernels: each int8 kernel (WS, OS, depthwise) bitwise against its
    plain version on every requant epilogue the zoo fuses and on the
    grouped layers of phase 2, the psum-staging
@@ -57,14 +58,16 @@ Phases (any failed check raises, and the script exits non-zero):
     names), logits against the int8 reference policy and against the fp32
     forward (top-1 agreement on a batch of 16).
 11. Int8 serving: MobileNetV2 through ``serving_summary(precision=
-    "int8")``: none lost, served logits bitwise equal to a direct forward,
-    the int8 trunk bitwise-identical across the bucket widths.
+    "int8")``, jitted and then eager: none lost, served logits bitwise
+    equal to an eager direct forward, the int8 trunk bitwise-identical
+    across the bucket widths.
 12. The psum path: ``ops.conv2d(impl="fold_ws_psum")`` over VGG-16's 13
     layers at 224, batch 1, and the WS spill of an unfused layer, each
     against the plain walk on its own inputs and plan.
 13. LM kernels: the causal conv1d kernel bitwise against its plain
     version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
-    K = 2 and 3, T < K - 1, the cache-prefixed form) and the fold-attention
+    K = 1, 2, 3 and 8, T < K - 1, D = 8k + 3 and an x off the 16-byte
+    grid (the scalar path), the cache-prefixed form) and the fold-attention
     kernel against its plain version (fp32 and bf16; zamba2's causal case,
     GQA, MQA, a 1024-token window, non-causal, a ragged T, hd 128), and
     one device kernel per attention call.
@@ -77,10 +80,21 @@ Phases (any failed check raises, and the script exits non-zero):
     requests of 16 prompt and 16 new tokens: none lost; decode launches
     no kernel.  A functional check; its tokens/s is no serving rate.
 17. The fold-attention op at zamba2's shared-attention shape (no model
-    calls it), then both LM kernels timed at the prefill cell's shapes,
+    calls it), then both LM kernels timed at the prefill cell's shapes
+    (the conv1d on its vector path and on its scalar path),
     then the prefill replayed as a CUDA graph and the prefill and decode
     steps under ``torch.profiler``: last, because once the profiler has
     run every kernel of the process reads slower.
+
+Every conv forward of phases 3, 4, 6, 7 and 10 is a compiled network
+at the default ``jit``: one CUDA graph, captured on its first call.  Its
+launches are counted on its eager forward (``net.eager``) and on its
+capture, which must agree (a replay ticks no counter), and its output
+must be bitwise the eager one; each such cell prints the jitted
+forward's latency beside the eager forward's and the device work (the
+eager forward replayed as a CUDA graph), and the ``[jit]`` lines sum
+them up with the served images/s of phases 5, 8 and 11, jitted beside
+eager.
 
 Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32, the head kernel's
@@ -114,7 +128,8 @@ HBM_BYTES_PER_S = 3.35e12
 BEFORE_REDESIGN = {"fold_conv_psum": 6.667, "fold_conv_dw": 0.1047,
                    "fold_conv_dw_i8": 0.1019, "dense_b1": 0.1876,
                    "dense_b4": 0.1931, "attention_fold_float32": 2.8094,
-                   "attention_fold_bfloat16": 3.09}
+                   "attention_fold_bfloat16": 3.09,
+                   "conv1d_causal": 0.0889}
 SEED = 0
 TOL_KERNEL = 1e-4      # kernel vs plain: two fp32 sums in different orders
 TOL_MODEL = 1e-4       # kernel path vs reference policy, over the network
@@ -154,7 +169,9 @@ def time_ms(torch, fn, reps: int) -> float:
 def time_graph_ms(torch, fn, reps: int) -> float:
     """Device ms per call: ``reps`` calls captured in one CUDA graph and
     replayed between two CUDA events, after one eager warm-up call, so
-    the host's dispatch work is out of the time."""
+    the host's dispatch work is out of the time.  ``fn`` runs eagerly
+    (a compiled network's ``eager`` forward, never a jitted call, which
+    is itself a graph replay)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -177,7 +194,8 @@ def graph_kernels(torch, fn, what):
     captured as a CUDA graph (after one eager warm-up call) and its nodes
     counted by ``cuGraphGetNodes`` of ``libcuda`` (the wrappers allocate
     through the caching allocator, which adds no node); None where this
-    torch cannot hand the captured graph out."""
+    torch cannot hand the captured graph out.  ``fn`` runs eagerly, as
+    for ``time_graph_ms``."""
     import ctypes
     fn()
     torch.cuda.synchronize()
@@ -282,7 +300,7 @@ def kernel_resources(log: str):
             cur["registers"] = int(m.group(1))
     keep = [e for e in out if any(k in e["mangled"] for k in (
         "ws_kernel", "os_kernel", "dw_kernel", "psum_kernel", "dense_",
-        "attention_"))]
+        "attention_", "conv1d_causal"))]
     for e, name in zip(keep, demangle([e["mangled"] for e in keep])):
         e["name"] = name
     for e in keep:
@@ -730,20 +748,68 @@ def launches_of(**counts):
 
 
 def forward_counts(torch, net, params, x):
-    """One forward: its output and its fold-kernel launches by name; the
-    head kernel must launch once per dense layer of the network."""
-    from repro_torch.kernels import conv2d_ws as cw
+    """One forward of a compiled network: its output and its fold-kernel
+    launches by name.  The eager forward (``net.eager``) is counted as it
+    runs.  A jitted network is then called once: its launches are those
+    of its capture (``capture_launches``; a replay ticks no counter),
+    which must equal the eager forward's, and its output must be bitwise
+    the eager one.  The head kernel must launch once per dense layer."""
+    from repro_torch.core.engine import kernel_launch_counts
     from repro_torch.kernels import dense as dn
-    before, heads = cw.launch_counts(), dn.launch_counts()[dn.KERNEL]
     with torch.inference_mode():
-        y = net(params, x)
+        before = kernel_launch_counts()
+        y = net.eager(params, x)
+        after = kernel_launch_counts()
+        counts = {k: after[k] - before[k] for k in after}
+        if net.jit:
+            y_jit = net(params, x)
     torch.cuda.synchronize()
-    after = cw.launch_counts()
-    heads = dn.launch_counts()[dn.KERNEL] - heads
+    if net.jit:
+        check(net.captures >= 1 and net.apply.capture_launches == counts,
+              f"the capture launched {net.apply.capture_launches}, the "
+              f"eager forward {counts}")
+        check(torch.equal(y_jit, y), "the jitted forward is not bitwise "
+              "the eager one")
+        y = y_jit
     want = sum(nd.op == "dense" for nd in net.graph.nodes)
-    check(heads == want, f"{heads} head launches, expected {want}, one per "
-          "dense layer")
-    return y, {k: after[k] - before[k] for k in after}
+    check(counts[dn.KERNEL] == want, f"{counts[dn.KERNEL]} head launches, "
+          f"expected {want}, one per dense layer")
+    return y, {k: v for k, v in counts.items() if k != dn.KERNEL}
+
+
+# one row per conv cell: the jitted forward, the eager one, device work
+JIT_ROWS = []
+
+
+def jit_cell(torch, what, net, params, x, reps):
+    """A conv cell's three times, in one call: the jitted forward's
+    latency and the eager forward's (CUDA events around ``reps`` calls,
+    host work included), and the device work (the eager forward captured
+    ``reps // 2`` times in one CUDA graph and replayed), with the busy
+    share (device work over latency) of each; and the host's own time
+    per jitted call (host clock around ``reps`` calls that queue without
+    a synchronisation)."""
+    check(net.jit, f"{what}: the network is not jitted")
+    with torch.inference_mode():
+        jit_ms = time_ms(torch, lambda: net(params, x), reps)
+        eager_ms = time_ms(torch, lambda: net.eager(params, x), reps)
+        device_ms = time_graph_ms(torch, lambda: net.eager(params, x),
+                                  max(1, reps // 2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            net(params, x)
+        host_ms = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+    row = {"cell": what, "jit_ms": jit_ms, "eager_ms": eager_ms,
+           "device_ms": device_ms, "busy_jit": device_ms / jit_ms,
+           "busy_eager": device_ms / eager_ms, "jit_host_ms": host_ms}
+    print(f"[jit] {what}: jitted {jit_ms:.4f} ms (busy share "
+          f"{row['busy_jit']:.3f}; host {host_ms:.4f} ms a call), eager "
+          f"{eager_ms:.4f} ms (busy share {row['busy_eager']:.3f}), device "
+          f"work {device_ms:.4f} ms")
+    JIT_ROWS.append(row)
+    return row
 
 
 def close(torch, got, want, tol_rel, what):
@@ -782,13 +848,16 @@ def phase_model_224(torch, dev, params):
             want = ref(params, x)
         check(y.shape == (b, 1000), f"logits shape {tuple(y.shape)}")
         close(torch, y, want, TOL_MODEL, f"model224 b{b} vs reference")
+        cell = jit_cell(torch, f"vgg16 224 b{b}", net, params, x, 6)
         with torch.inference_mode():
-            out[f"forward_b{b}_ms"] = time_ms(
-                torch, lambda: net(params, x), 5)
             out[f"reference_b{b}_ms"] = time_ms(
                 torch, lambda: ref(params, x), 3)
-        print(f"[model224] batch {b}: forward {out[f'forward_b{b}_ms']:.3f}"
-              f" ms, reference policy {out[f'reference_b{b}_ms']:.3f} ms")
+        out.update({f"forward_b{b}_ms": cell["jit_ms"],
+                    f"eager_b{b}_ms": cell["eager_ms"],
+                    f"device_b{b}_ms": cell["device_ms"]})
+        print(f"[model224] batch {b}: forward {cell['jit_ms']:.3f} ms "
+              f"(eager {cell['eager_ms']:.3f}), reference policy "
+              f"{out[f'reference_b{b}_ms']:.3f} ms")
     trunks = {b: compile_network(params, vgg.to_graph(include_head=False),
                                  (b, 3, 224, 224), device=dev)
               for b in (1, 4)}
@@ -818,15 +887,20 @@ def phase_model_32(torch, dev):
     with torch.inference_mode():
         want = ref(params, x)
     close(torch, y, want, TOL_MODEL, "model32 b4 vs reference")
+    jit_cell(torch, "vgg16 32 b4", net, params, x, 10)
     return net
 
 
-def phase_serving(torch, dev, params):
+def phase_serving(torch, dev, params, jit):
+    """VGG-16 served at 224 over buckets (1, 2, 4), its bucket forwards
+    CUDA graphs (``jit``) or eager; each request's logits bitwise equal
+    to an eager direct forward of its images."""
     import numpy as np
     from repro_torch.models import vgg
     from repro_torch.serve.vision import VisionEngine
+    what = "jitted" if jit else "eager"
     eng = VisionEngine(params, vgg.to_graph(), img=224, buckets=(1, 2, 4),
-                       device=dev)
+                       jit=jit, device=dev)
     eng.warmup()
     rng = np.random.default_rng(SEED)
     imgs = [rng.standard_normal((int(k), 3, 224, 224)).astype(np.float32)
@@ -837,18 +911,21 @@ def phase_serving(torch, dev, params):
         check(req.outcome.value == "ok", f"request {req.rid} ended "
               f"{req.outcome.value}")
         direct = vgg.compile_forward(params, img=224, batch=im.shape[0],
-                                     cache=eng.compiler.cache, device=dev)
+                                     cache=eng.compiler.cache, jit=False,
+                                     device=dev)
         with torch.inference_mode():
             want = direct(params, torch.from_numpy(im).to(dev))
         got = torch.from_numpy(req.logits).to(dev)
-        print(f"[serve] request {req.rid} ({im.shape[0]} images): bitwise="
+        print(f"[serve {what}] request {req.rid} ({im.shape[0]} images): "
+              f"bitwise="
               f"{torch.equal(got, want)} max_abs_err="
               f"{(got - want).abs().max().item():.3e}")
         check(torch.equal(got, want), f"serve request {req.rid}: served "
               "logits differ from a direct forward")
     d = eng.metrics_dict()
     lat = d["latency"]
-    print(f"[serve] {d['requests']} requests / {d['images']} images in "
+    print(f"[serve {what}] {d['requests']} requests / {d['images']} "
+          f"images in "
           f"{d['elapsed_s']:.4f} s: {d['images_per_s']:.3f} images/s "
           f"(KIPS {d['kips']}), p50 {lat['p50_s'] * 1e3:.3f} ms, p99 "
           f"{lat['p99_s'] * 1e3:.3f} ms, batches per bucket "
@@ -883,18 +960,17 @@ def model_forwards(torch, dev, module, params, x4, counts_want, reuse_want,
         check(y.shape == (b, module.n_classes),
               f"logits shape {tuple(y.shape)}")
         close(torch, y, want, TOL_MODEL, f"{what} b{b} vs reference")
+        cell = jit_cell(torch, f"{what} b{b}", net, params, x, 10)
         with torch.inference_mode():
-            out[f"forward_b{b}_ms"] = time_ms(
-                torch, lambda: net(params, x), 10)
-            out[f"device_b{b}_ms"] = time_graph_ms(
-                torch, lambda: net(params, x), 5)
             out[f"reference_b{b}_ms"] = time_ms(
                 torch, lambda: ref(params, x), 3)
-        busy = out[f"device_b{b}_ms"] / out[f"forward_b{b}_ms"]
-        print(f"[{what}] batch {b}: forward {out[f'forward_b{b}_ms']:.3f} "
-              f"ms (device work {out[f'device_b{b}_ms']:.3f} ms when "
-              f"replayed as a CUDA graph: busy share {busy:.3f}), "
-              f"reference policy {out[f'reference_b{b}_ms']:.3f} ms")
+        out.update({f"forward_b{b}_ms": cell["jit_ms"],
+                    f"eager_b{b}_ms": cell["eager_ms"],
+                    f"device_b{b}_ms": cell["device_ms"]})
+        print(f"[{what}] batch {b}: forward {cell['jit_ms']:.3f} ms "
+              f"(eager {cell['eager_ms']:.3f}, device work "
+              f"{cell['device_ms']:.3f}), reference policy "
+              f"{out[f'reference_b{b}_ms']:.3f} ms")
     return out, nets
 
 
@@ -943,20 +1019,23 @@ def phase_resnet(torch, dev):
     return out
 
 
-def phase_serving_mobilenet(torch, dev):
+def phase_serving_mobilenet(torch, dev, jit):
     from repro_torch.serve.vision import serving_summary
     requests = 40
     d = serving_summary("mobilenetv2", requests=requests, img=32,
                         width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
-                        device=dev)
+                        device=dev, jit=jit)
     lat, v = d["latency"], d["verify"]
-    print(f"[serve mobilenetv2] {d['requests']} requests / {d['images']} "
+    what = "jitted" if jit else "eager"
+    print(f"[serve mobilenetv2 {what}] {d['requests']} requests / "
+          f"{d['images']} "
           f"images in {d['elapsed_s']:.4f} s: {d['images_per_s']:.3f} "
           f"images/s, p50 {lat['p50_s'] * 1e3:.3f} ms, p99 "
           f"{lat['p99_s'] * 1e3:.3f} ms, batches per bucket "
           f"{d['per_bucket_batches']}, fold reuse {d['compile']}")
     rb = d["robustness"]
-    print(f"[serve mobilenetv2] served vs direct bitwise={v['bitwise']} "
+    print(f"[serve mobilenetv2 {what}] served vs direct bitwise="
+          f"{v['bitwise']} "
           f"max_abs_err={v['max_abs_err']:.3e}")
     check(rb["lost_requests"] == 0 and rb["outcomes"] == {"ok": requests},
           f"mobilenetv2 serving: outcomes {rb['outcomes']}, lost "
@@ -1263,14 +1342,10 @@ def int8_model_forwards(torch, dev, module, params, img, x16, counts_want,
         out[f"bitwise_vs_reference_b{b}"] = bitwise
         out["max_abs_err_vs_reference"] = max(
             out["max_abs_err_vs_reference"], err)
-        with torch.inference_mode():
-            out[f"forward_b{b}_ms"] = time_ms(
-                torch, lambda: net(params, x), 5)
-            out[f"device_b{b}_ms"] = time_graph_ms(
-                torch, lambda: net(params, x), 3)
-        print(f"[{what} int8] batch {b}: forward "
-              f"{out[f'forward_b{b}_ms']:.3f} ms (device work "
-              f"{out[f'device_b{b}_ms']:.3f} ms as a CUDA graph)")
+        cell = jit_cell(torch, f"{what} int8 b{b}", net, params, x, 6)
+        out.update({f"forward_b{b}_ms": cell["jit_ms"],
+                    f"eager_b{b}_ms": cell["eager_ms"],
+                    f"device_b{b}_ms": cell["device_ms"]})
     # against fp32: the JAX package's accuracy gate on a batch of 16
     q16 = module.compile_forward(params, img=img, batch=16, device=dev,
                                  precision="int8", quant=recipe)
@@ -1319,32 +1394,38 @@ def phase_int8_models(torch, dev, vgg_params):
 
 def phase_int8_serving(torch, dev):
     """MobileNetV2 served in int8 through ``serving_summary`` (what
-    ``launch.serve --vision --precision int8`` runs): none lost, served
-    logits against a direct forward with the same recipe, and the int8
-    conv trunk bitwise-identical across the bucket widths."""
+    ``launch.serve --vision --precision int8`` runs), its bucket forwards
+    CUDA graphs and then eager: none lost, served logits bitwise equal to
+    an eager direct forward with the same recipe; and the int8 conv trunk
+    bitwise-identical across the bucket widths."""
     from repro_torch.core.engine import compile_network
     from repro_torch.models import mobilenet
     from repro_torch.serve.vision import VisionEngine, serving_summary
     requests = 24
-    d = serving_summary("mobilenetv2", requests=requests, img=32,
-                        width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
-                        device=dev, precision="int8")
-    lat, v = d["latency"], d["verify"]
-    print(f"[serve int8 mobilenetv2] {d['requests']} requests / "
-          f"{d['images']} images in {d['elapsed_s']:.4f} s: "
-          f"{d['images_per_s']:.3f} images/s, p50 "
-          f"{lat['p50_s'] * 1e3:.3f} ms, p99 {lat['p99_s'] * 1e3:.3f} ms, "
-          f"batches per bucket {d['per_bucket_batches']}")
-    rb = d["robustness"]
-    print(f"[serve int8 mobilenetv2] served vs direct bitwise="
-          f"{v['bitwise']} max_abs_err={v['max_abs_err']:.3e}")
-    check(d["workload"]["precision"] == "int8", "served in the wrong "
-          "precision")
-    check(rb["lost_requests"] == 0 and rb["outcomes"] == {"ok": requests},
-          f"int8 serving: outcomes {rb['outcomes']}, lost "
-          f"{rb['lost_requests']}")
-    check(v["requests"] == requests and v["bitwise"],
-          "int8 serving: served logits differ from a direct forward")
+    served = {}
+    for jit in (True, False):
+        what = "jitted" if jit else "eager"
+        d = serving_summary("mobilenetv2", requests=requests, img=32,
+                            width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
+                            device=dev, precision="int8", jit=jit)
+        lat, v = d["latency"], d["verify"]
+        print(f"[serve int8 mobilenetv2 {what}] {d['requests']} requests / "
+              f"{d['images']} images in {d['elapsed_s']:.4f} s: "
+              f"{d['images_per_s']:.3f} images/s, p50 "
+              f"{lat['p50_s'] * 1e3:.3f} ms, p99 {lat['p99_s'] * 1e3:.3f} "
+              f"ms, batches per bucket {d['per_bucket_batches']}")
+        rb = d["robustness"]
+        print(f"[serve int8 mobilenetv2 {what}] served vs direct bitwise="
+              f"{v['bitwise']} max_abs_err={v['max_abs_err']:.3e}")
+        check(d["workload"]["precision"] == "int8", "served in the wrong "
+              "precision")
+        check(rb["lost_requests"] == 0
+              and rb["outcomes"] == {"ok": requests},
+              f"int8 serving: outcomes {rb['outcomes']}, lost "
+              f"{rb['lost_requests']}")
+        check(v["requests"] == requests and v["bitwise"],
+              "int8 serving: served logits differ from a direct forward")
+        served["jit" if jit else "eager"] = d
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
                                                        device=dev))
@@ -1367,7 +1448,7 @@ def phase_int8_serving(torch, dev):
                       f"widths {b} and 8")
     print("[serve int8 mobilenetv2] int8 trunk rows bitwise-equal at bucket "
           "widths 1, 2, 4 and 8")
-    return d
+    return served
 
 
 def phase_psum(torch, dev, layers):
@@ -1442,15 +1523,20 @@ BF16_STEP = 2.0 ** -7
 TOL_DECODE = 2e-3    # decode vs forward (tests/test_decode_consistency.py)
 
 
-def conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix):
+def conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix, offset=False):
     """Random x (B, T, D) and w (K, D) in ``dtype``; with ``prefix`` the
     model's cache-prefixed form: K-1 random cached rows in front of x,
-    their outputs dropped after the conv."""
+    their outputs dropped after the conv; with ``offset`` x starts one
+    element into its storage, off the 16-byte grid."""
     x = torch.randn(b, t, d, device=dev, generator=gen).to(dtype)
     w = torch.randn(k, d, device=dev, generator=gen).to(dtype)
     if prefix:
         tail = torch.randn(b, k - 1, d, device=dev, generator=gen).to(dtype)
         x = torch.cat([tail, x], dim=1)
+    if offset:
+        buf = torch.empty(x.numel() + 1, device=dev, dtype=dtype)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
     return x, w
 
 
@@ -1461,33 +1547,44 @@ def phase_lm_kernels(torch, dev):
     from repro_torch.kernels import attention_fold as af
     from repro_torch.kernels import conv1d_causal as cc
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    # (B, T, D, K, cache prefix)
+    # (B, T, D, K, cache prefix, x off the 16-byte grid); the vector path
+    # takes D a multiple of 8 (bf16) or 4 (fp32) on 16-byte boundaries
     conv_cases = [
-        (PREFILL_B, PREFILL_T, 4224, 4, False),   # zamba2's prefill shape
-        (2, 100, 300, 4, False),                  # D not a multiple of 128
-        (2, 1, 4224, 4, False),                   # T = 1
-        (2, 77, 256, 2, False), (2, 77, 256, 3, False),   # K = 2, 3
-        (1, 2, 64, 4, False),                     # T < K - 1
-        (2, 16, 4224, 4, True),                   # the cache-prefixed form
+        (PREFILL_B, PREFILL_T, 4224, 4, False, False),  # zamba2's prefill
+        (2, 100, 300, 4, False, False),   # D not a multiple of 8 or 128
+        (2, 1, 4224, 4, False, False),    # T = 1
+        (2, 77, 256, 2, False, False), (2, 77, 256, 3, False, False),
+        (2, 77, 256, 1, False, False), (2, 77, 256, 8, False, False),
+        (1, 2, 64, 4, False, False),      # T < K - 1
+        (2, 77, 267, 4, False, False),    # D = 8k + 3: the scalar path
+        (2, 77, 4224, 4, False, True),    # off the grid: the scalar path
+        (2, 16, 4224, 4, True, False),    # the cache-prefixed form
     ]
     # the fp32 and bf16 attention instances: af.KERNEL and its _bf16 entry
     errs = {cc.KERNEL: 0.0, af.KERNEL: 0.0, f"{af.KERNEL}_bf16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, t, d, k, prefix in conv_cases:
-            x, w = conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix)
-            before = cc.launch_counts()[cc.KERNEL]
-            got = cc.conv1d_causal_folded(x, w)
-            torch.cuda.synchronize()
-            check(cc.launch_counts()[cc.KERNEL] == before + 1,
-                  "conv1d_causal did not launch")
-            want = cc.conv1d_causal_plain(x, w)
-            if prefix:
-                got, want = got[:, k - 1:], want[:, k - 1:]
-            same = got.shape == want.shape and torch.equal(got, want)
-            print(f"[lm kernels] conv1d_causal {str(dtype)[6:]} B={b} T={t} "
-                  f"D={d} K={k}{' cache-prefixed' if prefix else ''} "
-                  f"bitwise={same}")
-            check(same, "conv1d_causal is not bitwise its plain version")
+        for b, t, d, k, prefix, offset in conv_cases:
+            x, w = conv1d_case(torch, gen, dev, dtype, b, t, d, k, prefix,
+                               offset)
+            path = "vector" if cc.vector_path(x, w) else "scalar"
+            drop = k - 1 if prefix else 0   # the cached rows' outputs
+            want = cc.conv1d_causal_plain(x, w)[:, drop:]
+            # a bf16 x with its w in bf16 (the model's; widened in the
+            # kernel) and in fp32
+            for wk in [w] if dtype == torch.float32 else [w, w.float()]:
+                before = cc.launch_counts()[cc.KERNEL]
+                got = cc.conv1d_causal_folded(x, wk)
+                torch.cuda.synchronize()
+                check(cc.launch_counts()[cc.KERNEL] == before + 1,
+                      "conv1d_causal did not launch")
+                got = got[:, drop:]
+                same = got.shape == want.shape and torch.equal(got, want)
+                print(f"[lm kernels] conv1d_causal {str(dtype)[6:]} B={b} "
+                      f"T={t} D={d} K={k} w {str(wk.dtype)[6:]}"
+                      f"{' cache-prefixed' if prefix else ''}"
+                      f"{' offset' if offset else ''} {path} path "
+                      f"bitwise={same}")
+                check(same, "conv1d_causal is not bitwise its plain version")
     # (B, T, H, KV, hd, causal, window)
     attn_cases = [
         ZAMBA_ATTN + (True, 0),                   # zamba2's causal case
@@ -1559,6 +1656,13 @@ def time_lm_kernels(torch, dev, attn_per_call):
     x = torch.randn(b, t, d, device=dev, generator=gen).bfloat16()
     w = torch.randn(k, d, device=dev, generator=gen).bfloat16()
     xt, wt = x.transpose(1, 2), w.T[:, None, :].contiguous()
+    # the same x one element into its storage: the scalar path, the
+    # kernel's design before its redesign
+    xs, _ = conv1d_case(torch, gen, dev, torch.bfloat16, b, t, d, k, False,
+                        offset=True)
+    check(cc.vector_path(x, w) and not cc.vector_path(xs, w),
+          "conv1d: the prefill shape does not take the vector path")
+    out = torch.empty_like(x)
     op_ms = 1e3 * 2.0 * k * b * t * d / FP32_PEAK
     byte_ms = 1e3 * 2.0 * (2 * x.numel() + w.numel()) / HBM_BYTES_PER_S
     rows[cc.KERNEL] = {
@@ -1570,7 +1674,11 @@ def time_lm_kernels(torch, dev, attn_per_call):
             torch, lambda: F.conv1d(xt, wt, groups=d, padding=k - 1)
             [..., :t], 20),
         "bound_ms": max(op_ms, byte_ms), "op_ms": op_ms, "byte_ms": byte_ms,
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "scalar_path_ms": time_graph_ms(torch, lambda: cc.launch(xs, w), 20),
+        # torch's copy of x: the same bytes moved, with no halo and no math
+        "copy_ms": time_graph_ms(torch, lambda: out.copy_(x), 20),
+        "before_redesign_ms": BEFORE_REDESIGN[cc.KERNEL]}
     b, t, h, kv, hd = ZAMBA_ATTN
     pairs = b * h * t * (t + 1) / 2          # causal: the visible (q, k)
     flops = 4.0 * hd * pairs                 # q.k and p.v, 2 each
@@ -1603,6 +1711,11 @@ def time_lm_kernels(torch, dev, attn_per_call):
             "bound_ffma_ms": max(1e3 * flops / FP32_PEAK, byte_ms),
             "before_redesign_ms": BEFORE_REDESIGN[
                 f"{af.KERNEL}_{str(dtype)[6:]}"]}
+    r = rows[cc.KERNEL]
+    print(f"[lm kernels] {cc.KERNEL} at the same shape on its scalar path "
+          f"(x off the 16-byte grid): {r['scalar_path_ms']:.4f} ms; before "
+          f"the redesign {r['before_redesign_ms']}; torch's copy of x "
+          f"{r['copy_ms']:.4f} ms")
     for name, r in rows.items():
         print(f"[lm kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
@@ -1918,10 +2031,13 @@ def main() -> int:
     dn.reset_launch_counts()
     report["model224"] = phase_model_224(torch, dev, params)
     phase_model_32(torch, dev)
-    report["serving"] = phase_serving(torch, dev, params)
+    report["serving"] = phase_serving(torch, dev, params, jit=True)
+    report["serving_eager"] = phase_serving(torch, dev, params, jit=False)
     report["mobilenetv2"] = phase_mobilenet(torch, dev)
     report["resnet18"] = phase_resnet(torch, dev)
-    report["serving_mobilenetv2"] = phase_serving_mobilenet(torch, dev)
+    report["serving_mobilenetv2"] = phase_serving_mobilenet(torch, dev, True)
+    report["serving_mobilenetv2_eager"] = phase_serving_mobilenet(
+        torch, dev, False)
     launches = cw.launch_counts()
     launches[dn.KERNEL] = dn.launch_counts()[dn.KERNEL]
     print(f"[main path] launches {launches}")
@@ -1932,7 +2048,9 @@ def main() -> int:
     cw.reset_launch_counts()
     dn.reset_launch_counts()
     report["int8"] = phase_int8_models(torch, dev, params)
-    report["serving_int8_mobilenetv2"] = phase_int8_serving(torch, dev)
+    served_int8 = phase_int8_serving(torch, dev)
+    report["serving_int8_mobilenetv2"] = served_int8["jit"]
+    report["serving_int8_mobilenetv2_eager"] = served_int8["eager"]
     int8_launches = cw.launch_counts()
     print(f"[int8 main path] launches {int8_launches}, head "
           f"{dn.launch_counts()[dn.KERNEL]}")
@@ -2051,6 +2169,29 @@ def main() -> int:
     report["decode_zamba2"] = phase_lm_device(
         torch, report["prefill_zamba2"], prefill_run, decode_run)
     del prefill_run, decode_run
+
+    # the jit rows, side by side: every conv cell, then served images/s
+    print("[jit] conv cells, ms: jitted / eager / device work (busy share "
+          "jitted, eager; host ms a jitted call)")
+    for r in JIT_ROWS:
+        print(f"[jit]   {r['cell']:<22} {r['jit_ms']:.4f} / "
+              f"{r['eager_ms']:.4f} / {r['device_ms']:.4f} "
+              f"({r['busy_jit']:.3f}, {r['busy_eager']:.3f}; "
+              f"{r['jit_host_ms']:.4f})")
+    slower = [r["cell"] for r in JIT_ROWS if r["jit_ms"] > r["eager_ms"]]
+    print(f"[jit] cells where the jitted forward is slower than the eager "
+          f"one: {slower or 'none'}")
+    for what, key in (("vgg16 224", "serving"),
+                      ("mobilenetv2", "serving_mobilenetv2"),
+                      ("mobilenetv2 int8", "serving_int8_mobilenetv2")):
+        jd, ed = report[key], report[f"{key}_eager"]
+        print(f"[jit] serving {what}: jitted {jd['images_per_s']:.3f} "
+              f"images/s, p50 {jd['latency']['p50_s'] * 1e3:.3f} ms, p99 "
+              f"{jd['latency']['p99_s'] * 1e3:.3f} ms; eager "
+              f"{ed['images_per_s']:.3f} images/s, p50 "
+              f"{ed['latency']['p50_s'] * 1e3:.3f} ms, p99 "
+              f"{ed['latency']['p99_s'] * 1e3:.3f} ms")
+    report["jit_cells"] = JIT_ROWS
 
     # ms_kind "device": CUDA-graph replay of the bare launch on prepared
     # operands, beside F.conv2d and the plain version replayed the same

@@ -14,9 +14,11 @@ models describe themselves as streaming graphs (``core/graph.py``).
 * ``ScheduleCache`` is the registry; its hit/miss counters are the paper's
   fold-reuse metric.
 * ``compile_network`` lowers a ``StreamGraph`` through one shared cache
-  and returns an eager forward with the schedules baked in, in fp32 or,
-  with ``precision="int8"``, through the quantized fold stream
-  (``core/quant.py``).
+  and returns a forward with the schedules baked in, in fp32 or, with
+  ``precision="int8"``, through the quantized fold stream
+  (``core/quant.py``); with ``jit`` (the default, as in the JAX package)
+  that forward is captured as one CUDA graph on its first call
+  (``CapturedForward``).
 
 The cost model prices traffic with the paper's accelerator constants
 (``MavecConfig``), exactly as the JAX package does, so the two packages
@@ -53,6 +55,8 @@ __all__ = [
     "plan_and_dataflow",
     "resolve_execution",
     "CompiledNetwork",
+    "CapturedForward",
+    "kernel_launch_counts",
     "compile_network",
     "BucketCompiler",
     "POLICIES",
@@ -336,10 +340,130 @@ class ScheduleCache:
 # Whole-network compilation: StreamGraph lowering
 # --------------------------------------------------------------------------
 
+def kernel_launch_counts() -> Dict[str, int]:
+    """Launches so far of every kernel a compiled forward can run: the
+    fold kernels (``kernels/conv2d_ws.py``) and the head
+    (``kernels/dense.py``), by name."""
+    from repro_torch.kernels import conv2d_ws, dense
+    return {**conv2d_ws.launch_counts(), **dense.launch_counts()}
+
+
+def _tensor_leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The tensors of a parameter tree (dicts, lists and tuples), in
+    iteration order, appended to ``out``.  It runs at every jitted call,
+    so the containers are matched by ``type``, which costs less than
+    ``isinstance``."""
+    kind = type(tree)
+    if kind is dict:
+        for sub in tree.values():
+            _tensor_leaves(sub, out)
+    elif kind is list or kind is tuple:
+        for sub in tree:
+            _tensor_leaves(sub, out)
+    elif isinstance(tree, torch.Tensor):
+        out.append(tree)
+    return out
+
+
+class CapturedForward:
+    """The counterpart of ``jax.jit`` for a compiled forward on a CUDA
+    device: the eager forward captured as one CUDA graph on its first
+    call, and replayed on every later one.
+
+    The first call runs the forward once eagerly on a side stream (kernel
+    builds, the head's counters and every other lazy set-up happen there,
+    outside any capture), then captures it into a ``torch.cuda.CUDAGraph``
+    under ``torch.inference_mode`` with ``capture_error_mode=
+    "thread_local"`` (an operation that would synchronise with the host
+    raises), reading a static float32 input buffer of the compiled shape.
+    The graph has a memory pool of its own, so the graphs of several
+    buckets replay in any order.  Each call checks x's shape, type and
+    device (``ValueError`` on a mismatch), copies x into the static input,
+    replays the graph and returns a clone of the static output: the next
+    replay overwrites it, and a caller may still hold this call's result
+    (``VisionEngine.run`` reads batch k back after it has dispatched
+    k + 1).
+
+    Parameters are captured by address, as the kernels read them.  A call
+    whose parameter tensors sit at other addresses than at the capture
+    captures again, so new weights are never served by an old graph
+    (``captures`` counts the captures; in-place updates of the captured
+    tensors are read by the next replay).  The capture holds the tensors
+    it read, so no other tensor can take their addresses while its graph
+    lives.  The BN fold and the int8 quantize ops run inside the graph at
+    every replay, as they run at every eager call.
+
+    ``capture_launches`` holds the kernel launches of the last capture by
+    name (``kernel_launch_counts``): the Python launch counters tick during
+    the warm-up and the capture, never during a replay.  Nothing falls
+    back to the eager forward: a failed capture or replay raises."""
+
+    def __init__(self, forward: Callable, input_shape: Tuple[int, ...],
+                 device: torch.device):
+        self.forward = forward
+        self.input_shape = tuple(int(d) for d in input_shape)
+        self.device = device
+        self.captures = 0
+        self.capture_launches: Dict[str, int] = {}
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._x: Optional[torch.Tensor] = None   # the static input
+        self._y: Optional[torch.Tensor] = None   # the static output
+        self._params: Tuple[torch.Tensor, ...] = ()
+        self._ptrs: Tuple[int, ...] = ()
+
+    def _check(self, x: torch.Tensor) -> None:
+        dev = self._x.device if self._x is not None else self.device
+        if tuple(x.shape) != self.input_shape or x.dtype != torch.float32 \
+                or x.device.type != "cuda" \
+                or dev.index not in (None, x.device.index):
+            raise ValueError(f"the captured forward takes a float32 input "
+                             f"of shape {self.input_shape} on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+
+    def _capture(self, p: Dict[str, Any], x: torch.Tensor,
+                 leaves: List[torch.Tensor], ptrs: Tuple[int, ...]) -> None:
+        # the old graph and its pool go before the new capture
+        self._graph = self._y = None
+        if self._x is None:
+            # a normal tensor, so calls outside inference mode can fill it
+            with torch.inference_mode(False):
+                self._x = torch.empty(self.input_shape, dtype=torch.float32,
+                                      device=x.device)
+        self._x.copy_(x)
+        main = torch.cuda.current_stream(self._x.device)
+        side = torch.cuda.Stream(self._x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.inference_mode():
+            self.forward(p, self._x)
+        main.wait_stream(side)
+        before = kernel_launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            y = self.forward(p, self._x)
+        after = kernel_launch_counts()
+        self.capture_launches = {k: after[k] - before[k] for k in after}
+        self._graph, self._y = graph, y
+        self._params, self._ptrs = tuple(leaves), ptrs
+        self.captures += 1
+
+    def __call__(self, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        leaves = _tensor_leaves(p, [])
+        ptrs = tuple(t.data_ptr() for t in leaves)
+        if self._graph is None or ptrs != self._ptrs:
+            self._capture(p, x, leaves, ptrs)
+        self._x.copy_(x)
+        self._graph.replay()
+        return self._y.clone()
+
+
 @dataclasses.dataclass
 class CompiledNetwork:
-    """A whole-network static fold schedule plus its eager forward.
+    """A whole-network static fold schedule plus its forward.
 
+    ``apply`` is the forward a call runs: with ``jit`` on a CUDA device a
+    ``CapturedForward`` of ``eager``, otherwise ``eager`` itself.
     ``layer_schedules`` and ``build_stats`` are snapshots taken at compile
     time; ``layer_nests`` holds each conv's own loop nest (its batch and
     spatial extent, which a reused schedule's ``nest`` does not carry).
@@ -355,10 +479,18 @@ class CompiledNetwork:
     layer_nests: Tuple[Tuple[str, ConvLoopNest], ...] = ()
     precision: str = "fp32"  # streamed conv dtype ("fp32" | "int8")
     quant: Optional[Any] = None  # the QuantRecipe the int8 lowering baked in
+    jit: bool = False            # whether apply is a CapturedForward
+    eager: Optional[Callable] = None  # the eager forward (apply unless jit)
 
     def __call__(self, params: Dict[str, Any], x: torch.Tensor
                  ) -> torch.Tensor:
         return self.apply(params, x)
+
+    @property
+    def captures(self) -> int:
+        """CUDA-graph captures of a jitted forward so far (0 unless
+        ``jit``)."""
+        return self.apply.captures if self.jit else 0
 
     @property
     def distinct_schedules(self) -> int:
@@ -387,10 +519,11 @@ def compile_network(params: Dict[str, Any], graph,
                     policy: str = "auto",
                     cache: Optional[ScheduleCache] = None,
                     head: Optional[Callable] = None,
+                    jit: bool = True,
                     fuse_epilogues: bool = True,
                     device: Any = "cuda", precision: str = "fp32",
                     quant=None) -> CompiledNetwork:
-    """Lower a streaming graph into a static fold schedule + eager forward.
+    """Lower a streaming graph into a static fold schedule + forward.
 
     ``graph`` is a ``StreamGraph`` (or a legacy conv-spec sequence).  Conv
     and dense weights live at ``params[node.param]["w"]`` (OIHW / (in,
@@ -410,6 +543,13 @@ def compile_network(params: Dict[str, Any], graph,
     standalone op.  The forward
     runs on ``device`` (default "cuda"; "cpu" runs the plain-torch fold
     loop in kernel mode).
+
+    ``jit`` (default True, as in the JAX package): on a CUDA device the
+    forward is captured as one CUDA graph on its first call and replayed
+    on every later one (``CapturedForward``: the input must have
+    ``input_shape``; new parameter tensors capture again).  On the CPU
+    there is no graph to capture and ``jit`` runs the eager forward.
+    ``jit=False`` runs the eager forward, one Python dispatch per op.
 
     ``precision="int8"`` lowers every conv through ``conv2d_int8``: int8
     weight and activation blocks, int32 sums, dequant folded into the
@@ -591,12 +731,16 @@ def compile_network(params: Dict[str, Any], graph,
         hits=cache.stats.hits - stats_before.hits,
         misses=cache.stats.misses - stats_before.misses,
         replans=cache.stats.replans - stats_before.replans)
-    return CompiledNetwork(apply=forward,
+    captured = jit and dev.type == "cuda"
+    apply = CapturedForward(forward, input_shape, dev) if captured \
+        else forward
+    return CompiledNetwork(apply=apply,
                            layer_schedules=tuple(layer_schedules),
                            build_stats=build_stats, cache=cache, mode=mode,
                            device=dev, fused=fused, graph=g,
                            layer_nests=tuple(layer_nests),
-                           precision=precision, quant=quant)
+                           precision=precision, quant=quant, jit=captured,
+                           eager=forward)
 
 
 # --------------------------------------------------------------------------
@@ -612,12 +756,15 @@ class BucketCompiler:
     ``precision="int8"``: one ``QuantRecipe`` is calibrated here, once (or
     taken from ``quant``), and handed to every bucket, so every bucket
     width bakes in the same activation scales: a request's logits cannot
-    depend on the bucket its batch was padded to."""
+    depend on the bucket its batch was padded to.
+
+    ``jit`` goes to every bucket's compile: on a CUDA device each bucket's
+    forward is one CUDA graph, with a memory pool of its own."""
 
     def __init__(self, params: Dict[str, Any], graph, img: int, *,
                  chan: int = 3, policy: str = "auto",
                  cache: Optional[ScheduleCache] = None,
-                 head: Optional[Callable] = None,
+                 head: Optional[Callable] = None, jit: bool = True,
                  fuse_epilogues: bool = True, device: Any = "cuda",
                  precision: str = "fp32", quant=None):
         from repro_torch.core.quant import check_precision, default_recipe
@@ -629,6 +776,7 @@ class BucketCompiler:
         self.policy = policy
         self.cache = cache if cache is not None else ScheduleCache()
         self.head = head
+        self.jit = jit
         self.fuse_epilogues = fuse_epilogues
         self.device = device
         self.precision = precision
@@ -657,7 +805,8 @@ class BucketCompiler:
                 self.params, self.graph,
                 (batch, self.chan, self.img, self.img),
                 policy=self.policy, cache=self.cache, head=self.head,
-                fuse_epilogues=self.fuse_epilogues, device=self.device,
+                jit=self.jit, fuse_epilogues=self.fuse_epilogues,
+                device=self.device,
                 precision=self.precision, quant=self.quant)
             self._nets[batch] = net
         return net

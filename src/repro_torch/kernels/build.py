@@ -71,12 +71,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (csrc/dense.cu)
     lib.dense_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.dense_f32.restype = i32
+    lib.conv1d_causal_vector_path.argtypes = [ptr] * 3 + [i32] * 2
+    lib.conv1d_causal_vector_path.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]
     lib.fold_conv_error_string.restype = ctypes.c_char_p
-    for dt in ("f32", "bf16"):
+    for dt in ("f32", "bf16", "bf16_wbf16"):
         conv1d = getattr(lib, f"conv1d_causal_{dt}")   # x, w, out, b .. k
         conv1d.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         conv1d.restype = i32
+    for dt in ("f32", "bf16"):
         attn = getattr(lib, f"attention_fold_{dt}")   # q, k, v, out, b .. scale
         attn.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_float, ptr]
         attn.restype = i32

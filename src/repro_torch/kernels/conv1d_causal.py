@@ -5,7 +5,10 @@ the port of the JAX package's ``kernels/conv1d_causal.py``.
 
 ``conv1d_causal_folded`` launches the hand-written CUDA kernel
 (``csrc/conv1d_causal.cu``) on a CUDA tensor and runs its plain-torch
-version on a CPU tensor.  The plain version is the reference's
+version on a CPU tensor.  The kernel has two paths, picked by its launcher
+from the operands: 16-byte words of channels over 8 steps a thread where
+D is a multiple of the word (8 bf16, 4 fp32) and x, w and out sit on
+16-byte boundaries (``vector_path``), one channel a thread otherwise.  The plain version is the reference's
 ``conv1d_causal_ref`` (``kernels/ref.py``): the kernel keeps its order and
 rounding, so the two agree bit for bit.  Forward only; the backward comes
 with the training slice.
@@ -18,13 +21,16 @@ import torch
 
 from repro_torch.kernels.ref import conv1d_causal_ref as conv1d_causal_plain
 
-__all__ = ["conv1d_causal_folded", "conv1d_causal_plain", "launch_counts",
-           "reset_launch_counts", "KERNEL", "KMAX"]
+__all__ = ["conv1d_causal_folded", "conv1d_causal_plain", "launch",
+           "vector_path", "launch_counts", "reset_launch_counts", "KERNEL",
+           "KMAX"]
 
 KERNEL = "conv1d_causal"
 KMAX = 8                  # the taps the kernel's register window holds
-_ENTRY = {torch.float32: "conv1d_causal_f32",
-          torch.bfloat16: "conv1d_causal_bf16"}
+# the C entry point by (x's type, w's type as the kernel reads it)
+_ENTRY = {(torch.float32, torch.float32): "conv1d_causal_f32",
+          (torch.bfloat16, torch.float32): "conv1d_causal_bf16",
+          (torch.bfloat16, torch.bfloat16): "conv1d_causal_bf16_wbf16"}
 _LAUNCHES: Dict[str, int] = {KERNEL: 0}
 
 
@@ -34,28 +40,48 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
 
 
-def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on a contiguous CUDA x (fp32 or bf16) and w on
-    the same device; returns the (B, T, D) output in x's type.  w is
-    widened to fp32 first (exact for bf16), as the kernel's sum takes it."""
-    from repro_torch.kernels import build
+def _operands(x: torch.Tensor, w: torch.Tensor):
+    """Check a CUDA call; returns (w as the kernel reads it, the output,
+    the C entry point).  A bf16 w beside a bf16 x (the model's types) goes
+    as it is and the kernel widens it; any other w is widened to fp32 here.
+    Both widenings are exact."""
     _check(x, w)
-    if x.dtype not in _ENTRY:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the conv1d kernel takes fp32 or bf16 x, got "
                          f"{x.dtype}")
     if not x.is_contiguous() or w.device != x.device:
         raise ValueError(f"the conv1d kernel takes a contiguous x and w on "
                          f"{x.device}, got w on {w.device}")
+    if not 1 <= w.shape[0] <= KMAX:
+        raise ValueError(f"the conv1d kernel holds 1..{KMAX} taps, got "
+                         f"K={w.shape[0]}")
+    wk = w.contiguous() if w.dtype == x.dtype == torch.bfloat16 \
+        else w.float().contiguous()
+    return wk, torch.empty_like(x), _ENTRY[(x.dtype, wk.dtype)]
+
+
+def vector_path(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the kernel's launcher takes the vector path for this call
+    (asked of the launcher itself, with the operands ``launch`` would pass
+    it)."""
+    from repro_torch.kernels import build
+    wk, out, _ = _operands(x, w)
+    return bool(build.library().conv1d_causal_vector_path(
+        x.data_ptr(), wk.data_ptr(), out.data_ptr(), x.shape[2],
+        x.element_size()))
+
+
+def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on a contiguous CUDA x (fp32 or bf16) and w on
+    the same device; returns the (B, T, D) output in x's type.  The sum
+    takes w in fp32 (``_operands``: exact for a bf16 w)."""
+    from repro_torch.kernels import build
+    wk, out, entry = _operands(x, w)
     b, t_len, d = x.shape
-    k = w.shape[0]
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"the conv1d kernel holds 1..{KMAX} taps, got K={k}")
-    w32 = w.float().contiguous()
-    out = torch.empty_like(x)
     lib = build.library()
-    err = getattr(lib, _ENTRY[x.dtype])(
-        x.data_ptr(), w32.data_ptr(), out.data_ptr(), b, t_len, d, k,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = getattr(lib, entry)(
+        x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, t_len, d,
+        w.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on_error(lib, err, KERNEL)
     _LAUNCHES[KERNEL] += 1
     return out

@@ -17,14 +17,15 @@ sums in registers; more rows are tiled.  It is one launch: a CTA's 8
 warps sum the 8 chunks of one group and add them in shared memory, and
 the last CTA of a column tile adds the group sums, found through
 per-device arrival counters that the wrapper zeroes once and every
-launch leaves at zero.  The plain version computes row by row
-(``x[i:i+1] @ w + b``), which is batch-invariant on the CPU too.
+launch leaves at zero (so a CUDA graph replays it with no reset).  The
+plain version computes row by row (``x[i:i+1] @ w + b``), which is
+batch-invariant on the CPU too.
 
 No TPU kernel stands behind this one.  Forward only, fp32.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -49,6 +50,9 @@ _KC_MIN, _KC_MAX = 32, 448
 _LAUNCHES: Dict[str, int] = {KERNEL: 0}
 # the arrival counters of each device, zeroed once (csrc/dense.cu)
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# every counter buffer a larger one replaced: a CUDA graph captured with
+# it still points at it, so none is ever freed (each stays at zero)
+_REPLACED: List[torch.Tensor] = []
 
 
 def k_chunk(k: int, n: int) -> int:
@@ -91,9 +95,19 @@ def launch_grid(rows: int, k: int, n: int) -> tuple:
 def _counters(device: torch.device, tiles: int) -> torch.Tensor:
     """The device's arrival counters, at least ``tiles`` of them: zeroed
     when first made (or grown), never per call; each launch leaves them at
-    zero."""
+    zero, so a captured launch replays with no reset.  They are made
+    outside any CUDA-graph capture (a capture would put them in its
+    graph's memory pool), and a buffer that a larger one replaces is kept:
+    a graph captured with it still reads it."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the head kernel needs {tiles} arrival counters on "
+                f"{device}, more than it has, during a CUDA-graph capture: "
+                "run the forward once outside the capture first")
+        if buf is not None:
+            _REPLACED.append(buf)
         buf = torch.zeros(max(tiles, 4096), device=device, dtype=torch.int32)
         _COUNTERS[device] = buf
     return buf

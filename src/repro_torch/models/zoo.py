@@ -51,7 +51,8 @@ def get_conv_model(name: str) -> ConvModelSpec:
 def compile_forward(model, params, *, img: int, batch: int = 1,
                     chan: int = 3, **compile_kw):
     """Compile a registered model's graph (``core/engine.py:
-    compile_network``; ``compile_kw`` carries policy, cache, device...)."""
+    compile_network``; ``compile_kw`` carries policy, cache, jit,
+    device...)."""
     from repro_torch.core.engine import compile_network
     spec = model if isinstance(model, ConvModelSpec) else \
         get_conv_model(model)
@@ -61,7 +62,8 @@ def compile_forward(model, params, *, img: int, batch: int = 1,
 
 def bucket_compiler(model, params, *, img: int, chan: int = 3,
                     **compile_kw):
-    """One memoized compiled forward per batch-bucket width."""
+    """One memoized compiled forward per batch-bucket width
+    (``core/engine.py:BucketCompiler``; ``compile_kw`` as above)."""
     from repro_torch.core.engine import BucketCompiler
     spec = model if isinstance(model, ConvModelSpec) else \
         get_conv_model(model)

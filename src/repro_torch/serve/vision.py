@@ -4,7 +4,9 @@ fold-schedule engine.
 * batches form from a FIFO queue with **bucketed** widths
   (``serve/batcher.py``) — one compiled forward per bucket, all buckets
   sharing one ``ScheduleCache`` via ``BucketCompiler``, so fold planning
-  is pay-once across buckets;
+  is pay-once across buckets; on a CUDA device each bucket's forward is
+  one CUDA graph (``BucketCompiler``'s default ``jit``), captured at
+  ``warmup`` and replayed for every batch;
 * host→device staging **overlaps compute** with a double-buffered
   feeder: while the device runs batch k, batch k+1 is formed, copied into
   pinned host memory and sent with a non-blocking copy; the blocking point
@@ -122,21 +124,28 @@ class VisionEngine:
     same images: neither the fold kernels nor the head kernel
     (``kernels/dense.py``) let a row's sum order depend on the batch, so
     the bucket a batch is padded to changes no bit.
+
+    ``jit`` (default True) goes to the ``BucketCompiler``: on a CUDA device
+    each bucket's forward is a CUDA graph, captured by ``warmup`` (or a
+    bucket's first batch).  A staged batch is copied into the graph's
+    static input on the current stream, after the previous replay, and
+    each replay's logits come back as a tensor of their own, so batch k's
+    logits survive the dispatch of k + 1.
     """
 
     def __init__(self, params: Dict[str, Any], graph, *,
                  img: int, chan: int = 3, policy: str = "auto",
                  buckets: Sequence[int] = (1, 2, 4, 8),
                  cache: Optional[ScheduleCache] = None,
-                 head: Optional[Callable] = None,
+                 head: Optional[Callable] = None, jit: bool = True,
                  fuse_epilogues: bool = True, device: Any = "cuda",
                  precision: str = "fp32"):
         self.params = params
         self.batcher = ImageBatcher(BucketPolicy(buckets), img, chan)
         self.compiler = BucketCompiler(
             params, graph, img, chan=chan, policy=policy, cache=cache,
-            head=head, fuse_epilogues=fuse_epilogues, device=device,
-            precision=precision)
+            head=head, jit=jit, fuse_epilogues=fuse_epilogues,
+            device=device, precision=precision)
         self._ref_compiler: Optional[BucketCompiler] = None
         # compile the first bucket now: it resolves the device (raising
         # when a requested GPU is absent) before any request is taken
@@ -182,7 +191,7 @@ class VisionEngine:
         if self._ref_compiler is None:
             self._ref_compiler = BucketCompiler(
                 self.params, c.graph, c.img, chan=c.chan,
-                policy="reference", cache=c.cache, head=c.head,
+                policy="reference", cache=c.cache, head=c.head, jit=c.jit,
                 device=c.device, precision=c.precision, quant=c.quant)
         return self._ref_compiler
 
@@ -287,18 +296,20 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
                     width_mult: float = 0.0625, classes: int = 10,
                     policy: str = "auto",
                     buckets: Sequence[int] = (1, 2, 4, 8), seed: int = 0,
-                    device: Any = "cuda", precision: str = "fp32") -> dict:
+                    device: Any = "cuda", precision: str = "fp32",
+                    jit: bool = True) -> dict:
     """Serve a deterministic mixed-size random request stream through a
     registered model (``models/zoo.py``) with random weights made from
     ``seed``, and return ``metrics_dict()`` plus the ``workload`` block.
 
     Request sizes (1 .. the widest bucket) and images come from
     ``np.random.default_rng(seed)``; every request is submitted, then the
-    queue is drained.  Then each request's served logits are compared
-    with a direct forward of its own images through the same schedule
-    cache (and, for int8, the same ``QuantRecipe``): whether every request
-    matched bitwise, the largest difference and the largest reference
-    magnitude land under ``"verify"``."""
+    queue is drained through the bucket forwards (CUDA graphs unless
+    ``jit=False``).  Then each request's served logits are compared
+    with a direct eager forward (``jit=False``) of its own images through
+    the same schedule cache (and, for int8, the same ``QuantRecipe``):
+    whether every request matched bitwise, the largest difference and the
+    largest reference magnitude land under ``"verify"``."""
     from repro_torch.models.zoo import compile_forward, get_conv_model
     spec = get_conv_model(model)
     _, dev = resolve_execution(policy, device)     # raises without a GPU
@@ -306,7 +317,8 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     params = spec.init_params(gen.manual_seed(seed), width_mult=width_mult,
                               img=img, classes=classes, device=dev)
     engine = VisionEngine(params, spec.to_graph(), img=img, policy=policy,
-                          buckets=buckets, device=dev, precision=precision)
+                          buckets=buckets, jit=jit, device=dev,
+                          precision=precision)
     engine.warmup()
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, engine.batcher.policy.max_width + 1, requests)
@@ -320,7 +332,7 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     for req, im in zip(reqs, imgs):
         direct = compile_forward(spec, params, img=img, batch=im.shape[0],
                                  policy=policy, cache=engine.compiler.cache,
-                                 device=dev, precision=precision,
+                                 jit=False, device=dev, precision=precision,
                                  quant=engine.compiler.quant)
         with torch.inference_mode():
             want = direct(params, torch.from_numpy(im).to(dev))
@@ -333,5 +345,5 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     d["workload"] = {"model": model, "width_mult": width_mult, "img": img,
                      "classes": classes, "requests": int(requests),
                      "policy": policy, "precision": precision,
-                     "seed": seed, "device": str(dev)}
+                     "jit": jit, "seed": seed, "device": str(dev)}
     return d

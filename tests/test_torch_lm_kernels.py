@@ -260,6 +260,62 @@ def test_cuda_conv1d_kernel_is_bitwise_its_plain_version(cuda_device, t, d,
     assert torch.equal(got, t_conv.conv1d_causal_plain(x, w))
 
 
+# the kernel's two paths (csrc/conv1d_causal.cu): (B, T, D, K, a storage
+# offset of one element, the cache-prefixed form).  The vector path takes
+# D a multiple of its 16-byte word (8 bf16, 4 fp32) on 16-byte boundaries,
+# over tiles of 8 steps; the scalar path the rest (D = 300 in bf16 only)
+CONV_PATH_CASES = [
+    (2, 2048, 4224, 4, False, False),   # zamba2's prefill shape
+    (2, 203, 4224, 4, False, False),    # T not a multiple of the tile
+    (2, 203, 256, 1, False, False),     # K = 1
+    (2, 203, 256, 4, False, False),
+    (2, 203, 256, 8, False, False),     # K = KMAX
+    (2, 1, 256, 4, False, False),       # T = 1
+    (1, 2, 256, 4, False, False),       # T < K - 1
+    (1, 5, 256, 8, False, False),
+    (1, 8, 256, 8, False, False),       # one whole tile
+    (2, 77, 300, 4, False, False),      # the scalar tail in bf16
+    (2, 77, 267, 1, False, False),      # D = 8k + 3
+    (2, 77, 267, 4, False, False),
+    (2, 77, 267, 8, False, False),
+    (1, 2, 267, 4, False, False),
+    (2, 77, 4224, 4, True, False),      # x off the 16-byte grid
+    (2, 77, 256, 8, True, False),
+    (2, 16, 4224, 4, False, True),      # the model's cache prefix
+    (2, 16, 300, 4, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CONV_PATH_CASES)
+def test_cuda_conv1d_kernel_paths_are_bitwise_the_plain_version(
+        cuda_device, case, dtype):
+    """Each path of the conv1d kernel bitwise its plain version, the path
+    the launcher takes being the one the case is for; a bf16 x with its w
+    in bf16 (read as it is, widened in the kernel) and in fp32."""
+    b, t, d, k, offset, prefix = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((b, t + (k - 1 if prefix else 0), d))
+    w = torch.from_numpy(rng.standard_normal((k, d))).to(cuda_device, dt)
+    x = torch.from_numpy(x).to(cuda_device, dt)
+    if offset:
+        buf = torch.empty(x.numel() + 1, device=cuda_device, dtype=dt)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
+    word = 16 // x.element_size()
+    assert t_conv.vector_path(x, w) == (d % word == 0 and not offset)
+    drop = k - 1 if prefix else 0      # the cached rows' outputs
+    want = t_conv.conv1d_causal_plain(x, w)[:, drop:]
+    for wk in [w] if dtype == "float32" else [w, w.float()]:
+        before = t_conv.launch_counts()[t_conv.KERNEL]
+        got = t_conv.launch(x, wk)
+        torch.cuda.synchronize()
+        assert t_conv.launch_counts()[t_conv.KERNEL] == before + 1
+        assert got.dtype == dt and torch.equal(got[:, drop:], want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ATTN_CASES + CUDA_ATTN_CASES)
