@@ -64,6 +64,15 @@ Phases (any failed check raises, and the script exits non-zero):
 12. The psum path: ``ops.conv2d(impl="fold_ws_psum")`` over VGG-16's 13
     layers at 224, batch 1, and the WS spill of an unfused layer, each
     against the plain walk on its own inputs and plan.
+12b. foldlint on the card: ``python -m repro_torch.analysis.foldlint
+    --model all --device cuda`` at full width, img 32, batch 4, and
+    VGG-16 at 224, batch 1: no error finding (graph lint, fusion
+    legality, every conv's plan, launch index maps and CTA tile at the
+    card's SM count), and the launch audit's fold calls per forward (13
+    WS at 224; 2 WS + 11 OS; 5 WS + 15 OS; 17 DW + 7 WS + 28 OS); then
+    the ``[verify]`` summary: the host ms each model's first compile
+    spent in ``compile_network``'s default ``verify=True``, and the memo
+    hits of a recompile.
 13. LM kernels: the causal conv1d kernel bitwise against its plain
     version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
     K = 1, 2, 3 and 8, T < K - 1, D = 8k + 3 and an x off the 16-byte
@@ -77,17 +86,26 @@ Phases (any failed check raises, and the script exits non-zero):
 15. Consistency: the same model in fp32, prefill 32 tokens and decode 8,
     against ``forward`` on the 40 within 2e-3·max|logits|.
 16. Token serving: ``BatchEngine`` at full width, bf16, batch 4, 8
-    requests of 16 prompt and 16 new tokens: none lost; decode launches
-    no kernel.  A functional check; its tokens/s is no serving rate.
+    requests of 16 prompt and 16 new tokens, its decode step captured as
+    one CUDA graph: none lost; decode launches no kernel.  A functional
+    check; its tokens/s is no serving rate.  Then the same requests
+    through a captured engine and an eager one (``make_decode_step``'s
+    functional step): every served token and each decode call's logits
+    bitwise equal, the captured engine's cache at fixed addresses, one
+    capture; the ``[decode]`` line: the decode step's host ms beside its
+    device work (a graph replay) and busy share, captured and eager, its
+    graph nodes, and the prompt stepping's ms, captured and eager.
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
-    then the prefill replayed as a CUDA graph and the prefill and decode
-    steps under ``torch.profiler``: last, because once the profiler has
-    run every kernel of the process reads slower.
+    then the prefill replayed as a CUDA graph and the prefill and the
+    captured decode steps under ``torch.profiler``: last, because once
+    the profiler has run every kernel of the process reads slower.
 
 Every conv forward of phases 3, 4, 6, 7 and 10 is a compiled network
-at the default ``jit``: one CUDA graph, captured on its first call.  Its
+at the default ``jit`` and ``verify``: its graph, plans, launches and CTA
+tiles proven before a kernel is bound (the ``[verify]`` lines), then one
+CUDA graph, captured on its first call.  Its
 launches are counted on its eager forward (``net.eager``) and on its
 capture, which must agree (a replay ticks no counter), and its output
 must be bitwise the eager one; each such cell prints the jitted
@@ -189,13 +207,12 @@ def time_graph_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def graph_kernels(torch, fn, what):
-    """Device kernels in one call of ``fn``, which must be one: the call
-    captured as a CUDA graph (after one eager warm-up call) and its nodes
-    counted by ``cuGraphGetNodes`` of ``libcuda`` (the wrappers allocate
-    through the caching allocator, which adds no node); None where this
-    torch cannot hand the captured graph out.  ``fn`` runs eagerly, as
-    for ``time_graph_ms``."""
+def graph_nodes(torch, fn):
+    """The nodes of one call of ``fn`` captured as a CUDA graph (after one
+    eager warm-up call), counted by ``cuGraphGetNodes`` of ``libcuda``
+    (the caching allocator adds no node); None where this torch cannot
+    hand the captured graph out.  ``fn`` runs eagerly, as for
+    ``time_graph_ms``."""
     import ctypes
     fn()
     torch.cuda.synchronize()
@@ -208,7 +225,13 @@ def graph_kernels(torch, fn, what):
     count = ctypes.c_size_t(0)
     err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
         ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
-    nodes = count.value if err == 0 else None
+    return count.value if err == 0 else None
+
+
+def graph_kernels(torch, fn, what):
+    """Device kernels in one call of ``fn``, which must be one
+    (``graph_nodes``)."""
+    nodes = graph_nodes(torch, fn)
     check(nodes in (None, 1), f"{what}: {nodes} kernels in one call")
     return nodes
 
@@ -779,6 +802,17 @@ def forward_counts(torch, net, params, x):
 
 # one row per conv cell: the jitted forward, the eager one, device work
 JIT_ROWS = []
+# one row per compile of a conv model: the host ms compile_network's
+# verify (the default) took, a first compile's proofs or the memo's lookups
+VERIFY_ROWS = []
+
+
+def note_verify(what, net):
+    row = {"compile": what, "verify_ms": 1e3 * net.verify_s,
+           "conv_layers": len(net.layer_schedules)}
+    VERIFY_ROWS.append(row)
+    print(f"[verify] {what}: {row['verify_ms']:.3f} ms verifying "
+          f"{row['conv_layers']} conv layers")
 
 
 def jit_cell(torch, what, net, params, x, reps):
@@ -828,6 +862,8 @@ def phase_model_224(torch, dev, params):
     x4 = torch.randn(4, 3, 224, 224, device=dev, generator=gen)
     nets = {b: vgg.compile_forward(params, img=224, batch=b, device=dev)
             for b in (1, 4)}
+    for b, net in nets.items():
+        note_verify(f"vgg16 224 b{b} (first compile)", net)
     fr = nets[1].fold_reuse()
     print(f"[model224] fold_reuse {fr}")
     check((fr["conv_layers"], fr["distinct_schedules"], fr["hits"],
@@ -861,6 +897,8 @@ def phase_model_224(torch, dev, params):
     trunks = {b: compile_network(params, vgg.to_graph(include_head=False),
                                  (b, 3, 224, 224), device=dev)
               for b in (1, 4)}
+    for b, net in trunks.items():
+        note_verify(f"vgg16 224 trunk b{b} (the memo)", net)
     with torch.inference_mode():
         t4 = trunks[4](params, x4)
         for i in range(4):
@@ -877,6 +915,7 @@ def phase_model_32(torch, dev):
     params = vgg.init_params(gen, img=32, device=dev)
     x = torch.randn(4, 3, 32, 32, device=dev, generator=gen)
     net = vgg.compile_forward(params, img=32, batch=4, device=dev)
+    note_verify("vgg16 32 b4 (first compile)", net)
     print(net.describe())
     y, counts = forward_counts(torch, net, params, x)
     print(f"[model32] batch 4: launches {counts}")
@@ -942,6 +981,7 @@ def model_forwards(torch, dev, module, params, x4, counts_want, reuse_want,
     out, nets = {}, {}
     for b in (1, 4):
         nets[b] = module.compile_forward(params, img=32, batch=b, device=dev)
+        note_verify(f"{what} 32 b{b} (first compile)", nets[b])
     fr = nets[4].fold_reuse()
     print(f"[{what}] fold_reuse {fr}")
     print(nets[4].describe())
@@ -1317,6 +1357,7 @@ def int8_model_forwards(torch, dev, module, params, img, x16, counts_want,
         kw = dict(img=img, batch=b, device=dev, precision="int8",
                   quant=recipe)
         net = module.compile_forward(params, **kw)
+        note_verify(f"{what} int8 b{b} (first compile)", net)
         if b == 4:
             print(net.describe())
             check(all(str(s.key).endswith("/int8")
@@ -1752,13 +1793,15 @@ def phase_prefill(torch, dev):
     """zamba2-1.2b at full width, bf16 policy, random weights: prefill of
     B=2 x 2048 tokens through ``make_prefill_step``, 38 conv1d launches
     per prefill (one per Mamba2 layer).  Returns the summary, the prefill
-    call and a call of 4 decode steps after it, to be profiled once the
-    launch counts are read."""
+    call and a call of 4 decode steps after it (``BatchEngine``'s
+    captured step, one CUDA graph), to be profiled once the launch counts
+    are read."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import conv1d_causal as cc
     from repro_torch.models import api
     from repro_torch.models.common import DTypePolicy
-    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.serve.engine import CapturedDecode
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
     cfg = get_config(ZAMBA)
     params = lm_params(torch, dev, cfg, DTypePolicy(), SEED + 23)
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
@@ -1800,13 +1843,15 @@ def phase_prefill(torch, dev):
     print(f"[prefill] {out['prefill_ms']:.3f} ms per prefill (eager, host "
           f"clock), {out['prompt_tokens_per_s']:.1f} prompt tokens/s")
 
+    # 4 decode steps after the prefill through the engine's captured step,
+    # each read back as the engine reads it (its capture on the first
+    # call: the warm-up outside the profile)
+    decoder = CapturedDecode(make_decode_step(cfg, donate=True), dev)
+
     def decode():
-        nxt, c = tok, cache
-        with torch.inference_mode():
-            for i in range(4):
-                lg, c = api.decode_step(params, cfg, nxt, c, PREFILL_T + i)
-                nxt = lg.argmax(dim=-1)
-        torch.cuda.synchronize()
+        nxt = tok.cpu()
+        for i in range(4):
+            nxt = decoder(params, nxt, cache, PREFILL_T + i)[0].cpu()
     return out, run, decode
 
 
@@ -1835,9 +1880,9 @@ def profile_device(torch, fn, top=6):
 def phase_lm_device(torch, pre, prefill_run, decode_run):
     """Where the LM path's time goes, once the main path's counts are
     read: the prefill replayed as a CUDA graph (its device work and busy
-    share), and the prefill and 4 decode steps under ``torch.profiler``
-    (device time by kernel; the decode steps' host-clock time beside
-    their device time)."""
+    share), and the prefill and 4 captured decode steps under
+    ``torch.profiler`` (device time by kernel; the decode steps' host-clock
+    time beside their device time)."""
     pre["device_ms"] = time_graph_ms(torch, prefill_run, 1)
     pre["busy_share"] = pre["device_ms"] / pre["prefill_ms"]
     print(f"[prefill] device work {pre['device_ms']:.3f} ms per prefill "
@@ -1865,9 +1910,10 @@ def phase_lm_device(torch, pre, prefill_run, decode_run):
                           for r in d["top_kernels"][:4]))
     if dec["device_ms"] is not None:
         dec["busy_share"] = dec["device_ms"] / dec["step_ms"]
-        print(f"[profile] decode step (B={PREFILL_B}, after the prefill): "
-              f"{dec['step_ms']:.3f} ms host clock, {dec['device_ms']:.3f} "
-              f"ms of kernels: busy share {dec['busy_share']:.3f}")
+        print(f"[profile] captured decode step (B={PREFILL_B}, after the "
+              f"prefill): {dec['step_ms']:.3f} ms host clock, "
+              f"{dec['device_ms']:.3f} ms of kernels: busy share "
+              f"{dec['busy_share']:.3f}")
     return dec
 
 
@@ -1909,9 +1955,10 @@ def phase_consistency(torch, dev):
 def phase_lm_serving(torch, dev):
     """``BatchEngine`` at full width (what ``python -m repro_torch.launch.
     serve --full`` runs), bf16, batch 4: 8 requests, prompt 16, 16 new
-    tokens each.  A functional check: so few tokens are dominated by
-    prompt stepping and refill, so the rate it prints is no serving
-    throughput."""
+    tokens each, through its captured decode step.  A functional check:
+    so few tokens are dominated by prompt stepping and refill, so the
+    rate it prints is no serving throughput.  Then the capture against
+    the eager step (``decode_capture``)."""
     from repro_torch.serve.engine import token_serving_summary
     d = token_serving_summary(ZAMBA, full=True, batch=4, max_len=64,
                               prompt_len=16, new_tokens=16, requests=8,
@@ -1924,7 +1971,166 @@ def phase_lm_serving(torch, dev):
           f"(a functional check's reading, not a serving rate)")
     check(d["requests_done"] == 8 and d["requests_lost"] == 0
           and d["tokens"] == 8 * 16, "token serving lost requests")
+    d["decode"] = decode_capture(torch, dev)
     return d
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def decode_capture(torch, dev):
+    """The same 8 requests (prompt 16, 16 new tokens, batch 4, full width,
+    bf16) served by a ``BatchEngine`` through its captured decode step and
+    by one whose step is ``make_decode_step``'s functional eager step:
+    every served token and each decode call's logits bitwise equal, the
+    captured engine's cache tensors at the same addresses throughout, one
+    capture.  Then the decode step's host-clock ms (the engines' own
+    ``decode_s``, each step ending in the readback of its tokens) beside
+    its device work (the donated step captured once and its graph
+    replayed between CUDA events) and the busy share, the graph's nodes
+    per step, and the prompt-stepping ms of both engines."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.serve import engine as se
+    from repro_torch.serve.steps import make_decode_step
+    cfg = get_config(ZAMBA)
+    params = lm_params(torch, dev, cfg, DTypePolicy(), SEED + 28)
+    functional = make_decode_step(cfg)
+    runs = {}
+    for what in ("captured", "eager"):
+        eng = se.BatchEngine(cfg, params, batch=4, max_len=64, device=dev)
+        captured = eng.decode
+        if what == "eager":
+            eng.decode = lambda p, tok, cache, pos: functional(
+                p, tok.to(dev), cache, pos)
+        # each call's logits copied into rows made beforehand, so the
+        # recording allocates nothing inside the timed steps
+        step, logits = eng.decode, torch.empty(
+            (256, 4, cfg.padded_vocab), device=dev)
+        calls = [0]
+
+        def recorded(*args, step=step, logits=logits, calls=calls):
+            out = step(*args)
+            logits[calls[0]].copy_(out[1])
+            calls[0] += 1
+            return out
+        eng.decode = recorded
+        cache = eng.cache
+        ptrs = [t.data_ptr() for t in _leaves(cache)]
+        rng = np.random.default_rng(SEED + 29)
+        reqs = [se.Request(rid=i, prompt=rng.integers(0, cfg.vocab, 16,
+                                                      dtype=np.int32),
+                           max_new_tokens=16) for i in range(8)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        runs[what] = {
+            "elapsed_s": time.perf_counter() - t0,
+            "tokens": [r.output for r in reqs],
+            "logits": logits[:calls[0]],
+            "step_ms": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
+            "decode_steps": eng.decode_steps,
+            "prompt_ms": 1e3 * eng.prefill_s,
+            "prompt_calls": eng.prefill_calls,
+            "fixed": eng.cache is cache
+            and [t.data_ptr() for t in _leaves(eng.cache)] == ptrs,
+            "captures": captured.captures}
+    cap, eag = runs["captured"], runs["eager"]
+    check(all(len(t) == 16 for t in cap["tokens"]),
+          "decode capture: a request did not finish")
+    check(cap["tokens"] == eag["tokens"],
+          "decode capture: served tokens differ from the eager engine's")
+    check(len(cap["logits"]) == len(eag["logits"])
+          and torch.equal(cap["logits"], eag["logits"]),
+          "decode capture: a decode call's logits differ from the eager "
+          "step's")
+    check(cap["fixed"], "decode capture: the cache moved")
+    check(cap["captures"] == 1 and eag["captures"] == 0,
+          f"decode capture: {cap['captures']} captures")
+    # the step's device work and nodes: the donated step on a scratch
+    # cache of the engine's shapes
+    donated = make_decode_step(cfg, donate=True)
+    scratch = api.init_cache(cfg, 4, 64, device=dev)
+    tok = torch.zeros(4, dtype=torch.long, device=dev)
+    pos = torch.tensor(16, device=dev)
+    with torch.inference_mode():
+        one = lambda: donated(params, tok, scratch, pos)  # noqa: E731
+        device_ms = time_graph_ms(torch, one, 5)
+        nodes = graph_nodes(torch, one)
+    out = {"step_ms": cap["step_ms"], "eager_step_ms": eag["step_ms"],
+           "device_ms": device_ms, "busy_share": device_ms / cap["step_ms"],
+           "eager_busy_share": device_ms / eag["step_ms"],
+           "graph_nodes": nodes, "decode_steps": cap["decode_steps"],
+           "prompt_ms": cap["prompt_ms"],
+           "eager_prompt_ms": eag["prompt_ms"],
+           "prompt_calls": cap["prompt_calls"],
+           "calls_bitwise": len(cap["logits"]),
+           "elapsed_s": cap["elapsed_s"],
+           "eager_elapsed_s": eag["elapsed_s"]}
+    print(f"[decode] {ZAMBA} B=4 bf16: step {out['step_ms']:.3f} ms host "
+          f"clock captured, {out['eager_step_ms']:.3f} eager; device work "
+          f"{device_ms:.3f} ms (graph replay): busy share "
+          f"{out['busy_share']:.3f} captured, {out['eager_busy_share']:.3f}"
+          f" eager; {nodes} graph nodes a step; prompt stepping "
+          f"{out['prompt_ms']:.3f} ms captured, {out['eager_prompt_ms']:.3f}"
+          f" eager ({out['prompt_calls']} calls); "
+          f"{out['calls_bitwise']} decode calls' logits and every served "
+          f"token bitwise the eager engine's; cache fixed; 1 capture")
+    return out
+
+
+# fold calls per forward by kernel that foldlint's launch audit must count
+FOLDLINT_LAUNCHES = {
+    ("vgg16", 224, 1): {"fold_conv_ws": 13},
+    ("vgg16", 32, 4): {"fold_conv_ws": 2, "fold_conv_os": 11},
+    ("resnet18", 32, 4): {"fold_conv_ws": 5, "fold_conv_os": 15},
+    ("mobilenetv2", 32, 4): {"fold_conv_dw": 17, "fold_conv_ws": 7,
+                             "fold_conv_os": 28}}
+
+
+def phase_foldlint(torch, dev):
+    """``python -m repro_torch.analysis.foldlint --model all --device cuda``
+    at full width, batch 4 and img 32 (the shapes phases 4, 6 and 7
+    compile), and VGG-16 at 224, batch 1 (phase 3's): no error finding,
+    every conv's plan, launch and CTA tile (at the card's SM count)
+    proven, and the launch audit's fold calls per forward by kernel."""
+    import contextlib
+    import io
+    from repro_torch.analysis import foldlint
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = foldlint.main(["--model", "all", "--device", "cuda",
+                            "--width-mult", "1.0", "--batch", "4",
+                            "--json"])
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    rows.append(foldlint.lint_model("vgg16", img=224, width_mult=1.0,
+                                    batch=1, classes=1000, device=dev))
+    seconds = time.perf_counter() - t0
+    for r in rows:
+        key = (r["model"], r["input_shape"][2], r["input_shape"][0])
+        rep = r["report"]
+        print(f"[foldlint] {key[0]} {key[1]} b{key[2]} on {r['device']} "
+              f"({r['sm_count']} SMs): ok={r['ok']}, {r['conv_layers']} "
+              f"conv layers, {r['fold_calls']} fold calls "
+              f"{r['launches']}, {rep['errors']} errors, "
+              f"{rep['warnings']} warnings")
+        check(r["ok"] and rep["errors"] == 0,
+              f"foldlint {key}: {rep['findings']}")
+        check(r["launches"] == FOLDLINT_LAUNCHES[key]
+              and r["fold_calls"] == r["conv_layers"],
+              f"foldlint {key}: the audit counted {r['launches']}")
+    check(rc == 0, f"foldlint exited {rc}")
+    print(f"[foldlint] 4 networks in {seconds:.3f} s")
+    return {"rows": rows, "seconds": seconds}
 
 
 def main() -> int:
@@ -2071,6 +2277,18 @@ def main() -> int:
     print(f"[psum path] launches {cw.launch_counts()}")
     check(launches["fold_conv_psum"] == 14,
           "expected 14 psum launches: 13 VGG layers and the WS spill")
+
+    # -- foldlint on the card (not a main path) ----------------------------
+    report["foldlint"] = phase_foldlint(torch, dev)
+    first = [r for r in VERIFY_ROWS if "first compile" in r["compile"]]
+    memo = [r for r in VERIFY_ROWS if "memo" in r["compile"]]
+    print(f"[verify] compile_network(verify=True): first compiles "
+          + ", ".join(f"{r['compile'].split(' (')[0]} {r['verify_ms']:.3f}"
+                      for r in first)
+          + " ms; memo hits " + ", ".join(
+              f"{r['compile'].split(' (')[0]} {r['verify_ms']:.3f}"
+              for r in memo) + " ms")
+    report["verify"] = VERIFY_ROWS
 
     # -- int8 and psum kernel times (not a main path) ----------------------
     i8_rows = {

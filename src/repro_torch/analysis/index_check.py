@@ -1,0 +1,317 @@
+"""Symbolic index-map coverage and race analyzer, and the CTA-tile check
+(the JAX package's ``analysis/index_check.py``, plus the card's own launch
+geometry).
+
+A ``FoldKernelSpec`` (``kernels/conv2d_ws.py:fold_kernel_spec``) exposes a
+launch's fold grid and every operand's block index map as data.
+This module enumerates the grid x index-map product — no tracing, no
+arrays — and proves the mapping discipline the paper's loop-nest
+decomposition assumes:
+
+  index.rank          an index map returns the wrong number of indices
+  index.block-align   an operand's array shape is not an exact multiple
+                      of its block (a partial edge tile would clamp)
+  index.oob           a grid point addresses a block beyond the (padded)
+                      array bounds
+  index.rows-window   the in-kernel row window of the last P fold runs
+                      past the padded input rows
+  index.group-offset  a WS/OS input or weight block is not addressed by
+                      the group of the current filter fold
+  index.dw-offset     a depthwise input/weight block is not addressed by
+                      the grid's channel fold
+  index.write-race    two grid points alias the same output block while
+                      differing on an axis that is neither the depth-fold
+                      (reduction) axis nor a disjoint in-block sub-slice
+                      axis — the second visit clobbers the first
+  index.coverage      the set of output tiles written differs from the
+                      exact tiling of the padded output (missed or
+                      duplicated tiles)
+
+Exactly-once output writes follow from ``write-race`` + ``coverage``:
+every tile is visited, and revisits happen only along axes that
+accumulate into (or sub-slice) the same resident block.
+
+On the card a WS / OS / psum launch runs the fold grid as CTA tiles
+(``kernels/conv2d_ws.py:fold_tile``, the mirror of ``launch_tile`` in
+``csrc/fold_conv.cu``): output pixels flattened over (n, p, q) in tiles of
+``bm``, each group's filters in tiles of ``bn``.  ``check_launch_tile``
+proves that geometry, CTA by CTA, as the kernel derives it:
+
+  tile.shape          the tile's fields disagree with its entry of
+                      ``TILES`` or with the launch (pixel count, groups)
+  tile.m-coverage     the CTAs' M-tile ranges do not cover every output
+                      pixel exactly once
+  tile.n-coverage     the filter tiles do not cover every group's filters
+                      exactly once
+  tile.group-straddle a filter tile spans two groups
+  tile.fold-coverage  psum's depth folds (or a WS / OS CTA's one fold) do
+                      not cover the group's depth exactly
+
+with the tile's shared memory proven by ``plan_check``'s residency rule
+(``plan.smem-overflow``).
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Dict, Iterable, Iterator, Optional, Set, Tuple
+
+from repro_torch.analysis.plan_check import check_tile_residency
+from repro_torch.analysis.report import Report
+from repro_torch.kernels.conv2d_ws import (TILES, FoldKernelSpec, FoldTile,
+                                           OperandSpec, fold_tile)
+
+__all__ = ["check_kernel_spec", "check_launch_tile", "MAX_POINTS"]
+
+# full enumeration cap; past it each grid axis is sampled at its
+# boundary/middle strata (races found in a sample are still real — only
+# the coverage proof needs exhaustiveness and is skipped)
+MAX_POINTS = 200_000
+
+GridPoint = Tuple[int, ...]
+
+
+def _axis_samples(extent: int) -> Iterable[int]:
+    if extent <= 6:
+        return range(extent)
+    return sorted({0, 1, extent // 2, extent - 2, extent - 1})
+
+
+def _grid_points(grid: Tuple[int, ...]) -> Tuple[Iterator[GridPoint], bool]:
+    total = math.prod(grid)
+    if total <= MAX_POINTS:
+        return itertools.product(*(range(g) for g in grid)), True
+    return itertools.product(*(_axis_samples(g) for g in grid)), False
+
+
+def _eval_map(op: OperandSpec, pt: GridPoint) -> Tuple[int, ...]:
+    return tuple(int(i) for i in op.index_map(*pt))
+
+
+def check_kernel_spec(spec: FoldKernelSpec, where: str = "kernel") -> Report:
+    """Prove in-bounds reads, correct group offsets, write-race freedom,
+    and exactly-once output coverage for one kernel launch."""
+    rep = Report()
+    axes = {name: i for i, name in enumerate(spec.grid_axes)}
+    operands = (*spec.inputs, spec.output)
+
+    # static block geometry first — a malformed operand poisons the rest
+    for op in operands:
+        loc = f"{where}:{op.role}"
+        if len(op.block) != len(op.array_shape):
+            rep.add("index.rank", loc,
+                    f"block rank {len(op.block)} != array rank "
+                    f"{len(op.array_shape)}")
+            return rep
+        for d, (b, a) in enumerate(zip(op.block, op.array_shape)):
+            if b < 1 or a % b:
+                rep.add("index.block-align", loc,
+                        f"dim {d}: block {b} does not tile array extent "
+                        f"{a} exactly — an edge tile would clamp and "
+                        f"break the fold geometry")
+
+    # the in-kernel row window of the last P fold must stay inside the
+    # padded rows: row0 + (p_block-1)*stride + R <= x_rows
+    g_p = spec.grid[axes["p"]]
+    rows_top = ((g_p - 1) * spec.p_block * spec.stride
+                + (spec.p_block - 1) * spec.stride + spec.r)
+    if rows_top > spec.x_rows:
+        rep.add("index.rows-window", f"{where}:x",
+                f"last P fold reads input rows up to {rows_top} but the "
+                f"padded input has {spec.x_rows} rows")
+    if not rep.ok:
+        return rep
+
+    points, exhaustive = _grid_points(spec.grid)
+    allowed: Set[int] = set(spec.inner_sliced_axes)
+    if spec.reduction_axis is not None:
+        allowed.add(spec.reduction_axis)
+    writers: Dict[Tuple[int, ...], GridPoint] = {}
+    reported: Set[Tuple[str, str]] = set()   # (code, operand) dedupe
+
+    def add_once(code: str, role: str, message: str) -> None:
+        if (code, role) not in reported:
+            reported.add((code, role))
+            rep.add(code, f"{where}:{role}", message)
+
+    dw = spec.dataflow == "depthwise"
+    for pt in points:
+        for op in operands:
+            try:
+                idx = _eval_map(op, pt)
+            except TypeError:
+                add_once("index.rank", op.role,
+                         f"index map rejects the {len(spec.grid)}-d grid "
+                         f"point {pt} (wrong arity)")
+                return rep
+            if len(idx) != len(op.block):
+                add_once("index.rank", op.role,
+                         f"index map returned {len(idx)} indices for a "
+                         f"rank-{len(op.block)} block at grid {pt}")
+                continue
+            for d, (i, b, a) in enumerate(zip(idx, op.block,
+                                              op.array_shape)):
+                if i < 0 or (i + 1) * b > a:
+                    add_once("index.oob", op.role,
+                             f"grid {pt} -> block index {idx}: dim {d} "
+                             f"addresses elements [{i * b}, {(i + 1) * b})"
+                             f" of an extent-{a} array")
+            # per-group offset discipline (paper: a depth fold streams
+            # channels of the group its filter fold belongs to)
+            if dw:
+                cc = pt[axes["c"]]
+                if op.role == "x" and idx[1] != cc:
+                    add_once("index.dw-offset", op.role,
+                             f"grid {pt}: depthwise input reads channel "
+                             f"fold {idx[1]}, not the grid's fold {cc}")
+                if op.role == "w" and idx[0] != cc:
+                    add_once("index.dw-offset", op.role,
+                             f"grid {pt}: depthwise weights read filter "
+                             f"fold {idx[0]}, not the grid's fold {cc}")
+            else:
+                f, cc = pt[axes["nf"]], pt[axes["c"]]
+                if op.role == "x":
+                    want = (f // spec.nfg_folds) * spec.cg_folds + cc
+                    if idx[1] != want:
+                        add_once("index.group-offset", op.role,
+                                 f"grid {pt}: input reads channel fold "
+                                 f"{idx[1]} but filter fold {f} lives in "
+                                 f"group {f // spec.nfg_folds} (want "
+                                 f"fold {want})")
+                if op.role == "w" and idx[:2] != (f, cc):
+                    add_once("index.group-offset", op.role,
+                             f"grid {pt}: weight block {idx[:2]} != the "
+                             f"grid's (filter, depth) folds ({f}, {cc})")
+        out_idx = _eval_map(spec.output, pt)
+        first = writers.setdefault(out_idx, pt)
+        if first is not pt:
+            diff = {d for d in range(len(pt)) if pt[d] != first[d]}
+            if not diff <= allowed:
+                bad = sorted(diff - allowed)
+                names = ", ".join(spec.grid_axes[d] for d in bad)
+                add_once("index.write-race", "out",
+                         f"grid points {first} and {pt} both write output "
+                         f"block {out_idx} but differ on non-reduction "
+                         f"axis ({names}): the later visit clobbers the "
+                         f"earlier one")
+
+    if exhaustive:
+        tiles = tuple(a // b for a, b in zip(spec.output.array_shape,
+                                             spec.output.block))
+        expect = math.prod(tiles)
+        if len(writers) != expect:
+            missing = expect - len(writers)
+            example = next((t for t in itertools.product(
+                *(range(t) for t in tiles)) if t not in writers), None)
+            rep.add("index.coverage", f"{where}:out",
+                    f"{len(writers)} of {expect} output tiles written "
+                    f"({missing} {'missed' if missing > 0 else 'extra'}"
+                    f"{f', e.g. {example}' if example else ''}): the "
+                    f"padded output is not tiled exactly once")
+    return rep
+
+
+def _ranges_cover(ranges, extent: int) -> Tuple[int, int]:
+    """(elements of [0, extent) covered by no range, by more than one);
+    ``ranges`` are half-open, clipped to ``extent``."""
+    missed = twice = cur = 0
+    for lo, hi in sorted((max(lo, 0), min(hi, extent)) for lo, hi in ranges
+                         if min(hi, extent) > max(lo, 0)):
+        missed += max(0, lo - cur)
+        twice += max(0, min(cur, hi) - lo)
+        cur = max(cur, hi)
+    return missed + extent - cur, twice
+
+
+def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
+                      where: str = "kernel",
+                      tile: Optional[FoldTile] = None) -> Report:
+    """Prove the CTA tile of one WS / OS / psum launch (``fold_tile``'s
+    choice at ``sm_count`` SMs, or ``tile``): it fits the shared memory
+    of a CTA (``plan_check.check_tile_residency``; no tile that fits is
+    the same finding), every output pixel and every filter of the launch
+    falls in exactly one CTA tile, no filter tile straddles a group, and
+    psum's depth folds cover the depth exactly.  A depthwise launch has
+    no CTA tile: nothing to prove."""
+    rep = Report()
+    if spec.dataflow == "depthwise":
+        return rep
+    if tile is None:
+        try:
+            tile = fold_tile(spec, n, sm_count)
+        except ValueError as e:
+            rep.add("plan.smem-overflow", where, str(e))
+            return rep
+    rep.extend(check_tile_residency(tile, where))
+    loc = f"{where}:tile"
+    pool = spec.epilogue.pool == "max2"
+    po, qo = (spec.p_pad // 2, spec.q // 2) if pool else (spec.p_pad, spec.q)
+    m = (4 if pool else 1) * n * po * qo
+    nfg = spec.nf_pad // spec.groups
+    tm, tn, mg, ng = TILES[tile.index]
+    want = (tm, tn, tm * mg, tn * ng, mg * ng, m)
+    got = (tile.tm, tile.tn, tile.bm, tile.bn, tile.threads, tile.m)
+    if got != want:
+        rep.add("tile.shape", loc,
+                f"tile {tile.index} reads (tm, tn, bm, bn, threads, M) = "
+                f"{got}, but TILES and the launch give {want}")
+        return rep
+
+    # M: a WS / psum CTA walks m_per_cta consecutive M tiles, an OS CTA
+    # owns one; the kernel clips the last CTA's walk at the M-tile count
+    m_tiles = -(-m // tile.bm)
+    per = 1 if spec.dataflow == "output_stationary" else tile.m_per_cta
+    if per < 1 or tile.m_tiles != m_tiles:
+        rep.add("tile.m-coverage", loc,
+                f"{tile.m_tiles} M tiles of {tile.bm} pixels with "
+                f"{per} a CTA, but the launch has {m} pixels "
+                f"({m_tiles} tiles)")
+    else:
+        ctas = [(bx * per * tile.bm, min(m_tiles, (bx + 1) * per)
+                 * tile.bm) for bx in range(tile.grid[0])]
+        missed, twice = _ranges_cover(ctas, m)
+        if missed or twice:
+            rep.add("tile.m-coverage", loc,
+                    f"{tile.grid[0]} CTAs x {per} M tiles of {tile.bm} "
+                    f"cover the {m} output pixels with {missed} missed "
+                    f"and {twice} written twice")
+
+    # filters: CTA y is filter tile y % tpg of group y // tpg, its real
+    # filters clipped at the tile's group width (``filter_tile``)
+    tpg = tile.n_tiles // max(tile.groups, 1)
+    if tile.groups < 1 or tile.n_tiles % tile.groups or tile.nfg < 1:
+        rep.add("tile.n-coverage", loc,
+                f"{tile.n_tiles} filter tiles over {tile.groups} groups "
+                f"of {tile.nfg} filters")
+        return rep
+    ranges = []
+    for y in range(tile.n_tiles):
+        grp, t = divmod(y, tpg)
+        f0 = grp * tile.nfg + t * tile.bn
+        ranges.append((f0, f0 + max(0, min(tile.bn, tile.nfg - t * tile.bn))))
+    missed, twice = _ranges_cover(ranges, spec.nf_pad)
+    past = max((hi for _, hi in ranges), default=0) > spec.nf_pad
+    if missed or twice or past:
+        rep.add("tile.n-coverage", loc,
+                f"{tile.n_tiles} filter tiles of {tile.bn} cover the "
+                f"{spec.nf_pad} filters with {missed} missed, {twice} "
+                f"computed twice{' and filters past the last' if past else ''}")
+    straddle = [(lo, hi) for lo, hi in ranges
+                if hi > lo and lo // nfg != (hi - 1) // nfg]
+    if straddle:
+        lo, hi = straddle[0]
+        rep.add("tile.group-straddle", loc,
+                f"filter tile [{lo}, {hi}) spans groups {lo // nfg} and "
+                f"{(hi - 1) // nfg} (N_F/G = {nfg}): its sums would read "
+                f"two groups' channels")
+
+    # depth: psum sums one depth fold a CTA, WS / OS the whole depth
+    cg = spec.c_pad // spec.groups
+    k_total = cg * spec.r * spec.s
+    folds = spec.cg_folds if spec.dataflow == "weight_stationary_psum" \
+        else 1
+    if tile.folds != folds or tile.folds * tile.k_len != k_total:
+        rep.add("tile.fold-coverage", loc,
+                f"{tile.folds} depth folds of {tile.k_len} taps, but the "
+                f"launch sums {k_total} taps a group over {folds} folds")
+    return rep

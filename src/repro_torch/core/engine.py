@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -458,6 +459,65 @@ class CapturedForward:
         return self._y.clone()
 
 
+# --------------------------------------------------------------------------
+# static verification hooks (repro_torch.analysis), memoized per geometry
+# --------------------------------------------------------------------------
+
+# schedules already proven this process: keyed on everything the checks
+# read (the JAX package's key, plus the SM count the CTA tile is chosen
+# for), so the verify=True default costs one lookup per layer after the
+# first compile of a geometry.  Imports are lazy to keep the engine's
+# import graph acyclic.
+_VERIFIED_SCHEDULES: Dict[Tuple, bool] = {}
+
+
+def _verify_graph(original, fused_graph, fused: bool) -> None:
+    """Structural lint (+ fusion-legality diff when the fusion pass ran).
+    Shape errors stay the walk's own ``GraphError``s — the lint here is
+    params-free so it can never preempt them."""
+    from repro_torch.analysis.graph_check import check_fusion, lint_graph
+    from repro_torch.analysis.report import FoldLintError
+    errors = lint_graph(fused_graph).errors
+    if fused:
+        errors = errors + check_fusion(original, fused_graph).errors
+    if errors:
+        raise FoldLintError(errors)
+
+
+def _verify_schedule(name: str, cv: ConvLoopNest, sched: "ConvSchedule",
+                     epi, groups: int, sm_count: Optional[int]) -> None:
+    """Prove one conv layer's schedule before its kernel is bound: the
+    clamped block plan's invariants (including, for int8 schedules, the
+    int32-accumulator overflow bound), the launch's index-map coverage and
+    race analysis (``FoldKernelSpec``) and, with ``sm_count`` (a CUDA
+    device), the CTA tile the kernel will run and its shared memory.
+    ``epi`` is the epilogue the kernel actually flushes — the requant form
+    for int8 schedules."""
+    plan = sched.plan.clamped(cv.nf, cv.c, cv.p)
+    key = (sched.key, sched.dataflow, plan, epi, cv.n,
+           cv.padded_x, cv.padded_y, sm_count)
+    if key in _VERIFIED_SCHEDULES:
+        return
+    from repro_torch.analysis.index_check import (check_kernel_spec,
+                                                  check_launch_tile)
+    from repro_torch.analysis.plan_check import check_plan
+    from repro_torch.analysis.report import FoldLintError
+    from repro_torch.kernels.conv2d_ws import fold_kernel_spec
+    rep = check_plan(cv, plan, where=name, precision=sched.key.precision)
+    if rep.ok:
+        spec = fold_kernel_spec(
+            (cv.n, cv.c, cv.padded_x, cv.padded_y),
+            (cv.nf, cv.c // groups, cv.r, cv.s),
+            stride=cv.stride, plan=plan, dataflow=sched.dataflow,
+            epilogue=epi, groups=groups)
+        rep.extend(check_kernel_spec(spec, where=name))
+        if rep.ok and sm_count is not None:
+            rep.extend(check_launch_tile(spec, cv.n, sm_count, where=name))
+    if not rep.ok:
+        raise FoldLintError(rep.errors)
+    _VERIFIED_SCHEDULES[key] = True
+
+
 @dataclasses.dataclass
 class CompiledNetwork:
     """A whole-network static fold schedule plus its forward.
@@ -481,6 +541,7 @@ class CompiledNetwork:
     quant: Optional[Any] = None  # the QuantRecipe the int8 lowering baked in
     jit: bool = False            # whether apply is a CapturedForward
     eager: Optional[Callable] = None  # the eager forward (apply unless jit)
+    verify_s: float = 0.0        # host seconds this compile spent verifying
 
     def __call__(self, params: Dict[str, Any], x: torch.Tensor
                  ) -> torch.Tensor:
@@ -521,6 +582,7 @@ def compile_network(params: Dict[str, Any], graph,
                     head: Optional[Callable] = None,
                     jit: bool = True,
                     fuse_epilogues: bool = True,
+                    verify: bool = True,
                     device: Any = "cuda", precision: str = "fp32",
                     quant=None) -> CompiledNetwork:
     """Lower a streaming graph into a static fold schedule + forward.
@@ -551,6 +613,19 @@ def compile_network(params: Dict[str, Any], graph,
     there is no graph to capture and ``jit`` runs the eager forward.
     ``jit=False`` runs the eager forward, one Python dispatch per op.
 
+    ``verify=True`` (the default, as in the JAX package) statically
+    verifies the lowering with ``repro_torch.analysis`` before any kernel
+    is bound: the graph is linted (and, when the fusion pass ran, diffed
+    against an independent re-derivation of the fusion rules), and every
+    kernel-mode conv schedule's block plan and launch index maps are
+    proven in-bounds / race-free / exactly-covering, with, on a CUDA
+    device, the CTA tile its kernel will run (coverage, no filter tile
+    across a group, shared memory).  Error-severity findings raise
+    ``FoldLintError``.  Verification is memoized per schedule geometry
+    (``_VERIFIED_SCHEDULES``), so a recompile of a known geometry costs
+    one dict lookup per layer; ``verify_s`` on the result is the time
+    this compile spent on it.
+
     ``precision="int8"`` lowers every conv through ``conv2d_int8``: int8
     weight and activation blocks, int32 sums, dequant folded into the
     epilogue's scale/shift slot.  ``quant`` is the calibrated
@@ -559,7 +634,8 @@ def compile_network(params: Dict[str, Any], graph,
     activation scale.  Schedules live under int8 ``ScheduleKey``s, priced
     with one-byte streams.
     """
-    from repro_torch.core.quant import check_precision, default_recipe
+    from repro_torch.core.quant import (check_precision, default_recipe,
+                                        requant_epilogue)
     check_precision(precision)
     cache = cache if cache is not None else ScheduleCache()
     mode, dev = resolve_execution(policy, device)
@@ -567,6 +643,15 @@ def compile_network(params: Dict[str, Any], graph,
     fused = fuse_epilogues and mode == "kernel"
     base_graph = as_graph(graph)
     g = fuse_graph(base_graph) if fused else base_graph
+    verify_s = 0.0
+    sm_count = None
+    if verify:
+        t0 = time.perf_counter()
+        _verify_graph(base_graph, g, fused)
+        verify_s += time.perf_counter() - t0
+        if mode == "kernel" and dev.type == "cuda":
+            from repro_torch.kernels.conv2d_ws import _sm_count
+            sm_count = _sm_count(dev)
     if precision == "int8" and quant is None:
         # self-contained calibration on the pre-fusion graph (fusion keeps
         # the conv names, so the recipe's keys match the fused lowering)
@@ -614,6 +699,14 @@ def compile_network(params: Dict[str, Any], graph,
             sched = cache.schedule_for(cv, precision=precision)
             x_scale = (quant.scale_for(nd.name) if precision == "int8"
                        else None)
+            if verify and mode == "kernel":
+                # verify the epilogue the kernel actually flushes — the
+                # requant affine always occupies the scale slot in int8
+                t0 = time.perf_counter()
+                _verify_schedule(nd.name, cv, sched,
+                                 requant_epilogue(epi) if x_scale is not None
+                                 else epi, groups, sm_count)
+                verify_s += time.perf_counter() - t0
             layer_schedules.append((nd.name, sched))
             layer_nests.append((nd.name, cv))
             shapes[nd.name] = (n_, nf) + epilogue_out_hw(nd.epilogue, cv.p,
@@ -740,7 +833,7 @@ def compile_network(params: Dict[str, Any], graph,
                            device=dev, fused=fused, graph=g,
                            layer_nests=tuple(layer_nests),
                            precision=precision, quant=quant, jit=captured,
-                           eager=forward)
+                           eager=forward, verify_s=verify_s)
 
 
 # --------------------------------------------------------------------------
@@ -759,13 +852,16 @@ class BucketCompiler:
     depend on the bucket its batch was padded to.
 
     ``jit`` goes to every bucket's compile: on a CUDA device each bucket's
-    forward is one CUDA graph, with a memory pool of its own."""
+    forward is one CUDA graph, with a memory pool of its own.  So does
+    ``verify``: a bucket's geometries are proven once (the memo makes the
+    later buckets' proofs of shared schedules one lookup a layer)."""
 
     def __init__(self, params: Dict[str, Any], graph, img: int, *,
                  chan: int = 3, policy: str = "auto",
                  cache: Optional[ScheduleCache] = None,
                  head: Optional[Callable] = None, jit: bool = True,
-                 fuse_epilogues: bool = True, device: Any = "cuda",
+                 fuse_epilogues: bool = True, verify: bool = True,
+                 device: Any = "cuda",
                  precision: str = "fp32", quant=None):
         from repro_torch.core.quant import check_precision, default_recipe
         check_precision(precision)
@@ -778,6 +874,7 @@ class BucketCompiler:
         self.head = head
         self.jit = jit
         self.fuse_epilogues = fuse_epilogues
+        self.verify = verify
         self.device = device
         self.precision = precision
         if precision == "int8" and quant is None:
@@ -806,7 +903,7 @@ class BucketCompiler:
                 (batch, self.chan, self.img, self.img),
                 policy=self.policy, cache=self.cache, head=self.head,
                 jit=self.jit, fuse_epilogues=self.fuse_epilogues,
-                device=self.device,
+                verify=self.verify, device=self.device,
                 precision=self.precision, quant=self.quant)
             self._nets[batch] = net
         return net

@@ -42,5 +42,9 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache):
     return _mod(cfg).prefill(params, cfg, batch["tokens"], cache)
 
 
-def decode_step(params, cfg, token, cache, pos):
-    return _mod(cfg).decode_step(params, cfg, token, cache, pos)
+def decode_step(params, cfg, token, cache, pos, donate: bool = False):
+    """``pos`` is an int or a 0-d integer tensor on the device; with
+    ``donate`` the new cache is written into ``cache``
+    (``transformer.decode_step``)."""
+    return _mod(cfg).decode_step(params, cfg, token, cache, pos,
+                                 donate=donate)

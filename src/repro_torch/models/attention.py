@@ -20,7 +20,8 @@ from repro_torch.models.common import TreeMaker
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.settings import get_attn_impl
 
-__all__ = ["attn_params", "attention", "init_kv_cache", "make_mask"]
+__all__ = ["attn_params", "attention", "init_kv_cache", "make_mask",
+           "device_position"]
 
 _NEG = -1e30
 
@@ -42,8 +43,9 @@ def attn_params(tm: TreeMaker, cfg) -> Dict[str, Any]:
 
 def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
               causal: bool = True, window: int = 0,
-              kv_len: Optional[int] = None) -> torch.Tensor:
-    """Boolean (Tq, Tkv) mask.  window > 0 limits lookback (sliding)."""
+              kv_len=None) -> torch.Tensor:
+    """Boolean (Tq, Tkv) mask.  window > 0 limits lookback (sliding);
+    ``kv_len`` (an int or a 0-d tensor) masks the cache entries past it."""
     q = q_pos[:, None]
     k = kv_pos[None, :]
     mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
@@ -113,7 +115,7 @@ def _expand_kv(k, v, h):
 def _mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                    head_dim: int, causal: bool = True, window: int = 0,
-                   kv_len: Optional[int] = None,
+                   kv_len=None,
                    block: int = 1024) -> torch.Tensor:
     """Flash-style online-softmax attention: a loop over KV blocks
     carrying (running max, denom, weighted accumulator).  The same math as
@@ -147,14 +149,29 @@ def _mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _update_slice(cache: torch.Tensor, new: torch.Tensor,
-                  pos: int) -> torch.Tensor:
-    """A copy of ``cache`` with ``new`` written at sequence index ``pos``,
-    the start clamped so the block fits (``lax.dynamic_update_slice``)."""
-    start = min(max(pos, 0), cache.shape[1] - new.shape[1])
-    out = cache.clone()
-    out[:, start:start + new.shape[1]] = new.to(cache.dtype)
-    return out
+def device_position(pos, device) -> torch.Tensor:
+    """``pos`` (an int or an integer tensor) as a 0-d int64 tensor on
+    ``device``.  An int is filled in on the device (a kernel argument, no
+    host-to-device copy), so a CUDA-graph capture may take one."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long).reshape(())
+    return torch.full((), int(pos), dtype=torch.long, device=device)
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                donate: bool) -> torch.Tensor:
+    """``cache`` with ``new``'s T rows written at sequence index ``pos`` (a
+    0-d device tensor), the start clamped on the device so the block fits,
+    as ``lax.dynamic_update_slice`` clamps it.  With ``donate`` the rows go
+    into ``cache`` itself, else into a copy (the one passed in is not
+    changed)."""
+    t = new.shape[1]
+    start = pos.clamp(0, cache.shape[1] - t)
+    idx = start + torch.arange(t, device=cache.device)
+    new = new.to(cache.dtype)
+    if donate:
+        return cache.index_copy_(1, idx, new)
+    return cache.index_copy(1, idx, new)
 
 
 def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
@@ -163,16 +180,20 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
               causal: bool = True,
               window: int = 0,
               cache: Optional[Dict[str, torch.Tensor]] = None,
-              cache_pos: Optional[int] = None,
+              cache_pos=None,
               kv_x: Optional[torch.Tensor] = None,
+              donate: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self-attention.
 
     * train/prefill: cache=None, full sequence in ``x``.
     * decode / cached prefill: ``cache`` holds (k, v) of shape
       (B, S_max, KV, hd); the T new tokens' k/v are written at
-      ``cache_pos`` (into a new cache: the one passed in is not changed)
-      and attention runs over the first ``cache_pos + T`` entries.
+      ``cache_pos`` (an int, or a 0-d integer tensor on x's device), the
+      start clamped on the device, and attention runs over the first
+      ``cache_pos + T`` entries (unclamped, as in the JAX package).  The
+      rows go into a new cache (the one passed in is not changed), or
+      with ``donate`` into ``cache``'s own tensors, which come back.
 
     Returns (output (B,T,D), the new cache or None).
     """
@@ -195,11 +216,12 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
     else:
         # write T tokens at cache_pos (T=1 decode, T=S prefill), expanded
         # to the cache's head count
-        k = _update_slice(cache["k"], _to_cache_heads(cfg, k), cache_pos)
-        v = _update_slice(cache["v"], _to_cache_heads(cfg, v), cache_pos)
+        pos = device_position(cache_pos, x.device)
+        k = _write_rows(cache["k"], _to_cache_heads(cfg, k), pos, donate)
+        v = _write_rows(cache["v"], _to_cache_heads(cfg, v), pos, donate)
         new_cache = {"k": k, "v": v}
         kv_pos = torch.arange(k.shape[1], device=x.device)
-        kv_len = cache_pos + x.shape[1]
+        kv_len = pos + x.shape[1]
     if get_attn_impl() == "blockwise" and x.shape[1] > 1:
         out = _mha_blockwise(q, k.to(q.dtype), v.to(q.dtype), positions,
                              kv_pos, head_dim=cfg.head_dim_, causal=causal,

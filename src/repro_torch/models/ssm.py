@@ -10,7 +10,8 @@ causal depthwise conv1d in front of (x, B, C) is the fold kernel
 (``kernels/ops.py:conv1d_causal``: the CUDA kernel on the card).
 
 Decode is O(1) in sequence length: cache = {conv tail (K-1 tokens), SSD
-state (H, state, head_dim)}; its conv is a window einsum, no kernel.
+state (H, state, head_dim)}; its conv is a window einsum, no kernel.  The
+donated decode writes the new tail and state into the cache it is given.
 """
 from __future__ import annotations
 
@@ -149,10 +150,11 @@ def mamba_block(p: Dict[str, Any], cfg, x: torch.Tensor, *,
 
 
 def mamba_decode(p: Dict[str, Any], cfg, x: torch.Tensor,
-                 cache: Dict[str, torch.Tensor]
+                 cache: Dict[str, torch.Tensor], donate: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token step.  x: (B,1,D); cache = {"conv": (B,K-1,convdim),
-    "h": (B,H,state,hd)}.  Returns (out, a new cache)."""
+    "h": (B,H,state,hd)}.  Returns (out, a new cache), or with ``donate``
+    (out, ``cache``) with the new conv tail and state written into it."""
     b = x.shape[0]
     d_in, heads, conv_dim = _dims(cfg)
     g, s, hd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
@@ -183,6 +185,11 @@ def mamba_decode(p: Dict[str, Any], cfg, x: torch.Tensor,
     y = y.reshape(b, 1, d_in).to(x.dtype)
     y = group_rms_norm(y * F.silu(z), p["norm"], groups=heads,
                        eps=cfg.norm_eps)
+    if donate:
+        # window and h are new tensors: the copies read nothing they write
+        cache["conv"].copy_(window[:, 1:])
+        cache["h"].copy_(h)
+        return y @ p["wo"], cache
     return y @ p["wo"], {"conv": window[:, 1:], "h": h}
 
 

@@ -5,7 +5,8 @@ with position-indexed caches and the fused prefill and decode paths.
 
 The Mamba2 layers are stacked on a leading "layers" axis, as in the JAX
 package, and walked by a Python loop where it scans.  Caches are returned
-new; the ones passed in are not changed.  The other families (dense
+new and the ones passed in are not changed, except in the donated decode
+step, which writes into the cache it is given.  The other families (dense
 attention, rwkv6, MoE, VLM, enc-dec) raise ``NotImplementedError`` naming
 their ROADMAP item.
 """
@@ -98,11 +99,11 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 
 def _attn_block(lp, cfg, x, *, positions, inv_freq, window, cache=None,
-                cache_pos=None):
+                cache_pos=None, donate=False):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
     a, new_kv = attn_mod.attention(
         lp["attn"], cfg, h, positions=positions, inv_freq=inv_freq,
-        window=window, cache=cache, cache_pos=cache_pos)
+        window=window, cache=cache, cache_pos=cache_pos, donate=donate)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
     x = x + mlp(lp["mlp"], h, act="gelu" if cfg.rms_plus_one else "silu")
@@ -228,10 +229,13 @@ def init_cache(cfg, batch: int, max_len: int,
     }
 
 
-def _decode_stack(params, cfg, x, cache, pos: int):
-    """One-token step through the hybrid stack (decode fast path)."""
+def _decode_stack(params, cfg, x, cache, pos: torch.Tensor, donate: bool):
+    """One-token step through the hybrid stack (decode fast path) at the
+    0-d device position ``pos``.  With ``donate`` every layer writes its
+    new cache into ``cache``'s own tensors, which come back; otherwise
+    the new per-layer caches are stacked into new tensors."""
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
-    positions = torch.tensor([pos], device=x.device)
+    positions = pos.reshape(1)
     blocks = params["blocks"]
     new_mamba, new_attn = [], []
     for gi, (lo, hi, has_attn) in enumerate(_zamba_groups(cfg)):
@@ -239,26 +243,34 @@ def _decode_stack(params, cfg, x, cache, pos: int):
             lp = _layer(blocks, i)
             o, nc = ssm_mod.mamba_decode(
                 lp["mamba"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
-                _layer(cache["mamba"], i))
+                _layer(cache["mamba"], i), donate=donate)
             x = x + o
             new_mamba.append(nc)
         if has_attn:
             x, nkv = _attn_block(
                 params["shared_attn"], cfg, x, positions=positions,
                 inv_freq=inv_freq, window=0, cache=_layer(cache["attn"], gi),
-                cache_pos=pos)
+                cache_pos=pos, donate=donate)
             new_attn.append(nkv)
+    if donate:
+        return x, cache
     return x, {"mamba": _stack(new_mamba),
                "attn": _stack(new_attn) if new_attn else cache["attn"]}
 
 
-def decode_step(params, cfg, token: torch.Tensor, cache, pos: int
-                ) -> Tuple[torch.Tensor, Any]:
-    """token: (B,) integer ids; pos: the cache write index.
-    Returns (logits (B, padded vocab) fp32, new cache)."""
+def decode_step(params, cfg, token: torch.Tensor, cache, pos,
+                donate: bool = False) -> Tuple[torch.Tensor, Any]:
+    """token: (B,) integer ids; pos: the cache write index, a 0-d integer
+    tensor on the token's device (an int is moved there).  Returns
+    (logits (B, padded vocab) fp32, the new cache).  With ``donate`` the
+    step writes the new cache into ``cache``'s tensors and returns
+    ``cache`` (the counterpart of ``jax.jit(..., donate_argnums=...)``):
+    its addresses stay fixed and nothing syncs with the host, so the step
+    can be captured as a CUDA graph."""
     _unported(cfg)
     x = _embed(params, cfg, token[:, None])
-    x, ncache = _decode_stack(params, cfg, x, cache, int(pos))
+    pos = attn_mod.device_position(pos, x.device)
+    x, ncache = _decode_stack(params, cfg, x, cache, pos, donate)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.rms_plus_one)
     logits = _mask_logits(_logits(x, _head(params, cfg)), cfg)

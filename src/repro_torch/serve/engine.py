@@ -5,7 +5,10 @@ keeps exactly, its quirks included).
 Slots model continuous batching at a fixed batch width: a slot is free or
 holds a request; a decode step advances every row of the batch; finished
 slots are refilled from the queue.  Per-slot positions live on the host,
-the cache on the device.  As in the JAX engine:
+the cache on the device.  The JAX engine jits its decode step with the
+cache donated; here the step writes the cache in place and, on a CUDA
+device, runs as one CUDA graph (``CapturedDecode``).  As in the JAX
+engine:
 
 * a slot is prefilled by stepping its prompt through the *decode* step
   (never the prefill step, so serving launches no conv1d kernel);
@@ -20,17 +23,19 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.engine import _tensor_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serve.steps import make_decode_step
 
-__all__ = ["Request", "BatchEngine", "token_serving_summary"]
+__all__ = ["Request", "CapturedDecode", "BatchEngine",
+           "token_serving_summary"]
 
 
 @dataclasses.dataclass
@@ -42,8 +47,98 @@ class Request:
     done: bool = False
 
 
+class CapturedDecode:
+    """The counterpart of ``jax.jit(make_decode_step(cfg),
+    donate_argnums=(2,))``: ``step`` is a donated decode step (it writes
+    the new cache into the one it is given), called as
+    ``step(params, token, cache, pos)``.
+
+    On a CUDA device the first call captures it as one CUDA graph: a
+    warm-up call on a side stream over a copy of the cache (lazy set-up
+    happens there, and the real cache does not advance), then the capture
+    into a ``torch.cuda.CUDAGraph`` with a memory pool of its own, under
+    ``torch.inference_mode`` with ``capture_error_mode="thread_local"``
+    (an operation that would synchronise with the host raises), reading
+    a static (B,) token tensor and a static 0-d position.  Every call
+    copies the tokens into the static token (from pageable host memory
+    the copy returns once CUDA has staged it, with no synchronisation)
+    and fills the static position, replays the graph,
+    and returns clones of the next tokens and logits with the cache: the
+    very tensors passed in, advanced one step.  Reading the next tokens
+    back is the call's only synchronisation, as ``np.asarray(nxt)`` is in
+    the JAX engine.
+
+    Parameters and cache are captured by address: a call whose tensors
+    sit at other addresses than at the capture captures again
+    (``captures`` counts the captures).  Nothing falls back to the eager
+    step on a CUDA device: a failed capture or replay raises.  On the CPU
+    the step runs eagerly."""
+
+    def __init__(self, step: Callable, device: torch.device):
+        self.step = step
+        self.device = device
+        self.captures = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._token: Optional[torch.Tensor] = None    # static (B,) int64
+        self._pos: Optional[torch.Tensor] = None      # static 0-d int64
+        self._out: Tuple[torch.Tensor, ...] = ()      # static nxt, logits
+        self._held: Tuple[torch.Tensor, ...] = ()
+        self._ptrs: Tuple[int, ...] = ()
+
+    def _capture(self, params: Dict[str, Any], token: torch.Tensor,
+                 cache: Dict[str, Any], leaves: List[torch.Tensor],
+                 ptrs: Tuple[int, ...]) -> None:
+        # the old graph and its pool go before the new capture
+        self._graph, self._out = None, ()
+        with torch.inference_mode(False):
+            # normal tensors, so calls outside inference mode can fill them
+            self._token = torch.zeros(token.shape, dtype=torch.long,
+                                      device=self.device)
+            self._pos = torch.zeros((), dtype=torch.long, device=self.device)
+        scratch = _clone_tree(cache)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.inference_mode():
+            self.step(params, self._token, scratch, self._pos)
+        main.wait_stream(side)
+        del scratch
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            nxt, logits, _ = self.step(params, self._token, cache,
+                                       self._pos)
+        self._graph, self._out = graph, (nxt, logits)
+        self._held, self._ptrs = tuple(leaves), ptrs
+        self.captures += 1
+
+    def __call__(self, params: Dict[str, Any], token: torch.Tensor,
+                 cache: Dict[str, Any], pos) -> Tuple[torch.Tensor,
+                                                       torch.Tensor, Any]:
+        if self.device.type != "cuda":
+            return self.step(params, token.to(self.device), cache, pos)
+        leaves = _tensor_leaves(cache, _tensor_leaves(params, []))
+        ptrs = tuple(t.data_ptr() for t in leaves)
+        if self._graph is None or ptrs != self._ptrs:
+            self._capture(params, token, cache, leaves, ptrs)
+        self._token.copy_(token, non_blocking=True)
+        self._pos.fill_(int(pos))
+        self._graph.replay()
+        nxt, logits = self._out
+        return nxt.clone(), logits.clone(), cache
+
+
+def _clone_tree(tree):
+    """A copy of a dict tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 class BatchEngine:
-    """``params`` lie on ``device`` already.  ``prefill_s`` and
+    """``params`` lie on ``device`` already.  The cache is allocated once
+    and every step writes into it (``decode``, a ``CapturedDecode`` of the
+    donated step: one CUDA graph on a CUDA device).  ``prefill_s`` and
     ``decode_s`` sum the host time of the prompt-stepping decode calls and
     of the engine's decode steps (each ends reading the next tokens back,
     so the device work is inside)."""
@@ -58,7 +153,8 @@ class BatchEngine:
         self.max_len = max_len
         self.cache = api.init_cache(cfg, batch, max_len, dtype=cache_dtype,
                                     device=self.device)
-        self.decode = make_decode_step(cfg)
+        self.decode = CapturedDecode(make_decode_step(cfg, donate=True),
+                                     self.device)
         self.pos = np.zeros(batch, np.int32)          # next write index
         self.slots: List[Optional[Request]] = [None] * batch
         self.tokens = np.zeros(batch, np.int32)       # last token per slot
@@ -72,7 +168,8 @@ class BatchEngine:
         self.queue.append(req)
 
     def _token_vec(self) -> torch.Tensor:
-        return torch.from_numpy(self.tokens.astype(np.int64)).to(self.device)
+        """The last token of every slot, on the host."""
+        return torch.from_numpy(self.tokens.astype(np.int64))
 
     def _prefill_one(self, slot: int, req: Request) -> None:
         """Prefill a single slot by stepping its prompt through decode."""

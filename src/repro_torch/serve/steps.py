@@ -23,13 +23,18 @@ def make_prefill_step(cfg, attn_impl: str = "naive") -> Callable:
     return step
 
 
-def make_decode_step(cfg, temperature: float = 0.0) -> Callable:
+def make_decode_step(cfg, temperature: float = 0.0,
+                     donate: bool = False) -> Callable:
     """step(params, token, cache, pos, gen=None) -> (next token, logits,
     new cache): argmax, or with ``temperature > 0`` and a generator one
-    draw per row from softmax(logits / temperature)."""
+    draw per row from softmax(logits / temperature).  ``pos`` is an int or
+    a 0-d integer tensor on the device.  With ``donate`` (the JAX
+    package's ``donate_argnums=(2,)``) the step writes the new cache into
+    the one passed in and returns it: the step ``BatchEngine`` captures."""
     def step(params, token, cache, pos,
              gen: Optional[torch.Generator] = None):
-        logits, cache = api.decode_step(params, cfg, token, cache, pos)
+        logits, cache = api.decode_step(params, cfg, token, cache, pos,
+                                        donate=donate)
         if temperature > 0.0 and gen is not None:
             probs = torch.softmax(logits / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]

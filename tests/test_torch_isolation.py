@@ -48,6 +48,9 @@ def test_port_imports_where_jax_cannot_load():
         "from repro_torch.kernels import (attention_fold, build,\n"
         "                                 conv1d_causal, conv2d_ws, ops, ref)\n"
         "from repro_torch.core import engine, quant\n"
+        "from repro_torch.analysis import (foldlint, graph_check,\n"
+        "                                  index_check, launch_audit,\n"
+        "                                  plan_check, report)\n"
         "from repro_torch import convert\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
@@ -67,10 +70,11 @@ def test_port_imports_where_jax_cannot_load():
                                    "launcher", "lm_init_params",
                                    "lm_init_cache", "batch_engine",
                                    "token_serving_summary",
-                                   "token_launcher"])
+                                   "token_launcher", "foldlint"])
 def test_cuda_without_a_gpu_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
+    from repro_torch.analysis import foldlint
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import main
     from repro_torch.models import api, mobilenet, resnet, vgg
@@ -102,6 +106,7 @@ def test_cuda_without_a_gpu_raises(entry):
             lm, api.init_params(lm, device="cpu"), batch=1, max_len=8),
         "token_serving_summary": lambda: token_serving_summary(),
         "token_launcher": lambda: main(["--arch", "zamba2-1.2b"]),
+        "foldlint": lambda: foldlint.main(["--model", "vgg16"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
