@@ -73,6 +73,33 @@ Phases (any failed check raises, and the script exits non-zero):
     the ``[verify]`` summary: the host ms each model's first compile
     spent in ``compile_network``'s default ``verify=True``, and the memo
     hits of a recompile.
+12c. The serving runtime, at full width.  ``[tune]``:
+    ``compile_network(autotune=True, tuning_path=...)`` on VGG-16 at 224
+    (batch 1, fp32), MobileNetV2 (batch 4, fp32, the depthwise
+    candidates) and ResNet-18 (batch 4, int8): every candidate proven,
+    then timed on the card; the tuning's host seconds, each key's race
+    (candidates, failures, the analytical pick's ms beside the winner's),
+    the tuned forward against the reference policy, jitted bitwise the
+    eager one with equal launch counts, its jitted and device ms beside
+    the untuned forward's; a fresh cache that loads the file measures
+    nothing and gets the same schedules; files tagged ``tpu``, ``cpu`` or
+    ``torch-cpu`` load nothing.  ``[serve-runtime]``: MobileNetV2 served
+    through ``serving_summary`` over buckets (1, 2, 4, 8), 40 requests,
+    tuned, with a metrics registry and a deadline on every 2nd request,
+    the tracer off and on: nothing lost, no degraded / failed /
+    non-finite batch, every request from the primary rung, bitwise a
+    direct forward, the trace and the snapshot valid, the Prometheus text
+    parseable, the fold-counter table, images/s, p50 / p99 and the
+    runtime's host µs a batch (``metrics_dict()["host_us_per_batch"]``,
+    timed inside ``VisionEngine._complete``) beside phase 8's.
+    ``[chaos]``: every chaos profile on MobileNetV2 and on
+    VGG-16 at 32 (``chaos_summary``: every recovery invariant, the
+    profile's counters nonzero, the faults fired equal to the schedule),
+    a poisoned request quarantined alone with its batchmates bitwise the
+    reference rung's direct forward, a slow dispatch flagged hung and
+    served by the primary rung.  Every non-chaos serving phase (5, 8, 11,
+    12c) holds 0 degraded, failed and non-finite batches, every request
+    served by the primary rung.
 13. LM kernels: the causal conv1d kernel bitwise against its plain
     version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
     K = 1, 2, 3 and 8, T < K - 1, D = 8k + 3 and an x off the 16-byte
@@ -116,8 +143,9 @@ eager.
 
 Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32, the head kernel's
-count too), 10-11 (int8), 12 (psum), 14-16 (the LM path), 17 (the
-attention op).  The second-to-last
+count too), 10-11 (int8), 12 (psum), 12c (the serving runtime; the
+tuner's launches tick at its warm-ups and captures), 14-16 (the LM
+path), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -961,7 +989,13 @@ def phase_serving(torch, dev, params, jit):
               f"{(got - want).abs().max().item():.3e}")
         check(torch.equal(got, want), f"serve request {req.rid}: served "
               "logits differ from a direct forward")
+        check(req.served_by == "primary", f"serve request {req.rid}: "
+              f"served by the {req.served_by} rung")
     d = eng.metrics_dict()
+    rb = d["robustness"]
+    check(not (rb["degraded_batches"] or rb["failed"]
+               or rb["nonfinite_batches"]),
+          f"serve {what}: degraded / failed / non-finite {rb}")
     lat = d["latency"]
     print(f"[serve {what}] {d['requests']} requests / {d['images']} "
           f"images in "
@@ -1059,12 +1093,30 @@ def phase_resnet(torch, dev):
     return out
 
 
-def phase_serving_mobilenet(torch, dev, jit):
+PHASE8_REQUESTS = 40
+
+
+def set_numerics(torch):
+    """Full fp32 matmuls and convs (TF32 off) for every torch call of the
+    process: the kernels are held against plain torch at fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def serve_phase8(dev, jit=True):
+    """Phase 8's stream: full-width MobileNetV2, fp32, buckets (1, 2, 4,
+    8), ``PHASE8_REQUESTS`` requests of 1-8 images from ``SEED``, through
+    the ``serving_summary`` of whichever ``repro_torch`` is first on
+    ``sys.path`` (``serve_ab.py`` times a second checkout with it)."""
     from repro_torch.serve.vision import serving_summary
-    requests = 40
-    d = serving_summary("mobilenetv2", requests=requests, img=32,
-                        width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
-                        device=dev, jit=jit)
+    return serving_summary("mobilenetv2", requests=PHASE8_REQUESTS, img=32,
+                           width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
+                           device=dev, jit=jit)
+
+
+def phase_serving_mobilenet(torch, dev, jit):
+    requests = PHASE8_REQUESTS
+    d = serve_phase8(dev, jit)
     lat, v = d["latency"], d["verify"]
     what = "jitted" if jit else "eager"
     print(f"[serve mobilenetv2 {what}] {d['requests']} requests / "
@@ -1072,7 +1124,8 @@ def phase_serving_mobilenet(torch, dev, jit):
           f"images in {d['elapsed_s']:.4f} s: {d['images_per_s']:.3f} "
           f"images/s, p50 {lat['p50_s'] * 1e3:.3f} ms, p99 "
           f"{lat['p99_s'] * 1e3:.3f} ms, batches per bucket "
-          f"{d['per_bucket_batches']}, fold reuse {d['compile']}")
+          f"{d['per_bucket_batches']}, fold reuse {d['compile']}, runtime "
+          f"host {d['host_us_per_batch']:.3f} us a batch")
     rb = d["robustness"]
     print(f"[serve mobilenetv2 {what}] served vs direct bitwise="
           f"{v['bitwise']} "
@@ -1082,7 +1135,348 @@ def phase_serving_mobilenet(torch, dev, jit):
           f"{rb['lost_requests']}")
     check(v["requests"] == requests and v["bitwise"],
           "mobilenetv2 serving: served logits differ from a direct forward")
+    check_primary(d, f"mobilenetv2 serving {what}")
     return d
+
+
+# --------------------------------------------------------------------------
+# the serving runtime: measured tuning, robust serving, chaos
+# --------------------------------------------------------------------------
+
+def check_primary(d, what):
+    """A non-chaos serving run: no degraded, failed or non-finite batch,
+    every request served OK by the primary rung (a broken kernel must not
+    pass as a degraded success)."""
+    rb = d["robustness"]
+    bad = {k: rb[k] for k in ("degraded_batches", "failed",
+                              "nonfinite_batches") if rb[k]}
+    check(not bad, f"{what}: {bad}")
+    check(d["served_by"] == {"primary": d["verify"]["requests"],
+                             "reference": 0},
+          f"{what}: served by {d['served_by']}")
+
+
+def tune_network(torch, dev, module, params, img, batch, precision, what,
+                 tmp):
+    """``compile_network(autotune=True, tuning_path=...)`` on one network:
+    the tuning's host seconds, each key's race (candidates, failures, the
+    analytical pick's ms beside the winner's), the tuned forward against
+    the reference policy, jitted = eager bitwise with equal launch counts,
+    its jitted and device ms beside the untuned forward's; a fresh cache
+    that loads the file re-measures nothing and gets the same schedules;
+    files tagged for another backend load nothing."""
+    import warnings
+    from repro_torch.core.engine import ScheduleCache
+    path = str(tmp / f"{what.replace(' ', '_')}.json")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn(batch, 3, img, img, device=dev, generator=gen)
+    kw = dict(img=img, batch=batch, device=dev, precision=precision)
+    untuned = module.compile_forward(params, **kw)
+    if precision == "int8":
+        kw["quant"] = untuned.quant
+    t0 = time.perf_counter()
+    net = module.compile_forward(params, autotune=True, tuning_path=path,
+                                 cache=ScheduleCache(), **kw)
+    tune_s = time.perf_counter() - t0
+    check(net.autotuned and all(s.source == "measured"
+                                for _, s in net.layer_schedules),
+          f"{what}: not every schedule was measured")
+    analytical = {s.key: s for s in untuned.cache.schedules()}
+    keys = []
+    for s in net.cache.schedules():
+        ms = dict(s.timings)
+        pick = f"base/{analytical[s.key].dataflow}"
+        row = {"key": str(s.key), "raced": len(s.timings),
+               "failed": len(s.failed), "winner": s.timings[0][0],
+               "winner_ms": s.measured_ms, "analytical": pick,
+               "analytical_ms": ms.get(pick)}
+        keys.append(row)
+        gap = (row["analytical_ms"] / row["winner_ms"]
+               if row["analytical_ms"] else float("nan"))
+        print(f"[tune] {what} {row['key']:<22} raced {row['raced']:>2} "
+              f"failed {row['failed']}: analytical {pick} "
+              f"{row['analytical_ms']:.4f} ms, winner {row['winner']} "
+              f"{row['winner_ms']:.4f} ms ({gap:.3f}x)")
+        for label, err in s.failed:
+            print(f"[tune]   failed {label}: {err[:160]}")
+    print(f"[tune] {what}: {len(keys)} keys tuned in {tune_s:.3f} s (host), "
+          f"{sum(r['raced'] for r in keys)} candidates raced, "
+          f"{sum(r['failed'] for r in keys)} failed")
+    y, counts = forward_counts(torch, net, params, x)
+    check(sum(counts.values()) == len(net.layer_schedules),
+          f"{what}: {counts} launches for {len(net.layer_schedules)} convs")
+    ref = module.compile_forward(params, policy="reference", **kw)
+    with torch.inference_mode():
+        want = ref(params, x)
+    if precision == "int8":
+        err = (y - want).abs().max().item()
+        check(torch.equal(y, want) or err <= TOL_INT8_REF *
+              want.abs().max().item(), f"{what}: tuned forward outside "
+              "tolerance of the int8 reference")
+        # int32 sums are exact whatever the plan: tuning changes no bit
+        with torch.inference_mode():
+            check(torch.equal(y, untuned.eager(params, x)),
+                  f"{what}: the tuned int8 forward is not bitwise the "
+                  "untuned one")
+        print(f"[tune] {what}: tuned vs int8 reference max_abs_err "
+              f"{err:.3e}; bitwise the untuned forward")
+    else:
+        close(torch, y, want, TOL_MODEL, f"tune {what} vs reference")
+    tuned_cell = jit_cell(torch, f"{what} tuned", net, params, x, 10)
+    untuned_cell = jit_cell(torch, f"{what} untuned", untuned, params, x,
+                            10)
+    print(f"[tune] {what}: tuned jitted {tuned_cell['jit_ms']:.4f} ms "
+          f"(device {tuned_cell['device_ms']:.4f}) vs untuned "
+          f"{untuned_cell['jit_ms']:.4f} ms (device "
+          f"{untuned_cell['device_ms']:.4f})")
+    # a fresh cache that loads the file measures nothing
+    calls = []
+
+    def never(plan, df):
+        calls.append((plan, df))
+        raise RuntimeError("re-measured after load_tuning")
+    fresh = ScheduleCache()
+    n = fresh.load_tuning(path, device=dev)
+    again = module.compile_forward(params, autotune=True, tuning_path=path,
+                                   autotune_timer=never, cache=fresh, **kw)
+    check(n == len(keys) and not calls, f"{what}: loaded {n} of "
+          f"{len(keys)} entries, re-measured {len(calls)} candidates")
+    same = [(s.key, s.plan, s.dataflow) for _, s in again.layer_schedules] \
+        == [(s.key, s.plan, s.dataflow) for _, s in net.layer_schedules]
+    check(same, f"{what}: the reloaded schedules differ")
+    payload = json.loads(pathlib.Path(path).read_text())
+    foreign = {}
+    for tag in ("tpu", "cpu", "torch-cpu"):
+        bad = tmp / f"foreign_{tag}.json"
+        bad.write_text(json.dumps(dict(payload, backend=tag)))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            foreign[tag] = ScheduleCache().load_tuning(str(bad), device=dev)
+        check(foreign[tag] == 0 and any("measured on backend" in
+                                        str(c.message) for c in caught),
+              f"{what}: a {tag!r} tuning file loaded {foreign[tag]} "
+              "entries")
+    print(f"[tune] {what}: reloaded {n} entries from {payload['backend']!r}"
+          f" with 0 measurements, same schedules; foreign tags load "
+          f"{foreign}")
+    # the tuned network's rows (trunk and head kernel): the same bits at
+    # batch 1 and batch 4
+    from repro_torch.core.engine import compile_network
+    x4 = torch.randn(4, 3, img, img, device=dev, generator=gen)
+    trunks = {b: compile_network(params, module.to_graph(),
+                                 (b, 3, img, img), cache=net.cache,
+                                 autotune=True, autotune_timer=never,
+                                 device=dev, precision=precision,
+                                 quant=kw.get("quant"))
+              for b in (1, 4)}
+    with torch.inference_mode():
+        t4 = trunks[4](params, x4)
+        for i in range(4):
+            check(torch.equal(trunks[1](params, x4[i:i + 1])[0], t4[i]),
+                  f"{what}: tuned row {i} differs between batch 1 and "
+                  "batch 4")
+    check(not calls, f"{what}: the recompiles re-measured {len(calls)}")
+    print(f"[tune] {what}: tuned logits rows bitwise-equal at batch 1 and "
+          "batch 4")
+    return {"tune_s": tune_s, "keys": keys, "backend": payload["backend"],
+            "tuned": tuned_cell, "untuned": untuned_cell}
+
+
+def phase_tune(torch, dev, vgg_params):
+    import tempfile
+    from repro_torch.models import mobilenet, resnet, vgg
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        out["vgg16_224_b1"] = tune_network(torch, dev, vgg, vgg_params,
+                                           224, 1, "fp32", "vgg16 224 b1",
+                                           tmp)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
+                                                           device=dev))
+        out["mobilenetv2_b4"] = tune_network(torch, dev, mobilenet, params,
+                                             32, 4, "fp32",
+                                             "mobilenetv2 b4", tmp)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        params = resnet.init_params(gen, img=32, device=dev)
+        out["resnet18_b4_int8"] = tune_network(torch, dev, resnet, params,
+                                               32, 4, "int8",
+                                               "resnet18 b4 int8", tmp)
+    return out
+
+
+def prometheus_parses(text):
+    """Every sample line of a Prometheus text exposition: a metric name,
+    optional labels and a number."""
+    import re
+    line_re = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$')
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        if not line_re.match(ln):
+            return False
+        value = ln.rsplit(" ", 1)[1]
+        if value != "+Inf":
+            float(value)
+    return True
+
+
+def phase_serve_runtime(torch, dev, phase8):
+    """MobileNetV2 fp32 served through ``serving_summary`` at buckets
+    (1, 2, 4, 8), 40 requests, with ``autotune``, a metrics registry and a
+    5 s deadline on every 2nd request, once with the tracer off and once
+    on: nothing lost, no degraded / failed / non-finite batch, every
+    request OK from the primary rung, served logits bitwise a direct
+    forward from the same cache, the trace and the metrics snapshot
+    valid, the Prometheus text parseable."""
+    from repro_torch.obs.metrics import (MetricsRegistry,
+                                         validate_metrics_snapshot)
+    from repro_torch.obs.report import check_trace_outcomes
+    from repro_torch.obs.trace import Tracer, validate_trace
+    from repro_torch.serve.vision import serving_summary
+    requests = 40
+    out = {}
+    for traced in (False, True):
+        what = "tracer on" if traced else "tracer off"
+        tracer = Tracer(time.monotonic) if traced else None
+        registry = MetricsRegistry()
+        d = serving_summary("mobilenetv2", requests=requests, img=32,
+                            width_mult=1.0, buckets=(1, 2, 4, 8), seed=SEED,
+                            device=dev, autotune=True, deadline_s=5.0,
+                            deadline_every=2, tracer=tracer,
+                            registry=registry, verbose=traced)
+        rb, lat = d["robustness"], d["latency"]
+        check(rb["lost_requests"] == 0 and rb["outcomes"] == {"ok": requests},
+              f"serve-runtime {what}: outcomes {rb['outcomes']}, lost "
+              f"{rb['lost_requests']}")
+        check(rb["deadline_total"] == requests // 2
+              and rb["deadline_hits"] == rb["deadline_total"],
+              f"serve-runtime {what}: deadlines {rb['deadline_hits']} of "
+              f"{rb['deadline_total']}")
+        check_primary(d, f"serve-runtime {what}")
+        check(d["verify"]["bitwise"], f"serve-runtime {what}: served "
+              "logits differ from a direct forward")
+        check(all(s["layers"] for s in
+                  d["observability"]["schedules"].values()),
+              f"serve-runtime {what}: empty fold-counter rows")
+        snap = registry.snapshot()
+        problems = validate_metrics_snapshot(snap)
+        check(not problems, f"metrics snapshot: {problems}")
+        check(prometheus_parses(registry.to_prometheus()),
+              "the Prometheus text does not parse")
+        if traced:
+            trace = tracer.to_json()
+            problems = validate_trace(trace) or \
+                check_trace_outcomes(trace, requests)
+            check(not problems, f"trace: {problems[:5]}")
+            print(f"[serve-runtime] trace: {len(trace['traceEvents'])} "
+                  f"events, {requests} request spans, valid")
+        print(f"[serve-runtime] mobilenetv2 {what}: "
+              f"{d['images_per_s']:.3f} images/s, p50 "
+              f"{lat['p50_s'] * 1e3:.3f} ms, p99 {lat['p99_s'] * 1e3:.3f} "
+              f"ms; {len(snap['counters'])} counters, "
+              f"{len(snap['gauges'])} gauges; deadlines "
+              f"{rb['deadline_hits']}/{rb['deadline_total']}, hung "
+              f"{rb['hung_batches']}, stragglers {rb['straggler_events']}; "
+              f"runtime host {d['host_us_per_batch']:.3f} us a batch")
+        out["traced" if traced else "untraced"] = d
+    p8 = phase8["latency"]
+    print(f"[serve-runtime] beside phase 8 (jitted, no tuning, no tracer, "
+          f"no registry): {phase8['images_per_s']:.3f} images/s, p50 "
+          f"{p8['p50_s'] * 1e3:.3f} ms, p99 {p8['p99_s'] * 1e3:.3f} ms, "
+          f"runtime host {phase8['host_us_per_batch']:.3f} us a batch")
+    return out
+
+
+def phase_chaos(torch, dev):
+    """``ChaosInjector.from_profile(p, seed)`` for every profile on
+    MobileNetV2 fp32 and VGG-16 at 32 (``chaos_summary``, which raises on
+    any broken recovery invariant: zero lost, primary logits bitwise a
+    direct kernel forward, reference logits bitwise a direct reference
+    forward, the profile's counters nonzero, deadlined requests shed), the
+    faults injected equal to the schedule over the primary dispatches;
+    then a poisoned request quarantined alone with its batchmates served
+    by the reference rung, and a slow dispatch flagged hung but served by
+    the primary rung."""
+    import numpy as np
+    from repro_torch.models import mobilenet
+    from repro_torch.serve.admission import RequestOutcome
+    from repro_torch.serve.batcher import ImageRequest
+    from repro_torch.serve.chaos import (PROFILE_EXPECTATIONS, PROFILES,
+                                         ChaosInjector, Fault,
+                                         _direct_logits, chaos_summary)
+    from repro_torch.serve.vision import VisionEngine
+    out = {}
+    for model in ("mobilenetv2", "vgg16"):
+        for profile in PROFILES:
+            t0 = time.perf_counter()
+            d = chaos_summary(model, profile=profile, seed=SEED + 7,
+                              requests=12, img=32, width_mult=1.0,
+                              device=dev, deadline_s=1e-5)
+            rb, ch = d["robustness"], d["chaos"]
+            want = dict.fromkeys(("kernel", "nan", "slow"), 0)
+            for i, kind in ch["schedule"].items():
+                if int(i) < d["batches"]:
+                    want[kind] += 1
+            got = {k: ch["injected"][k] for k in want}
+            check(got == want, f"chaos {model} {profile}: injected {got}, "
+                  f"the schedule over {d['batches']} dispatches {want}")
+            check(all(rb[k] for k in PROFILE_EXPECTATIONS[profile]),
+                  f"chaos {model} {profile}: {rb}")
+            print(f"[chaos] {model} {profile}: {time.perf_counter() - t0:.2f}"
+                  f" s, outcomes {rb['outcomes']}, injected {got} over "
+                  f"{d['batches']} dispatches, degraded "
+                  f"{rb['degraded_batches']}, non-finite "
+                  f"{rb['nonfinite_batches']}, hung {rb['hung_batches']}, "
+                  f"shed {rb['shed']}, lost {rb['lost_requests']}")
+            out[f"{model}_{profile}"] = rb
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
+                                                       device=dev))
+    rng = np.random.default_rng(SEED + 8)
+    eng = VisionEngine(params, mobilenet.to_graph(), img=32,
+                       buckets=(1, 2, 4), device=dev,
+                       chaos=ChaosInjector(fault_on_nan_input=True))
+    good = [rng.standard_normal((1, 3, 32, 32)).astype(np.float32)
+            for _ in range(3)]
+    poison = rng.standard_normal((1, 3, 32, 32)).astype(np.float32)
+    poison[0, 0, 0, 0] = np.inf
+    # the poison slips past submit's validation straight into the queue:
+    # data that turns bad after the front door
+    reqs = [eng.submit(good[0]), eng.submit(good[1])]
+    bad = ImageRequest(rid=999, images=poison)
+    eng.batcher.queue.append(bad)
+    eng.metrics.submitted += 1
+    reqs.append(eng.submit(good[2]))
+    m = eng.run()
+    check(bad.outcome is RequestOutcome.FAILED and m.failed == 1
+          and m.outcomes == {"ok": 3, "failed": 1},
+          f"poison: {bad.outcome}, outcomes {m.outcomes}")
+    for req, im in zip(reqs, good):
+        want = _direct_logits(eng, im, "reference")
+        check(req.served_by == "reference"
+              and np.array_equal(req.logits, want),
+              f"poison batchmate {req.rid}: served by {req.served_by}, "
+              "not bitwise the reference rung's direct forward")
+    print(f"[chaos] poison quarantined alone ({bad.error[:60]}), 3 "
+          f"batchmates served by the reference rung bitwise its direct "
+          f"forward; degraded {m.degraded_batches}, poison faults "
+          f"{eng.chaos.injected['poison']}")
+    eng = VisionEngine(params, mobilenet.to_graph(), img=32, buckets=(2,),
+                       device=dev, hang_timeout_s=0.05,
+                       chaos=ChaosInjector({0: Fault("slow", slow_s=0.2)}))
+    eng.warmup()
+    im = rng.standard_normal((2, 3, 32, 32)).astype(np.float32)
+    req = eng.submit(im)
+    m = eng.run()
+    check(req.outcome is RequestOutcome.OK and req.served_by == "primary"
+          and m.hung_batches == 1 and m.degraded_batches == 0
+          and np.array_equal(req.logits, _direct_logits(eng, im, "auto")),
+          f"slow fault: {req.outcome} by {req.served_by}, hung "
+          f"{m.hung_batches}, degraded {m.degraded_batches}")
+    print("[chaos] slow dispatch (0.2 s, hang timeout 0.05 s) flagged hung, "
+          "served by the primary rung, bitwise a direct forward")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1466,6 +1860,7 @@ def phase_int8_serving(torch, dev):
               f"{rb['lost_requests']}")
         check(v["requests"] == requests and v["bitwise"],
               "int8 serving: served logits differ from a direct forward")
+        check_primary(d, f"int8 serving {what}")
         served["jit" if jit else "eager"] = d
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     params = randomize_bn(torch, mobilenet.init_params(gen, img=32,
@@ -2143,8 +2538,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics(torch)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     report = {"nvidia_smi": smi_line()}
@@ -2277,6 +2671,25 @@ def main() -> int:
     print(f"[psum path] launches {cw.launch_counts()}")
     check(launches["fold_conv_psum"] == 14,
           "expected 14 psum launches: 13 VGG layers and the WS spill")
+
+    # -- the serving runtime (measured tuning, robust serving, chaos):
+    # counts from 0 just before, read just after ---------------------------
+    cw.reset_launch_counts()
+    dn.reset_launch_counts()
+    t_rt = time.perf_counter()
+    report["tune"] = phase_tune(torch, dev, params)
+    report["serve_runtime"] = phase_serve_runtime(
+        torch, dev, report["serving_mobilenetv2"])
+    report["chaos"] = phase_chaos(torch, dev)
+    runtime_launches = cw.launch_counts()
+    runtime_launches[dn.KERNEL] = dn.launch_counts()[dn.KERNEL]
+    report["runtime_seconds"] = time.perf_counter() - t_rt
+    print(f"[runtime path] launches {runtime_launches} (the tuner's counted "
+          f"at its warm-ups and captures), {report['runtime_seconds']:.1f} s")
+    for name in ("fold_conv_ws", "fold_conv_os", "fold_conv_dw",
+                 "fold_conv_ws_i8", "fold_conv_os_i8", dn.KERNEL):
+        check(runtime_launches[name] > 0,
+              f"{name} never launched on the serving-runtime path")
 
     # -- foldlint on the card (not a main path) ----------------------------
     report["foldlint"] = phase_foldlint(torch, dev)

@@ -12,7 +12,10 @@ models describe themselves as streaming graphs (``core/graph.py``).
 * ``ConvSchedule`` is one cached schedule: the ``ConvBlockPlan`` solved
   once per key plus the dataflow picked by ``dataflow_costs``.
 * ``ScheduleCache`` is the registry; its hit/miss counters are the paper's
-  fold-reuse metric.
+  fold-reuse metric.  ``autotune_for`` replaces the analytical ranking with
+  measured timings (``autotune_schedule`` races ``tuning_candidates`` on
+  the device, each candidate proven before it is launched), pay-once per
+  key and persisted as JSON (``save_tuning`` / ``load_tuning``).
 * ``compile_network`` lowers a ``StreamGraph`` through one shared cache
   and returns a forward with the schedules baked in, in fp32 or, with
   ``precision="int8"``, through the quantized fold stream
@@ -28,8 +31,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
+import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -39,6 +45,7 @@ from repro_torch.core.graph import (DEPTHWISE, GraphError, StreamGraph,
                                     as_graph, bn_scale_shift, fuse_graph)
 from repro_torch.core.loopnest import ConvLoopNest
 from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
+                                      conv_working_set, largest_divisor_le,
                                       plan_conv_blocks)
 from repro_torch.core.perfmodel import MavecConfig
 from repro_torch.device import resolve_device
@@ -54,6 +61,10 @@ __all__ = [
     "dataflow_traffic_bytes",
     "select_dataflow",
     "plan_and_dataflow",
+    "tuning_candidates",
+    "measure_schedule_ms",
+    "autotune_schedule",
+    "backend_tag",
     "resolve_execution",
     "CompiledNetwork",
     "CapturedForward",
@@ -101,12 +112,28 @@ class ScheduleKey:
 class ConvSchedule:
     """One compiled fold schedule: block plan + selected dataflow.  ``nest``
     is the loop nest the plan was solved against; ``costs`` are the
-    estimated cycles per dataflow that drove the selection."""
+    estimated cycles per dataflow that drove the selection.  A measured
+    schedule (``source`` "measured", or "loaded" from a tuning file) keeps
+    the winner's median ms and every raced candidate's, fastest first;
+    ``failed`` names the candidates that failed their proof or their
+    measurement (not persisted)."""
     key: ScheduleKey
     nest: ConvLoopNest
     plan: ConvBlockPlan
     dataflow: str
     costs: Tuple[Tuple[str, float], ...]
+    source: str = "model"                      # model | measured | loaded
+    measured_ms: Optional[float] = None        # winner's median, if measured
+    timings: Tuple[Tuple[str, float], ...] = ()  # (candidate, median ms)
+    failed: Tuple[Tuple[str, str], ...] = ()   # (candidate, error)
+
+    @property
+    def cost_dict(self) -> Dict[str, float]:
+        return dict(self.costs)
+
+    @property
+    def tuned(self) -> bool:
+        return self.source in ("measured", "loaded")
 
     def impl(self) -> str:
         """The ``kernels.ops.conv2d`` impl string for this dataflow."""
@@ -226,6 +253,262 @@ def plan_and_dataflow(cv: ConvLoopNest, cfg: Optional[MavecConfig] = None
 
 
 # --------------------------------------------------------------------------
+# Measured autotuning (the analytical ranking above is the no-tuning default)
+# --------------------------------------------------------------------------
+
+def tuning_candidates(cv: ConvLoopNest,
+                      base_plan: Optional[ConvBlockPlan] = None,
+                      vmem_limit: int = 64 * 1024 * 1024
+                      ) -> List[Tuple[str, ConvBlockPlan, str]]:
+    """The candidate set ``autotune_schedule`` races: the analytical plan
+    plus nearby block-shape variants of every blocked axis (P, C, NF),
+    crossed with both dataflows — the JAX package's set, labels and
+    dedup, so the two packages race the same plans.
+
+    Grouped geometries snap the varied blocks back to divisors of the
+    per-group extents (``mapping.largest_divisor_le``), so no fold
+    straddles a group; depthwise geometries vary the channel and P blocks
+    only and race the single ``"depthwise"`` dataflow.  On the card a
+    candidate's feasibility (a CTA tile that fits shared memory) is proven
+    by ``autotune_schedule`` before it is launched, not here.
+    """
+    base = (base_plan or plan_conv_blocks(cv, vmem_limit=vmem_limit)
+            ).clamped(cv.nf, cv.c, cv.p)
+
+    if cv.depthwise:
+        def with_dw(c_b: int, p_b: int) -> ConvBlockPlan:
+            c_b = max(1, min(c_b, -(-cv.c // 8) * 8 if cv.c >= 8 else cv.c))
+            p_b = max(1, min(p_b, cv.p))
+            grid = (1, math.ceil(cv.c / c_b), math.ceil(cv.p / p_b))
+            return dataclasses.replace(
+                base, nf_block=c_b, c_block=c_b, p_block=p_b, grid=grid,
+                vmem_bytes=conv_working_set(cv, c_b, c_b, p_b))
+
+        c_b, p_b = base.c_block, base.p_block
+        plans: Dict[Tuple[int, int, int], Tuple[str, ConvBlockPlan]] = {}
+        for label, plan in (
+                ("base", base),
+                ("p_half", with_dw(c_b, p_b // 2)),
+                ("p_double", with_dw(c_b, p_b * 2)),
+                ("c_half", with_dw(c_b // 2, p_b)),
+                ("c_double", with_dw(c_b * 2, p_b)),
+        ):
+            plans.setdefault((plan.nf_block, plan.c_block, plan.p_block),
+                             (label, plan))
+        return [(label, plan, "depthwise") for label, plan in plans.values()]
+
+    def with_blocks(nf_b: int, c_b: int, p_b: int) -> ConvBlockPlan:
+        if cv.groups > 1:
+            nf_b = largest_divisor_le(cv.nfg, max(nf_b, 1))
+            c_b = largest_divisor_le(cv.cg, max(c_b, 1))
+            grid = (cv.groups * (cv.nfg // nf_b), cv.cg // c_b,
+                    math.ceil(cv.p / max(1, min(p_b, cv.p))))
+        else:
+            if cv.nf >= 8:                  # the JAX package's lane rounding
+                nf_b = -(-nf_b // 8) * 8
+            nf_b = max(1, min(nf_b,
+                              -(-cv.nf // 8) * 8 if cv.nf >= 8 else cv.nf))
+            c_b = max(1, min(c_b, cv.c))
+            grid = (math.ceil(cv.nf / nf_b), math.ceil(cv.c / c_b),
+                    math.ceil(cv.p / max(1, min(p_b, cv.p))))
+        p_b = max(1, min(p_b, cv.p))
+        return dataclasses.replace(
+            base, nf_block=nf_b, c_block=c_b, p_block=p_b, grid=grid,
+            vmem_bytes=conv_working_set(cv, nf_b, c_b, p_b))
+
+    nf_b, c_b, p_b = base.nf_block, base.c_block, base.p_block
+    plans = {}
+    for label, plan in (
+            ("base", base),
+            ("p_half", with_blocks(nf_b, c_b, p_b // 2)),
+            ("p_double", with_blocks(nf_b, c_b, p_b * 2)),
+            ("c_half", with_blocks(nf_b, c_b // 2, p_b)),
+            ("nf_half", with_blocks(nf_b // 2, c_b, p_b)),
+            ("nf_double", with_blocks(nf_b * 2, c_b, p_b)),
+    ):
+        plans.setdefault((plan.nf_block, plan.c_block, plan.p_block),
+                         (label, plan))
+    return [(label, plan, df) for label, plan in plans.values()
+            for df in ("weight_stationary", "output_stationary")]
+
+
+def _schedule_operands(cv: ConvLoopNest, epilogue: Optional[Epilogue],
+                       precision: str, dev: torch.device) -> dict:
+    """Random operands of one layer for ``conv2d_folded``, made from a
+    seeded ``torch.Generator`` on ``dev``: x (padded), w, and the vectors
+    and shortcut the epilogue reads.  With ``precision="int8"`` x and w
+    are quantized and the epilogue is the requant form, so the race times
+    the int8 stream it will deploy."""
+    from repro_torch.core.quant import (act_scale, quantize_act,
+                                        quantize_weight, requant_affine,
+                                        requant_epilogue)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(cv.n, cv.c, cv.padded_x, cv.padded_y)
+    w = randn(cv.nf, cv.cg, cv.r, cv.s)
+    has = epilogue is not None
+    residual = randn(cv.n, cv.nf, cv.p, cv.q) \
+        if has and epilogue.residual else None
+    zeros = torch.zeros(cv.nf, device=dev)
+    ones = torch.ones(cv.nf, device=dev)
+    if precision == "int8":
+        x = quantize_act(x, act_scale(x))
+        w, w_scale = quantize_weight(w)
+        scale, shift = requant_affine(
+            w_scale, epilogue, zeros if has and epilogue.bias else None,
+            ones if has and epilogue.scale else None,
+            zeros if has and epilogue.scale else None)
+        return dict(x_padded=x, w=w, bias=None, scale=scale, shift=shift,
+                    residual=residual, epilogue=requant_epilogue(epilogue))
+    scaled = has and epilogue.scale
+    return dict(x_padded=x, w=w,
+                bias=zeros if has and epilogue.bias else None,
+                scale=ones if scaled else None,
+                shift=zeros if scaled else None,
+                residual=residual, epilogue=epilogue)
+
+
+def measure_schedule_ms(cv: ConvLoopNest, plan: ConvBlockPlan, dataflow: str,
+                        *, device: Any = "cuda", reps: int = 3,
+                        warmup: int = 1,
+                        epilogue: Optional[Epilogue] = None,
+                        precision: str = "fp32") -> float:
+    """Median-of-``reps`` ms of one fold-kernel call on ``device``.
+
+    Synthesizes the layer's tensors (``_schedule_operands``: a shortcut
+    when the deployment ``epilogue`` fuses a residual add, the int8
+    operands and requant epilogue with ``precision="int8"``) and times the
+    deployed call, ``kernels.conv2d_ws.conv2d_folded`` with the candidate
+    plan and dataflow and the same epilogue, so the same CTA tile
+    (``fold_tile``) runs as in the forward.  On a CUDA device it is device
+    time: after ``warmup`` eager calls (the first loads the kernel
+    library), four calls are captured in one CUDA graph and each of
+    ``reps`` replays is timed between two CUDA events; the launch counters
+    tick in the warm-up and the capture, as for any captured forward.  On
+    the CPU (the plain fold loop) it is host time per call."""
+    from repro_torch.kernels.conv2d_ws import conv2d_folded
+    dev = resolve_device(device)
+    ops = _schedule_operands(cv, epilogue, precision, dev)
+
+    def call():
+        return conv2d_folded(stride=cv.stride, plan=plan, dataflow=dataflow,
+                             groups=cv.groups, **ops)
+
+    ts = []
+    with torch.inference_mode():
+        for _ in range(max(warmup, 1)):
+            call()
+        if dev.type != "cuda":
+            for _ in range(max(reps, 1)):
+                t0 = time.perf_counter()
+                call()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        else:
+            inner = 4
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for _ in range(inner):
+                    call()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            for _ in range(max(reps, 1)):
+                t0.record()
+                graph.replay()
+                t1.record()
+                t1.synchronize()
+                ts.append(t0.elapsed_time(t1) / inner)
+            del graph
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def _prove_candidate(cv: ConvLoopNest, plan: ConvBlockPlan, dataflow: str,
+                     epilogue: Optional[Epilogue], precision: str,
+                     dev: torch.device) -> None:
+    """``_verify_schedule`` on one candidate before it is launched: its
+    plan, its launch's index maps and, on a CUDA device, the CTA tile
+    ``fold_tile`` picks for it (which raises where none fits shared
+    memory).  Raises ``FoldLintError`` or ``ValueError``."""
+    from repro_torch.core.quant import requant_epilogue
+    key = ScheduleKey.from_loopnest(cv, precision)
+    sched = ConvSchedule(key=key, nest=cv, plan=plan, dataflow=dataflow,
+                         costs=())
+    sm_count = None
+    if dev.type == "cuda":
+        from repro_torch.kernels.conv2d_ws import _sm_count
+        sm_count = _sm_count(dev)
+    epi = requant_epilogue(epilogue) if precision == "int8" else epilogue
+    _verify_schedule(f"tune {key} {dataflow}", cv, sched, epi, cv.groups,
+                     sm_count)
+
+
+def autotune_schedule(cv: ConvLoopNest, cfg: Optional[MavecConfig] = None,
+                      *, vmem_limit: int = 64 * 1024 * 1024,
+                      device: Any = "cuda",
+                      reps: int = 3, warmup: int = 1,
+                      epilogue: Optional[Epilogue] = None,
+                      timer: Optional[Callable[[ConvBlockPlan, str], float]]
+                      = None,
+                      precision: str = "fp32") -> ConvSchedule:
+    """Race the candidate set on ``device`` and return the measured winner.
+
+    Candidates are ranked strictly by their measured median: a
+    measured-slower candidate never outranks a measured-faster one (the
+    analytical cost model has no vote once timings exist).  Without a
+    ``timer`` each candidate is first proven (``_prove_candidate``: plan,
+    index maps, CTA tile) and then timed (``measure_schedule_ms``) with
+    the deployment ``epilogue``; a candidate that fails either is recorded
+    in ``failed`` and never outranks anything, and one that fails its
+    proof is never launched.  ``timer(plan, dataflow)`` replaces both
+    (tests inject deterministic fakes)."""
+    key = ScheduleKey.from_loopnest(cv, precision)
+    if timer is None:
+        dev = resolve_device(device)
+
+        def timer(plan, df):
+            _prove_candidate(cv, plan, df, epilogue, precision, dev)
+            return measure_schedule_ms(cv, plan, df, device=dev, reps=reps,
+                                       warmup=warmup, epilogue=epilogue,
+                                       precision=precision)
+    raced, failed = [], []
+    for label, plan, df in tuning_candidates(cv, vmem_limit=vmem_limit):
+        try:
+            raced.append((float(timer(plan, df)), f"{label}/{df}", plan, df))
+        except Exception as e:              # candidate failure isolation:
+            failed.append((f"{label}/{df}", e))  # one bad variant must not
+            continue                             # abort the whole race
+    if not raced:
+        raise RuntimeError(
+            f"autotune: every candidate failed for {cv} — "
+            + "; ".join(f"{lbl}: {e}" for lbl, e in failed))
+    raced.sort(key=lambda t: t[0])          # measured-fastest first, always
+    best_ms, _, best_plan, best_df = raced[0]
+    costs = dataflow_costs(cv, best_plan, cfg, precision)
+    return ConvSchedule(key=key, nest=cv, plan=best_plan, dataflow=best_df,
+                        costs=tuple(sorted(costs.items())),
+                        source="measured", measured_ms=best_ms,
+                        timings=tuple((lbl, ms) for ms, lbl, _, _ in raced),
+                        failed=tuple((lbl, f"{type(e).__name__}: {e}")
+                                     for lbl, e in failed))
+
+
+def backend_tag(device: Any) -> str:
+    """The backend a tuning file's timings belong to: torch, the device
+    type and, on CUDA, the card's name (``"torch-cpu"``,
+    ``"torch-cuda:NVIDIA H100 80GB HBM3"``).  The JAX package writes
+    ``jax.default_backend()`` ("cpu", "tpu", "gpu"), which never equals
+    one of these."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return f"torch-cuda:{torch.cuda.get_device_name(dev)}"
+    return f"torch-{dev.type}"
+
+
+# --------------------------------------------------------------------------
 # Execution policy
 # --------------------------------------------------------------------------
 
@@ -289,10 +572,22 @@ class ScheduleCache:
         self._entries: Dict[ScheduleKey, ConvSchedule] = {}
         self._kernels: Dict[Tuple[ScheduleKey, str, Optional[Epilogue]],
                             Callable] = {}
+        # the device the measured entries were timed on (tags the JSON)
+        self._device: Optional[torch.device] = None
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
     @property
     def distinct(self) -> int:
         return len(self._entries)
+
+    def schedules(self) -> List[ConvSchedule]:
+        return list(self._entries.values())
+
+    def _forget_kernels(self, key: ScheduleKey) -> None:
+        self._kernels = {k: v for k, v in self._kernels.items()
+                         if k[0] != key}
 
     def _build(self, cv: ConvLoopNest, key: ScheduleKey) -> ConvSchedule:
         plan = plan_conv_blocks(cv, vmem_limit=self.vmem_limit)
@@ -310,8 +605,7 @@ class ScheduleCache:
                     or cv.padded_y > hit.nest.padded_y):
                 self.stats.replans += 1
                 self._entries[key] = self._build(cv, key)
-                self._kernels = {k: v for k, v in self._kernels.items()
-                                 if k[0] != key}
+                self._forget_kernels(key)
                 return self._entries[key]
             self.stats.hits += 1
             return hit
@@ -319,6 +613,153 @@ class ScheduleCache:
         sched = self._build(cv, key)
         self._entries[key] = sched
         return sched
+
+    # -- measured autotuning ----------------------------------------------
+    def autotune_for(self, cv: ConvLoopNest, *, reps: int = 3,
+                     warmup: int = 1, device: Any = "cuda",
+                     epilogue: Optional[Epilogue] = None,
+                     timer: Optional[Callable[[ConvBlockPlan, str], float]]
+                     = None, precision: str = "fp32") -> ConvSchedule:
+        """Measured ``schedule_for``: the first layer with a given key
+        races ``tuning_candidates`` on ``device``; every later layer (and
+        every later session that loads the JSON tuning file) reuses the
+        winner — tuning is pay-once per ``ScheduleKey``.
+
+        Candidates are timed with the first-seen layer's ``epilogue``; a
+        later same-key layer with another fused epilogue reuses the
+        winner's block geometry without re-measuring.  A re-tune drops the
+        key's memoized kernels."""
+        key = ScheduleKey.from_loopnest(cv, precision)
+        hit = self._entries.get(key)
+        if (hit is not None and hit.tuned
+                and cv.padded_x <= hit.nest.padded_x
+                and cv.padded_y <= hit.nest.padded_y):
+            self.stats.hits += 1
+            return hit
+        if hit is None:
+            self.stats.misses += 1
+        else:                       # model-sourced or spatially outgrown
+            self.stats.replans += 1
+        if timer is None:
+            self._device = resolve_device(device)
+        sched = autotune_schedule(cv, self.cfg, vmem_limit=self.vmem_limit,
+                                  device=device, reps=reps, warmup=warmup,
+                                  epilogue=epilogue, timer=timer,
+                                  precision=precision)
+        self._entries[key] = sched
+        self._forget_kernels(key)
+        return sched
+
+    # -- JSON persistence of tuning results --------------------------------
+    def _tag(self, device: Any) -> str:
+        if device is not None:
+            return backend_tag(resolve_device(device))
+        if self._device is not None:
+            return backend_tag(self._device)
+        return backend_tag("cuda" if torch.cuda.is_available() else "cpu")
+
+    def save_tuning(self, path: str, device: Any = None) -> int:
+        """Write every measured/loaded schedule to ``path`` (JSON), in the
+        JAX package's schema; ``backend`` is ``backend_tag`` of ``device``
+        (default: the device the entries were measured on).  Model-sourced
+        entries are skipped — only real timings are persisted."""
+        entries = []
+        for key, s in sorted(self._entries.items(), key=lambda kv: str(kv[0])):
+            if not s.tuned:
+                continue
+            entries.append({
+                "key": dataclasses.asdict(key),
+                "nest": dataclasses.asdict(s.nest),
+                "plan": {"nf_block": s.plan.nf_block,
+                         "c_block": s.plan.c_block,
+                         "p_block": s.plan.p_block,
+                         "grid": list(s.plan.grid),
+                         "vmem_bytes": s.plan.vmem_bytes,
+                         "groups": s.plan.groups},
+                "dataflow": s.dataflow,
+                "measured_ms": s.measured_ms,
+                "timings": [[lbl, ms] for lbl, ms in s.timings],
+            })
+        payload = {"version": 1, "backend": self._tag(device),
+                   "entries": entries}
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2)
+        return len(entries)
+
+    @staticmethod
+    def _dataclass_kwargs(cls, d: dict) -> dict:
+        """Tuning-JSON schema tolerance: drop fields this build doesn't
+        know (a newer writer), and let dataclass defaults fill fields the
+        file doesn't have (an older writer)."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return {k: v for k, v in d.items() if k in known}
+
+    def load_tuning(self, path: str, device: Any = None) -> int:
+        """Install previously-measured winners from ``path``; returns how
+        many.  Loaded entries hit in both ``schedule_for`` and
+        ``autotune_for`` (no re-measurement).
+
+        Schema-tolerant as the JAX package's loader: a pre-``groups`` entry
+        loads with ``groups=1``, a pre-int8 one with ``precision="fp32"``,
+        unknown fields of a newer writer are ignored.  Timings only
+        transfer within a backend: a file whose ``backend`` differs from
+        ``backend_tag(device)`` — one the JAX package wrote (on any
+        backend), a CPU file on the card or a card's file on the CPU, a
+        file from another card model — is ignored with a warning and 0 is
+        returned, so the caller re-measures and overwrites.  A missing,
+        unreadable or corrupt file, or a corrupt entry, warns and is
+        skipped: a deployment never fails to start over a tuning file."""
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+            entries = payload["entries"]
+            if not isinstance(entries, list):
+                raise TypeError(f"entries is {type(entries).__name__}, "
+                                "not a list")
+            recorded = payload.get("backend")
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            warnings.warn(f"tuning cache {path!r} is missing or corrupt "
+                          f"({type(e).__name__}: {e}); falling back to "
+                          "heuristic schedules")
+            return 0
+        current = self._tag(device)
+        if device is not None:
+            self._device = resolve_device(device)
+        if recorded is not None and recorded != current:
+            warnings.warn(f"tuning cache {path!r} was measured on backend "
+                          f"{recorded!r} but this session runs {current!r}; "
+                          "ignoring it (schedules will be re-measured)")
+            return 0
+        n = 0
+        for e in entries:
+            try:
+                key = ScheduleKey(**self._dataclass_kwargs(ScheduleKey,
+                                                           e["key"]))
+                nest = ConvLoopNest(**self._dataclass_kwargs(ConvLoopNest,
+                                                             e["nest"]))
+                pd = e["plan"]
+                plan = ConvBlockPlan(nf_block=int(pd["nf_block"]),
+                                     c_block=int(pd["c_block"]),
+                                     p_block=int(pd["p_block"]),
+                                     grid=tuple(int(g) for g in pd["grid"]),
+                                     vmem_bytes=int(pd["vmem_bytes"]),
+                                     groups=int(pd.get("groups", 1)))
+                dataflow = e["dataflow"]
+                measured_ms = e.get("measured_ms")
+                timings = tuple((lbl, float(ms))
+                                for lbl, ms in e.get("timings", ()))
+            except (KeyError, TypeError, ValueError) as err:
+                warnings.warn(f"tuning cache {path!r}: skipping corrupt "
+                              f"entry ({type(err).__name__}: {err})")
+                continue
+            costs = dataflow_costs(nest, plan, self.cfg, key.precision)
+            self._entries[key] = ConvSchedule(
+                key=key, nest=nest, plan=plan, dataflow=dataflow,
+                costs=tuple(sorted(costs.items())), source="loaded",
+                measured_ms=measured_ms, timings=timings)
+            self._forget_kernels(key)
+            n += 1
+        return n
 
     def kernel_for(self, sched: ConvSchedule,
                    epilogue: Optional[Epilogue] = None) -> Callable:
@@ -542,6 +983,7 @@ class CompiledNetwork:
     jit: bool = False            # whether apply is a CapturedForward
     eager: Optional[Callable] = None  # the eager forward (apply unless jit)
     verify_s: float = 0.0        # host seconds this compile spent verifying
+    autotuned: bool = False      # schedules are measured winners
 
     def __call__(self, params: Dict[str, Any], x: torch.Tensor
                  ) -> torch.Tensor:
@@ -552,6 +994,10 @@ class CompiledNetwork:
         """CUDA-graph captures of a jitted forward so far (0 unless
         ``jit``)."""
         return self.apply.captures if self.jit else 0
+
+    @property
+    def layer_keys(self) -> Tuple[Tuple[str, ScheduleKey], ...]:
+        return tuple((name, s.key) for name, s in self.layer_schedules)
 
     @property
     def distinct_schedules(self) -> int:
@@ -566,12 +1012,16 @@ class CompiledNetwork:
 
     def describe(self) -> str:
         lines = [f"CompiledNetwork(mode={self.mode}, device={self.device}, "
-                 f"fused={self.fused}, precision={self.precision}, "
+                 f"fused={self.fused}, autotuned={self.autotuned}, "
+                 f"precision={self.precision}, "
                  f"layers={len(self.layer_schedules)}, "
                  f"schedules={self.distinct_schedules})"]
         for name, sched in self.layer_schedules:
+            ms = (f" {sched.measured_ms:.2f}ms"
+                  if sched.measured_ms is not None else "")
             lines.append(f"  {name:<10} {str(sched.key):<24} "
-                         f"{sched.dataflow:<18} grid={sched.plan.grid}")
+                         f"{sched.dataflow:<18} grid={sched.plan.grid}"
+                         f" [{sched.source}]{ms}")
         return "\n".join(lines)
 
 
@@ -582,7 +1032,12 @@ def compile_network(params: Dict[str, Any], graph,
                     head: Optional[Callable] = None,
                     jit: bool = True,
                     fuse_epilogues: bool = True,
+                    autotune: bool = False,
+                    tuning_path: Optional[str] = None,
+                    autotune_reps: int = 3,
+                    autotune_timer: Optional[Callable] = None,
                     verify: bool = True,
+                    tracer=None,
                     device: Any = "cuda", precision: str = "fp32",
                     quant=None) -> CompiledNetwork:
     """Lower a streaming graph into a static fold schedule + forward.
@@ -626,6 +1081,19 @@ def compile_network(params: Dict[str, Any], graph,
     one dict lookup per layer; ``verify_s`` on the result is the time
     this compile spent on it.
 
+    ``autotune=True`` replaces the analytical dataflow ranking with
+    measured timings (``ScheduleCache.autotune_for``: every candidate
+    proven, then timed on ``device`` with the layer's deployment
+    epilogue), pay-once per ``ScheduleKey``; with ``tuning_path`` the
+    winners round-trip through JSON (loaded before the walk when the file
+    exists, saved after it), so a later session measures nothing.
+    ``autotune_reps`` is each candidate's timed repetitions (median);
+    ``autotune_timer(plan, dataflow)`` replaces the measurement (tests).
+    Tuning runs here, before any forward is captured: no timing runs in a
+    capture.  ``tracer`` (``obs/trace.py``, duck-typed) records one
+    ``plan:<layer>`` span per conv and a ``compile_network`` span on the
+    compile track.
+
     ``precision="int8"`` lowers every conv through ``conv2d_int8``: int8
     weight and activation blocks, int32 sums, dequant folded into the
     epilogue's scale/shift slot.  ``quant`` is the calibrated
@@ -638,8 +1106,13 @@ def compile_network(params: Dict[str, Any], graph,
                                         requant_epilogue)
     check_precision(precision)
     cache = cache if cache is not None else ScheduleCache()
+    # spans carry explicit timestamps (add_span), so a GraphError that
+    # aborts the walk leaves no open span; tid 3 is the compile track
+    tc0 = float(tracer.clock()) if tracer is not None else 0.0
     mode, dev = resolve_execution(policy, device)
     stats_before = dataclasses.replace(cache.stats)
+    if autotune and tuning_path and os.path.exists(tuning_path):
+        cache.load_tuning(tuning_path, device=dev)
     fused = fuse_epilogues and mode == "kernel"
     base_graph = as_graph(graph)
     g = fuse_graph(base_graph) if fused else base_graph
@@ -696,7 +1169,21 @@ def compile_network(params: Dict[str, Any], graph,
                     raise GraphError(
                         f"{nd.name}: fused shortcut {nd.residual!r} has "
                         f"shape {got}, conv output is {want}")
-            sched = cache.schedule_for(cv, precision=precision)
+            tp0 = float(tracer.clock()) if tracer is not None else 0.0
+            if autotune:
+                # timed on the compile's device with the deployment
+                # epilogue, so the timed kernel is the executed one
+                sched = cache.autotune_for(
+                    cv, reps=autotune_reps, device=dev, epilogue=epi,
+                    timer=autotune_timer, precision=precision)
+            else:
+                sched = cache.schedule_for(cv, precision=precision)
+            if tracer is not None:
+                tracer.add_span(f"plan:{nd.name}", "compile", 3, tp0,
+                                float(tracer.clock()) - tp0,
+                                schedule=str(sched.key),
+                                dataflow=sched.dataflow,
+                                source=sched.source)
             x_scale = (quant.scale_for(nd.name) if precision == "int8"
                        else None)
             if verify and mode == "kernel":
@@ -820,6 +1307,8 @@ def compile_network(params: Dict[str, Any], graph,
         y = env[out_name]
         return head(p, y) if head is not None else y
 
+    if autotune and tuning_path:
+        cache.save_tuning(tuning_path, device=dev)
     build_stats = CacheStats(
         hits=cache.stats.hits - stats_before.hits,
         misses=cache.stats.misses - stats_before.misses,
@@ -827,13 +1316,21 @@ def compile_network(params: Dict[str, Any], graph,
     captured = jit and dev.type == "cuda"
     apply = CapturedForward(forward, input_shape, dev) if captured \
         else forward
+    if tracer is not None:
+        tracer.add_span("compile_network", "compile", 3, tc0,
+                        float(tracer.clock()) - tc0, mode=mode,
+                        batch=int(input_shape[0]),
+                        conv_layers=len(layer_schedules),
+                        distinct_schedules=len(
+                            {s.key for _, s in layer_schedules}))
     return CompiledNetwork(apply=apply,
                            layer_schedules=tuple(layer_schedules),
                            build_stats=build_stats, cache=cache, mode=mode,
                            device=dev, fused=fused, graph=g,
                            layer_nests=tuple(layer_nests),
                            precision=precision, quant=quant, jit=captured,
-                           eager=forward, verify_s=verify_s)
+                           eager=forward, verify_s=verify_s,
+                           autotuned=autotune)
 
 
 # --------------------------------------------------------------------------
@@ -854,13 +1351,20 @@ class BucketCompiler:
     ``jit`` goes to every bucket's compile: on a CUDA device each bucket's
     forward is one CUDA graph, with a memory pool of its own.  So does
     ``verify``: a bucket's geometries are proven once (the memo makes the
-    later buckets' proofs of shared schedules one lookup a layer)."""
+    later buckets' proofs of shared schedules one lookup a layer).  So do
+    ``autotune`` and its options: the first bucket's compile measures every
+    schedule, every later bucket hits the shared cache (tuning is pay-once
+    across buckets), and ``tuning_path`` is one JSON shared by all."""
 
     def __init__(self, params: Dict[str, Any], graph, img: int, *,
                  chan: int = 3, policy: str = "auto",
                  cache: Optional[ScheduleCache] = None,
                  head: Optional[Callable] = None, jit: bool = True,
-                 fuse_epilogues: bool = True, verify: bool = True,
+                 fuse_epilogues: bool = True, autotune: bool = False,
+                 tuning_path: Optional[str] = None,
+                 autotune_reps: int = 3,
+                 autotune_timer: Optional[Callable] = None,
+                 verify: bool = True, tracer=None,
                  device: Any = "cuda",
                  precision: str = "fp32", quant=None):
         from repro_torch.core.quant import check_precision, default_recipe
@@ -874,7 +1378,12 @@ class BucketCompiler:
         self.head = head
         self.jit = jit
         self.fuse_epilogues = fuse_epilogues
+        self.autotune = autotune
+        self.tuning_path = tuning_path
+        self.autotune_reps = autotune_reps
+        self.autotune_timer = autotune_timer
         self.verify = verify
+        self.tracer = tracer          # duck-typed obs tracer (or None)
         self.device = device
         self.precision = precision
         if precision == "int8" and quant is None:
@@ -890,6 +1399,9 @@ class BucketCompiler:
         """Bucket widths compiled so far, ascending."""
         return sorted(self._nets)
 
+    def __contains__(self, batch: int) -> bool:
+        return int(batch) in self._nets
+
     def network_for(self, batch: int) -> CompiledNetwork:
         """The compiled forward for one bucket width (compiled on first
         use; schedules come from the shared cache)."""
@@ -903,7 +1415,10 @@ class BucketCompiler:
                 (batch, self.chan, self.img, self.img),
                 policy=self.policy, cache=self.cache, head=self.head,
                 jit=self.jit, fuse_epilogues=self.fuse_epilogues,
-                verify=self.verify, device=self.device,
+                autotune=self.autotune, tuning_path=self.tuning_path,
+                autotune_reps=self.autotune_reps,
+                autotune_timer=self.autotune_timer, verify=self.verify,
+                tracer=self.tracer, device=self.device,
                 precision=self.precision, quant=self.quant)
             self._nets[batch] = net
         return net

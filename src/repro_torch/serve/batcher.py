@@ -30,9 +30,10 @@ the host half of that discipline — a FIFO request queue packed into
   ``BadRequestError`` for anything malformed — a poison payload is
   refused at the door, never discovered mid-batch.
 
-Everything here is numpy + plain Python with an injectable clock: the
-device side (staging, compiled forwards, metrics) lives in
-``serve/vision.py``.
+Everything here is numpy + plain Python with an injectable clock and an
+optional tracer (``obs/trace.py``: an ``expire`` instant per request
+dropped at form time): the device side (staging, compiled forwards,
+metrics, recovery) lives in ``serve/vision.py``.
 """
 from __future__ import annotations
 
@@ -42,8 +43,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.obs.trace import NULL_TRACER, TID_ENGINE
 from repro_torch.serve.admission import (BadRequestError, RequestOutcome,
-                                   validate_images)
+                                         validate_images)
 
 __all__ = ["ImageRequest", "BucketPolicy", "FormedBatch", "ImageBatcher",
            "BadRequestError", "RequestOutcome"]
@@ -57,7 +59,8 @@ class ImageRequest:
     ``t_deadline`` is an absolute clock value (``t_submit + deadline``) or
     ``None`` for no SLO.  ``outcome`` is the lifecycle state machine —
     ``finish`` performs the single pending->terminal transition and is the
-    only way state changes."""
+    only way state changes.  ``served_by`` records which ladder rung
+    produced the logits (``primary`` or ``reference``)."""
     rid: int
     images: np.ndarray
     t_submit: float = 0.0
@@ -66,7 +69,10 @@ class ImageRequest:
     logits: Optional[np.ndarray] = None
     done: bool = False
     outcome: RequestOutcome = RequestOutcome.PENDING
+    served_by: Optional[str] = None
     error: Optional[str] = None
+    # the admission controller's predicted queue wait at submit time
+    predicted_wait_s: Optional[float] = None
 
     @property
     def n(self) -> int:
@@ -183,7 +189,8 @@ class ImageBatcher:
 
     def __init__(self, policy: BucketPolicy, img: int, chan: int = 3,
                  dtype=np.float32,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 tracer=None):
         self.policy = policy
         self.img = int(img)
         self.chan = int(chan)
@@ -191,6 +198,7 @@ class ImageBatcher:
         self.queue: List[ImageRequest] = []
         self.expired: List[ImageRequest] = []   # drained by the engine
         self._clock = clock
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self._next_rid = 0
 
     def __len__(self) -> int:
@@ -202,8 +210,10 @@ class ImageBatcher:
 
     def make_request(self, images: np.ndarray,
                      deadline_s: Optional[float] = None) -> ImageRequest:
-        """Validate and build a request *without* queueing it.  Raises
-        ``BadRequestError`` on a malformed payload."""
+        """Validate and build a request *without* queueing it (the engine
+        uses this for the admission-reject path, which must still hand the
+        caller a terminal request object).  Raises ``BadRequestError`` on a
+        malformed payload."""
         images = validate_images(images, chan=self.chan, img=self.img,
                                  max_images=self.policy.max_width,
                                  dtype=self.dtype)
@@ -230,6 +240,9 @@ class ImageBatcher:
             if req.t_deadline is not None and now > req.t_deadline:
                 req.finish(RequestOutcome.EXPIRED, t=now,
                            error="deadline passed before batch formation")
+                self.tracer.instant("expire", cat="error", tid=TID_ENGINE,
+                                    request_id=req.rid,
+                                    overshoot_s=now - req.t_deadline)
                 self.expired.append(req)
             else:
                 live.append(req)
@@ -250,7 +263,8 @@ class ImageBatcher:
 
     @staticmethod
     def scatter(batch: FormedBatch, logits: np.ndarray,
-                t_done: Optional[float] = None) -> None:
+                t_done: Optional[float] = None,
+                served_by: str = "primary") -> None:
         """Slice bucket-width logits back to per-request outputs (padding
         rows are simply never read) and move each request to ``ok``."""
         t_done = time.monotonic() if t_done is None else t_done
@@ -258,4 +272,5 @@ class ImageBatcher:
         for req in batch.requests:
             req.logits = logits[off:off + req.n]
             off += req.n
+            req.served_by = served_by
             req.finish(RequestOutcome.OK, t=t_done)

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of it (nor ``chip_smoke.py`` and
-``fold_tiles.py``) imports
+"""The port stands alone: no file of it (nor ``chip_smoke.py``,
+``fold_tiles.py`` and ``serve_ab.py``) imports
 jax or the JAX package, it imports in a process where jax cannot load,
 and asking for a GPU that is not there raises instead of falling back."""
 import ast
@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "fold_tiles.py"]
+    [ROOT / "chip_smoke.py", ROOT / "fold_tiles.py", ROOT / "serve_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,7 +43,10 @@ def test_port_imports_where_jax_cannot_load():
         "from repro_torch.models import (api, attention, common, layers,\n"
         "                                mlp, settings, ssm, transformer)\n"
         "from repro_torch.configs import base, registry\n"
-        "from repro_torch.serve import engine, steps, vision\n"
+        "from repro_torch.serve import (admission, batcher, chaos, engine,\n"
+        "                               steps, vision)\n"
+        "from repro_torch.obs import folds, metrics, report, trace\n"
+        "from repro_torch.ft import fault_tolerance\n"
         "from repro_torch.launch import serve\n"
         "from repro_torch.kernels import (attention_fold, build,\n"
         "                                 conv1d_causal, conv2d_ws, ops, ref)\n"
@@ -70,12 +73,18 @@ def test_port_imports_where_jax_cannot_load():
                                    "launcher", "lm_init_params",
                                    "lm_init_cache", "batch_engine",
                                    "token_serving_summary",
-                                   "token_launcher", "foldlint"])
+                                   "token_launcher", "foldlint",
+                                   "chaos_summary", "chaos_launcher",
+                                   "obs_report", "autotune"])
 def test_cuda_without_a_gpu_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
     from repro_torch.analysis import foldlint
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import autotune_schedule
+    from repro_torch.core.loopnest import ConvLoopNest
+    from repro_torch.obs import report
+    from repro_torch.serve.chaos import chaos_summary
     from repro_torch.launch.serve import main
     from repro_torch.models import api, mobilenet, resnet, vgg
     from repro_torch.serve.engine import BatchEngine, token_serving_summary
@@ -107,6 +116,12 @@ def test_cuda_without_a_gpu_raises(entry):
         "token_serving_summary": lambda: token_serving_summary(),
         "token_launcher": lambda: main(["--arch", "zamba2-1.2b"]),
         "foldlint": lambda: foldlint.main(["--model", "vgg16"]),
+        "chaos_summary": lambda: chaos_summary("vgg16", profile="mixed",
+                                               seed=0),
+        "chaos_launcher": lambda: main(["--vision", "--chaos", "0"]),
+        "obs_report": lambda: report.main(["--model", "vgg16"]),
+        "autotune": lambda: autotune_schedule(ConvLoopNest(
+            n=1, nf=8, c=4, r=3, s=3, x=8, y=8, stride=1, pad=1)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -1,7 +1,7 @@
 """The port's vision-serving metrics and served logits against the JAX
 package's: ``ServingMetrics.as_dict`` has the reference's keys, nesting and
-rounding for the same counts (less the robust-serving counters still to
-come), ``metrics_dict`` files ``lost_requests`` under ``"robustness"``, and
+rounding for the same counts (the robust-serving counters included),
+``metrics_dict`` files ``lost_requests`` under ``"robustness"``, and
 served logits equal a direct forward of the same images bitwise, for each
 zoo model in fp32 and int8, on the CPU."""
 import numpy as np
@@ -13,12 +13,9 @@ from repro.serve import vision as j_vision  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
 from repro_torch.serve import vision as t_vision  # noqa: E402
 
-# the reference's robust-serving counters (admission, the degradation
-# ladder, the watchdog, deadlines): they come with the port's robust
-# serving (ROADMAP queue A item 4), not as invented zeros
-ROBUST_TO_COME = {"shed", "failed", "degraded_batches", "nonfinite_batches",
-                  "hung_batches", "straggler_events", "deadline_total",
-                  "deadline_hits", "deadline_hit_rate"}
+# the reference's robust-serving counters the port lacks: none since the
+# port's admission controller, degradation ladder and watchdog count them
+ROBUST_TO_COME = set()
 IMG, WIDTH, CLASSES = 32, 0.0625, 10
 
 
@@ -35,6 +32,10 @@ def _fill(m, seed):
     m.per_bucket = {4: 3, 2: 2, 8: 1}
     m.submitted, m.expired = 16, 2
     m.outcomes = {"ok": 14, "expired": 2}
+    m.shed, m.failed = int(rng.integers(0, 3)), int(rng.integers(0, 3))
+    m.degraded_batches, m.nonfinite_batches = 2, 1
+    m.hung_batches, m.straggler_events = 1, int(rng.integers(0, 4))
+    m.deadline_total, m.deadline_hits = 7, int(rng.integers(0, 7))
     return m
 
 
@@ -46,6 +47,7 @@ def test_metrics_as_dict_matches_reference_package(seed):
     assert set(got) == set(want)
     assert set(want["robustness"]) - set(got["robustness"]) == \
         ROBUST_TO_COME
+    assert set(got["robustness"]) == set(want["robustness"])
     for key, value in got.items():
         if key != "robustness":
             assert value == want[key], key
