@@ -100,6 +100,29 @@ Phases (any failed check raises, and the script exits non-zero):
     served by the primary rung.  Every non-chaos serving phase (5, 8, 11,
     12c) holds 0 degraded, failed and non-finite batches, every request
     served by the primary rung.
+12d. ``[bf16]``: each bf16 kernel instance (``fold_conv_{ws,os,dw,
+    psum}_bf16``, ``dense_bf16``) against its plain version on phase 2's
+    geometries, the head shapes, VGG-16's 13 layers at 224 b1 and
+    MobileNetV2's at 32 b4, within one bf16 step of each element
+    (``2^-7·|plain|``, the psum staging's widened by its depth folds'
+    magnitudes) plus ``1e-4·max(1, max|plain|)``, timed beside the fp32
+    instance, ``F.conv2d`` / ``torch.addmm`` in bf16 and the bf16
+    tensor-core bound; then the bf16 main path: VGG-16 at 224 b1 and
+    MobileNetV2 / ResNet-18 at 32 b4 from ``init_params(dtype=
+    torch.bfloat16)``, jitted bitwise eager, one bf16 launch per conv
+    and dense layer, bf16 logits within ``3e-2·max(1, max|ref|)`` of the
+    bf16 reference policy, ms beside fp32; and ``ops.conv2d(impl=
+    "fold_ws_psum")`` in bf16 over VGG-16's 13 layers.
+12e. ``[http]``: full-width MobileNetV2 (phase 8's configuration and
+    stream, base64 bodies, 8 keep-alive clients) through
+    ``launch/server.start_server`` with 2 in-process workers (and again
+    with the interpreter's switch interval at 0.1 ms), 1, then one
+    ``--spawn`` worker: every 200 from the primary rung and bitwise a
+    direct ``EngineWorker`` submission of the same images, ``/stats``
+    with 0 lost, a 400, a 413, a 429 or 504, ``/metrics`` parseable and
+    ``/metrics.json`` valid, the spawned worker's boot seconds and its
+    SIGTERM drain (503 on ``/healthz`` and ``/v1/infer``, exit 0);
+    images/s and p50 / p99 over the wire beside phase 8's.
 13. LM kernels: the causal conv1d kernel bitwise against its plain
     version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
     K = 1, 2, 3 and 8, T < K - 1, D = 8k + 3 and an x off the 16-byte
@@ -143,9 +166,9 @@ eager.
 
 Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32, the head kernel's
-count too), 10-11 (int8), 12 (psum), 12c (the serving runtime; the
-tuner's launches tick at its warm-ups and captures), 14-16 (the LM
-path), 17 (the attention op).  The second-to-last
+count too), 10-11 (int8), 12 (psum), 12d (bf16), 12c and 12e (the
+serving runtime and HTTP serving; launches tick at warm-ups and
+captures), 14-16 (the LM path), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -273,6 +296,35 @@ def bound(flops, nbytes, peak=FP32_PEAK):
     return max(op_ms, byte_ms), op_ms, byte_ms
 
 
+# bf16: a kernel against its plain version, element by element, within one
+# bf16 step of the value (2^-7·|plain|: both round fp32 sums once) plus
+# TOL_KERNEL·max(1, max|plain|) for the sums' order
+BF16_STEP = 2.0 ** -7
+# a whole bf16 forward, kernel policy against the reference policy, which
+# rounds to bf16 at other points (the kernels once at each layer's store,
+# the reference after the conv and after each epilogue step): the JAX
+# package's bf16 conv tolerance (tests/test_kernels.py:58), scaled by
+# max(1, max|reference|)
+TOL_BF16_MODEL = 3e-2
+
+
+def bf16_err(torch, got, want, what, extra=None):
+    """Hold a bf16 kernel result against its plain version under the bf16
+    rule; ``extra`` (psum staging, which rounds each depth fold's partial
+    sums to bf16) adds 2^-7 of the folds' magnitudes to each element's
+    step.  Returns the largest error."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    mag = w.abs() if extra is None else w.abs() + extra
+    lim = BF16_STEP * mag + TOL_KERNEL * max(1.0, w.abs().max().item())
+    worst = err.max().item()
+    check(got.dtype == want.dtype == torch.bfloat16
+          and got.shape == want.shape and bool((err <= lim).all()),
+          f"{what}: the bf16 kernel disagrees with its plain version "
+          f"(max abs err {worst:.3e})")
+    return worst
+
+
 def epi_operands(torch, gen, dev, epi, n, nf, p, q):
     """Random bias / BN scale and shift / shortcut for an epilogue, as
     keyword arguments of ``conv2d_folded``."""
@@ -301,7 +353,7 @@ def randomize_bn(torch, params, seed=7):
                  "mean": 0.3 * rng.standard_normal(n),
                  "var": rng.uniform(0.5, 1.5, n)}
         for k, v in draws.items():
-            leaf[k] = torch.as_tensor(v, dtype=torch.float32, device=dev)
+            leaf[k] = torch.as_tensor(v, dtype=leaf[k].dtype, device=dev)
     return params
 
 
@@ -561,7 +613,7 @@ def head_shapes():
     return out
 
 
-def phase_dense(torch, dev):
+def phase_dense(torch, dev, dtype=None):
     """The head kernel against its plain version at every head shape of
     the main paths, batch 8, 4, 2 and 1: within TOL_DENSE·max|plain|, and
     row i of each narrower batch bitwise equal to row i of the batch of
@@ -572,25 +624,32 @@ def phase_dense(torch, dev):
     largest error and the checksums."""
     import hashlib
     from repro_torch.kernels import dense as dn
+    dtype = dtype or torch.float32
+    half = dtype == torch.bfloat16
+    name = dn.KERNEL_BF16 if half else dn.KERNEL
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     err, sums = 0.0, {}
     for label, k, n in head_shapes():
-        w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
-        b = torch.randn(n, device=dev, generator=gen)
-        x8 = torch.randn(8, k, device=dev, generator=gen)
+        w = (torch.randn(k, n, device=dev, generator=gen) / k ** 0.5).to(
+            dtype)
+        b = torch.randn(n, device=dev, generator=gen).to(dtype)
+        x8 = torch.randn(8, k, device=dev, generator=gen).to(dtype)
         full, worst = None, 0.0
         for rows in (8, 4, 2, 1):
-            before = dn.launch_counts()[dn.KERNEL]
+            before = dn.launch_counts()[name]
             got = dn.dense(x8[:rows], w, b)
             torch.cuda.synchronize()
-            check(dn.launch_counts()[dn.KERNEL] == before + 1,
-                  "the head kernel did not launch")
+            check(dn.launch_counts()[name] == before + 1,
+                  f"{name} did not launch")
             want = dn.dense_plain(x8[:rows], w, b)
-            e = (got - want).abs().max().item()
-            check(got.shape == want.shape
-                  and e <= TOL_DENSE * want.abs().max().item(),
-                  f"head {label} b{rows}: outside tolerance of the plain "
-                  "version")
+            if half:
+                e = bf16_err(torch, got, want, f"head {label} b{rows}")
+            else:
+                e = (got - want).abs().max().item()
+                check(got.shape == want.shape
+                      and e <= TOL_DENSE * want.abs().max().item(),
+                      f"head {label} b{rows}: outside tolerance of the "
+                      "plain version")
             worst = max(worst, e / want.abs().max().item())
             err = max(err, e)
             if full is None:
@@ -600,10 +659,10 @@ def phase_dense(torch, dev):
                       f"head {label}: rows differ between batch {rows} and 8")
         cols, groups, row_tiles = dn.launch_grid(8, k, n)
         sums[label] = hashlib.sha256(
-            full.cpu().numpy().tobytes()).hexdigest()[:16]
+            full.float().cpu().numpy().tobytes()).hexdigest()[:16]
         per_call = graph_kernels(torch, lambda: dn.launch(x8[:1], w, b),
                                  f"head {label}")
-        print(f"[kernels] dense {label} K={k} N={n}: K chunk "
+        print(f"[kernels] {name} {label} K={k} N={n}: K chunk "
               f"{dn.k_chunk(k, n)}, {-(-k // dn.k_chunk(k, n))} chunks in "
               f"{groups} groups, {cols * groups} CTAs per row tile "
               f"({cols * groups * row_tiles} at batch 8), "
@@ -613,18 +672,21 @@ def phase_dense(torch, dev):
     return err, sums
 
 
-def time_dense(torch, dev, batch, reps):
+def time_dense(torch, dev, batch, reps, dtype=None):
     """VGG-16's head at 224 (fc1, fc2, fc3) at ``batch``: the head kernel,
     its plain version and ``torch.addmm`` (one PyTorch call of the same
     function), device time by CUDA-graph replay, with the bound (the
-    weights, x, b and the output moved once; fp32 operations)."""
+    weights, x, b and the output moved once; fp32 operations, or bf16
+    ones on the tensor cores for ``dtype`` bf16)."""
     from repro_torch.kernels import dense as dn
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     rows = []
     for label, k, n in head_shapes()[:3]:
-        w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
-        b = torch.randn(n, device=dev, generator=gen)
-        x = torch.randn(batch, k, device=dev, generator=gen)
+        w = (torch.randn(k, n, device=dev, generator=gen) / k ** 0.5).to(
+            dtype)
+        b = torch.randn(n, device=dev, generator=gen).to(dtype)
+        x = torch.randn(batch, k, device=dev, generator=gen).to(dtype)
         row = {"layer": label, "batch": batch, "k": k, "n": n,
                "ms": time_graph_ms(torch, lambda: dn.launch(x, w, b), reps),
                "plain_ms": time_graph_ms(
@@ -632,7 +694,9 @@ def time_dense(torch, dev, batch, reps):
                "library_ms": time_graph_ms(
                    torch, lambda: torch.addmm(b, x, w), reps)}
         row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
-            2.0 * batch * k * n, 4.0 * (k * n + batch * k + n + batch * n))
+            2.0 * batch * k * n,
+            x.element_size() * (k * n + batch * k + n + batch * n),
+            BF16_TC_PEAK if dtype == torch.bfloat16 else FP32_PEAK)
         rows.append(row)
     return rows
 
@@ -669,21 +733,28 @@ def vgg_layer_specs(img: int, batch: int):
     return out
 
 
-def time_layers(torch, dev, layers, dataflows, reps):
+def time_layers(torch, dev, layers, dataflows, reps, dtype=None):
     """Time the kernel(s) (``<dataflow>_ms``: device time, CUDA-graph
     replay of the bare launch on prepared operands; ``<dataflow>_call_ms``:
     the eager ``conv2d_folded`` call, host work included), the plain
-    version and F.conv2d at each layer's main-path shape.  Returns
+    version and F.conv2d at each layer's main-path shape, in fp32 or in
+    ``dtype`` (bf16: each kernel's output is held against its plain
+    version under the bf16 rule, ``max_abs_err`` in the row, and the
+    bound counts 2-byte elements and the bf16 tensor-core rate).  Returns
     per-layer rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import conv2d_ws as cw
+    dtype = dtype or torch.float32
+    half = dtype == torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for name, sched, epi, batch, h in layers:
         cv = sched.nest          # its channels; the extent is the layer's own
-        x = torch.randn(batch, cv.c, h + 2, h + 2, device=dev, generator=gen)
+        x = torch.randn(batch, cv.c, h + 2, h + 2, device=dev,
+                        generator=gen).to(dtype)
         w = torch.randn(cv.nf, cv.c, 3, 3, device=dev, generator=gen)
-        b = torch.randn(cv.nf, device=dev, generator=gen)
+        w = (w / (cv.c * 9) ** 0.5 if half else w).to(dtype)
+        b = torch.randn(cv.nf, device=dev, generator=gen).to(dtype)
         row = {"layer": name, "batch": batch, "h": h,
                "c": cv.c, "nf": cv.nf, "epilogue": str(epi)}
         for df in dataflows:
@@ -703,10 +774,17 @@ def time_layers(torch, dev, layers, dataflows, reps):
         row["library_ms"] = time_graph_ms(
             torch, lambda: F.conv2d(xin, w, b, padding=1), max(reps, 10))
         out = cw.conv2d_folded(x, w, **kw)
+        if half:
+            for df in dataflows:
+                row[f"{df}_max_abs_err"] = bf16_err(
+                    torch, cw.conv2d_folded(x, w, **dict(kw, dataflow=df)),
+                    cw.conv2d_folded_plain(x, w, **dict(kw, dataflow=df)),
+                    f"bf16 {name} {df}")
         row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
             2.0 * batch * cv.nf * cv.c * 9 * h * h,
-            4.0 * (batch * cv.c * h * h + w.numel() + b.numel()
-                   + out.numel()))
+            x.element_size() * (batch * cv.c * h * h + w.numel()
+                                + b.numel() + out.numel()),
+            BF16_TC_PEAK if half else FP32_PEAK)
         rows.append(row)
     return rows
 
@@ -728,24 +806,31 @@ def model_layers(name: str, img: int, batch: int):
             for lname, sched in net.layer_schedules]
 
 
-def time_model_layers(torch, dev, layers, reps):
+def time_model_layers(torch, dev, layers, reps, dtype=None):
     """Time each conv of a model at its main-path shape, with its bound:
     ``ms`` the launch of the kernel its schedule selects on prepared
     operands, ``plain_ms`` the plain version and ``library_ms`` one
     ``F.conv2d`` call (bias included, no epilogue), all three as device
     time (CUDA-graph replay); ``call_ms`` the eager ``conv2d_folded`` call,
-    host work included."""
+    host work included.  In fp32 or in ``dtype`` (bf16: each kernel held
+    against its plain version under the bf16 rule, ``max_abs_err`` in the
+    row, 2-byte elements and the bf16 tensor-core rate in the bound)."""
     import torch.nn.functional as F
     from repro_torch.kernels import conv2d_ws as cw
+    dtype = dtype or torch.float32
+    half = dtype == torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for name, sched, cv, epi in layers:
         pad = cv.pad
         x = torch.randn(cv.n, cv.c, cv.x + 2 * pad, cv.y + 2 * pad,
-                        device=dev, generator=gen)
+                        device=dev, generator=gen).to(dtype)
         w = torch.randn(cv.nf, cv.c // cv.groups, cv.r, cv.s, device=dev,
                         generator=gen)
-        ops = epi_operands(torch, gen, dev, epi, cv.n, cv.nf, cv.p, cv.q)
+        w = (w / (cv.c // cv.groups * cv.r * cv.s) ** 0.5 if half
+             else w).to(dtype)
+        ops = {k: v.to(dtype) for k, v in epi_operands(
+            torch, gen, dev, epi, cv.n, cv.nf, cv.p, cv.q).items()}
         kw = dict(stride=cv.stride, plan=sched.plan,
                   dataflow=sched.dataflow, epilogue=epi, groups=cv.groups,
                   **ops)
@@ -771,13 +856,18 @@ def time_model_layers(torch, dev, layers, reps):
                                     stride=cv.stride, padding=pad,
                                     groups=cv.groups), reps)
         out = cw.conv2d_folded(x, w, **kw)
+        if half:
+            row["max_abs_err"] = bf16_err(
+                torch, out, cw.conv2d_folded_plain(x, w, **kw),
+                f"bf16 {name}")
         vec = cv.nf * (int(epi.bias) + 2 * int(epi.scale))
         res = out.numel() if epi.residual else 0
         row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
             2.0 * cv.n * cv.nf * (cv.c // cv.groups) * cv.r * cv.s
             * cv.p * cv.q,
-            4.0 * (cv.n * cv.c * cv.x * cv.y + w.numel() + vec + res
-                   + out.numel()))
+            x.element_size() * (cv.n * cv.c * cv.x * cv.y + w.numel() + vec
+                                + res + out.numel()),
+            BF16_TC_PEAK if half else FP32_PEAK)
         rows.append(row)
     return rows
 
@@ -823,9 +913,11 @@ def forward_counts(torch, net, params, x):
               "the eager one")
         y = y_jit
     want = sum(nd.op == "dense" for nd in net.graph.nodes)
-    check(counts[dn.KERNEL] == want, f"{counts[dn.KERNEL]} head launches, "
+    head = dn.KERNEL_BF16 if net.dtype == torch.bfloat16 else dn.KERNEL
+    check(counts[head] == want, f"{counts[head]} {head} launches, "
           f"expected {want}, one per dense layer")
-    return y, {k: v for k, v in counts.items() if k != dn.KERNEL}
+    return y, {k: v for k, v in counts.items()
+               if k not in (dn.KERNEL, dn.KERNEL_BF16)}
 
 
 # one row per conv cell: the jitted forward, the eager one, device work
@@ -1941,6 +2033,458 @@ def phase_psum(torch, dev, layers):
 
 
 # --------------------------------------------------------------------------
+# bf16 through the fold engine and the head
+# --------------------------------------------------------------------------
+
+BF16_KERNELS = ("fold_conv_ws_bf16", "fold_conv_os_bf16", "fold_conv_dw_bf16",
+                "fold_conv_psum_bf16")
+
+
+def psum_extra(torch, x, w, stride=1, pad=0):
+    """An upper bound of the magnitudes of a psum layer's depth folds,
+    summed: ``F.conv2d(|x|, |w|)`` in fp32 (each fold's partial sum is
+    rounded to bf16 on its own, so the kernel and the plain walk may
+    differ by a bf16 step of each fold)."""
+    import torch.nn.functional as F
+    return F.conv2d(x.float().abs(), w.float().abs(), stride=stride,
+                    padding=pad)
+
+
+def phase_bf16_kernels(torch, dev, cases, dw_cases):
+    """Each bf16 kernel instance against its plain version on phase 2's
+    geometries (every epilogue, the depthwise and grouped cases), the
+    psum staging on each dense geometry with an identity epilogue (forced
+    depth folds included), under the bf16 rule.  Returns the largest
+    error by kernel."""
+    from repro_torch.kernels import conv2d_ws as cw
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+
+    def rand(*shape, fan=1):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                / fan ** 0.5).to(bf)
+
+    def run(name, x, w, what, **kw):
+        before = cw.launch_counts()[name]
+        got = cw.conv2d_folded(x, w, **kw)
+        torch.cuda.synchronize()
+        check(cw.launch_counts()[name] == before + 1, f"{name} did not "
+              "launch")
+        extra = None
+        if kw["dataflow"] == "weight_stationary_psum":
+            extra = psum_extra(torch, x, w, kw.get("stride", 1))
+        errs[name] = max(errs[name], bf16_err(
+            torch, got, cw.conv2d_folded_plain(x, w, **kw),
+            f"{name} {what}", extra))
+
+    def ops_of(epi, n, nf, p, q):
+        return {k: v.to(bf) for k, v in epi_operands(
+            torch, gen, dev, epi, n, nf, p, q).items()}
+
+    for (n, c, h, w_, nf, r, s, st, pad, epi, plan) in cases:
+        x = rand(n, c, h + 2 * pad, w_ + 2 * pad)
+        w = rand(nf, c, r, s, fan=c * r * s)
+        p, q = (h + 2 * pad - r) // st + 1, (w_ + 2 * pad - s) // st + 1
+        what = f"n={n} c={c} {h}x{w_} nf={nf} {r}x{s}/s{st}"
+        ops = ops_of(epi, n, nf, p, q)
+        for name, df in (("fold_conv_ws_bf16", "weight_stationary"),
+                         ("fold_conv_os_bf16", "output_stationary")):
+            run(name, x, w, what, stride=st, plan=plan, dataflow=df,
+                epilogue=epi, **ops)
+        run("fold_conv_psum_bf16", x, w, what, stride=st, plan=plan,
+            dataflow="weight_stationary_psum")
+    for (n, c, h, w_, st, epi, c_b) in dw_cases:
+        from repro_torch.core.mapping import ConvBlockPlan
+        x = rand(n, c, h + 2, w_ + 2)
+        w = rand(c, 1, 3, 3, fan=9)
+        p, q = (h - 1) // st + 1, (w_ - 1) // st + 1
+        plan = None if c_b is None else ConvBlockPlan(
+            nf_block=c_b, c_block=c_b, p_block=4, grid=(1, -(-c // c_b), 1),
+            vmem_bytes=0, groups=c)
+        run("fold_conv_dw_bf16", x, w, f"n={n} c={c} {h}x{w_} 3x3/s{st}",
+            stride=st, plan=plan, dataflow="depthwise", epilogue=epi,
+            groups=c, **ops_of(epi, n, c, p, q))
+    for (n, c, h, nf, g, r, st, pad, epi) in grouped_cases():
+        x = rand(n, c, h + 2 * pad, h + 2 * pad)
+        w = rand(nf, c // g, r, r, fan=c // g * r * r)
+        p = (h + 2 * pad - r) // st + 1
+        ops = ops_of(epi, n, nf, p, p)
+        for name, df in (("fold_conv_ws_bf16", "weight_stationary"),
+                         ("fold_conv_os_bf16", "output_stationary")):
+            run(name, x, w, f"grouped n={n} c={c} {h}x{h} nf={nf} G={g}",
+                stride=st, dataflow=df, epilogue=epi, groups=g, **ops)
+    print("[bf16] kernels against their plain versions (phase 2's "
+          "geometries, psum on each dense one): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def bf16_psum_operands(torch, dev, layers):
+    """bf16 x (unpadded) and w of each of ``layers``, from one seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    out = []
+    for name, sched, _, batch, h in layers:
+        cv = sched.nest
+        x = torch.randn(batch, cv.c, h, h, device=dev, generator=gen)
+        w = torch.randn(cv.nf, cv.c, 3, 3, device=dev, generator=gen)
+        out.append((name, sched, x.to(torch.bfloat16),
+                    (w / (cv.c * 9) ** 0.5).to(torch.bfloat16)))
+    return out
+
+
+def phase_bf16_psum(torch, dev, layers):
+    """The bf16 psum path through the user entry point:
+    ``ops.conv2d(impl="fold_ws_psum")`` on each of VGG-16's 13 layers at
+    224, batch 1, in bf16, held against the plain psum walk (the bf16
+    rule, widened by the folds' magnitudes).  Returns the largest
+    error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d_ws as cw
+    from repro_torch.kernels import ops
+    err = 0.0
+    for name, sched, x, w in bf16_psum_operands(torch, dev, layers):
+        got = ops.conv2d(x, w, pad=1, impl="fold_ws_psum", plan=sched.plan)
+        err = max(err, bf16_err(
+            torch, got, cw.conv2d_folded_plain(
+                F.pad(x, (1, 1, 1, 1)), w, plan=sched.plan,
+                dataflow="weight_stationary_psum"),
+            f"bf16 psum {name}", psum_extra(torch, x, w, pad=1)))
+    print(f"[bf16] psum path: 13 VGG-16 layers at 224 vs the plain psum "
+          f"walk, max abs err {err:.3e}")
+    return err
+
+
+def time_bf16_psum(torch, dev, layers, reps):
+    """The bf16 psum staging kernel on VGG-16's 13 layers at 224, batch 1:
+    its launch (device time), the plain walk and ``F.conv2d`` in bf16,
+    with the bound (2-byte elements, the bf16 tensor-core rate)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d_ws as cw
+    rows = []
+    for name, sched, x, w in bf16_psum_operands(torch, dev, layers):
+        cv = sched.nest
+        batch, h = x.shape[0], x.shape[2]
+        xp = F.pad(x, (1, 1, 1, 1))
+        kw = dict(plan=sched.plan, dataflow="weight_stationary_psum")
+        spec, xk, wk, *_ = cw.prepare(xp, w, 1, sched.plan,
+                                      "weight_stationary_psum", None, None,
+                                      1, None, None, None)
+        row = {"layer": name, "c": cv.c, "nf": cv.nf, "h": h,
+               "g_c": spec.cg_folds}
+        row["ms"] = time_graph_ms(torch, lambda: cw.launch_psum(spec, xk, wk),
+                                  reps)
+        row["plain_ms"] = time_graph_ms(
+            torch, lambda: cw.conv2d_folded_plain(xp, w, **kw), 2)
+        row["library_ms"] = time_graph_ms(
+            torch, lambda: F.conv2d(x, w, padding=1), max(reps, 10))
+        row["bound_ms"], row["op_ms"], row["byte_ms"] = bound(
+            2.0 * batch * cv.nf * cv.c * 9 * h * h,
+            2.0 * (x.numel() + w.numel() + batch * cv.nf * h * h),
+            BF16_TC_PEAK)
+        rows.append(row)
+    return rows
+
+
+def phase_bf16_models(torch, dev, fp32_ms):
+    """bf16 forwards compiled from ``init_params(dtype=torch.bfloat16)``:
+    VGG-16 at 224, batch 1, and MobileNetV2 (random batch-norm statistics)
+    and ResNet-18 at 32, batch 4.  Each: one launch of a bf16 instance
+    per conv and of the bf16 head per dense layer, counted on the eager
+    forward and on the capture; the jitted forward bitwise the eager one;
+    bf16 logits within TOL_BF16_MODEL·max(1, max|ref|) of the reference
+    policy on the same bf16 parameters; its jitted / eager / device ms
+    beside the fp32 forward's (``fp32_ms``, from phases 3, 6 and 7)."""
+    from repro_torch.models import mobilenet, resnet, vgg
+    bf = torch.bfloat16
+    out = {}
+    for what, module, img, b, counts_want in (
+            ("vgg16 224", vgg, 224, 1,
+             launches_of(fold_conv_ws_bf16=13)),
+            ("mobilenetv2 32", mobilenet, 32, 4,
+             launches_of(fold_conv_ws_bf16=7, fold_conv_os_bf16=28,
+                         fold_conv_dw_bf16=17)),
+            ("resnet18 32", resnet, 32, 4,
+             launches_of(fold_conv_ws_bf16=5, fold_conv_os_bf16=15))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+        params = module.init_params(gen, img=img, device=dev, dtype=bf)
+        if module is mobilenet:
+            randomize_bn(torch, params)
+        x = torch.randn(b, 3, img, img, device=dev, generator=gen).to(bf)
+        net = module.compile_forward(params, img=img, batch=b, device=dev)
+        check(net.dtype == bf, f"bf16 {what}: compiled for {net.dtype}")
+        y, counts = forward_counts(torch, net, params, x)
+        check(counts == counts_want, f"bf16 {what}: launches {counts}")
+        ref = module.compile_forward(params, img=img, batch=b,
+                                     policy="reference", device=dev)
+        with torch.inference_mode():
+            want = ref(params, x)
+        check(y.dtype == want.dtype == bf and y.shape == want.shape,
+              f"bf16 {what}: logits {y.dtype} {tuple(y.shape)}")
+        check(bool(torch.isfinite(y.float()).all()),
+              f"bf16 {what}: non-finite logits")
+        e = (y.float() - want.float()).abs().max().item()
+        tol = TOL_BF16_MODEL * max(1.0, want.float().abs().max().item())
+        cell = jit_cell(torch, f"{what} b{b} bf16", net, params, x,
+                        6 if img == 224 else 10)
+        row = {"jit_ms": cell["jit_ms"], "eager_ms": cell["eager_ms"],
+               "device_ms": cell["device_ms"], "max_abs_err_vs_ref": e,
+               "tol": tol, "fp32_jit_ms": fp32_ms[what]}
+        print(f"[bf16] {what} b{b}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }, jitted bitwise "
+              f"the eager forward, logits vs the reference policy max abs "
+              f"err {e:.3e} (tol {tol:.3e}); jitted {cell['jit_ms']:.4f} ms "
+              f"(eager {cell['eager_ms']:.4f}, device work "
+              f"{cell['device_ms']:.4f}) against fp32's jitted "
+              f"{fp32_ms[what]:.4f} ms")
+        check(e <= tol, f"bf16 {what}: outside tolerance of the reference "
+              "policy")
+        out[what] = row
+    return out
+
+
+# --------------------------------------------------------------------------
+# HTTP serving: the transport, the router, in-process and spawned workers
+# --------------------------------------------------------------------------
+
+HTTP_USERS = 8        # concurrent keep-alive clients over the wire
+
+
+class _Guard:
+    requested = False
+
+
+def wire_stream():
+    """Phase 8's stream as ``serving_summary`` draws it: PHASE8_REQUESTS
+    requests of 1-8 images of 3x32x32 from ``SEED``."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    sizes = rng.integers(1, 9, PHASE8_REQUESTS)
+    return [rng.standard_normal((int(n), 3, 32, 32)).astype(np.float32)
+            for n in sizes]
+
+
+async def wire_serve(host, port, imgs, users):
+    """Every request of ``imgs`` over the wire, base64 payloads (encoded
+    before the clock starts), from ``users`` concurrent keep-alive
+    clients; returns (responses in request order, wall seconds, each
+    request's seconds)."""
+    import asyncio
+    from repro_torch.serve.transport import HttpClient, encode_images_payload
+    payloads = [encode_images_payload(im) for im in imgs]
+    todo = list(range(len(imgs)))
+    results, lat = [None] * len(imgs), [0.0] * len(imgs)
+
+    async def user():
+        client = HttpClient(host, port)
+        try:
+            while todo:
+                i = todo.pop(0)
+                t0 = time.perf_counter()
+                results[i] = await client.request("POST", "/v1/infer",
+                                                  payloads[i])
+                lat[i] = time.perf_counter() - t0
+        finally:
+            await client.close()
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(user() for _ in range(users)))
+    return results, time.perf_counter() - t0, lat
+
+
+def http_call(handle, method, path, payload=None, headers=None):
+    import asyncio
+    from repro_torch.serve.transport import http_json
+    return asyncio.run(http_json(handle.host, handle.port, method, path,
+                                 payload, headers))
+
+
+def serve_wire(torch, handle, imgs, direct, what):
+    """Serve ``imgs`` through a running server; every response 200 from
+    the primary rung, its logits bitwise a direct submission of the same
+    images to an in-process ``VisionEngine`` worker (``direct``: by worker
+    name, or one worker for all); /stats with no lost request.  Returns
+    images/s and latency percentiles over the wire."""
+    import asyncio
+    import numpy as np
+    results, wall, lat = asyncio.run(wire_serve(handle.host, handle.port,
+                                                imgs, HTTP_USERS))
+    workers = {}
+    for (status, obj), im in zip(results, imgs):
+        check(status == 200 and obj.get("outcome") == "ok"
+              and obj.get("served_by") == "primary",
+              f"{what}: a request ended {status} {obj.get('outcome')}")
+        worker = direct.get(obj["worker"], direct.get("*"))
+        want = worker.submit(im).result(120.0)
+        check(want.outcome.value == "ok" and np.array_equal(
+            np.asarray(obj["logits"], np.float32), want.logits),
+            f"{what}: served logits differ from a direct submission")
+        workers[obj["worker"]] = workers.get(obj["worker"], 0) + 1
+    status, stats = http_call(handle, "GET", "/stats")
+    check(status == 200 and stats["totals"]["lost_requests"] == 0,
+          f"{what}: /stats {status} lost {stats['totals']['lost_requests']}")
+    n_img = sum(im.shape[0] for im in imgs)
+    lat_ms = np.asarray(lat) * 1e3
+    row = {"requests": len(imgs), "images": n_img, "wall_s": wall,
+           "images_per_s": n_img / wall,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "by_worker": workers, "lost_requests": 0}
+    print(f"[http] {what}: {len(imgs)} requests / {n_img} images over the "
+          f"wire ({HTTP_USERS} clients) in {wall:.4f} s: "
+          f"{row['images_per_s']:.3f} images/s, p50 {row['p50_ms']:.3f} "
+          f"ms, p99 {row['p99_ms']:.3f} ms, by worker {workers}; every "
+          "logit bitwise a direct submission, 0 lost")
+    return row
+
+
+def wire_status_checks(torch, handle):
+    """One 400 (an empty body, and images in NHWC), one 413 (a declared
+    body over the cap, refused from the headers), one 429 or 504 (a
+    deadline no batch can meet), /metrics parseable and /metrics.json
+    valid."""
+    import asyncio
+    import numpy as np
+    from repro_torch.obs.metrics import validate_metrics_snapshot
+    from repro_torch.serve.transport import encode_images_payload
+    got = {}
+    got["empty"] = http_call(handle, "POST", "/v1/infer")[0]
+    got["nhwc"] = http_call(handle, "POST", "/v1/infer", encode_images_payload(
+        np.zeros((1, 32, 32, 3), np.float32)))[0]
+
+    async def oversized():
+        reader, writer = await asyncio.open_connection(handle.host,
+                                                       handle.port)
+        writer.write(b"POST /v1/infer HTTP/1.1\r\n"
+                     b"Content-Length: 999999999\r\n\r\n")
+        await writer.drain()
+        line = await reader.readline()
+        writer.close()
+        return int(line.split()[1])
+
+    got["oversized"] = asyncio.run(oversized())
+    got["deadline"] = http_call(
+        handle, "POST", "/v1/infer",
+        encode_images_payload(wire_stream()[0]),
+        headers={"X-Deadline-S": "0.000001"})[0]
+    status, text = http_call(handle, "GET", "/metrics")
+    got["metrics"] = status
+    status, snap = http_call(handle, "GET", "/metrics.json")
+    got["metrics_json"] = status
+    problems = validate_metrics_snapshot(snap)
+    print(f"[http] statuses {got}; /metrics parses "
+          f"{prometheus_parses(text)}, /metrics.json problems {problems}")
+    check(got["empty"] == got["nhwc"] == 400, "expected 400s")
+    check(got["oversized"] == 413, "expected 413")
+    check(got["deadline"] in (429, 504), "expected 429 or 504")
+    check(got["metrics"] == got["metrics_json"] == 200
+          and prometheus_parses(text) and problems == [],
+          "metrics endpoints")
+    return got
+
+
+async def drain_probe(host, port, proc):
+    """SIGTERM ``proc`` (a spawned worker) with two keep-alive connections
+    open to it: /healthz on one until it reports draining, then a POST on
+    the other.  The worker finishes its shutdown only when its
+    connections close, so both are answered during the drain."""
+    import asyncio
+    import signal
+    from repro_torch.serve.transport import HttpClient, encode_images_payload
+    health, infer = HttpClient(host, port), HttpClient(host, port)
+    try:
+        for c in (health, infer):
+            check((await c.request("GET", "/healthz"))[0] == 200,
+                  "spawned worker not healthy before SIGTERM")
+        proc.send_signal(signal.SIGTERM)
+        deadline = time.monotonic() + 30.0
+        while True:
+            h_status, h_obj = await health.request("GET", "/healthz")
+            if h_status == 503 or time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.005)
+        i_status, i_obj = await infer.request(
+            "POST", "/v1/infer", encode_images_payload(wire_stream()[0]))
+        return (h_status, h_obj), (i_status, i_obj)
+    finally:
+        await health.close()
+        await infer.close()
+
+
+def phase_http(torch, dev, phase8):
+    """Full-width MobileNetV2 (phase 8's configuration) served over HTTP
+    through ``launch/server.start_server``: 2 in-process workers, 1
+    in-process worker, then one ``--spawn`` worker subprocess; phase 8's
+    stream of requests each time (``serve_wire``), the status checks on
+    the 2-worker server, and the spawned worker's SIGTERM drain (503 on
+    /healthz and /v1/infer while it drains, exit 0)."""
+    import asyncio
+    from repro_torch.launch.server import start_server
+    imgs = wire_stream()
+    kw = dict(img=32, width_mult=1.0, classes=10, buckets=(1, 2, 4, 8),
+              seed=SEED, device=dev)
+    out = {}
+    two = start_server("mobilenetv2", n_workers=2, guard=_Guard(), **kw)
+    spawned = None
+    try:
+        direct = {w.name: w.worker for w in two.workers}
+        out["in_process_2"] = serve_wire(torch, two, imgs, direct,
+                                         "2 in-process workers")
+        # the same stream with the interpreter's thread switch interval at
+        # 0.1 ms (5 ms by default): a request crosses four threads of this
+        # process (the clients' loop, the server's loop, a worker and back)
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-4)
+        try:
+            out["in_process_2_switch_0p1ms"] = serve_wire(
+                torch, two, imgs, direct,
+                "2 in-process workers, switch interval 0.1 ms")
+        finally:
+            sys.setswitchinterval(switch)
+        out["statuses"] = wire_status_checks(torch, two)
+        one = start_server("mobilenetv2", n_workers=1, guard=_Guard(), **kw)
+        try:
+            out["in_process_1"] = serve_wire(
+                torch, one, imgs, {"*": one.workers[0].worker},
+                "1 in-process worker")
+        finally:
+            one.stop()
+        t0 = time.perf_counter()
+        spawned = start_server("mobilenetv2", n_workers=1, spawn=True,
+                               guard=_Guard(), **kw)
+        out["spawn_boot_s"] = time.perf_counter() - t0
+        print(f"[http] spawned worker booted in {out['spawn_boot_s']:.2f} s "
+              "(torch import, compile, captures of 4 buckets)")
+        out["spawned_1"] = serve_wire(torch, spawned, imgs,
+                                      {"*": two.workers[0].worker},
+                                      "1 spawned worker")
+        remote = spawned.workers[0]
+        (h_status, h_obj), (i_status, i_obj) = asyncio.run(
+            drain_probe(remote.host, remote.port, remote.proc))
+        code = remote.proc.wait(120)
+        print(f"[http] spawned worker SIGTERM: /healthz {h_status} "
+              f"{h_obj.get('status')}, /v1/infer {i_status} "
+              f"{i_obj.get('outcome')}, exit code {code}")
+        check(h_status == 503 and i_status == 503
+              and i_obj.get("outcome") == "draining" and code == 0,
+              "the spawned worker's SIGTERM drain")
+        out["sigterm"] = {"healthz": h_status, "infer": i_status,
+                          "exit": code}
+    finally:
+        if spawned is not None:
+            spawned.stop()
+        two.stop()
+    print(f"[http] images/s over the wire: 2 in-process workers "
+          f"{out['in_process_2']['images_per_s']:.3f}, 1 in-process "
+          f"{out['in_process_1']['images_per_s']:.3f}, 1 spawned "
+          f"{out['spawned_1']['images_per_s']:.3f}; phase 8 in-process "
+          f"(no wire) {phase8['images_per_s']:.3f} images/s, p50 "
+          f"{phase8['latency']['p50_s'] * 1e3:.3f} ms, p99 "
+          f"{phase8['latency']['p99_s'] * 1e3:.3f} ms")
+    return out
+
+
+# --------------------------------------------------------------------------
 # the LM side: the causal conv1d and fold-attention kernels, zamba2-1.2b
 # --------------------------------------------------------------------------
 
@@ -2672,6 +3216,63 @@ def main() -> int:
     check(launches["fold_conv_psum"] == 14,
           "expected 14 psum launches: 13 VGG layers and the WS spill")
 
+    # -- bf16: each instance against its plain version, and its times (not
+    # a main path) -------------------------------------------------------
+    bf = torch.bfloat16
+    t_bf16 = time.perf_counter()
+    errs.update(phase_bf16_kernels(torch, dev, cases, dw_cases))
+    errs[dn.KERNEL_BF16], _ = phase_dense(torch, dev, bf)
+    bf16_rows224 = time_layers(torch, dev, ws_layers,
+                               ("weight_stationary",), 5, dtype=bf)
+    errs["fold_conv_ws_bf16"] = max(
+        [errs["fold_conv_ws_bf16"]]
+        + [r["weight_stationary_max_abs_err"] for r in bf16_rows224])
+    bf16_mb_rows = time_model_layers(
+        torch, dev, model_layers("mobilenetv2", 32, 4), 10, dtype=bf)
+    for name, df in (("fold_conv_ws_bf16", "weight_stationary"),
+                     ("fold_conv_os_bf16", "output_stationary"),
+                     ("fold_conv_dw_bf16", "depthwise")):
+        errs[name] = max([errs[name]] + [r["max_abs_err"] for r in bf16_mb_rows
+                                         if r["dataflow"] == df])
+    bf16_dense_rows = time_dense(torch, dev, 1, 10, dtype=bf)
+    bf16_psum_rows = time_bf16_psum(torch, dev, ws_layers, 5)
+    print("[bf16] VGG-16 layers at 224, batch 1 (ms, device time): bf16 "
+          "kernel / fp32 kernel / plain / F.conv2d in bf16 / bf16 bound")
+    for r, r32 in zip(bf16_rows224, rows224):
+        print(f"  {r['layer']:<8} c={r['c']:<4} nf={r['nf']:<4} "
+              f"h={r['h']:<4} bf16={r['weight_stationary_ms']:.4f} "
+              f"fp32={r32['weight_stationary_ms']:.4f} "
+              f"plain={r['plain_ms']:.4f} F.conv2d={r['library_ms']:.4f} "
+              f"bound={r['bound_ms']:.5f}")
+    report["bf16_layers"] = {"vgg16_224_b1": bf16_rows224,
+                             "mobilenetv2_32_b4": bf16_mb_rows,
+                             "dense_vgg16_224_b1": bf16_dense_rows,
+                             "psum_vgg16_224_b1": bf16_psum_rows}
+
+    # -- the bf16 main path: counts from 0 just before, read just after ---
+    cw.reset_launch_counts()
+    dn.reset_launch_counts()
+    report["bf16_models"] = phase_bf16_models(torch, dev, {
+        "vgg16 224": report["model224"]["forward_b1_ms"],
+        "mobilenetv2 32": report["mobilenetv2"]["forward_b4_ms"],
+        "resnet18 32": report["resnet18"]["forward_b4_ms"]})
+    errs["fold_conv_psum_bf16"] = max(errs["fold_conv_psum_bf16"],
+                                      phase_bf16_psum(torch, dev, ws_layers))
+    bf16_launches = cw.launch_counts()
+    bf16_launches[dn.KERNEL_BF16] = dn.launch_counts()[dn.KERNEL_BF16]
+    report["bf16_seconds"] = time.perf_counter() - t_bf16
+    print(f"[bf16 main path] launches "
+          f"{ {k: v for k, v in bf16_launches.items() if v} }; [bf16] "
+          f"took {report['bf16_seconds']:.1f} s with its kernel checks and "
+          "timings")
+    for name in BF16_KERNELS + (dn.KERNEL_BF16,):
+        check(bf16_launches[name] > 0,
+              f"{name} never launched on the bf16 main path")
+    check(bf16_launches["fold_conv_psum_bf16"] == 13,
+          "expected 13 bf16 psum launches: VGG-16's 13 layers")
+    launches.update({k: bf16_launches[k]
+                     for k in BF16_KERNELS + (dn.KERNEL_BF16,)})
+
     # -- the serving runtime (measured tuning, robust serving, chaos):
     # counts from 0 just before, read just after ---------------------------
     cw.reset_launch_counts()
@@ -2690,6 +3291,24 @@ def main() -> int:
                  "fold_conv_ws_i8", "fold_conv_os_i8", dn.KERNEL):
         check(runtime_launches[name] > 0,
               f"{name} never launched on the serving-runtime path")
+
+    # -- HTTP serving (transport, router, in-process and spawned workers):
+    # counts from 0 just before, read just after; a spawned worker's
+    # launches are its own process's -------------------------------------
+    cw.reset_launch_counts()
+    dn.reset_launch_counts()
+    t_http = time.perf_counter()
+    report["http"] = phase_http(torch, dev, report["serving_mobilenetv2"])
+    http_launches = cw.launch_counts()
+    http_launches[dn.KERNEL] = dn.launch_counts()[dn.KERNEL]
+    report["http_seconds"] = time.perf_counter() - t_http
+    print(f"[http path] launches "
+          f"{ {k: v for k, v in http_launches.items() if v} } (at the "
+          f"workers' warm-ups and captures), "
+          f"{report['http_seconds']:.1f} s")
+    for name in ("fold_conv_ws", "fold_conv_os", "fold_conv_dw", dn.KERNEL):
+        check(http_launches[name] > 0,
+              f"{name} never launched on the HTTP serving path")
 
     # -- foldlint on the card (not a main path) ----------------------------
     report["foldlint"] = phase_foldlint(torch, dev)
@@ -2757,6 +3376,30 @@ def main() -> int:
           f"g_c=4 (12 layers) psum {tot['gc4_ms']:.4f} / psum+sum "
           f"{tot['gc4_with_sum_ms']:.4f} / ws {tot['gc4_ws_ms']:.4f} ms")
     report["psum_vs_ws_224_b1"] = psum_rows
+    bf16_sum = {
+        "fold_conv_ws_bf16": (summarize(bf16_rows224, "weight_stationary_ms"),
+                              sum(r["weight_stationary_ms"] for r in rows224),
+                              "VGG-16 13 layers at 224 b1"),
+        "fold_conv_os_bf16": (summarize(
+            [r for r in bf16_mb_rows if r["dataflow"] == "output_stationary"],
+            "ms"), sum(r["ms"] for r in zoo_rows["mobilenetv2"]
+                       if r["dataflow"] == "output_stationary"),
+            "MobileNetV2 28 OS layers at 32 b4"),
+        "fold_conv_dw_bf16": (summarize(
+            [r for r in bf16_mb_rows if r["dataflow"] == "depthwise"], "ms"),
+            sum(r["ms"] for r in dw_rows),
+            "MobileNetV2 17 depthwise layers at 32 b4"),
+        "fold_conv_psum_bf16": (summarize(bf16_psum_rows, "ms"),
+                                sum(r["ms"] for r in psum_rows),
+                                "VGG-16 13 layers at 224 b1, identity"),
+        dn.KERNEL_BF16: (summarize(bf16_dense_rows, "ms"),
+                         sum(r["ms"] for r in dense_rows[1]),
+                         "VGG-16 fc1-fc3 at 224 b1")}
+    for name, (t, fp32, what) in bf16_sum.items():
+        print(f"[bf16] {name} ({what}): {t['ms']:.4f} ms (fp32 instance "
+              f"{fp32:.4f}), plain {t['plain_ms']:.4f}, library in bf16 "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} "
+              f"({t['bound_by']}), max abs err vs plain {errs[name]:.3e}")
 
     # -- the LM kernels against their plain versions (not a main path) ----
     from repro_torch.kernels import attention_fold as af
@@ -2833,7 +3476,7 @@ def main() -> int:
             ("fold_conv_os", "output_stationary_", rows32_os, 176),
             ("fold_conv_dw", "", dw_rows, 202)):
         entry = {"name": name, "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
+                 "source": "src/repro_torch/kernels/csrc/fold_conv.cuh",
                  "replaces": f"src/repro/kernels/conv2d_ws.py:{line}",
                  "launches": launches[name], "max_abs_err": errs[name],
                  "ms_kind": "device",
@@ -2846,14 +3489,14 @@ def main() -> int:
             ("fold_conv_dw_i8", [r for r in i8_rows["mobilenetv2_32_b4"]
                                  if r["dataflow"] == "depthwise"], 202)):
         entry = {"name": name, "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
+                 "source": "src/repro_torch/kernels/csrc/fold_conv.cuh",
                  "replaces": f"src/repro/kernels/conv2d_ws.py:{line}",
                  "launches": launches[name], "max_abs_err": errs[name],
                  "ms_kind": "device"}
         entry.update(summarize_int8(rows))
         kernels.append(entry)
     entry = {"name": "fold_conv_psum", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/fold_conv.cu",
+             "source": "src/repro_torch/kernels/csrc/fold_conv.cuh",
              "replaces": "src/repro/kernels/conv2d_ws.py:234",
              "launches": launches["fold_conv_psum"],
              "max_abs_err": errs["fold_conv_psum"], "ms_kind": "device"}
@@ -2868,6 +3511,25 @@ def main() -> int:
              "max_abs_err": errs[dn.KERNEL], "ms_kind": "device"}
     entry.update(summarize(dense_rows[1], "ms"))
     kernels.append(entry)
+    # the bf16 instances: VGG-16's layers at 224 (WS, psum, the head) and
+    # MobileNetV2's at 32 b4 (OS, depthwise), beside their fp32 instance
+    for name, (t, fp32, what) in bf16_sum.items():
+        head = name == dn.KERNEL_BF16
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/"
+                           + ("dense.cu" if head else "fold_conv.cuh"),
+                 "replaces": ("src/repro/core/engine.py:1242" if head else
+                              "src/repro/kernels/conv2d_ws.py:"
+                              + {"fold_conv_ws_bf16": "131",
+                                 "fold_conv_os_bf16": "176",
+                                 "fold_conv_dw_bf16": "202",
+                                 "fold_conv_psum_bf16": "234"}[name]),
+                 "launches": launches[name], "max_abs_err": errs[name],
+                 "ms_kind": "device", "fp32_ms": fp32, "shapes": what}
+        if head:
+            entry["tpu_kernel"] = False
+        entry.update(t)
+        kernels.append(entry)
     # the LM kernels at the prefill cell's shape: conv1d in bf16 (the
     # model's type), attention in fp32 (FFMA) and in bf16 (the tensor
     # cores); both attention instances share one launch counter, and the

@@ -33,7 +33,7 @@ accumulate into (or sub-slice) the same resident block.
 
 On the card a WS / OS / psum launch runs the fold grid as CTA tiles
 (``kernels/conv2d_ws.py:fold_tile``, the mirror of ``launch_tile`` in
-``csrc/fold_conv.cu``): output pixels flattened over (n, p, q) in tiles of
+``csrc/fold_conv.cuh``): output pixels flattened over (n, p, q) in tiles of
 ``bm``, each group's filters in tiles of ``bn``.  ``check_launch_tile``
 proves that geometry, CTA by CTA, as the kernel derives it:
 

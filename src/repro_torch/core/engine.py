@@ -34,6 +34,7 @@ import functools
 import json
 import math
 import os
+import threading
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -245,11 +246,13 @@ def select_dataflow(cv: ConvLoopNest, plan: ConvBlockPlan,
     return "weight_stationary"
 
 
-def plan_and_dataflow(cv: ConvLoopNest, cfg: Optional[MavecConfig] = None
+def plan_and_dataflow(cv: ConvLoopNest,
+                      cfg: Optional[MavecConfig] = None,
+                      precision: str = "fp32"
                       ) -> Tuple[ConvBlockPlan, str]:
     """Uncached one-shot planning (the ``impl="fold_auto"`` path)."""
     plan = plan_conv_blocks(cv)
-    return plan, select_dataflow(cv, plan, cfg)
+    return plan, select_dataflow(cv, plan, cfg, precision=precision)
 
 
 # --------------------------------------------------------------------------
@@ -817,7 +820,8 @@ class CapturedForward:
     outside any capture), then captures it into a ``torch.cuda.CUDAGraph``
     under ``torch.inference_mode`` with ``capture_error_mode=
     "thread_local"`` (an operation that would synchronise with the host
-    raises), reading a static float32 input buffer of the compiled shape.
+    raises), reading a static input buffer of the compiled shape and type
+    (``dtype``: the network's parameter type, fp32 or bf16).
     The graph has a memory pool of its own, so the graphs of several
     buckets replay in any order.  Each call checks x's shape, type and
     device (``ValueError`` on a mismatch), copies x into the static input,
@@ -838,13 +842,22 @@ class CapturedForward:
     ``capture_launches`` holds the kernel launches of the last capture by
     name (``kernel_launch_counts``): the Python launch counters tick during
     the warm-up and the capture, never during a replay.  Nothing falls
-    back to the eager forward: a failed capture or replay raises."""
+    back to the eager forward: a failed capture or replay raises.
+
+    Captures run on the calling thread, and are refused (``RuntimeError``)
+    on a thread other than the one that made this object: a capture on one
+    thread while another launches on the legacy default stream would be
+    invalidated, so a server warms every bucket up (``VisionEngine.
+    warmup``) before its worker threads serve, and a worker thread only
+    replays."""
 
     def __init__(self, forward: Callable, input_shape: Tuple[int, ...],
-                 device: torch.device):
+                 device: torch.device, dtype: torch.dtype = torch.float32):
         self.forward = forward
         self.input_shape = tuple(int(d) for d in input_shape)
         self.device = device
+        self.dtype = dtype
+        self._owner = threading.get_ident()
         self.captures = 0
         self.capture_launches: Dict[str, int] = {}
         self._graph: Optional[torch.cuda.CUDAGraph] = None
@@ -855,21 +868,27 @@ class CapturedForward:
 
     def _check(self, x: torch.Tensor) -> None:
         dev = self._x.device if self._x is not None else self.device
-        if tuple(x.shape) != self.input_shape or x.dtype != torch.float32 \
+        if tuple(x.shape) != self.input_shape or x.dtype != self.dtype \
                 or x.device.type != "cuda" \
                 or dev.index not in (None, x.device.index):
-            raise ValueError(f"the captured forward takes a float32 input "
-                             f"of shape {self.input_shape} on {dev}, got "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+            raise ValueError(f"the captured forward takes a {self.dtype} "
+                             f"input of shape {self.input_shape} on {dev}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
 
     def _capture(self, p: Dict[str, Any], x: torch.Tensor,
                  leaves: List[torch.Tensor], ptrs: Tuple[int, ...]) -> None:
+        if threading.get_ident() != self._owner:
+            raise RuntimeError(
+                "a CUDA-graph capture was asked for on a thread other than "
+                "the one that compiled the forward: warm every bucket up "
+                "before worker threads serve (a capture racing another "
+                "thread's launches is invalidated)")
         # the old graph and its pool go before the new capture
         self._graph = self._y = None
         if self._x is None:
             # a normal tensor, so calls outside inference mode can fill it
             with torch.inference_mode(False):
-                self._x = torch.empty(self.input_shape, dtype=torch.float32,
+                self._x = torch.empty(self.input_shape, dtype=self.dtype,
                                       device=x.device)
         self._x.copy_(x)
         main = torch.cuda.current_stream(self._x.device)
@@ -984,6 +1003,7 @@ class CompiledNetwork:
     eager: Optional[Callable] = None  # the eager forward (apply unless jit)
     verify_s: float = 0.0        # host seconds this compile spent verifying
     autotuned: bool = False      # schedules are measured winners
+    dtype: torch.dtype = torch.float32  # the input's (the parameters') type
 
     def __call__(self, params: Dict[str, Any], x: torch.Tensor
                  ) -> torch.Tensor:
@@ -1023,6 +1043,18 @@ class CompiledNetwork:
                          f"{sched.dataflow:<18} grid={sched.plan.grid}"
                          f" [{sched.source}]{ms}")
         return "\n".join(lines)
+
+
+def _input_dtype(params: Dict[str, Any], graph) -> torch.dtype:
+    """The type a network's input is fed in: its first conv's weights'
+    (fp32 or bf16, as ``init_params(dtype=)`` made them).  The JAX package
+    computes each conv in x's type, so a bf16 network is one whose input
+    is bf16."""
+    first = next((nd for nd in graph.nodes if nd.op == "conv"), None)
+    if first is None:
+        return torch.float32
+    dt = params[first.param]["w"].dtype
+    return dt if dt in (torch.float32, torch.bfloat16) else torch.float32
 
 
 def compile_network(params: Dict[str, Any], graph,
@@ -1314,8 +1346,9 @@ def compile_network(params: Dict[str, Any], graph,
         misses=cache.stats.misses - stats_before.misses,
         replans=cache.stats.replans - stats_before.replans)
     captured = jit and dev.type == "cuda"
-    apply = CapturedForward(forward, input_shape, dev) if captured \
-        else forward
+    in_dtype = _input_dtype(params, base_graph)
+    apply = CapturedForward(forward, input_shape, dev, in_dtype) \
+        if captured else forward
     if tracer is not None:
         tracer.add_span("compile_network", "compile", 3, tc0,
                         float(tracer.clock()) - tc0, mode=mode,
@@ -1330,7 +1363,7 @@ def compile_network(params: Dict[str, Any], graph,
                            layer_nests=tuple(layer_nests),
                            precision=precision, quant=quant, jit=captured,
                            eager=forward, verify_s=verify_s,
-                           autotuned=autotune)
+                           autotuned=autotune, dtype=in_dtype)
 
 
 # --------------------------------------------------------------------------

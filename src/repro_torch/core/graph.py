@@ -36,7 +36,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 from repro_torch.core.epilogue import Epilogue
 
 __all__ = ["GraphError", "Node", "StreamGraph", "fuse_graph", "as_graph",
-           "bn_scale_shift", "OPS", "BN_EPS", "DEPTHWISE"]
+           "lower", "bn_scale_shift", "OPS", "BN_EPS", "DEPTHWISE"]
 
 OPS = ("conv", "bias", "batchnorm", "relu", "relu6", "maxpool2",
        "residual_add", "flatten", "dense", "global_avgpool")
@@ -417,3 +417,11 @@ def bn_scale_shift(bn: Dict, eps: float = BN_EPS):
     import torch
     scale = bn["gamma"] / torch.sqrt(bn["var"] + eps)
     return scale, bn["beta"] - bn["mean"] * scale
+
+
+def lower(graph: StreamGraph, params, input_shape, **compile_kw):
+    """Lower a streaming graph through one shared ``ScheduleCache`` into
+    the engine's ``CompiledNetwork``: the functional alias of
+    ``core/engine.py:compile_network`` (which see for the contract)."""
+    from repro_torch.core.engine import compile_network
+    return compile_network(params, graph, input_shape, **compile_kw)

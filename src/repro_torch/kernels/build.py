@@ -56,8 +56,8 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    geom = [i32] * 13               # n .. epi, see csrc/fold_conv.cu
-    for suffix in ("", "_i8"):             # the fp32 and int8 instances
+    geom = [i32] * 13               # n .. epi, see csrc/fold_conv.cuh
+    for suffix in ("", "_i8", "_bf16"):    # fp32, int8, bf16 instances
         ws, os_, dw = (getattr(lib, f"fold_conv_{k}{suffix}")
                        for k in ("ws", "os", "dw"))
         ws.argtypes = [ptr] * 6 + geom + [i32, i32, ptr]   # tile, m_per_cta
@@ -65,12 +65,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         dw.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
         ws.restype = os_.restype = dw.restype = i32
     # n .. p_pad, then c_block, the tile, the M tiles one CTA walks
-    lib.fold_conv_psum.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
-    lib.fold_conv_psum.restype = i32
+    for psum in (lib.fold_conv_psum, lib.fold_conv_psum_bf16):
+        psum.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
+        psum.restype = i32
     # x, w, b, part, out, counters, then rows, k, n, the K chunk
     # (csrc/dense.cu)
-    lib.dense_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.dense_f32.restype = i32
+    for dense in (lib.dense_f32, lib.dense_bf16):
+        dense.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        dense.restype = i32
     lib.conv1d_causal_vector_path.argtypes = [ptr] * 3 + [i32] * 2
     lib.conv1d_causal_vector_path.restype = i32
     lib.fold_conv_error_string.argtypes = [i32]

@@ -51,7 +51,17 @@ scale/shift slot (``core/quant.py:requant_affine``;
 is fp32.  The psum staging has no flush to dequantize at and refuses
 int8, as the JAX package does.
 
-The source is ``csrc/fold_conv.cu``; ``build.py`` compiles it at first
+**bf16** operands (``*_bf16`` instances of all four kernels) are widened
+to fp32 as they are loaded; the sums, the WS slab and the epilogue are
+fp32, and each output is rounded once to bf16 at the store (the psum
+staging rounds each depth fold's partial sums, as the JAX package stores
+them in the output type).  Products of bf16 values are exact in fp32, so
+this is the JAX package's arithmetic (``_fold_partial`` widens both
+operands).  fp32 and bf16 may mix: the wrapper widens the bf16 operand
+(exact) and runs the fp32 instance, then rounds to ``out_dtype``.
+
+The kernels are in ``csrc/fold_conv.cuh`` (entry points: ``fold_conv.cu``,
+``fold_conv_bf16.cu``); ``build.py`` compiles them at first
 use.  On a CPU tensor ``conv2d_folded`` runs the plain-torch version of the
 same fold loop (``conv2d_folded_plain``: ``_fold_partial`` +
 ``_flush_value`` + the WS/OS grid walk, or the depthwise walk); on a CUDA
@@ -431,10 +441,13 @@ def _pad_to(arr: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
 # What the kernels take
 # --------------------------------------------------------------------------
 
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
 def _check_operands(x_padded: torch.Tensor, w: torch.Tensor,
                     dataflow: str) -> None:
-    """Refuse operand types other than fp32 and int8 (``ValueError``);
-    nothing falls back."""
+    """Take what the JAX package takes: fp32 and bf16 operands in any mix,
+    or int8 with int8; refuse anything else (``ValueError``)."""
     if x_padded.dtype == torch.int8:
         if w.dtype != torch.int8:
             raise ValueError(f"int8 activations need int8 weights, got "
@@ -443,9 +456,33 @@ def _check_operands(x_padded: torch.Tensor, w: torch.Tensor,
             raise ValueError("the legacy psum dataflow cannot stream int8 "
                              "(its HBM-staged partial sums have no flush "
                              "hook to apply the dequant scale at)")
-    elif x_padded.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"the fold kernels take fp32 or int8 operands, got "
-                         f"x {x_padded.dtype} and w {w.dtype}")
+    elif x_padded.dtype not in _FLOATS or w.dtype not in _FLOATS:
+        raise ValueError(f"the fold kernels take fp32 / bf16 or int8 "
+                         f"operands, got x {x_padded.dtype} and w {w.dtype}")
+
+
+def _resolve_out_dtype(x_padded: torch.Tensor,
+                       out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """x's type for a float stream and fp32 for int8, unless the caller
+    names one (``repro/kernels/conv2d_ws.py:conv2d_folded``)."""
+    if out_dtype is not None:
+        return out_dtype
+    return torch.float32 if x_padded.dtype == torch.int8 else x_padded.dtype
+
+
+def _stream_dtype(x_padded: torch.Tensor, w: torch.Tensor,
+                  residual: Optional[torch.Tensor],
+                  out_dtype: torch.dtype) -> torch.dtype:
+    """The operand type the kernels stream: int8 for int8, bf16 where x, w
+    and the residual are bf16 and so is the output, else fp32.  A mixed
+    call widens its bf16 operands to fp32, which is exact, so it does the
+    JAX package's arithmetic (each operand widened, fp32 sums)."""
+    if x_padded.dtype == torch.int8:
+        return torch.int8
+    if (x_padded.dtype == w.dtype == out_dtype == torch.bfloat16
+            and (residual is None or residual.dtype == torch.bfloat16)):
+        return torch.bfloat16
+    return torch.float32
 
 
 def _vector_block(nf: int, nf_pad: int, epi: Epilogue,
@@ -631,7 +668,7 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # fp32 ridge, so the dense kernels are compute-bound by the 67 TFLOP/s
 # fp32 CUDA-core peak (``wgmma`` takes no fp32 operands, and TF32 is not
 # fp32).  What the design does about it (the note at the head of
-# ``csrc/fold_conv.cu``): the WS and OS kernels share one tile core, an
+# ``csrc/fold_conv.cuh``): the WS and OS kernels share one tile core, an
 # implicit GEMM of M = output pixels (n, p, q) by N = one group's filters
 # over K = the group's (c, r, s) taps, with a TM x TN register tile per
 # thread fed by 16-byte shared-memory reads, the input gathered a chunk
@@ -648,7 +685,7 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # element (18 at 3x3) against the 4 bytes it writes and about as many it
 # reads, far below the ridge, so its instructions per output are what to
 # keep down: a CTA owns (image, channels, rows), a thread 4 consecutive
-# outputs along Q (``DW_TQ`` in ``csrc/fold_conv.cu``) with its channel's
+# outputs along Q (``DW_TQ`` in ``csrc/fold_conv.cuh``) with its channel's
 # weights in registers, each input row's window its outputs share loaded
 # once, and its indices come from the block and thread ids in 32 bits.
 #
@@ -656,7 +693,10 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # operands are widened to int32 as they are staged, so their sums are
 # exact.  Their bound is the card's int8 tensor-core rate (1979 TOP/s),
 # which IMAD on the CUDA cores does not reach (``mma.sync`` s8 is the
-# redesign).
+# redesign).  The bf16 instances (``*_bf16``) run it on FFMA, the operands
+# widened to fp32 as they are gathered and staged: their bound is the bf16
+# tensor-core rate (989 TFLOP/s), far out of reach of the CUDA cores
+# (``mma.sync`` m16n8k16 with fp32 sums is the redesign, ROADMAP queue B).
 #
 # The psum kernel is the WS fold sum without the in-kernel reduction: each
 # depth fold writes an fp32 partial-sum tensor, so the bytes grow by
@@ -670,14 +710,14 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
 SMEM_PER_SM = 233_472   # shared memory of one SM that CTAs may take
 # taps per K chunk, chunks of the OS weights copied ahead (BK, PB in
-# csrc/fold_conv.cu); the input's ring has two stages
+# csrc/fold_conv.cuh); the input's ring has two stages
 BK, PB = 32, 8
 # The CTA tiles of the WS / OS kernels, (TM, TN, MG, NG): MG x NG threads,
-# each with TM pixels x TN filters (Tile0..Tile6 in csrc/fold_conv.cu):
+# each with TM pixels x TN filters (Tile0..Tile6 in csrc/fold_conv.cuh):
 # the tiles some conv of the zoo runs fastest with (fold_tiles.py, PERF.md)
 TILES = ((2, 4, 32, 4), (1, 4, 64, 2), (4, 2, 32, 4), (4, 2, 64, 4),
          (4, 4, 32, 4), (4, 4, 64, 4), (4, 1, 16, 8))
-# Epilogue flags, one bit per step (EPI_* in csrc/fold_conv.cu)
+# Epilogue flags, one bit per step (EPI_* in csrc/fold_conv.cuh)
 EPI_BIAS, EPI_SCALE, EPI_RESIDUAL, EPI_RELU, EPI_RELU6, EPI_POOL = \
     1, 2, 4, 8, 16, 32
 
@@ -726,7 +766,7 @@ def tile_candidates(spec: "FoldKernelSpec", n: int,
     """Every tile of ``TILES`` the WS / OS / psum kernel can run this launch
     with (its shared memory fits one CTA; whole 2x2 quads per thread where
     the pool is fused), as ``FoldTile``s: the mirror of ``launch_tile`` in
-    ``csrc/fold_conv.cu``.  A pure function of the launch spec, the batch
+    ``csrc/fold_conv.cuh``.  A pure function of the launch spec, the batch
     and the card's SM count."""
     return list(_candidates(*_launch_key(spec, n, sm_count)))
 
@@ -831,13 +871,21 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _out_type(xp: torch.Tensor) -> torch.dtype:
+    """What a kernel instance stores (and reads the residual in): bf16 for
+    the bf16 stream, else fp32."""
+    return torch.bfloat16 if xp.dtype == torch.bfloat16 else torch.float32
+
+
 def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
-                         *fp32: Optional[torch.Tensor]) -> None:
-    """x and w of one type (fp32 or int8), the other operands fp32, all
-    contiguous on one device, every offset within 32 bits."""
+                         vec: Optional[torch.Tensor] = None,
+                         res: Optional[torch.Tensor] = None) -> None:
+    """x and w of one type (fp32, bf16 or int8), the vector block fp32, the
+    residual of the instance's output type, all contiguous on one device,
+    every offset within 32 bits."""
     dev = xp.device
-    for t, want in [(xp, xp.dtype), (wp, xp.dtype)] + \
-            [(t, torch.float32) for t in fp32]:
+    for t, want in ((xp, xp.dtype), (wp, xp.dtype), (vec, torch.float32),
+                    (res, _out_type(xp))):
         if t is None:
             continue
         if t.device != dev or t.dtype != want or not t.is_contiguous():
@@ -851,13 +899,16 @@ def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
 
 # Launches so far, by the name of the kernel's C entry point
 KERNELS = ("fold_conv_ws", "fold_conv_os", "fold_conv_dw", "fold_conv_ws_i8",
-           "fold_conv_os_i8", "fold_conv_dw_i8", "fold_conv_psum")
+           "fold_conv_os_i8", "fold_conv_dw_i8", "fold_conv_psum",
+           "fold_conv_ws_bf16", "fold_conv_os_bf16", "fold_conv_dw_bf16",
+           "fold_conv_psum_bf16")
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_SUFFIX = {torch.float32: "", torch.int8: "_i8", torch.bfloat16: "_bf16"}
 
 
 def _entry(base: str, xp: torch.Tensor) -> str:
     """The C entry point of a kernel for x's type."""
-    return base + "_i8" if xp.dtype == torch.int8 else base
+    return base + _SUFFIX[xp.dtype]
 
 
 def _geom_args(spec: "FoldKernelSpec", n: int) -> list:
@@ -880,7 +931,7 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     n, name = xp.shape[0], _entry("fold_conv_ws", xp)
     tile = fold_tile(spec, n, _sm_count(xp.device), tile)
     out = torch.empty(spec.output.array_shape, device=xp.device,
-                      dtype=torch.float32)
+                      dtype=_out_type(xp))
     slab = None
     if spec.cg_folds > 1:
         slab = torch.empty((n, spec.nf_pad, spec.p_pad, spec.q),
@@ -906,7 +957,7 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     n, name = xp.shape[0], _entry("fold_conv_os", xp)
     tile = fold_tile(spec, n, _sm_count(xp.device), tile)
     out = torch.empty(spec.output.array_shape, device=xp.device,
-                      dtype=torch.float32)
+                      dtype=_out_type(xp))
     lib = build.library()
     err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
@@ -930,7 +981,7 @@ def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     _check_cuda_operands(xp, wp, vec, res)
     name = _entry("fold_conv_dw", xp)
     out = torch.empty(spec.output.array_shape, device=xp.device,
-                      dtype=torch.float32)
+                      dtype=_out_type(xp))
     lib = build.library()
     err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
@@ -947,22 +998,27 @@ def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 vec: Optional[torch.Tensor] = None,
                 res: Optional[torch.Tensor] = None,
                 tile: Optional[int] = None) -> torch.Tensor:
-    """Launch the psum-staging kernel on padded fp32 CUDA operands, with
-    the CTA tile ``fold_tile`` picks (or tile ``tile`` of ``TILES``);
-    returns the (g_c, N, NF_pad, P_pad, Q) staging buffer, unsummed."""
+    """Launch the psum-staging kernel on padded fp32 or bf16 CUDA
+    operands, with the CTA tile ``fold_tile`` picks (or tile ``tile`` of
+    ``TILES``); returns the (g_c, N, NF_pad, P_pad, Q) staging buffer,
+    unsummed, in the instance's output type (each fold's sums rounded to
+    bf16 by the bf16 instance, as the JAX package stores them)."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp)
-    n = xp.shape[0]
+    if xp.dtype == torch.int8:
+        raise ValueError("the psum staging kernel takes fp32 or bf16 "
+                         "operands")
+    n, name = xp.shape[0], _entry("fold_conv_psum", xp)
     tile = fold_tile(spec, n, _sm_count(xp.device), tile)
     out = torch.empty(spec.output.array_shape, device=xp.device,
-                      dtype=torch.float32)
+                      dtype=_out_type(xp))
     lib = build.library()
-    err = lib.fold_conv_psum(
+    err = getattr(lib, name)(
         _ptr(xp), _ptr(wp), _ptr(out), *_geom_args(spec, n),
         spec.plan.c_block, tile.index, tile.m_per_cta,
         torch.cuda.current_stream(xp.device).cuda_stream)
-    build.raise_on_error(lib, err, "fold_conv_psum")
-    _LAUNCHES["fold_conv_psum"] += 1
+    build.raise_on_error(lib, err, name)
+    _LAUNCHES[name] += 1
     return out
 
 
@@ -989,9 +1045,10 @@ def reset_launch_counts() -> None:
 # --------------------------------------------------------------------------
 
 def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
-            residual, scale, shift):
-    """Check a call, solve its spec, and pad its operands: returns
-    ``(spec, x, w, vec, residual or None)``, what a launcher takes."""
+            residual, scale, shift, out_dtype=None):
+    """Check a call, solve its spec, and pad its operands in the stream's
+    type (``_stream_dtype``): returns ``(spec, x, w, vec, residual or
+    None)``, what a launcher takes."""
     n, c, xp_, yp_ = x_padded.shape
     nf, cw, r, s = w.shape
     epi = epilogue or Epilogue()
@@ -1023,7 +1080,13 @@ def prepare(x_padded, w, stride, plan, dataflow, bias, epilogue, groups,
         raise ValueError("int8 weight_stationary spilled to psum staging, "
                          "which cannot dequantize; use output_stationary")
     # the operands in the spec's order: x, w[, vec][, residual]; int8 x
-    # and w pad in int8, before the kernel
+    # and w pad in int8, bf16 in bf16, before the kernel
+    stream = _stream_dtype(x_padded, w, residual,
+                           _resolve_out_dtype(x_padded, out_dtype))
+    if stream != torch.int8:
+        x_padded, w = x_padded.to(stream), w.to(stream)
+        if residual is not None:
+            residual = residual.to(stream)
     arrays = {"x": x_padded, "w": w, "residual": residual}
     ops = []
     for op in spec.inputs:
@@ -1045,13 +1108,20 @@ _PLAIN_WALKS = {"weight_stationary": _plain_walk,
                 "weight_stationary_psum": _plain_psum_walk}
 
 
-def _finish(spec: "FoldKernelSpec", out: torch.Tensor) -> torch.Tensor:
-    """Slice the padded kernel output to the layer's own extent; psum
-    staging first sums its depth folds through device memory, as the JAX
-    package does outside its kernel."""
+def _finish(spec: "FoldKernelSpec", out: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Slice the padded output to the layer's own extent, in ``out_dtype``
+    (one rounding, where the stream's output type differs; by default the
+    type the kernel or the plain walk wrote).  psum staging
+    first sums its depth folds through device memory, as the JAX package
+    does outside its kernel: each fold's partial sums stored in
+    ``out_dtype``, then added in fp32 and rounded once (jnp's sum widens
+    bf16)."""
+    out_dtype = out_dtype or out.dtype
     if spec.dataflow == "weight_stationary_psum":
-        return out.sum(dim=0)[:, :spec.nf, :spec.p]
-    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid]
+        folds = out.to(out_dtype).float()
+        return folds.sum(dim=0)[:, :spec.nf, :spec.p].to(out_dtype)
+    return out[:, :spec.nf, :spec.p_valid, :spec.q_valid].to(out_dtype)
 
 
 def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
@@ -1063,12 +1133,17 @@ def conv2d_folded_plain(x_padded: torch.Tensor, w: torch.Tensor, *,
                         residual: Optional[torch.Tensor] = None,
                         scale: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None,
-                        groups: int = 1) -> torch.Tensor:
+                        groups: int = 1,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
     """The plain-torch version of ``conv2d_folded`` on any device: the same
-    spec, the same padding, the fold loop in torch ops."""
+    spec, the same padding, the fold loop in torch ops (fp32 sums and
+    epilogue, one rounding to ``out_dtype``)."""
     spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
-                          epilogue, groups, residual, scale, shift)
-    return _finish(spec, _PLAIN_WALKS[spec.dataflow](spec, *ops))
+                          epilogue, groups, residual, scale, shift,
+                          out_dtype)
+    return _finish(spec, _PLAIN_WALKS[spec.dataflow](spec, *ops),
+                   _resolve_out_dtype(x_padded, out_dtype))
 
 
 def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
@@ -1080,7 +1155,8 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
                   residual: Optional[torch.Tensor] = None,
                   scale: Optional[torch.Tensor] = None,
                   shift: Optional[torch.Tensor] = None,
-                  groups: int = 1) -> torch.Tensor:
+                  groups: int = 1,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Run the fold-streamed conv on a PRE-PADDED input.
 
     x_padded: (N, C, Xp, Yp)   w: (NF, C/groups, R, S)   -> (N, NF, P', Q')
@@ -1097,13 +1173,18 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
     NF) selects the no-reduction kernel, ``"weight_stationary_psum"`` the
     partial-sum staging (identity epilogue, fp32 only).  Int8 ``x`` and
     ``w`` stream through the int8 kernels and give fp32 (the caller puts
-    the requant affine in ``scale``/``shift``).  On a CUDA tensor this
+    the requant affine in ``scale``/``shift``).  fp32 and bf16 operands
+    may mix: each is widened to fp32, the sums and the epilogue run in
+    fp32, and the output is rounded once, at the store, to ``out_dtype``
+    (x's type by default, fp32 for int8).  An all-bf16 call runs the bf16
+    instances of the kernels (``_stream_dtype``).  On a CUDA tensor this
     launches the kernel; on a CPU tensor it runs the plain-torch fold loop.
     Grouped layers (1 < G < C) run on the WS and OS kernels like dense
     ones, each filter fold on its own group's channels.
     """
     spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
-                          epilogue, groups, residual, scale, shift)
+                          epilogue, groups, residual, scale, shift,
+                          out_dtype)
     if ops[0].device.type == "cuda":
         out = LAUNCHERS[spec.dataflow](spec, *ops)
     elif ops[0].device.type == "cpu":
@@ -1111,4 +1192,4 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
     else:
         raise ValueError(f"conv2d_folded runs on cuda or cpu tensors, got "
                          f"{ops[0].device}")
-    return _finish(spec, out)
+    return _finish(spec, out, _resolve_out_dtype(x_padded, out_dtype))

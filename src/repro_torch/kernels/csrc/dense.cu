@@ -1,5 +1,5 @@
-// The dense head y = x @ w + b for Hopper (sm_90a), fp32, with one order
-// of sum per output whatever the number of rows, in one launch.
+// The dense head y = x @ w + b for Hopper (sm_90a), fp32 or bf16, with one
+// order of sum per output whatever the number of rows, in one launch.
 //
 // No TPU kernel stands behind it: in the JAX package the head runs inside
 // the one compiled program of a forward (XLA), which keeps the served
@@ -7,9 +7,16 @@
 // algorithm by the row count, so a row's logits could change with the
 // bucket its batch was padded to; this kernel restores the invariant.
 //
-// Operands (contiguous, fp32): x (B, K), w (K, N), b (N), out (B, N);
-// part (groups, B, N) holds the group sums; counters holds one int per
-// (row tile, column tile), 0 between launches.
+// Operands (contiguous, fp32; bf16 x, w, b and out for dense_bf16): x (B,
+// K), w (K, N), b (N), out (B, N); part (groups, B, N) holds the group sums
+// (fp32); counters holds one int per (row tile, column tile), 0 between
+// launches.
+//
+// bf16 (dense_bf16; the JAX package's bf16 head, x @ w + b): x, w and b
+// are widened to fp32 as they are loaded, and the sums run as in fp32.  The
+// JAX package rounds the product to bf16 and rounds again after the bias,
+// so the last step rounds the finished sum to bf16, widens it, adds the
+// widened bias in fp32 and rounds to bf16 (finish).
 //
 // Sum order: K is cut into chunks of kc taps, kc a function of (K, N)
 // alone (dense.py: k_chunk), and the chunks into groups of GROUP.  The sum
@@ -41,6 +48,7 @@
 // (from L2, one round trip: each of its threads owns one output), the
 // bias, stores the outputs and sets the counter back to 0.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -57,19 +65,54 @@ constexpr int KC_MAX = 448;
 
 static_assert(ROWS == GROUP, "the group sums give each thread one row");
 
-template <int V> struct WVec;
-template <> struct WVec<4> {
+// V consecutive values of type T as one load, split into fp32 (a bf16's
+// 16 bits are the top half of its fp32 word, so widening is exact)
+template <typename T, int V> struct WVec;
+template <> struct WVec<float, 4> {
   using type = float4;
   static __device__ __forceinline__ void split(const float4& t, float (&v)[4]) {
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   }
 };
-template <> struct WVec<1> {
+template <> struct WVec<float, 1> {
   using type = float;
   static __device__ __forceinline__ void split(const float& t, float (&v)[1]) {
     v[0] = t;
   }
 };
+template <> struct WVec<__nv_bfloat16, 4> {
+  using type = uint2;
+  static __device__ __forceinline__ void split(const uint2& t, float (&v)[4]) {
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xffff0000u);
+  }
+};
+template <> struct WVec<__nv_bfloat16, 1> {
+  using type = unsigned short;
+  static __device__ __forceinline__ void split(const unsigned short& t,
+                                               float (&v)[1]) {
+    v[0] = __uint_as_float(static_cast<unsigned>(t) << 16);
+  }
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The output: the sum plus the bias, rounded on its own (fp32); or the sum
+// rounded to bf16, then the bias added in fp32 and rounded to bf16 (the
+// JAX package's two bf16 roundings)
+__device__ __forceinline__ void finish(float* o, float s, float b) {
+  *o = __fadd_rn(s, b);
+}
+__device__ __forceinline__ void finish(__nv_bfloat16* o, float s,
+                                       __nv_bfloat16 b) {
+  const float p = __bfloat162float(__float2bfloat16_rn(s));
+  *o = __float2bfloat16_rn(__fadd_rn(p, __bfloat162float(b)));
+}
 
 // Whether this CTA is the last of `expected` to take a ticket from
 // *ticket (which it then sets back to 0); every thread of the CTA calls
@@ -93,13 +136,14 @@ __device__ __forceinline__ bool arrive_last(int* ticket, int expected) {
 // g * GROUP + w over the tile's columns: lane l owns columns n0 .. n0 + V.
 // Shared memory: each warp's x rows as [k][ROWS] (zeros past B; only the
 // chunk's taps are read), then, reused, each warp's chunk sums.
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS, 2)
-dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ b, float* __restrict__ part,
-             float* __restrict__ out, int* __restrict__ counters, int rows,
+dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
+             const T* __restrict__ b, float* __restrict__ part,
+             T* __restrict__ out, int* __restrict__ counters, int rows,
              int k_len, int n_len, int kc, int splits) {
-  using WT = typename WVec<V>::type;
+  using WT = typename WVec<T, V>::type;
+  using PT = typename WVec<float, V>::type;
   constexpr int COLS = 32 * V;  // the tile's columns
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -114,13 +158,14 @@ dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // the chunk's x rows, a lane a tap: coalesced loads, the rows past B
   // zero, each tap's ROWS values stored as two 16-byte words
   float* xs = sm + warp * ROWS * kc;
-  const float* xb = x + static_cast<size_t>(r0) * k_len + k0;
+  const T* xb = x + static_cast<size_t>(r0) * k_len + k0;
 #pragma unroll 2
   for (int k = lane; k < kn; k += 32) {
     float v[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      v[r] = r0 + r < rows ? xb[static_cast<size_t>(r) * k_len + k] : 0.f;
+      v[r] = r0 + r < rows ? widen(xb[static_cast<size_t>(r) * k_len + k])
+                           : 0.f;
     }
     float4* d = reinterpret_cast<float4*>(xs + k * ROWS);
     d[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -151,7 +196,7 @@ dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int u = 0; u < UNROLL; ++u) {
         if (k + u < kn) {
           float wf[V];
-          WVec<V>::split(wv[u], wf);
+          WVec<T, V>::split(wv[u], wf);
           const float4* xr =
               reinterpret_cast<const float4*>(xs + (k + u) * ROWS);
           const float4 xa = xr[0], xb = xr[1];
@@ -198,7 +243,7 @@ dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (groups == 1) {
     if (mine) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) out[at + j] = __fadd_rn(s[j], b[n0 + j]);
+      for (int j = 0; j < V; ++j) finish(out + at + j, s[j], b[n0 + j]);
     }
     return;
   }
@@ -217,18 +262,18 @@ dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   const float* p = part + at;
   for (int u0 = 0; u0 < groups; u0 += GROUP) {
-    WT pv[GROUP];
+    PT pv[GROUP];
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
       if (u0 + u < groups) {
-        pv[u] = __ldcg(reinterpret_cast<const WT*>(p + (u0 + u) * plane));
+        pv[u] = __ldcg(reinterpret_cast<const PT*>(p + (u0 + u) * plane));
       }
     }
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
       if (u0 + u < groups) {
         float f[V];
-        WVec<V>::split(pv[u], f);
+        WVec<float, V>::split(pv[u], f);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           s[j] = u0 + u == 0 ? f[j] : __fadd_rn(s[j], f[j]);
@@ -237,18 +282,18 @@ dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   }
 #pragma unroll
-  for (int j = 0; j < V; ++j) out[at + j] = __fadd_rn(s[j], b[n0 + j]);
+  for (int j = 0; j < V; ++j) finish(out + at + j, s[j], b[n0 + j]);
 }
 
-template <int V>
-int launch(const float* x, const float* w, const float* b, float* part,
-           float* out, int* counters, int rows, int k_len, int n_len, int kc,
+template <typename T, int V>
+int launch(const T* x, const T* w, const T* b, float* part, T* out,
+           int* counters, int rows, int k_len, int n_len, int kc,
            cudaStream_t stream) {
   const int splits = (k_len + kc - 1) / kc;
   const dim3 grid((n_len + 32 * V - 1) / (32 * V),
                   (splits + GROUP - 1) / GROUP, (rows + ROWS - 1) / ROWS);
   const size_t smem = sizeof(float) * GROUP * ROWS * max(kc, 32 * V);
-  const auto kernel = dense_kernel<V>;
+  const auto kernel = dense_kernel<T, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -258,32 +303,48 @@ int launch(const float* x, const float* w, const float* b, float* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
 // x (rows, k_len), w (k_len, n_len), b (n_len), out (rows, n_len); part
 // (groups = ceil(ceil(k_len / kc) / 8), rows, n_len), the group sums;
 // counters (ceil(rows / 8) x ceil(n_len / 128) ints, or / 32 when n_len % 4
 // != 0), all 0, and left at 0
-int dense_f32(const void* x, const void* w, const void* b, void* part,
-              void* out, void* counters, int rows, int k_len, int n_len,
-              int kc, void* stream) {
+template <typename T>
+int dense_entry(const void* x, const void* w, const void* b, void* part,
+                void* out, void* counters, int rows, int k_len, int n_len,
+                int kc, void* stream) {
   if (rows < 1 || k_len < 1 || n_len < 1 || kc < 1 || kc > KC_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* wf = static_cast<const float*>(w);
-  const auto* bf = static_cast<const float*>(b);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wt = static_cast<const T*>(w);
+  const auto* bt = static_cast<const T*>(b);
   auto* pf = static_cast<float*>(part);
-  auto* of = static_cast<float*>(out);
+  auto* ot = static_cast<T*>(out);
   auto* cf = static_cast<int*>(counters);
   if (n_len % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
       reinterpret_cast<size_t>(part) % 16 == 0) {
-    return launch<4>(xf, wf, bf, pf, of, cf, rows, k_len, n_len, kc, s);
+    return launch<T, 4>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len, kc, s);
   }
-  return launch<1>(xf, wf, bf, pf, of, cf, rows, k_len, n_len, kc, s);
+  return launch<T, 1>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len, kc, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+int dense_f32(const void* x, const void* w, const void* b, void* part,
+              void* out, void* counters, int rows, int k_len, int n_len,
+              int kc, void* stream) {
+  return dense_entry<float>(x, w, b, part, out, counters, rows, k_len, n_len,
+                            kc, stream);
+}
+
+// as dense_f32, with bf16 x, w, b and out (part stays fp32)
+int dense_bf16(const void* x, const void* w, const void* b, void* part,
+               void* out, void* counters, int rows, int k_len, int n_len,
+               int kc, void* stream) {
+  return dense_entry<__nv_bfloat16>(x, w, b, part, out, counters, rows, k_len,
+                                    n_len, kc, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,54 @@
+// Fold-streamed convolution for Hopper (sm_90a): the bf16 entry points of
+// the WS, OS, depthwise and psum kernels (fold_conv.cuh holds the kernels;
+// T = __nv_bfloat16, A = float: each bf16 value widened to fp32 as it
+// loads, one rounding to bf16 at the store).
+
+#include "fold_conv.cuh"
+
+extern "C" {
+
+// The bf16 instances: the same arguments as their fp32 counterparts; x, w,
+// res, out (and psum) are bf16, vec fp32, the WS slab fp32
+
+int fold_conv_ws_bf16(const void* x, const void* w, const void* vec,
+                      const void* res, void* out, void* slab, int n,
+                      int c_pad, int x_rows, int yp, int nf_pad, int r, int s,
+                      int stride, int q, int p_pad, int groups, int c_b,
+                      int epi, int tile, int m_per_cta, void* stream) {
+  const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
+               c_b, epi, m_per_cta};
+  return launch_fold<__nv_bfloat16, float>(tile, KIND_WS, x, w, vec, res, out,
+                                           slab, g, stream);
+}
+
+int fold_conv_os_bf16(const void* x, const void* w, const void* vec,
+                      const void* res, void* out, int n, int c_pad,
+                      int x_rows, int yp, int nf_pad, int r, int s,
+                      int stride, int q, int p_pad, int groups, int c_b,
+                      int epi, int tile, void* stream) {
+  const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
+               c_b, epi, 1};
+  return launch_fold<__nv_bfloat16, float>(tile, KIND_OS, x, w, vec, res, out,
+                                           nullptr, g, stream);
+}
+
+int fold_conv_dw_bf16(const void* x, const void* w, const void* vec,
+                      const void* res, void* out, int n, int c, int c_pad,
+                      int x_rows, int yp, int r, int s, int stride, int q,
+                      int p_pad, int epi, void* stream) {
+  return launch_dw<__nv_bfloat16, float>(x, w, vec, res, out, n, c, c_pad,
+                                         x_rows, yp, r, s, stride, q, p_pad,
+                                         epi, stream);
+}
+
+int fold_conv_psum_bf16(const void* x, const void* w, void* psum, int n,
+                        int c_pad, int x_rows, int yp, int nf_pad, int r,
+                        int s, int stride, int q, int p_pad, int c_b,
+                        int tile, int m_per_cta, void* stream) {
+  const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, 1,
+               c_b, 0, m_per_cta};
+  return launch_fold<__nv_bfloat16, float>(tile, KIND_PSUM, x, w, nullptr,
+                                           nullptr, nullptr, psum, g, stream);
+}
+
+}  // extern "C"

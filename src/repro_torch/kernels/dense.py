@@ -21,7 +21,14 @@ launch leaves at zero (so a CUDA graph replays it with no reset).  The
 plain version computes row by row (``x[i:i+1] @ w + b``), which is
 batch-invariant on the CPU too.
 
-No TPU kernel stands behind this one.  Forward only, fp32.
+bf16 ``x``, ``w`` and ``b`` (all three) run the kernel's bf16 instance:
+the operands are widened to fp32 as they load and summed in the same
+order, and the result is rounded as the JAX package's bf16 ``x @ w + b``
+rounds it: the product to bf16, then the sum with the bias to bf16.  A
+mix of fp32 and bf16 is widened to fp32 (exact), as jnp promotes it, and
+gives fp32.
+
+No TPU kernel stands behind this one.  Forward only.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from typing import Dict, List
 import torch
 
 __all__ = ["dense", "dense_plain", "launch", "k_chunk", "launch_grid",
-           "launch_counts", "reset_launch_counts", "KERNEL"]
+           "launch_counts", "reset_launch_counts", "KERNEL", "KERNEL_BF16"]
 
 KERNEL = "dense"
+KERNEL_BF16 = "dense_bf16"
 _COLS_PER_CTA = 128       # 32 lanes x 4 columns (csrc/dense.cu)
 _COLS_NARROW = 32         # 32 lanes x 1 column, where N % 4 != 0
 _ROWS_PER_CTA = 8
@@ -47,7 +55,9 @@ _TARGET_WARPS = 2048
 # sweep)
 _MAX_SPLITS = 128
 _KC_MIN, _KC_MAX = 32, 448
-_LAUNCHES: Dict[str, int] = {KERNEL: 0}
+_LAUNCHES: Dict[str, int] = {KERNEL: 0, KERNEL_BF16: 0}
+_ENTRY = {torch.float32: ("dense_f32", KERNEL),
+          torch.bfloat16: ("dense_bf16", KERNEL_BF16)}
 # the arrival counters of each device, zeroed once (csrc/dense.cu)
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 # every counter buffer a larger one replaced: a CUDA graph captured with
@@ -75,11 +85,30 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(b.shape)}")
 
 
+def _operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """All bf16 as they are; any other mix of fp32 and bf16 widened to
+    fp32 (exact); anything else refused."""
+    types = {x.dtype, w.dtype, b.dtype}
+    if not types <= {torch.float32, torch.bfloat16}:
+        raise ValueError(f"dense takes fp32 or bf16 operands, got "
+                         f"{x.dtype}, {w.dtype} and {b.dtype}")
+    if types == {torch.bfloat16}:
+        return x, w, b
+    return x.float(), w.float(), b.float()
+
+
 def dense_plain(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """The plain version, row by row: each row runs the same (1, K) @
-    (K, N) product whatever B is."""
+    (K, N) product whatever B is.  bf16 sums in fp32, rounds the product
+    to bf16 and rounds again after the bias."""
     _check(x, w, b)
+    x, w, b = _operands(x, w, b)
+    if x.dtype == torch.bfloat16:
+        xf, wf, bf = x.float(), w.float(), b.float()
+        return torch.cat([((xf[i:i + 1] @ wf).to(torch.bfloat16).float()
+                           + bf).to(torch.bfloat16)
+                          for i in range(x.shape[0])])
     return torch.cat([x[i:i + 1] @ w + b for i in range(x.shape[0])])
 
 
@@ -114,14 +143,17 @@ def _counters(device: torch.device, tiles: int) -> torch.Tensor:
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on fp32 CUDA operands on one device; returns the
-    (B, N) output."""
+    """Launch the kernel on CUDA operands of one type (fp32, or bf16 for
+    the bf16 instance) on one device; returns the (B, N) output in that
+    type."""
     from repro_torch.kernels import build
     _check(x, w, b)
     for t in (x, w, b):
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"the dense kernel takes fp32 operands on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
+        if t.dtype not in _ENTRY or t.dtype != x.dtype \
+                or t.device != x.device:
+            raise ValueError(f"the dense kernel takes fp32 or bf16 operands "
+                             f"of one type on {x.device}, got {t.dtype} on "
+                             f"{t.device}")
     rows, k = x.shape
     n = w.shape[1]
     if max(rows, k) * n >= 2 ** 31 or rows * k >= 2 ** 31:
@@ -130,26 +162,28 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     kc = k_chunk(k, n)
     _, groups, row_tiles = launch_grid(rows, k, n)
-    out = torch.empty((rows, n), device=x.device, dtype=torch.float32)
+    out = torch.empty((rows, n), device=x.device, dtype=x.dtype)
     part = torch.empty((groups, rows, n), device=x.device,
                        dtype=torch.float32)
     # one counter per (row tile, column tile of the narrowest kind)
     counters = _counters(x.device, row_tiles * -(-n // _COLS_NARROW))
+    entry, name = _ENTRY[x.dtype]
     lib = build.library()
-    err = lib.dense_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        part.data_ptr(), out.data_ptr(), counters.data_ptr(),
-                        rows, k, n, kc,
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    build.raise_on_error(lib, err, KERNEL)
-    _LAUNCHES[KERNEL] += 1
+    err = getattr(lib, entry)(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), part.data_ptr(),
+        out.data_ptr(), counters.data_ptr(), rows, k, n, kc,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.raise_on_error(lib, err, name)
+    _LAUNCHES[name] += 1
     return out
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x (B, K) @ w (K, N) + b (N) -> (B, N).  On CUDA tensors this launches
-    the kernel (or raises); on CPU tensors it runs the plain version."""
+    the kernel (or raises); on CPU tensors it runs the plain version.
+    fp32 and bf16 may mix (``_operands``)."""
     if x.device.type == "cuda":
-        return launch(x, w, b)
+        return launch(*_operands(x, w, b))
     if x.device.type == "cpu":
         return dense_plain(x, w, b)
     raise ValueError(f"dense runs on cuda or cpu tensors, got {x.device}")
@@ -161,4 +195,5 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES[KERNEL] = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0

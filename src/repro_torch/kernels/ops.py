@@ -1,5 +1,5 @@
-"""Public conv entry points over the fold kernels (forward only; fp32,
-and int8 through ``conv2d_int8``).
+"""Public conv entry points over the fold kernels (forward only; fp32 and
+bf16, and int8 through ``conv2d_int8``).
 
 ``impl`` selects the path:
   "fold_ws"      — weight-stationary fold kernel (the paper's dataflow)
@@ -16,9 +16,10 @@ and int8 through ``conv2d_int8``).
                    ``groups``)
 
 ``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
-passes these in).  ``conv1d_causal`` is the Mamba2 mixer's causal
-depthwise conv1d (``kernels/conv1d_causal.py``).  The backward passes wait
-for the training slice (ROADMAP queue A items 6 and 15d).
+passes these in).  ``conv1d_causal(x, w, impl=None)`` is the Mamba2
+mixer's causal depthwise conv1d (``kernels/conv1d_causal.py``): ``"fold"``
+the CUDA kernel, ``"ref"`` the plain version.  The backward passes wait
+for the training slice (ROADMAP queue A item 4d).
 """
 from __future__ import annotations
 
@@ -37,11 +38,6 @@ __all__ = ["conv2d", "conv2d_fused", "conv2d_int8", "conv1d_causal",
 
 FOLD_IMPLS = ("fold_ws", "fold_os", "fold_dw", "fold_auto", "fold_ws_psum")
 IMPLS = FOLD_IMPLS + ("direct",)
-
-# The Mamba2 mixer's causal depthwise conv1d, x (B, T, D), w (K, D): the
-# CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
-# Forward only.
-conv1d_causal = conv1d_causal_folded
 
 
 def _resolve_fold_dataflow(x, w, stride: int, pad: int, impl: str, plan,
@@ -173,3 +169,25 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
     return _folded(xq, wq, stride, pad, impl, plan, groups,
                    epilogue=epi_q, residual=residual, scale=comb_scale,
                    shift=comb_shift)
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """Depthwise causal conv1d (the Mamba2 mixer's).  x: (B, T, D), w: (K,
+    D) -> (B, T, D) in x's type.  Forward only.
+
+    ``impl="fold"`` launches the CUDA kernel (``kernels/conv1d_causal.py``)
+    and raises on a tensor that is not on a CUDA device; ``"ref"`` runs the
+    plain version (``kernels/ref.py:conv1d_causal_ref``); ``None`` means
+    ``"fold"`` on a CUDA tensor and ``"ref"`` on a CPU one."""
+    if impl is None:
+        impl = "fold" if x.device.type == "cuda" else "ref"
+    if impl == "ref":
+        return _ref.conv1d_causal_ref(x, w)
+    if impl != "fold":
+        raise ValueError(f"unknown conv1d impl {impl!r} (want 'fold', 'ref' "
+                         "or None)")
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d_causal(impl='fold') launches the CUDA "
+                         f"kernel and needs a CUDA tensor, got {x.device}")
+    return conv1d_causal_folded(x, w)

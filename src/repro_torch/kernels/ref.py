@@ -73,6 +73,9 @@ def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     to fp32), each product and sum rounded on its own; the result is cast
     to x's type.
     """
+    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"conv1d_causal takes x (B, T, D) and w (K, D), "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
     k, t = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)

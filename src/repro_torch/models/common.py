@@ -11,7 +11,8 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-__all__ = ["normal", "zeros", "ones", "width", "DTypePolicy", "TreeMaker"]
+__all__ = ["normal", "zeros", "ones", "width", "cast", "DTypePolicy",
+           "TreeMaker"]
 
 
 def _trunc_normal(gen: torch.Generator, shape) -> torch.Tensor:
@@ -37,6 +38,14 @@ def zeros(n: int, device: Any) -> torch.Tensor:
 
 def ones(n: int, device: Any) -> torch.Tensor:
     return torch.ones((n,), dtype=torch.float32, device=device)
+
+
+def cast(tree: Any, dtype: torch.dtype) -> Any:
+    """A nested dict of tensors with every tensor in ``dtype`` (the conv
+    models' ``init_params(dtype=)``: drawn in fp32, then rounded once)."""
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 def width(c: int, mult: float) -> int:

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.engine import BucketCompiler, CompiledNetwork
 from repro_torch.core.graph import StreamGraph, bn_scale_shift
 from repro_torch.kernels.ops import conv2d
-from repro_torch.models.common import normal, ones, width, zeros
+from repro_torch.models.common import cast, normal, ones, width, zeros
 
 __all__ = ["INVERTED_RESIDUAL_CFG", "block_specs", "n_convs",
            "n_residual_adds", "init_params", "forward", "to_graph",
@@ -78,7 +78,8 @@ def n_residual_adds() -> int:
 
 def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
                 img: int = 32, classes: int = n_classes,
-                device: Any = "cuda") -> Dict[str, Any]:
+                device: Any = "cuda",
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random MobileNetV2 parameters drawn with ``generator`` (on the
     generator's device), placed on ``device``.  Convs carry no bias
     (batch-norm's shift is the additive term); batch-norm entries hold
@@ -109,7 +110,7 @@ def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
     # global average pool feeds the classifier, so fc is width-only
     p["fc"] = {"w": normal(generator, (head, classes), device),
                "b": zeros(classes, device)}
-    return p
+    return cast(p, dtype)
 
 
 def to_graph(*, include_head: bool = True) -> StreamGraph:

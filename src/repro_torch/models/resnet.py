@@ -26,7 +26,7 @@ from repro_torch.core.engine import BucketCompiler, CompiledNetwork
 from repro_torch.core.graph import StreamGraph
 from repro_torch.core.loopnest import conv_output_dim
 from repro_torch.kernels.ops import conv2d
-from repro_torch.models.common import normal, width, zeros
+from repro_torch.models.common import cast, normal, width, zeros
 
 __all__ = ["RESNET18_STAGES", "block_specs", "n_convs", "init_params",
            "forward", "to_graph", "compile_forward", "bucket_compiler",
@@ -74,7 +74,8 @@ def _final_hw(img: int) -> int:
 
 def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
                 img: int = 32, classes: int = n_classes,
-                device: Any = "cuda") -> Dict[str, Any]:
+                device: Any = "cuda",
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random ResNet-18 parameters drawn with ``generator`` (on the
     generator's device), placed on ``device``.  Biases are zeros."""
     def conv_entry(cout: int, cin: int, k: int) -> Dict[str, Any]:
@@ -91,7 +92,7 @@ def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
     last = block_specs(width_mult)[-1][2]
     p["fc"] = {"w": normal(generator, (last * feat * feat, classes), device),
                "b": zeros(classes, device)}
-    return p
+    return cast(p, dtype)
 
 
 def to_graph() -> StreamGraph:

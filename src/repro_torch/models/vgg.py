@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.engine import BucketCompiler, CompiledNetwork
 from repro_torch.core.graph import StreamGraph
-from repro_torch.models.common import normal, zeros
+from repro_torch.models.common import cast, normal, zeros
 
 __all__ = ["VGG_LAYERS", "init_params", "vgg_head", "to_graph",
            "compile_forward", "bucket_compiler", "n_classes"]
@@ -32,7 +32,8 @@ n_classes = 1000
 
 def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
                 img: int = 224, classes: int = n_classes,
-                device: Any = "cuda") -> Dict[str, Any]:
+                device: Any = "cuda",
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Random VGG-16 parameters drawn with ``generator`` (on the
     generator's device), placed on ``device``.  Biases are zeros."""
     p: Dict[str, Any] = {}
@@ -55,7 +56,7 @@ def init_params(generator: torch.Generator, *, width_mult: float = 1.0,
                 "b": zeros(fc_dim, device)}
     p["fc3"] = {"w": normal(generator, (fc_dim, classes), device),
                 "b": zeros(classes, device)}
-    return p
+    return cast(p, dtype)
 
 
 def vgg_head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:

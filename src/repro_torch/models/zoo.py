@@ -21,6 +21,9 @@ class ConvModelSpec:
     init_params: Callable
     to_graph: Callable
 
+    def graph(self):
+        return self.to_graph()
+
 
 _REGISTRY: Dict[str, ConvModelSpec] = {}
 

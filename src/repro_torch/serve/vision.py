@@ -245,8 +245,11 @@ class VisionEngine:
         self._req_spans: Dict[int, Any] = {}   # rid -> open lifetime span
         # compile the first bucket now: it resolves the device (raising
         # when a requested GPU is absent) before any request is taken
-        self.device = self.compiler.network_for(
-            bucket_policy.widths[0]).device
+        first = self.compiler.network_for(bucket_policy.widths[0])
+        self.device = first.device
+        # requests arrive as fp32; a bf16 network takes them rounded to
+        # bf16 on the device, and its logits come back widened to fp32
+        self.input_dtype = first.dtype
 
     # -- request side ------------------------------------------------------
     def submit(self, images: np.ndarray,
@@ -323,10 +326,10 @@ class VisionEngine:
         on the current stream (the caching host allocator keeps the pinned
         block alive until that copy has run)."""
         if self.device.type != "cuda":
-            return torch.from_numpy(x)
+            return torch.from_numpy(x).to(self.input_dtype)
         host = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
         host.numpy()[...] = x
-        return host.to(self.device, non_blocking=True)
+        return host.to(self.device, non_blocking=True).to(self.input_dtype)
 
     def _stage(self) -> Optional[Tuple[FormedBatch, torch.Tensor]]:
         """Form the next batch and start its host→device copy (the front
@@ -373,7 +376,7 @@ class VisionEngine:
         logits = None
         if exc is None:
             # blocks until the device is done; a CUDA error raises here
-            logits = out.cpu().numpy()
+            logits = out.float().cpu().numpy()
         t_done = time.monotonic()
         h0 = time.perf_counter()
         duration = t_done - t0
@@ -471,7 +474,7 @@ class VisionEngine:
                                           stream="recovery")
                 else:
                     out = net(self.params, xd)
-            outs.append(out.cpu().numpy())
+            outs.append(out.float().cpu().numpy())
         return np.concatenate(outs)
 
     def _serve_degraded(self, reqs: List[ImageRequest]) -> None:

@@ -1,0 +1,126 @@
+"""The port's entry points that the JAX package has and the port lacked
+(ROADMAP queue C, item C4), against the reference's: each with the
+reference's parameter names, kinds and defaults (``inspect.signature``)
+and the reference's result on the same inputs.
+
+* ``kernels/ops.conv1d_causal(x, w, impl=None)``
+* ``core/engine.plan_and_dataflow(cv, cfg=None, precision="fp32")``
+* ``core/graph.lower(graph, params, input_shape, **compile_kw)``
+* ``models/zoo.ConvModelSpec.graph()``
+"""
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.core import engine as j_engine  # noqa: E402
+from repro.core import graph as j_graph  # noqa: E402
+from repro.core.loopnest import ConvLoopNest as JNest  # noqa: E402
+from repro.kernels import ops as j_ops  # noqa: E402
+from repro.models import zoo as j_zoo  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core import engine as t_engine  # noqa: E402
+from repro_torch.core import graph as t_graph  # noqa: E402
+from repro_torch.core.loopnest import ConvLoopNest as TNest  # noqa: E402
+from repro_torch.kernels import ops as t_ops  # noqa: E402
+from repro_torch.models import zoo as t_zoo  # noqa: E402
+
+IMG, WIDTH, CLASSES = 32, 0.0625, 10
+
+
+def _params_of(fn):
+    """(name, kind, default) of each parameter; annotations aside."""
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", ["conv1d_causal", "plan_and_dataflow",
+                                  "lower", "ConvModelSpec.graph"])
+def test_signature_matches_reference(name):
+    pairs = {"conv1d_causal": (t_ops.conv1d_causal, j_ops.conv1d_causal),
+             "plan_and_dataflow": (t_engine.plan_and_dataflow,
+                                   j_engine.plan_and_dataflow),
+             "lower": (t_graph.lower, j_graph.lower),
+             "ConvModelSpec.graph": (t_zoo.ConvModelSpec.graph,
+                                     j_zoo.ConvModelSpec.graph)}
+    got, want = pairs[name]
+    assert _params_of(got) == _params_of(want)
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv1d_causal_impl_matches_reference(impl, dtype):
+    """On a CPU tensor ``impl=None`` and ``"ref"`` are the plain version:
+    the reference's numbers bit for bit (its ``"ref"``, which is its CPU
+    default)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 9, 12)).astype(np.float32)
+    w = rng.standard_normal((4, 12)).astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jax.numpy.asarray(x).astype(dtype)
+    got = t_ops.conv1d_causal(tx, torch.from_numpy(w), impl=impl)
+    want = j_ops.conv1d_causal(jx, jax.numpy.asarray(w), impl=impl)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype("float32")))
+
+
+def test_conv1d_causal_fold_needs_a_cuda_tensor():
+    """``impl="fold"`` forces the kernel: on a CPU tensor it raises, and
+    never runs the plain version in its place."""
+    x, w = torch.zeros(1, 4, 8), torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_ops.conv1d_causal(x, w, impl="fold")
+    with pytest.raises(ValueError, match="unknown conv1d impl"):
+        t_ops.conv1d_causal(x, w, impl="xla")
+
+
+# conv loop nests of the zoo: VGG 3x3, a stride-2 1x1 projection, a
+# depthwise 3x3, an expand 1x1 at width, a small late layer
+NESTS = [dict(n=1, nf=64, c=64, r=3, s=3, x=224, y=224, stride=1, pad=1),
+         dict(n=4, nf=128, c=64, r=1, s=1, x=16, y=16, stride=2, pad=0),
+         dict(n=4, nf=144, c=144, r=3, s=3, x=32, y=32, stride=2, pad=1,
+              groups=144),
+         dict(n=4, nf=192, c=32, r=1, s=1, x=32, y=32, stride=1, pad=0),
+         dict(n=2, nf=512, c=512, r=3, s=3, x=4, y=4, stride=1, pad=1)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+@pytest.mark.parametrize("nest", NESTS, ids=lambda d: "x".join(
+    str(d[k]) for k in ("nf", "c", "r", "x", "stride")))
+def test_plan_and_dataflow_precision_matches_reference(nest, precision):
+    tp, tdf = t_engine.plan_and_dataflow(TNest(**nest), precision=precision)
+    jp, jdf = j_engine.plan_and_dataflow(JNest(**nest), precision=precision)
+    assert tdf == jdf
+    assert (tp.nf_block, tp.c_block, tp.p_block, tuple(tp.grid)) == \
+        (jp.nf_block, jp.c_block, jp.p_block, tuple(jp.grid))
+
+
+@pytest.mark.parametrize("model", ["vgg16", "resnet18", "mobilenetv2"])
+def test_spec_graph_and_lower_match_reference(model):
+    """``ConvModelSpec.graph()`` exports the reference's graph (node by
+    node), and ``lower`` compiles it as ``compile_network`` does: the
+    reference's logits on the same weights, and the port's own
+    ``compile_network`` bit for bit."""
+    tspec, jspec = t_zoo.get_conv_model(model), j_zoo.get_conv_model(model)
+    tg, jg = tspec.graph(), jspec.graph()
+    assert [(n.name, n.op, n.inputs) for n in tg.nodes] == \
+        [(n.name, n.op, n.inputs) for n in jg.nodes]
+    jp = jspec.init_params(jax.random.PRNGKey(0), width_mult=WIDTH,
+                           img=IMG, classes=CLASSES)
+    tp = params_from_jax(jp, device="cpu")
+    shape = (2, 3, IMG, IMG)
+    x = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    got = t_graph.lower(tg, tp, shape, policy="reference", device="cpu")
+    want = j_graph.lower(jg, jp, shape, policy="reference")
+    assert got.layer_keys and len(got.layer_keys) == len(want.layer_schedules)
+    y = got(tp, torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want(jp, x)),
+                               rtol=1e-4, atol=1e-4 * max(
+                                   1.0, float(np.abs(y.numpy()).max())))
+    direct = t_engine.compile_network(tp, tg, shape, policy="reference",
+                                      device="cpu", cache=got.cache)
+    assert torch.equal(direct(tp, torch.from_numpy(x)), y)
