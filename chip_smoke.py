@@ -8,9 +8,12 @@ Phases (any failed check raises, and the script exits non-zero):
 1. Environment: the card's name and power limit, the CUDA version, whether
    ``triton`` imports, ``nvcc``, the build of the kernels from
    ``src/repro_torch/kernels/csrc/`` into ``build/``, every kernel
-   instance's registers and spills, and the tensor-core (``HMMA``) and
-   ``FFMA`` instructions of each attention instance in its SASS
-   (``cuobjdump -sass``): the bf16 instances must hold ``HMMA``.
+   instance's registers and spills, and the tensor-core (``HMMA``,
+   ``HGMMA``) and ``FFMA`` instructions of each attention and fold-conv
+   instance in its SASS (``cuobjdump -sass``): the bf16 attention
+   instances and every tensor-core fold instance (``ws_tc_kernel``,
+   ``psum_tc_kernel``) must hold ``HMMA``, and no FFMA ``ws_kernel`` or
+   ``psum_kernel`` instance may take bf16 operands.
 2. Kernels: each CUDA kernel (WS, OS, depthwise) against its plain-torch
    version on the card over random shapes and every epilogue the zoo
    models fuse, grouped 1 < G < C included (the JAX tests' shapes and
@@ -105,14 +108,21 @@ Phases (any failed check raises, and the script exits non-zero):
     geometries, the head shapes, VGG-16's 13 layers at 224 b1 and
     MobileNetV2's at 32 b4, within one bf16 step of each element
     (``2^-7·|plain|``, the psum staging's widened by its depth folds'
-    magnitudes) plus ``1e-4·max(1, max|plain|)``, timed beside the fp32
-    instance, ``F.conv2d`` / ``torch.addmm`` in bf16 and the bf16
-    tensor-core bound; then the bf16 main path: VGG-16 at 224 b1 and
-    MobileNetV2 / ResNet-18 at 32 b4 from ``init_params(dtype=
+    magnitudes) plus ``1e-4·max(1, max|plain|)``; every tensor-core tile
+    of the WS and psum kernels forced through the launcher at g_c = 1, 3
+    and 4 with a ragged P, Q and NF; timed beside the fp32 instance (WS
+    and psum per layer with the tile picked, and their FFMA instances'
+    times before the redesign), ``F.conv2d`` / ``torch.addmm`` in bf16
+    and the bf16 tensor-core bound; then the bf16 main path: VGG-16 at
+    224 b1 and MobileNetV2 / ResNet-18 at 32 b4 from ``init_params(dtype=
     torch.bfloat16)``, jitted bitwise eager, one bf16 launch per conv
     and dense layer, bf16 logits within ``3e-2·max(1, max|ref|)`` of the
-    bf16 reference policy, ms beside fp32; and ``ops.conv2d(impl=
-    "fold_ws_psum")`` in bf16 over VGG-16's 13 layers.
+    bf16 reference policy, ms beside fp32; ``ops.conv2d(impl=
+    "fold_ws_psum")`` in bf16 over VGG-16's 13 layers; the bf16 VGG-16
+    trunk at 224 bitwise across batch widths 1 and 4; and bf16 VGG-16
+    served at 224 by ``VisionEngine`` over buckets (1, 2, 4), as phase 5
+    serves fp32: nothing lost, every request from the primary rung,
+    served logits bitwise an eager direct forward.
 12e. ``[http]``: full-width MobileNetV2 (phase 8's configuration and
     stream, base64 bodies, 8 keep-alive clients) through
     ``launch/server.start_server`` with 2 in-process workers (and again
@@ -198,7 +208,10 @@ BEFORE_REDESIGN = {"fold_conv_psum": 6.667, "fold_conv_dw": 0.1047,
                    "fold_conv_dw_i8": 0.1019, "dense_b1": 0.1876,
                    "dense_b4": 0.1931, "attention_fold_float32": 2.8094,
                    "attention_fold_bfloat16": 3.09,
-                   "conv1d_causal": 0.0889}
+                   "conv1d_causal": 0.0889,
+                   # the FFMA bf16 instances, VGG-16's 13 layers at 224 b1
+                   "fold_conv_ws_bf16": 4.2103,
+                   "fold_conv_psum_bf16": 4.0023}
 SEED = 0
 TOL_KERNEL = 1e-4      # kernel vs plain: two fp32 sums in different orders
 TOL_MODEL = 1e-4       # kernel path vs reference policy, over the network
@@ -377,7 +390,7 @@ def phase_environment(torch):
           "with loading)")
     return {"build_s": info["seconds"], "ptxas": info["ptxas"],
             "fold_conv_resources": kernel_resources(info["ptxas"]),
-            "attention_sass": attention_sass(info["path"])}
+            "sass": kernel_sass(info["path"])}
 
 
 def kernel_resources(log: str):
@@ -402,8 +415,8 @@ def kernel_resources(log: str):
         if m:
             cur["registers"] = int(m.group(1))
     keep = [e for e in out if any(k in e["mangled"] for k in (
-        "ws_kernel", "os_kernel", "dw_kernel", "psum_kernel", "dense_",
-        "attention_", "conv1d_causal"))]
+        "ws_kernel", "os_kernel", "dw_kernel", "psum_kernel", "_tc_kernel",
+        "dense_", "attention_", "conv1d_causal"))]
     for e, name in zip(keep, demangle([e["mangled"] for e in keep])):
         e["name"] = name
     for e in keep:
@@ -424,11 +437,21 @@ def demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
-def attention_sass(lib_path: str):
+# the kernels whose SASS phase 1 reads, and those that must run on the
+# tensor cores
+SASS_KERNELS = ("attention_", "ws_kernel", "os_kernel", "psum_kernel",
+                "dw_kernel", "ws_tc_kernel", "psum_tc_kernel")
+TC_INSTANCES = ("attention_tc_kernel", "ws_tc_kernel", "psum_tc_kernel")
+
+
+def kernel_sass(lib_path: str):
     """The tensor-core (HMMA, HGMMA) and FFMA instructions of every
-    attention kernel instance in the built library, from ``cuobjdump
-    -sass``; fails if a bf16 (tensor-core) instance holds no HMMA.  An
-    empty dict where ``cuobjdump`` is not there to ask."""
+    attention and fold-conv kernel instance in the built library, from
+    ``cuobjdump -sass``; fails if a tensor-core instance (bf16 attention,
+    the bf16 WS and psum fold kernels) holds no HMMA, if one of them is
+    missing, or if an FFMA ``ws_kernel`` / ``psum_kernel`` instance takes
+    bf16 operands.  An empty dict where ``cuobjdump`` is not there to
+    ask."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -446,7 +469,8 @@ def attention_sass(lib_path: str):
     for line in proc.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "attention_" in m.group(1) else None
+            cur = m.group(1) if any(k in m.group(1)
+                                    for k in SASS_KERNELS) else None
             if cur:
                 counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
             continue
@@ -458,13 +482,20 @@ def attention_sass(lib_path: str):
     out = {}
     for mangled, name in zip(counts, names):
         out[name] = counts[mangled]
-        print(f"[env] SASS {name}: HMMA {counts[mangled]['HMMA']}, HGMMA "
-              f"{counts[mangled]['HGMMA']}, FFMA {counts[mangled]['FFMA']}")
-        if "attention_tc_kernel" in name:
+        if "attention_" in name or "bfloat16" in name or any(
+                k in name for k in TC_INSTANCES):
+            # the fp32 / int8 fold instances are in the report only
+            print(f"[env] SASS {name}: HMMA {counts[mangled]['HMMA']}, "
+                  f"HGMMA {counts[mangled]['HGMMA']}, FFMA "
+                  f"{counts[mangled]['FFMA']}")
+        if any(k in name for k in TC_INSTANCES):
             check(counts[mangled]["HMMA"] + counts[mangled]["HGMMA"] > 0,
                   f"{name} runs no tensor-core instruction")
-    check(any("attention_tc_kernel" in n for n in out),
-          "no tensor-core attention instance in the SASS")
+        check(not (("::ws_kernel<" in name or "::psum_kernel<" in name)
+                   and "bfloat16" in name),
+              f"{name}: an FFMA fold instance on bf16 operands")
+    for k in TC_INSTANCES:
+        check(any(k in n for n in out), f"no {k} instance in the SASS")
     return out
 
 
@@ -762,6 +793,8 @@ def time_layers(torch, dev, layers, dataflows, reps, dtype=None):
             spec, *prepared = cw.prepare(x, w, 1, sched.plan, df, b, epi, 1,
                                          None, None, None)
             launch = cw.LAUNCHERS[spec.dataflow]
+            row[f"{df}_tile"] = cw.fold_tile(spec, batch, cw._sm_count(dev),
+                                             dtype=dtype).index
             row[f"{df}_ms"] = time_graph_ms(
                 torch, lambda: launch(spec, *prepared), reps)
             row[f"{df}_call_ms"] = time_ms(
@@ -1053,13 +1086,16 @@ def phase_model_32(torch, dev):
 def phase_serving(torch, dev, params, jit):
     """VGG-16 served at 224 over buckets (1, 2, 4), its bucket forwards
     CUDA graphs (``jit``) or eager; each request's logits bitwise equal
-    to an eager direct forward of its images."""
+    to an eager direct forward of its images (in the parameters' type:
+    fp32, or bf16, whose engine rounds the images to bf16 and widens the
+    logits to fp32)."""
     import numpy as np
     from repro_torch.models import vgg
     from repro_torch.serve.vision import VisionEngine
-    what = "jitted" if jit else "eager"
     eng = VisionEngine(params, vgg.to_graph(), img=224, buckets=(1, 2, 4),
                        jit=jit, device=dev)
+    what = ("jitted" if jit else "eager") + (
+        "" if eng.input_dtype == torch.float32 else " bf16")
     eng.warmup()
     rng = np.random.default_rng(SEED)
     imgs = [rng.standard_normal((int(k), 3, 224, 224)).astype(np.float32)
@@ -1073,7 +1109,8 @@ def phase_serving(torch, dev, params, jit):
                                      cache=eng.compiler.cache, jit=False,
                                      device=dev)
         with torch.inference_mode():
-            want = direct(params, torch.from_numpy(im).to(dev))
+            want = direct(params, torch.from_numpy(im).to(dev).to(
+                eng.input_dtype)).float()
         got = torch.from_numpy(req.logits).to(dev)
         print(f"[serve {what}] request {req.rid} ({im.shape[0]} images): "
               f"bitwise="
@@ -2171,7 +2208,9 @@ def time_bf16_psum(torch, dev, layers, reps):
                                       "weight_stationary_psum", None, None,
                                       1, None, None, None)
         row = {"layer": name, "c": cv.c, "nf": cv.nf, "h": h,
-               "g_c": spec.cg_folds}
+               "g_c": spec.cg_folds,
+               "tile": cw.fold_tile(spec, batch, cw._sm_count(dev),
+                                    dtype=torch.bfloat16).index}
         row["ms"] = time_graph_ms(torch, lambda: cw.launch_psum(spec, xk, wk),
                                   reps)
         row["plain_ms"] = time_graph_ms(
@@ -2184,6 +2223,86 @@ def time_bf16_psum(torch, dev, layers, reps):
             BF16_TC_PEAK)
         rows.append(row)
     return rows
+
+
+def phase_bf16_tc_tiles(torch, dev):
+    """Each tensor-core tile (``TC_TILES``) forced through
+    ``launch_ws(tile=)`` and ``launch_psum(tile=)``, against the plain walk
+    under the bf16 rule: 2 images of 48 channels, 17 x 19 outputs (ragged
+    P and Q against every tile), 40 filters (ragged against 16, 32 and
+    64), 3x3, at g_c = 1, 3 and 4 (c_block 48, 16, 12), WS with bias +
+    ReLU + pool and with every step but the pool, psum with its identity.
+    Returns the largest error by kernel."""
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.core.mapping import ConvBlockPlan
+    from repro_torch.kernels import conv2d_ws as cw
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    n, c, h, w_, nf = 2, 48, 17, 19, 40
+
+    def rand(*shape, fan=1):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                / fan ** 0.5).to(bf)
+
+    x, w = rand(n, c, h + 2, w_ + 2), rand(nf, c, 3, 3, fan=c * 9)
+    ops = {"bias": rand(nf), "shift": rand(nf), "residual": rand(n, nf, h, w_),
+           "scale": (1.0 + 0.2 * torch.randn(nf, device=dev,
+                                             generator=gen)).to(bf)}
+    every = Epilogue(bias=True, scale=True, residual=True, relu6=True)
+    errs = {"fold_conv_ws_bf16": 0.0, "fold_conv_psum_bf16": 0.0}
+    runs = 0
+    for c_b in (48, 16, 12):
+        plan = ConvBlockPlan(nf_block=nf, c_block=c_b, p_block=6,
+                             grid=(1, c // c_b, 3), vmem_bytes=0)
+        for name, df, epi in (
+                ("fold_conv_ws_bf16", "weight_stationary",
+                 Epilogue(bias=True, relu=True, pool="max2")),
+                ("fold_conv_ws_bf16", "weight_stationary", every),
+                ("fold_conv_psum_bf16", "weight_stationary_psum",
+                 Epilogue())):
+            kw = {k: v for k, v in ops.items()
+                  if getattr(epi, k, False) or (k == "shift" and epi.scale)}
+            spec, *prep = cw.prepare(x, w, 1, plan, df, kw.get("bias"), epi,
+                                     1, kw.get("residual"), kw.get("scale"),
+                                     kw.get("shift"))
+            check(spec.cg_folds == c // c_b, f"g_c {spec.cg_folds}")
+            want = cw.conv2d_folded_plain(x, w, plan=plan, dataflow=df,
+                                          epilogue=epi, **kw)
+            extra = psum_extra(torch, x, w) if name.startswith(
+                "fold_conv_psum") else None
+            for t in range(len(cw.TC_TILES)):
+                got = cw._finish(spec, cw.LAUNCHERS[df](spec, *prep, tile=t),
+                                 bf)
+                errs[name] = max(errs[name], bf16_err(
+                    torch, got, want, f"{name} g_c={c // c_b} "
+                    f"epi={epi} tensor-core tile {t}", extra))
+                runs += 1
+    print(f"[bf16] every tensor-core tile forced ({runs} launches, g_c 1, "
+          f"3, 4, ragged P, Q and NF) against the plain walk: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def phase_bf16_trunk(torch, dev, params):
+    """The bf16 VGG-16 trunk at 224 (full width, ``params`` in bf16) row
+    by row bitwise at batch widths 1 and 4, as phase 3 holds fp32's: the
+    tensor-core sums' 16-tap steps do not depend on the batch."""
+    from repro_torch.core.engine import compile_network
+    from repro_torch.models import vgg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x4 = torch.randn(4, 3, 224, 224, device=dev,
+                     generator=gen).to(torch.bfloat16)
+    trunks = {b: compile_network(params, vgg.to_graph(include_head=False),
+                                 (b, 3, 224, 224), device=dev)
+              for b in (1, 4)}
+    with torch.inference_mode():
+        t4 = trunks[4](params, x4)
+        for i in range(4):
+            t1 = trunks[1](params, x4[i:i + 1])
+            check(t1.dtype == torch.bfloat16 and torch.equal(t1[0], t4[i]),
+                  f"bf16 trunk row {i} differs between batch 1 and batch 4")
+    print("[bf16] VGG-16 224 trunk rows bitwise-equal at batch 1 and "
+          "batch 4")
 
 
 def phase_bf16_models(torch, dev, fp32_ms):
@@ -3221,6 +3340,8 @@ def main() -> int:
     bf = torch.bfloat16
     t_bf16 = time.perf_counter()
     errs.update(phase_bf16_kernels(torch, dev, cases, dw_cases))
+    for name, e in phase_bf16_tc_tiles(torch, dev).items():
+        errs[name] = max(errs[name], e)
     errs[dn.KERNEL_BF16], _ = phase_dense(torch, dev, bf)
     bf16_rows224 = time_layers(torch, dev, ws_layers,
                                ("weight_stationary",), 5, dtype=bf)
@@ -3237,10 +3358,13 @@ def main() -> int:
     bf16_dense_rows = time_dense(torch, dev, 1, 10, dtype=bf)
     bf16_psum_rows = time_bf16_psum(torch, dev, ws_layers, 5)
     print("[bf16] VGG-16 layers at 224, batch 1 (ms, device time): bf16 "
-          "kernel / fp32 kernel / plain / F.conv2d in bf16 / bf16 bound")
-    for r, r32 in zip(bf16_rows224, rows224):
+          "WS (its tensor-core tile) / bf16 psum (tile) / fp32 WS / plain / "
+          "F.conv2d in bf16 / bf16 bound")
+    for r, rp, r32 in zip(bf16_rows224, bf16_psum_rows, rows224):
         print(f"  {r['layer']:<8} c={r['c']:<4} nf={r['nf']:<4} "
-              f"h={r['h']:<4} bf16={r['weight_stationary_ms']:.4f} "
+              f"h={r['h']:<4} ws={r['weight_stationary_ms']:.4f} "
+              f"(tc{r['weight_stationary_tile']}) "
+              f"psum={rp['ms']:.4f} (tc{rp['tile']}) "
               f"fp32={r32['weight_stationary_ms']:.4f} "
               f"plain={r['plain_ms']:.4f} F.conv2d={r['library_ms']:.4f} "
               f"bound={r['bound_ms']:.5f}")
@@ -3258,6 +3382,13 @@ def main() -> int:
         "resnet18 32": report["resnet18"]["forward_b4_ms"]})
     errs["fold_conv_psum_bf16"] = max(errs["fold_conv_psum_bf16"],
                                       phase_bf16_psum(torch, dev, ws_layers))
+    from repro_torch.models import vgg
+    bf16_vgg = vgg.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 50), img=224,
+        device=dev, dtype=bf)
+    phase_bf16_trunk(torch, dev, bf16_vgg)
+    report["serving_bf16"] = phase_serving(torch, dev, bf16_vgg, jit=True)
+    del bf16_vgg
     bf16_launches = cw.launch_counts()
     bf16_launches[dn.KERNEL_BF16] = dn.launch_counts()[dn.KERNEL_BF16]
     report["bf16_seconds"] = time.perf_counter() - t_bf16
@@ -3396,9 +3527,12 @@ def main() -> int:
                          sum(r["ms"] for r in dense_rows[1]),
                          "VGG-16 fc1-fc3 at 224 b1")}
     for name, (t, fp32, what) in bf16_sum.items():
+        before = (f", the FFMA instance before the redesign "
+                  f"{BEFORE_REDESIGN[name]}" if name in BEFORE_REDESIGN
+                  else "")
         print(f"[bf16] {name} ({what}): {t['ms']:.4f} ms (fp32 instance "
-              f"{fp32:.4f}), plain {t['plain_ms']:.4f}, library in bf16 "
-              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} "
+              f"{fp32:.4f}{before}), plain {t['plain_ms']:.4f}, library in "
+              f"bf16 {t['library_ms']:.4f}, bound {t['bound_ms']:.5f} "
               f"({t['bound_by']}), max abs err vs plain {errs[name]:.3e}")
 
     # -- the LM kernels against their plain versions (not a main path) ----
@@ -3516,8 +3650,11 @@ def main() -> int:
     for name, (t, fp32, what) in bf16_sum.items():
         head = name == dn.KERNEL_BF16
         entry = {"name": name, "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/"
-                           + ("dense.cu" if head else "fold_conv.cuh"),
+                 "source": "src/repro_torch/kernels/csrc/" + {
+                     dn.KERNEL_BF16: "dense.cu",
+                     "fold_conv_ws_bf16": "fold_conv_tc.cuh",
+                     "fold_conv_psum_bf16": "fold_conv_tc.cuh"}.get(
+                         name, "fold_conv.cuh"),
                  "replaces": ("src/repro/core/engine.py:1242" if head else
                               "src/repro/kernels/conv2d_ws.py:"
                               + {"fold_conv_ws_bf16": "131",

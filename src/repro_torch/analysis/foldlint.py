@@ -72,8 +72,10 @@ def sm_count(device: torch.device) -> int:
 def _check_layers(net, params, input_shape: Tuple[int, ...], sms: int,
                   rep: Report) -> int:
     """Re-walk the lowered graph and prove every conv layer's plan, kernel
-    index maps and CTA tile.  Mirrors the engine's shape walk (pool
-    demotion included) but reports findings instead of raising."""
+    index maps and CTA tile (on the network's operand type: int8 for an
+    int8 schedule, else its parameters', so a bf16 network's WS and psum
+    launches prove tensor-core tiles).  Mirrors the engine's shape walk
+    (pool demotion included) but reports findings instead of raising."""
     from repro_torch.core.epilogue import epilogue_out_hw
     from repro_torch.core.graph import DEPTHWISE
     from repro_torch.core.loopnest import ConvLoopNest
@@ -125,7 +127,10 @@ def _check_layers(net, params, input_shape: Tuple[int, ...], sms: int,
                     layer_rep.extend(check_kernel_spec(spec, where=where))
                     if layer_rep.ok:
                         layer_rep.extend(check_launch_tile(
-                            spec, cv.n, sms, where=where))
+                            spec, cv.n, sms, where=where,
+                            dtype=torch.int8
+                            if sched.key.precision == "int8"
+                            else net.dtype))
             rep.extend(layer_rep)
             checked += 1
             po, qo = epilogue_out_hw(nd.epilogue, cv.p, cv.q)
@@ -158,13 +163,19 @@ def lint_model(name: str, *, img: int = DEFAULT_IMG,
                precision: str = "fp32",
                device: Any = "cuda") -> dict:
     """Run the full verifier stack over one zoo model; returns a
-    machine-readable summary dict (``report`` holds the findings)."""
+    machine-readable summary dict (``report`` holds the findings).
+    ``precision`` is the engine's (``"fp32"`` or ``"int8"``) or
+    ``"bf16"``: the fp32 lowering on bf16 parameters
+    (``init_params(dtype=torch.bfloat16)``), whose convs stream bf16."""
     from repro_torch.models import zoo
     dev = resolve_device(device)
     spec = zoo.get_conv_model(name)
+    bf16 = precision == "bf16"
     params = spec.init_params(torch.Generator(device=dev).manual_seed(0),
                               width_mult=width_mult, img=img,
-                              classes=classes, device=dev)
+                              classes=classes, device=dev,
+                              dtype=torch.bfloat16 if bf16 else
+                              torch.float32)
     original = spec.to_graph()
     input_shape = (batch, 3, img, img)
     sms = sm_count(dev)
@@ -183,13 +194,14 @@ def lint_model(name: str, *, img: int = DEFAULT_IMG,
 
     net = zoo.compile_forward(name, params, img=img, batch=batch,
                               policy=policy, jit=False, verify=False,
-                              precision=precision, device=dev)
+                              precision="fp32" if bf16 else precision,
+                              device=dev)
     if net.fused:
         rep.extend(check_fusion(original, net.graph))
     summary["conv_layers"] = _check_layers(net, params, input_shape, sms,
                                            rep)
 
-    audit = audit_launches(net, params, input_shape)
+    audit = audit_launches(net, params, input_shape, net.dtype)
     rep.extend(audit.findings)
     summary["fold_calls"] = audit.fold_calls
     summary["launches"] = audit.launches
@@ -216,8 +228,9 @@ def parser() -> argparse.ArgumentParser:
                     help="execution policy to compile under "
                          "(default: kernel)")
     ap.add_argument("--precision", default="fp32",
-                    choices=("fp32", "int8"),
-                    help="streaming precision to compile under "
+                    choices=("fp32", "int8", "bf16"),
+                    help="streaming precision to compile under; bf16 "
+                         "lowers bf16 parameters in fp32 mode "
                          "(default: fp32)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the network compiles and its audited call "

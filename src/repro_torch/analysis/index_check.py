@@ -33,12 +33,16 @@ accumulate into (or sub-slice) the same resident block.
 
 On the card a WS / OS / psum launch runs the fold grid as CTA tiles
 (``kernels/conv2d_ws.py:fold_tile``, the mirror of ``launch_tile`` in
-``csrc/fold_conv.cuh``): output pixels flattened over (n, p, q) in tiles of
-``bm``, each group's filters in tiles of ``bn``.  ``check_launch_tile``
-proves that geometry, CTA by CTA, as the kernel derives it:
+``csrc/fold_conv.cuh`` and, for bf16 WS and psum, of ``launch_tc_tile`` in
+``csrc/fold_conv_tc.cuh``): output pixels flattened over (n, p, q) in
+tiles of ``bm``, each group's filters in tiles of ``bn``.
+``check_launch_tile`` proves that geometry, CTA by CTA, as the kernel
+derives it:
 
-  tile.shape          the tile's fields disagree with its entry of
-                      ``TILES`` or with the launch (pixel count, groups)
+  tile.shape          the tile is not of the core the launch's operand
+                      type runs on (``tile_core``), or its fields disagree
+                      with its entry of ``TILES`` / ``TC_TILES`` or with
+                      the launch (pixel count, depth fold, shared memory)
   tile.m-coverage     the CTAs' M-tile ranges do not cover every output
                       pixel exactly once
   tile.n-coverage     the filter tiles do not cover every group's filters
@@ -56,10 +60,13 @@ import itertools
 import math
 from typing import Dict, Iterable, Iterator, Optional, Set, Tuple
 
+import torch
+
 from repro_torch.analysis.plan_check import check_tile_residency
 from repro_torch.analysis.report import Report
-from repro_torch.kernels.conv2d_ws import (TILES, FoldKernelSpec, FoldTile,
-                                           OperandSpec, fold_tile)
+from repro_torch.kernels.conv2d_ws import (TC_TILES, TILES, FoldKernelSpec,
+                                           FoldTile, OperandSpec, fold_tile,
+                                           tile_core, tile_shape, tile_smem)
 
 __all__ = ["check_kernel_spec", "check_launch_tile", "MAX_POINTS"]
 
@@ -225,36 +232,54 @@ def _ranges_cover(ranges, extent: int) -> Tuple[int, int]:
 
 def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
                       where: str = "kernel",
-                      tile: Optional[FoldTile] = None) -> Report:
-    """Prove the CTA tile of one WS / OS / psum launch (``fold_tile``'s
-    choice at ``sm_count`` SMs, or ``tile``): it fits the shared memory
-    of a CTA (``plan_check.check_tile_residency``; no tile that fits is
-    the same finding), every output pixel and every filter of the launch
-    falls in exactly one CTA tile, no filter tile straddles a group, and
-    psum's depth folds cover the depth exactly.  A depthwise launch has
-    no CTA tile: nothing to prove."""
+                      tile: Optional[FoldTile] = None,
+                      dtype: torch.dtype = torch.float32) -> Report:
+    """Prove the CTA tile of one WS / OS / psum launch on ``dtype``
+    operands (``fold_tile``'s choice at ``sm_count`` SMs, or ``tile``):
+    it is a tile of the core that type runs on (the tensor-core tiles for
+    bf16 WS and psum), its shape, depth fold and shared memory are its
+    tile set's entry at this launch, it fits the shared memory of a CTA
+    (``plan_check.check_tile_residency``; no tile that fits is the same
+    finding), every output pixel and every filter of the launch falls in
+    exactly one CTA tile, no filter tile straddles a group, and psum's
+    depth folds cover the depth exactly.  A depthwise launch has no CTA
+    tile: nothing to prove."""
     rep = Report()
     if spec.dataflow == "depthwise":
         return rep
     if tile is None:
         try:
-            tile = fold_tile(spec, n, sm_count)
+            tile = fold_tile(spec, n, sm_count, dtype=dtype)
         except ValueError as e:
             rep.add("plan.smem-overflow", where, str(e))
             return rep
     rep.extend(check_tile_residency(tile, where))
     loc = f"{where}:tile"
+    core = tile_core(spec.dataflow, dtype)
+    tiles = TC_TILES if core == "tc" else TILES
+    if tile.core != core or not 0 <= tile.index < len(tiles):
+        rep.add("tile.shape", loc,
+                f"tile {tile.index} of the {tile.core} core, but a "
+                f"{spec.dataflow} launch on {dtype} runs one of the "
+                f"{len(tiles)} tiles of the {core} core")
+        return rep
     pool = spec.epilogue.pool == "max2"
     po, qo = (spec.p_pad // 2, spec.q // 2) if pool else (spec.p_pad, spec.q)
     m = (4 if pool else 1) * n * po * qo
     nfg = spec.nf_pad // spec.groups
-    tm, tn, mg, ng = TILES[tile.index]
-    want = (tm, tn, tm * mg, tn * ng, mg * ng, m)
-    got = (tile.tm, tile.tn, tile.bm, tile.bn, tile.threads, tile.m)
+    kf = spec.plan.c_block * spec.r * spec.s
+    k_total = spec.c_pad // spec.groups * spec.r * spec.s
+    tm, tn, bm, bn, threads = tile_shape(core, tile.index)
+    want = (tm, tn, bm, bn, threads, m, kf,
+            tile_smem(core, spec.dataflow != "output_stationary", bm, bn,
+                      kf, k_total))
+    got = (tile.tm, tile.tn, tile.bm, tile.bn, tile.threads, tile.m,
+           tile.kf, tile.smem)
     if got != want:
         rep.add("tile.shape", loc,
-                f"tile {tile.index} reads (tm, tn, bm, bn, threads, M) = "
-                f"{got}, but TILES and the launch give {want}")
+                f"{core} tile {tile.index} reads (tm, tn, bm, bn, threads, "
+                f"M, Kf, smem) = {got}, but its tile set and the launch "
+                f"give {want}")
         return rep
 
     # M: a WS / psum CTA walks m_per_cta consecutive M tiles, an OS CTA

@@ -102,8 +102,8 @@ def _watch_convs(recorder: _OpRecorder, calls: Counter):
             stride=kw.get("stride", 1), plan=kw.get("plan"),
             dataflow=kw.get("dataflow", "weight_stationary"),
             epilogue=kw.get("epilogue"), groups=kw.get("groups", 1))
-        name = _KERNEL_OF[spec.dataflow]
-        calls[name + "_i8" if x_padded.dtype == torch.int8 else name] += 1
+        # the instance of x's type: *_i8, *_bf16 or the fp32 one
+        calls[conv2d_ws._entry(_KERNEL_OF[spec.dataflow], x_padded)] += 1
         return saved["conv2d_folded"](x_padded, w, **kw)
 
     for name in _CONV_ENTRIES:
@@ -150,15 +150,15 @@ class AuditReport:
                 "report": self.findings.as_dict()}
 
 
-def audit_launches(net, params, input_shape: Tuple[int, ...]
-                   ) -> AuditReport:
-    """Run ``net``'s eager forward once on a zeros input of
-    ``input_shape`` on its device and audit what ran.  ``net`` is a
-    ``CompiledNetwork`` (``core/engine.py``); a jitted network's eager
-    forward is ``net.eager`` (a graph replay would tick no counter and
-    dispatch no op)."""
+def audit_launches(net, params, input_shape: Tuple[int, ...],
+                   dtype: torch.dtype = torch.float32) -> AuditReport:
+    """Run ``net``'s eager forward once on a zeros ``dtype`` input of
+    ``input_shape`` (a bf16 network's is bf16) on its device and audit
+    what ran.  ``net`` is a ``CompiledNetwork`` (``core/engine.py``); a
+    jitted network's eager forward is ``net.eager`` (a graph replay would
+    tick no counter and dispatch no op)."""
     from repro_torch.kernels import conv2d_ws
-    x0 = torch.zeros(tuple(input_shape), dtype=torch.float32,
+    x0 = torch.zeros(tuple(input_shape), dtype=dtype,
                      device=net.device)
     cuda = torch.device(net.device).type == "cuda"
     recorder, calls = _OpRecorder(), Counter()

@@ -36,7 +36,11 @@ the card.  Here residency is the launch's CTA tile
 (``check_tile_residency``):
 
   plan.smem-overflow    the tile's shared memory exceeds what one CTA may
-                        take (``SMEM_LIMIT``), or no tile fits at all
+                        take (``SMEM_LIMIT``), or no tile fits at all; a
+                        tensor-core tile's bytes are recomputed from its
+                        shape and depth fold (its resident bf16 filter
+                        tile, the input ring that also stages the fp32
+                        sums, the k offset table)
 
 A tile that leaves room for one CTA per SM is no finding: the tile model
 picks such tiles on purpose for the deepest WS layers.
@@ -48,7 +52,7 @@ import math
 from repro_torch.analysis.report import Report
 from repro_torch.core.loopnest import ConvLoopNest
 from repro_torch.core.mapping import ConvBlockPlan
-from repro_torch.kernels.conv2d_ws import SMEM_LIMIT, FoldTile
+from repro_torch.kernels.conv2d_ws import SMEM_LIMIT, FoldTile, tile_smem
 
 __all__ = ["check_plan", "check_tile_residency"]
 
@@ -61,13 +65,19 @@ def _covers_exactly(grid: int, block: int, extent: int) -> bool:
 
 def check_tile_residency(tile: FoldTile, where: str = "plan") -> Report:
     """Prove one launch's CTA tile fits the shared memory a CTA may
-    take."""
+    take: its recorded bytes and, for a tensor-core tile (always a WS or
+    psum one, with a resident filter tile), the bytes its shape and depth
+    fold need."""
     rep = Report()
-    if tile.smem > SMEM_LIMIT:
+    need = tile.smem
+    if tile.core == "tc":
+        need = max(need, tile_smem("tc", True, tile.bm, tile.bn, tile.kf,
+                                   tile.k_len * tile.folds))
+    if need > SMEM_LIMIT:
         rep.add("plan.smem-overflow", where,
-                f"CTA tile {tile.index} ({tile.bm} pixels x {tile.bn} "
-                f"filters) takes {tile.smem} bytes of shared memory, over "
-                f"the {SMEM_LIMIT} one CTA may use: the launch fails")
+                f"{tile.core} CTA tile {tile.index} ({tile.bm} pixels x "
+                f"{tile.bn} filters) takes {need} bytes of shared memory, "
+                f"over the {SMEM_LIMIT} one CTA may use: the launch fails")
     return rep
 
 

@@ -945,17 +945,19 @@ def _verify_graph(original, fused_graph, fused: bool) -> None:
 
 
 def _verify_schedule(name: str, cv: ConvLoopNest, sched: "ConvSchedule",
-                     epi, groups: int, sm_count: Optional[int]) -> None:
+                     epi, groups: int, sm_count: Optional[int],
+                     dtype: torch.dtype = torch.float32) -> None:
     """Prove one conv layer's schedule before its kernel is bound: the
     clamped block plan's invariants (including, for int8 schedules, the
     int32-accumulator overflow bound), the launch's index-map coverage and
     race analysis (``FoldKernelSpec``) and, with ``sm_count`` (a CUDA
-    device), the CTA tile the kernel will run and its shared memory.
+    device), the CTA tile the kernel will run on ``dtype`` operands (the
+    tensor-core tiles for bf16 WS and psum) and its shared memory.
     ``epi`` is the epilogue the kernel actually flushes — the requant form
     for int8 schedules."""
     plan = sched.plan.clamped(cv.nf, cv.c, cv.p)
     key = (sched.key, sched.dataflow, plan, epi, cv.n,
-           cv.padded_x, cv.padded_y, sm_count)
+           cv.padded_x, cv.padded_y, sm_count, dtype)
     if key in _VERIFIED_SCHEDULES:
         return
     from repro_torch.analysis.index_check import (check_kernel_spec,
@@ -972,7 +974,8 @@ def _verify_schedule(name: str, cv: ConvLoopNest, sched: "ConvSchedule",
             epilogue=epi, groups=groups)
         rep.extend(check_kernel_spec(spec, where=name))
         if rep.ok and sm_count is not None:
-            rep.extend(check_launch_tile(spec, cv.n, sm_count, where=name))
+            rep.extend(check_launch_tile(spec, cv.n, sm_count, where=name,
+                                         dtype=dtype))
     if not rep.ok:
         raise FoldLintError(rep.errors)
     _VERIFIED_SCHEDULES[key] = True
@@ -1150,6 +1153,7 @@ def compile_network(params: Dict[str, Any], graph,
     g = fuse_graph(base_graph) if fused else base_graph
     verify_s = 0.0
     sm_count = None
+    in_dtype = _input_dtype(params, base_graph)
     if verify:
         t0 = time.perf_counter()
         _verify_graph(base_graph, g, fused)
@@ -1224,7 +1228,9 @@ def compile_network(params: Dict[str, Any], graph,
                 t0 = time.perf_counter()
                 _verify_schedule(nd.name, cv, sched,
                                  requant_epilogue(epi) if x_scale is not None
-                                 else epi, groups, sm_count)
+                                 else epi, groups, sm_count,
+                                 torch.int8 if x_scale is not None
+                                 else in_dtype)
                 verify_s += time.perf_counter() - t0
             layer_schedules.append((nd.name, sched))
             layer_nests.append((nd.name, cv))
@@ -1346,7 +1352,6 @@ def compile_network(params: Dict[str, Any], graph,
         misses=cache.stats.misses - stats_before.misses,
         replans=cache.stats.replans - stats_before.replans)
     captured = jit and dev.type == "cuda"
-    in_dtype = _input_dtype(params, base_graph)
     apply = CapturedForward(forward, input_shape, dev, in_dtype) \
         if captured else forward
     if tracer is not None:

@@ -9,11 +9,13 @@ The dense kernels compute, for one conv layer on the pre-padded input
 
 with the epilogue bias -> BN scale/shift -> residual add -> ReLU or ReLU6
 -> optional 2x2/2 max-pool, the sum taken in true fp32 (FFMA on the CUDA
-cores: ``wgmma`` takes no fp32 operands and TF32 is not fp32), and the
-output written to device memory once — the pre-activation never reaches
-it.  Bias, scale and shift ride in one ``(NF_pad, 3)`` vector block
-(``_vector_block``); the residual is an ``(N, NF, P, Q)`` shortcut.  The
-dense kernels differ in loop order, as the paper's dataflows do:
+cores: ``wgmma`` takes no fp32 operands and TF32 is not fp32; bf16
+operands' products, exact in fp32, are summed in fp32 on the tensor cores
+by the bf16 WS and psum kernels), and the output written to device memory
+once — the pre-activation never reaches it.  Bias, scale and shift ride
+in one ``(NF_pad, 3)`` vector block (``_vector_block``); the residual is
+an ``(N, NF, P, Q)`` shortcut.  The dense kernels differ in loop order,
+as the paper's dataflows do:
 
 * ``weight_stationary`` (replaces ``repro/kernels/conv2d_ws.py:_ws_kernel``):
   per depth fold a CTA keeps its filter tile resident in shared memory
@@ -25,10 +27,12 @@ dense kernels differ in loop order, as the paper's dataflows do:
   and the input through shared memory.
 
 Both run one tile core, an implicit GEMM over (pixels, one group's
-filters, the group's taps) with a register tile per thread; the CTA tile
-of each launch comes from ``fold_tile``, a pure function of the launch
-spec and the SM count.  Grouped layers (1 < G < C) run on both: a filter
-tile never straddles a group and reads its own group's channels.
+filters, the group's taps) with a register tile per thread (for bf16 WS,
+the same GEMM on the tensor cores, ``csrc/fold_conv_tc.cuh``); the CTA
+tile of each launch comes from ``fold_tile``, a pure function of the
+launch spec, the operand type and the SM count.  Grouped layers
+(1 < G < C) run on both: a filter tile never straddles a group and reads
+its own group's channels.
 
 The third, ``depthwise`` (replaces ``_dw_kernel``), is the groups == C ==
 NF fold: ``w (C, 1, R, S)``, one filter per channel, no depth reduction,
@@ -40,7 +44,8 @@ the paper's Fig. 5 formulation and the WS accumulator's spill for an
 identity epilogue: every depth fold writes its fp32 partial sums to a
 ``(g_c, N, NF_pad, P_pad, Q)`` staging buffer in device memory, and
 ``conv2d_folded`` sums the folds afterwards with ``torch.sum``.  It runs
-on the WS / OS tile core, its depth folds side by side on the grid.
+on the WS / OS tile core (bf16: the tensor-core one), its depth folds
+side by side on the grid.
 
 **Int8** ``x`` and ``w`` select the quantized stream of the WS, OS and
 depthwise kernels: each operand widens to int32 before the multiply, the
@@ -51,30 +56,36 @@ scale/shift slot (``core/quant.py:requant_affine``;
 is fp32.  The psum staging has no flush to dequantize at and refuses
 int8, as the JAX package does.
 
-**bf16** operands (``*_bf16`` instances of all four kernels) are widened
-to fp32 as they are loaded; the sums, the WS slab and the epilogue are
-fp32, and each output is rounded once to bf16 at the store (the psum
-staging rounds each depth fold's partial sums, as the JAX package stores
-them in the output type).  Products of bf16 values are exact in fp32, so
-this is the JAX package's arithmetic (``_fold_partial`` widens both
-operands).  fp32 and bf16 may mix: the wrapper widens the bf16 operand
-(exact) and runs the fp32 instance, then rounds to ``out_dtype``.
+**bf16** operands (``*_bf16`` instances of all four kernels) give fp32
+sums of exact bf16 products, an fp32 WS slab and an fp32 epilogue, and
+each output is rounded once to bf16 at the store (the psum staging rounds
+each depth fold's partial sums, as the JAX package stores them in the
+output type): the JAX package's arithmetic (``_fold_partial`` widens both
+operands).  The WS and psum instances run ``mma.sync`` m16n8k16 on the
+tensor cores with bf16 operands in shared memory (``TC_TILES``); the OS
+and depthwise instances widen each bf16 value to fp32 as it loads and run
+FFMA.  fp32 and bf16 may mix: the wrapper widens the bf16 operand (exact)
+and runs the fp32 instance, then rounds to ``out_dtype``.
 
-The kernels are in ``csrc/fold_conv.cuh`` (entry points: ``fold_conv.cu``,
-``fold_conv_bf16.cu``); ``build.py`` compiles them at first
-use.  On a CPU tensor ``conv2d_folded`` runs the plain-torch version of the
-same fold loop (``conv2d_folded_plain``: ``_fold_partial`` +
-``_flush_value`` + the WS/OS grid walk, or the depthwise walk); on a CUDA
-tensor it launches the kernel or raises.
+The kernels are in ``csrc/fold_conv.cuh`` and ``csrc/fold_conv_tc.cuh``
+(entry points: ``fold_conv.cu``, ``fold_conv_bf16.cu``); ``build.py``
+compiles them at first use.  On a CPU tensor ``conv2d_folded`` runs the
+plain-torch version of the same fold loop (``conv2d_folded_plain``:
+``_fold_partial`` + ``_flush_value`` + the WS/OS grid walk, or the
+depthwise walk); on a CUDA tensor it launches the kernel or raises.
 
 The order of the sum for one output element is channel-ascending, then
 R, then S, from 0, in the dense kernels, and R then S in the depthwise
-one.  It depends only on (C/G, R, S) — never on N, the grid, the CTA
-tile or the dataflow — so a layer gives bitwise-identical rows at every
-batch width (int8 sums are exact, so their order does not matter at
-all).  The epilogue
-rounds each step on its own (no fused multiply-add), so a fused layer
-gives the bits of the same steps run as separate torch ops.
+one: one fused multiply-add a tap on the FFMA core, one ``mma.sync`` a
+16-tap step on the tensor cores (bf16 WS and psum; the steps start at
+each depth fold's first tap, as ``csrc/fold_conv_tc.cuh`` states).  It depends only on (C/G,
+R, S, c_block) — never on N, the grid or the CTA tile — so a layer gives
+bitwise-identical rows at every batch width (int8 sums are exact, so
+their order does not matter at all).  In fp32 and int8 the two dataflows
+give the same bits; in bf16 WS (16-tap steps) and OS (one tap at a time)
+do not.  The epilogue rounds each step on its own (no fused multiply-add),
+so a fused layer gives the bits of the same steps run as separate torch
+ops.
 
 Inputs are NCHW, weights OIHW.  The caller pre-pads spatially
 (``ops.py``).
@@ -97,7 +108,8 @@ __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "OperandSpec", "FoldKernelSpec", "fold_kernel_spec", "launch_ws",
            "launch_os", "launch_dw", "launch_psum", "LAUNCHERS", "KERNELS",
            "launch_counts", "reset_launch_counts", "prepare", "FoldTile",
-           "fold_tile", "tile_candidates", "tile_cycles", "TILES"]
+           "fold_tile", "tile_candidates", "tile_cycles", "TILES",
+           "TC_TILES", "tile_core", "tile_shape", "tile_smem"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
 
@@ -663,12 +675,12 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # The CUDA launches
 # --------------------------------------------------------------------------
 #
-# Bound on the H100: the FFMA rate.  A 3x3 VGG layer does 2*C*9 flops per
-# output element for 4 bytes written, far above the card's ~20 flop/byte
-# fp32 ridge, so the dense kernels are compute-bound by the 67 TFLOP/s
-# fp32 CUDA-core peak (``wgmma`` takes no fp32 operands, and TF32 is not
-# fp32).  What the design does about it (the note at the head of
-# ``csrc/fold_conv.cuh``): the WS and OS kernels share one tile core, an
+# Bound on the H100: the FFMA rate for fp32.  A 3x3 VGG layer does 2*C*9
+# flops per output element for 4 bytes written, far above the card's ~20
+# flop/byte fp32 ridge, so the fp32 dense kernels are compute-bound by the
+# 67 TFLOP/s fp32 CUDA-core peak (``wgmma`` takes no fp32 operands, and
+# TF32 is not fp32).  What the design does about it (the note at the head
+# of ``csrc/fold_conv.cuh``): the WS and OS kernels share one tile core, an
 # implicit GEMM of M = output pixels (n, p, q) by N = one group's filters
 # over K = the group's (c, r, s) taps, with a TM x TN register tile per
 # thread fed by 16-byte shared-memory reads, the input gathered a chunk
@@ -693,30 +705,55 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # operands are widened to int32 as they are staged, so their sums are
 # exact.  Their bound is the card's int8 tensor-core rate (1979 TOP/s),
 # which IMAD on the CUDA cores does not reach (``mma.sync`` s8 is the
-# redesign).  The bf16 instances (``*_bf16``) run it on FFMA, the operands
-# widened to fp32 as they are gathered and staged: their bound is the bf16
-# tensor-core rate (989 TFLOP/s), far out of reach of the CUDA cores
-# (``mma.sync`` m16n8k16 with fp32 sums is the redesign, ROADMAP queue B).
+# redesign).  The bf16 OS instance runs the tile core on FFMA, each
+# operand widened to fp32 as it is gathered and staged; its bound, the
+# bf16 tensor-core rate, is out of its reach (the next redesign).
+#
+# The bf16 WS and psum kernels (``fold_conv_ws_bf16``, ``fold_conv_psum_bf16``;
+# they replace ``_ws_kernel`` and ``_ws_psum_kernel`` on bf16 operands) run
+# on the tensor cores (``csrc/fold_conv_tc.cuh``): the same implicit GEMM
+# with the operands kept bf16 in shared memory, ``mma.sync`` m16n8k16 with
+# fp32 sums, a warp a block of m16n8 accumulators (``TC_TILES``).  Their
+# bound is the bf16 tensor-core rate (989 TFLOP/s); what binds them is the
+# gather, one 2-byte load a tap and pixel for BN multiply-adds, and on the
+# deepest layers (Kf 4608, BN 16, one CTA an SM) its latency, which two
+# chunks of loads in flight only partly hide (PERF.md); so the tile set
+# reaches for a wide filter tile where the resident weights fit
+# (``tile_smem``), and the finished tile flushes through shared memory
+# with the FFMA core's epilogue.  Each output's sum
+# is a chain of 16-tap MMA steps from its depth fold's first tap, in k
+# order (stated in ``csrc/fold_conv_tc.cuh``): the tile changes no bit
+# there either.
 #
 # The psum kernel is the WS fold sum without the in-kernel reduction: each
-# depth fold writes an fp32 partial-sum tensor, so the bytes grow by
-# 2*g_c+1 output-sized transfers (with the ``torch.sum``) — the cost the
-# paper's reserved-column reduction removes.  It is a third instance of
-# the WS / OS tile core: its grid gains the depth folds as a third axis, a
-# CTA keeps one fold's filter tile resident and stores its tiles' raw sums
-# to that fold's slice, so the folds run in parallel and the comparison
-# with WS measures the two reductions, not two cores.
+# depth fold writes a partial-sum tensor, so the bytes grow by 2*g_c+1
+# output-sized transfers (with the ``torch.sum``) — the cost the paper's
+# reserved-column reduction removes.  It is a third instance of the WS
+# tile core (of the tensor-core core in bf16): its grid gains the depth
+# folds as a third axis, a CTA keeps one fold's filter tile resident and
+# stores its tiles' raw sums to that fold's slice, so the folds run in
+# parallel and the comparison with WS measures the two reductions, not two
+# cores.
 
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
 SMEM_PER_SM = 233_472   # shared memory of one SM that CTAs may take
 # taps per K chunk, chunks of the OS weights copied ahead (BK, PB in
 # csrc/fold_conv.cuh); the input's ring has two stages
 BK, PB = 32, 8
-# The CTA tiles of the WS / OS kernels, (TM, TN, MG, NG): MG x NG threads,
-# each with TM pixels x TN filters (Tile0..Tile6 in csrc/fold_conv.cuh):
-# the tiles some conv of the zoo runs fastest with (fold_tiles.py, PERF.md)
+# The CTA tiles of the FFMA tile core (fp32 and int8 WS / OS / psum, bf16
+# OS), (TM, TN, MG, NG): MG x NG threads, each with TM pixels x TN filters
+# (Tile0..Tile6 in csrc/fold_conv.cuh): the tiles some conv of the zoo runs
+# fastest with (fold_tiles.py, PERF.md)
 TILES = ((2, 4, 32, 4), (1, 4, 64, 2), (4, 2, 32, 4), (4, 2, 64, 4),
          (4, 4, 32, 4), (4, 4, 64, 4), (4, 1, 16, 8))
+# The CTA tiles of the tensor-core core (bf16 WS and psum), (WTM, WTN, WM,
+# WN): WM x WN warps, each with WTM pixels x WTN filters of m16n8
+# accumulators (TcTile0..TcTile5 in csrc/fold_conv_tc.cuh): 64 or 128
+# pixels by 16, 32 or 64 filters
+TC_TILES = ((16, 16, 4, 1), (16, 16, 8, 1), (16, 32, 4, 1), (32, 16, 4, 2),
+            (32, 32, 2, 2), (32, 32, 4, 2))
+MMA_K = 16              # taps of one mma.sync m16n8k16 step
+TC_BK = 64              # taps a chunk of the tensor-core gather
 # Epilogue flags, one bit per step (EPI_* in csrc/fold_conv.cuh)
 EPI_BIAS, EPI_SCALE, EPI_RESIDUAL, EPI_RELU, EPI_RELU6, EPI_POOL = \
     1, 2, 4, 8, 16, 32
@@ -732,17 +769,23 @@ def _epi_flags(epi: Epilogue) -> int:
 class FoldTile:
     """The CTA tile of one WS / OS / psum launch, as the kernel will run it.
 
-    ``m`` output pixels (four per pooled output where the pool is fused)
-    are cut into ``m_tiles`` tiles of ``bm``; each group's ``nfg`` filters
-    into tiles of ``bn``, so ``n_tiles`` = groups x ceil(nfg / bn) and no
-    filter tile straddles a group.  An OS CTA owns one (M tile, filter
-    tile); a WS CTA walks ``m_per_cta`` consecutive M tiles past its
-    resident filter tile, a psum CTA the same for one of ``folds`` depth
-    folds (the grid's third axis; 1 for WS and OS).  ``resident`` CTAs of
-    ``smem`` bytes fit one SM.  Each sum a CTA finishes is ``k_len`` taps
-    long, c then r then s: the whole depth for WS and OS, one depth fold
-    for psum."""
-    index: int                 # into TILES
+    ``core`` is ``"ffma"`` (the tile core of ``csrc/fold_conv.cuh``: a tile
+    of ``TILES``, ``tm`` x ``tn`` accumulators a thread) or ``"tc"`` (the
+    tensor-core core of ``csrc/fold_conv_tc.cuh``, bf16 WS and psum: a tile
+    of ``TC_TILES``, ``tm`` x ``tn`` m16n8 accumulators a warp).  ``m``
+    output pixels (four per pooled output where the pool is fused) are cut
+    into ``m_tiles`` tiles of ``bm``; each group's ``nfg`` filters into
+    tiles of ``bn``, so ``n_tiles`` = groups x ceil(nfg / bn) and no filter
+    tile straddles a group.  An OS CTA owns one (M tile, filter tile); a WS
+    CTA walks ``m_per_cta`` consecutive M tiles past its resident filter
+    tile, a psum CTA the same for one of ``folds`` depth folds (the grid's
+    third axis; 1 for WS and OS).  ``resident`` CTAs of ``smem`` bytes fit
+    one SM.  Each sum a CTA finishes is ``k_len`` taps long, c then r then
+    s (the whole depth for WS and OS, one depth fold for psum), in depth
+    folds of ``kf`` taps: one tap at a time on the FFMA core, 16-tap MMA
+    steps from each fold's first tap on the tensor cores (the order
+    ``csrc/fold_conv_tc.cuh`` states)."""
+    index: int                 # into TILES ("ffma") or TC_TILES ("tc")
     tm: int
     tn: int
     bm: int
@@ -759,29 +802,70 @@ class FoldTile:
     smem: int
     resident: int
     k_len: int
+    core: str
+    kf: int
 
 
-def tile_candidates(spec: "FoldKernelSpec", n: int,
-                    sm_count: int) -> list:
-    """Every tile of ``TILES`` the WS / OS / psum kernel can run this launch
-    with (its shared memory fits one CTA; whole 2x2 quads per thread where
-    the pool is fused), as ``FoldTile``s: the mirror of ``launch_tile`` in
-    ``csrc/fold_conv.cuh``.  A pure function of the launch spec, the batch
-    and the card's SM count."""
-    return list(_candidates(*_launch_key(spec, n, sm_count)))
+def tile_core(dataflow: str, dtype: torch.dtype) -> str:
+    """The tile core a launch runs on: ``"tc"`` (tensor cores) for bf16 WS
+    and psum, ``"ffma"`` otherwise."""
+    return ("tc" if dtype == torch.bfloat16
+            and dataflow in ("weight_stationary", "weight_stationary_psum")
+            else "ffma")
 
 
-def _launch_key(spec: "FoldKernelSpec", n: int, sm_count: int) -> tuple:
+def tile_shape(core: str, index: int) -> Tuple[int, int, int, int, int]:
+    """(tm, tn, bm, bn, threads) of tile ``index`` of a core's tile set:
+    ``TILES`` (a thread's tm x tn) or ``TC_TILES`` (a warp's)."""
+    if core == "tc":
+        wtm, wtn, wm, wn = TC_TILES[index]
+        return wtm, wtn, wtm * wm, wtn * wn, 32 * wm * wn
+    tm, tn, mg, ng = TILES[index]
+    return tm, tn, tm * mg, tn * ng, mg * ng
+
+
+def tile_smem(core: str, ws: bool, bm: int, bn: int, kf: int,
+              k_total: int) -> int:
+    """Shared memory bytes of one CTA (``launch_tile`` / ``tc_smem`` in the
+    sources): the resident filter tile of a depth fold of ``kf`` taps (WS,
+    psum; OS: the weight ring), the input ring and the k offset table of
+    the group's ``k_total`` taps.  The tensor-core tile keeps bf16 rows of
+    16-tap steps plus 8 and stages its finished fp32 tile in the ring."""
+    if core == "tc":
+        kpad = -(-kf // MMA_K) * MMA_K
+        return (2 * bn * (kpad + 8)
+                + max(2 * 2 * TC_BK * (bm + 8), 4 * bn * (bm + 4))
+                + 4 * k_total)
+    bnp = bn + 4 if bn >= 32 else bn
+    return 4 * (((kf * bnp) if ws else (PB + 1) * BK * bnp)
+                + 2 * BK * bm + k_total)
+
+
+def tile_candidates(spec: "FoldKernelSpec", n: int, sm_count: int,
+                    dtype: torch.dtype = torch.float32) -> list:
+    """Every tile the WS / OS / psum kernel can run this launch with on
+    ``dtype`` operands (its core's tile set, ``tile_core``; its shared
+    memory fits one CTA; whole 2x2 quads per thread where the pool is
+    fused), as ``FoldTile``s: the mirror of ``launch_tile`` in
+    ``csrc/fold_conv.cuh`` and ``launch_tc_tile`` in
+    ``csrc/fold_conv_tc.cuh``.  A pure function of the launch spec, the
+    operand type, the batch and the card's SM count."""
+    return list(_candidates(*_launch_key(spec, n, sm_count, dtype)))
+
+
+def _launch_key(spec: "FoldKernelSpec", n: int, sm_count: int,
+                dtype: torch.dtype = torch.float32) -> tuple:
     """What of a launch the tile depends on."""
-    return (spec.dataflow, spec.epilogue.pool == "max2", spec.groups,
-            spec.c_pad, spec.r, spec.s, spec.plan.c_block, spec.nf_pad,
-            spec.p_pad, spec.q, n, sm_count)
+    return (spec.dataflow, tile_core(spec.dataflow, dtype),
+            spec.epilogue.pool == "max2", spec.groups, spec.c_pad, spec.r,
+            spec.s, spec.plan.c_block, spec.nf_pad, spec.p_pad, spec.q, n,
+            sm_count)
 
 
 @functools.lru_cache(maxsize=None)
-def _candidates(dataflow: str, pool: bool, g: int, c_pad: int, r: int,
-                s: int, c_block: int, nf_pad: int, p_pad: int, q: int, n: int,
-                sm_count: int) -> Tuple[FoldTile, ...]:
+def _candidates(dataflow: str, core: str, pool: bool, g: int, c_pad: int,
+                r: int, s: int, c_block: int, nf_pad: int, p_pad: int,
+                q: int, n: int, sm_count: int) -> Tuple[FoldTile, ...]:
     # WS and psum keep a depth fold's filter tile resident; psum runs its
     # depth folds side by side, each CTA summing one fold
     ws = dataflow != "output_stationary"
@@ -792,12 +876,10 @@ def _candidates(dataflow: str, pool: bool, g: int, c_pad: int, r: int,
     po, qo = (p_pad // 2, q // 2) if pool else (p_pad, q)
     m = (4 if pool else 1) * n * po * qo
     out = []
-    for idx, (tm, tn, mg, ng) in enumerate(TILES):
-        bm, bn, threads = tm * mg, tn * ng, mg * ng
-        bnp = bn + 4 if bn >= 32 else bn
-        smem = 4 * (((kf * bnp) if ws else (PB + 1) * BK * bnp)
-                    + 2 * BK * bm + k_len)
-        if (pool and tm % 4) or smem > SMEM_LIMIT:
+    for idx in range(len(TC_TILES if core == "tc" else TILES)):
+        tm, tn, bm, bn, threads = tile_shape(core, idx)
+        smem = tile_smem(core, ws, bm, bn, kf, k_len)
+        if (core == "ffma" and pool and tm % 4) or smem > SMEM_LIMIT:
             continue
         m_tiles, n_tiles = -(-m // bm), g * -(-nfg // bn)
         resident = max(1, min(SMEM_PER_SM // (smem + 1024),
@@ -814,22 +896,25 @@ def _candidates(dataflow: str, pool: bool, g: int, c_pad: int, r: int,
             m_tiles=m_tiles, groups=g, nfg=nfg, n_tiles=n_tiles,
             m_per_cta=m_per_cta, grid=(-(-m_tiles // m_per_cta), n_tiles),
             folds=folds, smem=smem, resident=resident,
-            k_len=kf if folds > 1 else k_len))
+            k_len=kf if folds > 1 else k_len, core=core, kf=kf))
     return tuple(out)
 
 
 def tile_cycles(tile: FoldTile, sm_count: int) -> float:
     """The tile model: estimated cycles of one launch with ``tile``.
 
-    A thread issues about TM*TN + 8 instructions per tap (its FFMAs, the
-    shared reads and its share of the gather); the warps on one SM
-    scheduler issue one instruction a cycle between them, and a warp
+    FFMA core: a thread issues about TM*TN + 8 instructions per tap (its
+    FFMAs, the shared reads and its share of the gather); the warps on one
+    SM scheduler issue one instruction a cycle between them, and a warp
     alone needs about 2*TM*TN cycles a tap.  Each tile's flush costs
     about 300 cycles per accumulator.  A launch takes as many rounds of
     resident CTAs as its grid needs (a psum grid has a third axis, its
     depth folds), each CTA walking its M tiles' K taps in series.  Fitted
     to the card's per-layer times of every WS / OS tile over the zoo's
-    convs (``fold_tiles.py --sweep``, PERF.md)."""
+    convs (``fold_tiles.py``, PERF.md).  The tensor-core core:
+    ``_tc_cycles``."""
+    if tile.core == "tc":
+        return _tc_cycles(tile, sm_count)
     per_sm = -(-tile.grid[0] * tile.grid[1] * tile.folds // sm_count)
     rounds = -(-per_sm // tile.resident)
     warps = min(per_sm, tile.resident) * tile.threads / 32 / 4
@@ -838,14 +923,48 @@ def tile_cycles(tile: FoldTile, sm_count: int) -> float:
     return rounds * tile.m_per_cta * (tile.k_len * per_tap + 300 * acc)
 
 
+# The tensor-core tile model's constants (``_tc_cycles``): warp
+# instructions of the gather per pixel and 16-tap step, SM cycles per
+# m16n8k16 MMA, warps an SM needs to hide the gather's latency, cycles of
+# the flush per output; fitted to ``fold_tiles.py --bf16`` on the card
+# (the picks' sum within 0.5% of the fastest tiles', PERF.md)
+TC_GATHER, TC_MMA_CYCLES, TC_WARPS_HIDE, TC_FLUSH = 7 / 4, 1.0, 8, 0.5
+
+
+def _tc_cycles(tile: FoldTile, sm_count: int) -> float:
+    """The tensor-core tile model: per 16-tap step, the CTAs resident on
+    one SM issue the gather's instructions (``TC_GATHER`` a pixel), their
+    ldmatrix and MMA instructions, four a cycle when ``TC_WARPS_HIDE``
+    warps hide the gather's latency (fewer issue proportionally slower),
+    and the tensor cores take ``TC_MMA_CYCLES`` an MMA; the longer of the
+    two sets the step.  A launch takes as many rounds of resident CTAs as
+    its grid needs, each CTA walking its M tiles' steps in series, plus
+    the flush of each tile."""
+    per_sm = -(-tile.grid[0] * tile.grid[1] * tile.folds // sm_count)
+    rounds = -(-per_sm // tile.resident)
+    ctas = min(per_sm, tile.resident)
+    warps = ctas * tile.threads / 32
+    wm, wn = tile.bm // tile.tm, tile.bn // tile.tn
+    mmas = (tile.bm // 16) * (tile.bn // 8)
+    instr = TC_GATHER * tile.bm + mmas + (tile.bm // 16) * wn \
+        + wm * (tile.bn // 16)
+    issue = ctas * instr / 4 / min(1.0, warps / TC_WARPS_HIDE)
+    step = max(issue, ctas * mmas * TC_MMA_CYCLES)
+    steps = tile.k_len // tile.kf * -(-tile.kf // MMA_K)
+    flush = ctas * TC_FLUSH * tile.bm * tile.bn
+    return rounds * tile.m_per_cta * (steps * step + flush)
+
+
 def fold_tile(spec: "FoldKernelSpec", n: int, sm_count: int,
-              index: Optional[int] = None) -> FoldTile:
-    """Pick the CTA tile of a WS / OS / psum launch: the candidate with the
-    least
-    ``tile_cycles``, among those whose filter tile is no wider than a
-    group (where any is); or, with ``index``, that tile of ``TILES``.
-    Raises where no tile (or not that one) fits the launch."""
-    key = _launch_key(spec, n, sm_count)
+              index: Optional[int] = None,
+              dtype: torch.dtype = torch.float32) -> FoldTile:
+    """Pick the CTA tile of a WS / OS / psum launch on ``dtype`` operands:
+    the candidate with the least ``tile_cycles``, among those whose filter
+    tile is no wider than a group (where any is); or, with ``index``, that
+    tile of the core's tile set (``TILES``, or ``TC_TILES`` for bf16 WS and
+    psum).  Raises where no tile (or not that one) fits the launch: a bf16
+    WS or psum launch no tensor-core tile fits has no other kernel."""
+    key = _launch_key(spec, n, sm_count, dtype)
     if index is None:
         tile = _pick(*key)
     else:
@@ -853,10 +972,11 @@ def fold_tile(spec: "FoldKernelSpec", n: int, sm_count: int,
                     None)
     if tile is None:
         raise ValueError(
-            f"no CTA tile{'' if index is None else f' {index}'} of the "
-            f"{spec.dataflow} kernel fits this launch in {SMEM_LIMIT} bytes "
-            f"of shared memory (c_block={spec.plan.c_block}, "
-            f"{spec.r}x{spec.s}, C/G={spec.c_pad // spec.groups})")
+            f"no {key[1]} CTA tile{'' if index is None else f' {index}'} "
+            f"of the {spec.dataflow} kernel fits this launch in "
+            f"{SMEM_LIMIT} bytes of shared memory (c_block="
+            f"{spec.plan.c_block}, {spec.r}x{spec.s}, C/G="
+            f"{spec.c_pad // spec.groups})")
     return tile
 
 
@@ -865,6 +985,7 @@ def _pick(*key) -> Optional[FoldTile]:
     cands = _candidates(*key)
     fit = [t for t in cands if t.bn <= max(t.nfg, 4)] or cands
     return min(fit, key=lambda t: tile_cycles(t, key[-1]), default=None)
+
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -925,11 +1046,12 @@ def launch_ws(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
               vec: torch.Tensor, res: Optional[torch.Tensor],
               tile: Optional[int] = None) -> torch.Tensor:
     """Launch the weight-stationary kernel on padded CUDA operands, with
-    the CTA tile ``fold_tile`` picks (or tile ``tile`` of ``TILES``)."""
+    the CTA tile ``fold_tile`` picks (or tile ``tile`` of the core's tile
+    set: ``TC_TILES`` for bf16, ``TILES`` otherwise)."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
     n, name = xp.shape[0], _entry("fold_conv_ws", xp)
-    tile = fold_tile(spec, n, _sm_count(xp.device), tile)
+    tile = fold_tile(spec, n, _sm_count(xp.device), tile, xp.dtype)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=_out_type(xp))
     slab = None
@@ -955,7 +1077,7 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
     n, name = xp.shape[0], _entry("fold_conv_os", xp)
-    tile = fold_tile(spec, n, _sm_count(xp.device), tile)
+    tile = fold_tile(spec, n, _sm_count(xp.device), tile, xp.dtype)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=_out_type(xp))
     lib = build.library()
@@ -1000,7 +1122,8 @@ def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
                 tile: Optional[int] = None) -> torch.Tensor:
     """Launch the psum-staging kernel on padded fp32 or bf16 CUDA
     operands, with the CTA tile ``fold_tile`` picks (or tile ``tile`` of
-    ``TILES``); returns the (g_c, N, NF_pad, P_pad, Q) staging buffer,
+    the core's tile set: ``TC_TILES`` for bf16, ``TILES`` for fp32);
+    returns the (g_c, N, NF_pad, P_pad, Q) staging buffer,
     unsummed, in the instance's output type (each fold's sums rounded to
     bf16 by the bf16 instance, as the JAX package stores them)."""
     from repro_torch.kernels import build
@@ -1009,7 +1132,7 @@ def launch_psum(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
         raise ValueError("the psum staging kernel takes fp32 or bf16 "
                          "operands")
     n, name = xp.shape[0], _entry("fold_conv_psum", xp)
-    tile = fold_tile(spec, n, _sm_count(xp.device), tile)
+    tile = fold_tile(spec, n, _sm_count(xp.device), tile, xp.dtype)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=_out_type(xp))
     lib = build.library()

@@ -32,9 +32,11 @@
 // bf16 -- the tensor cores.  A CTA of 4 warps owns 64 query rows, 16 per
 // warp.  K and V tiles stay bf16 in shared memory, rows padded by 16 bytes
 // so that every ldmatrix is free of bank conflicts.  S = Q.K^T runs on
-// mma.sync m16n8k16 (bf16 in, fp32 sums) with the warp's Q fragments held
-// in registers for the whole kv walk; hd^-1/2 (times log2 e, for exp2) is
-// applied to the fp32 scores, never to q in bf16.  The online softmax runs
+// mma.sync m16n8k16 (bf16 in, fp32 sums; the ldmatrix / mma helpers are
+// mma.cuh's, shared with the fold-conv kernels) with the warp's Q
+// fragments held in registers for the whole kv walk; hd^-1/2 (times
+// log2 e, for exp2) is applied to the fp32 scores, never to q in bf16.
+// The online softmax runs
 // on the S accumulator's registers: the row max and sum across the 4 lanes
 // of a quad by shuffles, the correction and the denominator in fp32.  The
 // same registers are P.V's A operand (the accumulator and A fragment
@@ -57,30 +59,13 @@
 
 #include <cstdint>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int KT = 64;  // kv rows per staged tile
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // rows x HD elements of type T from global rows `row_stride` apart into
 // shared rows LD elements apart; rows at or past `valid` read as zeros
@@ -128,8 +113,6 @@ __device__ __forceinline__ int2 kv_tiles(int q0, int q_last, int s_len,
 // bf16: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr int TC_QT = 16 * TC_WARPS;  // query rows per CTA
@@ -140,31 +123,6 @@ struct TcShape {
   static constexpr int TILE = KT * LD;
   static constexpr size_t SMEM = sizeof(bf16) * (TC_QT * LD + 4 * TILE);
 };
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a . b on one m16n8k16 tile: bf16 operands, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);

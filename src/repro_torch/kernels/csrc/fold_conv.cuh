@@ -3,9 +3,11 @@
 // the bf16 ones, so that the two compile in parallel): the weight-stationary
 // and output-stationary dataflows of the paper and the depthwise fold, with
 // the fused bias -> BN scale/shift -> residual add -> ReLU or ReLU6 ->
-// 2x2/2 max-pool epilogue, in fp32 and int8; and the partial-sum staging
-// formulation of the weight-stationary dataflow (the paper's Fig. 5); and
-// bf16 instances of all four.
+// 2x2/2 max-pool epilogue, in fp32 and int8; the partial-sum staging
+// formulation of the weight-stationary dataflow (the paper's Fig. 5) in
+// fp32; and bf16 instances of the OS and depthwise kernels.  The bf16 WS
+// and psum kernels run on the tensor cores (fold_conv_tc.cuh), on this
+// header's geometry, gather table and epilogue.
 //
 // Replaces the Pallas TPU kernels repro/kernels/conv2d_ws.py:_ws_kernel,
 // :_os_kernel, :_dw_kernel and :_ws_psum_kernel (all launched from
@@ -36,33 +38,32 @@
 // order.  The fp32 and int8 kernels are one template on the operand type T
 // and the accumulator type A.
 //
-// bf16 (the *_bf16 entries; the JAX kernels with bf16 operands, which
-// _fold_partial widens to fp32): T = __nv_bfloat16, A = float.  Each bf16
-// value is widened to fp32 where it is loaded (the weights as they are
-// staged, the im2col gather in registers, the depthwise window), so the
-// shared-memory tiles, the FFMAs, the WS slab and the epilogue are the fp32
-// instance's, and each output is rounded once to bf16 at its store (put).
-// The psum staging stores each depth fold's sums in bf16, as the JAX
-// package's staging buffer has the output's type.  No tensor cores: the
-// bf16 products are exact in fp32 either way, and the fp32 tile core is the
-// one the wrapper's tile chooser and the sum order are proven for.
+// bf16 OS and depthwise (the *_bf16 entries of those two; the JAX kernels
+// with bf16 operands, which _fold_partial widens to fp32): T =
+// __nv_bfloat16, A = float.  Each bf16 value is widened to fp32 where it is
+// loaded (the weights as they are staged, the im2col gather in registers,
+// the depthwise window), so the shared-memory tiles, the FFMAs and the
+// epilogue are the fp32 instance's, and each output is rounded once to
+// bf16 at its store (put).  Their bound is the bf16 tensor-core rate, out
+// of reach of FFMA: the OS kernel's move to the tensor cores, as WS and
+// psum made in fold_conv_tc.cuh, is the next redesign.  This core has no
+// bf16 WS or psum instance.
 //
-// The WS, OS and psum kernels (ws_kernel, os_kernel, psum_kernel; they
-// replace _ws_kernel, _os_kernel, fp32 and int8, and _ws_psum_kernel)
-// share one tile core: a fold interaction as an
-// implicit GEMM, M = output pixels flattened over (n, p, q) (2x2 quads of
-// them where the pool is fused, so each pool window is finished in one
-// thread), N = the filters of one group, K = the group's (c, r, s) taps.
-// A CTA owns BM pixels x BN filters (a Tile); each thread keeps TM x TN
-// accumulators in registers and feeds them from shared memory, TM pixels
-// and TN filters per tap read as 16-byte (or 8-byte) words, operands read
-// PF taps ahead.  K streams in chunks of BK taps.  The input taps of the
-// tile's pixels (an im2col slice of the pre-padded input, whose rows are
-// not 16-byte aligned: Yp is 226, 34, 18, so no TMA and no vector copy)
-// are gathered into registers while the previous chunk's FFMAs issue and
-// stored into a two-stage ring; a k -> offset table in shared memory and
-// each thread's pixel offset in a register keep the gather to one
-// broadcast shared read and an add per element.
+// The WS, OS and psum kernels (ws_kernel, os_kernel, psum_kernel; they replace
+// _ws_kernel and _os_kernel, fp32 and int8 (and _os_kernel on bf16), and
+// _ws_psum_kernel in fp32) share one tile core: a fold interaction as an
+// implicit GEMM, M = output pixels flattened over (n, p, q) (2x2 quads of them
+// where the pool is fused, so each pool window is finished in one thread), N =
+// the filters of one group, K = the group's (c, r, s) taps.  A CTA owns BM
+// pixels x BN filters (a Tile); each thread keeps TM x TN accumulators in
+// registers and feeds them from shared memory, TM pixels and TN filters per tap
+// read as 16-byte (or 8-byte) words, operands read PF taps ahead.  K streams in
+// chunks of BK taps.  The input taps of the tile's pixels (an im2col slice of
+// the pre-padded input, whose rows are not 16-byte aligned: Yp is 226, 34, 18,
+// so no TMA and no vector copy) are gathered into registers while the previous
+// chunk's FFMAs issue and stored into a two-stage ring; a k -> offset table in
+// shared memory and each thread's pixel offset in a register keep the gather to
+// one broadcast shared read and an add per element.
 //   OS: a CTA owns one output tile, keeps its accumulators across the
 //       whole of K, and streams its filters' rows through a cp.async
 //       ring PB chunks ahead.
@@ -80,12 +81,13 @@
 // tile of each launch (conv2d_ws.py: fold_tile) from the launch spec and
 // the SM count; the shared memory a tile needs is checked here again.
 //
-// Bound: the FFMA rate (67 TFLOP/s fp32) for every dense layer of the zoo.
-// What binds the kernels instead (PERF.md): the gather, one 4-byte
-// load per tap and pixel, which takes more issue slots and more latency
-// than the TM*TN FFMAs it feeds where the tile is small; and, on the
-// smallest layers (4x4 outputs, K up to 4608), too few outputs to put more
-// than one or two warps on each SM scheduler, since nothing splits K.
+// Bound: the FFMA rate (67 TFLOP/s fp32) for every dense layer of the zoo (the
+// int8 tensor-core rate for int8, the bf16 one for bf16 OS, which IMAD and FFMA
+// do not reach).  What binds the kernels instead (PERF.md): the gather, one
+// 4-byte load per tap and pixel, which takes more issue slots and more latency
+// than the TM*TN FFMAs it feeds where the tile is small; and, on the smallest
+// layers (4x4 outputs, K up to 4608), too few outputs to put more than one or
+// two warps on each SM scheduler, since nothing splits K.
 // Staging the tile's input window in shared memory instead (halo
 // included, by bulk or 16-byte asynchronous copies a few chunks ahead,
 // each element read from device memory once per chunk, the taps then
@@ -96,10 +98,12 @@
 // ascending, then r, then s, one fmaf (or integer multiply-add) per tap,
 // whatever the tile, the grid, N, the dataflow or the epilogue: no split
 // of K across threads or CTAs, no atomics.  So a conv trunk gives the same
-// bits at every batch width and the two dataflows give the same bits.  The
-// depthwise kernel is bound by bytes; a thread owns DW_TQ outputs along Q,
-// loads the input window they share once per row, and sums each output's
-// R*S taps, R then S (dw_kernel below).
+// bits at every batch width, and in fp32 and int8 the two dataflows give
+// the same bits (bf16 WS sums in 16-tap MMA steps, fold_conv_tc.cuh, so
+// bf16 WS and bf16 OS do not).  The depthwise kernel is bound by bytes;
+// a thread owns DW_TQ outputs along Q, loads the input window they share
+// once per row, and sums each output's R*S taps, R then S (dw_kernel
+// below).
 
 #pragma once
 
@@ -174,7 +178,6 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 // A store in the destination's type: the one rounding of a bf16 output
 // (round to nearest even)
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(int* p, int v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
@@ -544,10 +547,10 @@ __device__ __forceinline__ void flush(const A (&acc)[TL::TM][TL::TN],
 }
 
 // WS partial sums of the tile to (STORE) or from the slab; psum stores a
-// fold's sums to its staging slice, in the staging buffer's type S
-template <class TL, bool STORE, typename A, typename S>
+// fold's sums to its staging slice
+template <class TL, bool STORE, typename A>
 __device__ __forceinline__ void slab_io(A (&acc)[TL::TM][TL::TN],
-                                        S* __restrict__ slab, const Geom& g,
+                                        A* __restrict__ slab, const Geom& g,
                                         const Dims& d, int m0, int f0,
                                         int nvalid, int tm, int tn) {
   const int mt = m0 + tm * TL::TM;
@@ -559,10 +562,10 @@ __device__ __forceinline__ void slab_io(A (&acc)[TL::TM][TL::TN],
 #pragma unroll
     for (int j = 0; j < TL::TN; ++j) {
       if (tn * TL::TN + j >= nvalid) break;
-      S* s = slab + ((static_cast<size_t>(n) * g.nf_pad + f0 + tn * TL::TN +
+      A* s = slab + ((static_cast<size_t>(n) * g.nf_pad + f0 + tn * TL::TN +
                       j) * g.p_pad + p) * g.q + q;
       if constexpr (STORE) {
-        put(s, acc[i][j]);
+        *s = acc[i][j];
       } else {
         acc[i][j] = *s;
       }
@@ -657,12 +660,12 @@ ws_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // of the (g_c, N, NF_pad, P_pad, Q) staging buffer.  Nothing is flushed
 // and no slab is read: the folds are independent and run in parallel
 // across the grid, and the caller sums them afterwards, through device
-// memory.  Dense, identity epilogue; fp32 or bf16 operands (O, the staging
-// buffer's type, is the instance's output type).
-template <class TL, typename T, typename O>
+// memory.  Dense, identity epilogue, fp32 (the bf16 instance is
+// fold_conv_tc.cuh's psum_tc_kernel).
+template <class TL>
 __global__ void __launch_bounds__(TL::THREADS)
-psum_kernel(const T* __restrict__ x, const T* __restrict__ w,
-            O* __restrict__ psum, Geom g) {
+psum_kernel(const float* __restrict__ x, const float* __restrict__ w,
+            float* __restrict__ psum, Geom g) {
   extern __shared__ float4 smem4[];
   const Dims d = make_dims(g, TL::BN);
   int f0, nvalid, cbase;
@@ -672,7 +675,7 @@ psum_kernel(const T* __restrict__ x, const T* __restrict__ w,
   int* koff = reinterpret_cast<int*>(a_ring + 2 * BK * TL::BM);
   fill_koff(koff, g, d, TL::THREADS);
   const int cf = blockIdx.z;
-  O* fold = psum + static_cast<size_t>(cf) * g.n * g.nf_pad * g.p_pad * g.q;
+  float* fold = psum + static_cast<size_t>(cf) * g.n * g.nf_pad * g.p_pad * g.q;
   load_b_resident<TL>(b_res, w, d.K, d.Kf, cf * d.Kf, f0, nvalid);
   commit();
   const int m_tiles = (d.M + TL::BM - 1) / TL::BM;
@@ -737,20 +740,26 @@ int launch_tile(int kind, const void* x, const void* w, const void* vec,
   const auto* rf = static_cast<const O*>(res);
   auto* of = static_cast<O*>(out);
   cudaError_t err;
+  // bf16 WS and psum run on the tensor cores (fold_conv_tc.cuh): this core
+  // has no bf16 instance of either
   if (kind == KIND_PSUM) {
-    if constexpr (std::is_same<A, float>::value) {
-      err = allow_smem(psum_kernel<TL, T, O>, smem);
+    if constexpr (std::is_same<T, float>::value) {
+      err = allow_smem(psum_kernel<TL>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      psum_kernel<TL, T, O><<<grid, TL::THREADS, smem, stream>>>(
-          xt, wt, static_cast<O*>(slab), g);
+      psum_kernel<TL><<<grid, TL::THREADS, smem, stream>>>(
+          xt, wt, static_cast<float*>(slab), g);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   } else if (kind == KIND_WS) {
-    err = allow_smem(ws_kernel<TL, T, A, O>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ws_kernel<TL, T, A, O><<<grid, TL::THREADS, smem, stream>>>(
-        xt, wt, vf, rf, of, static_cast<A*>(slab), g);
+    if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+      err = allow_smem(ws_kernel<TL, T, A, O>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ws_kernel<TL, T, A, O><<<grid, TL::THREADS, smem, stream>>>(
+          xt, wt, vf, rf, of, static_cast<A*>(slab), g);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
     err = allow_smem(os_kernel<TL, T, A, O>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);

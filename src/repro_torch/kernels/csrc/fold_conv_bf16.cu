@@ -1,14 +1,16 @@
 // Fold-streamed convolution for Hopper (sm_90a): the bf16 entry points of
-// the WS, OS, depthwise and psum kernels (fold_conv.cuh holds the kernels;
-// T = __nv_bfloat16, A = float: each bf16 value widened to fp32 as it
-// loads, one rounding to bf16 at the store).
+// the WS, OS, depthwise and psum kernels.  WS and psum run on the tensor
+// cores (fold_conv_tc.cuh: bf16 operands, fp32 sums, one rounding to bf16
+// at the store); OS and depthwise on fold_conv.cuh's FFMA kernels (T =
+// __nv_bfloat16, A = float: each bf16 value widened to fp32 as it loads).
 
-#include "fold_conv.cuh"
+#include "fold_conv_tc.cuh"
 
 extern "C" {
 
 // The bf16 instances: the same arguments as their fp32 counterparts; x, w,
-// res, out (and psum) are bf16, vec fp32, the WS slab fp32
+// res, out (and psum) are bf16, vec fp32, the WS slab fp32.  The tile of WS
+// and psum is one of TcTile0..TcTile5, of OS one of Tile0..Tile6.
 
 int fold_conv_ws_bf16(const void* x, const void* w, const void* vec,
                       const void* res, void* out, void* slab, int n,
@@ -17,8 +19,7 @@ int fold_conv_ws_bf16(const void* x, const void* w, const void* vec,
                       int epi, int tile, int m_per_cta, void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
                c_b, epi, m_per_cta};
-  return launch_fold<__nv_bfloat16, float>(tile, KIND_WS, x, w, vec, res, out,
-                                           slab, g, stream);
+  return launch_fold_tc(tile, KIND_WS, x, w, vec, res, out, slab, g, stream);
 }
 
 int fold_conv_os_bf16(const void* x, const void* w, const void* vec,
@@ -47,8 +48,8 @@ int fold_conv_psum_bf16(const void* x, const void* w, void* psum, int n,
                         int tile, int m_per_cta, void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, 1,
                c_b, 0, m_per_cta};
-  return launch_fold<__nv_bfloat16, float>(tile, KIND_PSUM, x, w, nullptr,
-                                           nullptr, nullptr, psum, g, stream);
+  return launch_fold_tc(tile, KIND_PSUM, x, w, nullptr, nullptr, nullptr,
+                        psum, g, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,73 @@
+// The inline-PTX helpers the bf16 tensor-core kernels on Hopper (sm_90a)
+// share: attention_fold.cu's attention_tc_kernel and fold_conv_tc.cuh's
+// fold-conv kernels.  mma.sync m16n8k16 on bf16 operands with fp32 sums,
+// its fragments loaded from shared memory by ldmatrix, and the 16-byte
+// cp.async that stages their shared-memory tiles.
+//
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), lane l,
+// g = l / 4, t = l % 4; two bf16 values to a 32-bit register, the lower
+// index in the lower half:
+//   A (16 x 16, row):  a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                      a3 (g+8, 2t+8..)
+//   B (16 x 8, col):   b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
+//   C (16 x 8, fp32):  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// ldmatrix .x4: lanes 8m..8m+7 give the 16-byte rows of matrix m; lane l
+// receives row l / 4, elements 2(l % 4) and +1 of each matrix (.trans: row
+// 2(l % 4) and +1 of column l / 4).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b on one m16n8k16 tile: bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace

@@ -864,30 +864,39 @@ def test_cuda_grouped_int8_kernel_is_bitwise_its_plain_version(
 
 # a geometry every tile can run (no pool): g_c = 3, ragged NF, stride 1
 TILE_GEOM = (2, 40, 9, 11, 30, 3, 1, 1, (24, 16, 5))
+_TYPES = {"fp32": torch.float32, "int8": torch.int8, "bf16": torch.bfloat16}
+# (tile, dataflow, precision): every tile of the core each instance runs
+# on (``tile_core``: the tensor-core tiles for bf16 WS)
+EVERY_TILE = [(t, df, prec) for t in range(max(len(t_kern.TILES),
+                                               len(t_kern.TC_TILES)))
+              for df in ("weight_stationary", "output_stationary")
+              for prec in _TYPES
+              if t < len(t_kern.TC_TILES if t_kern.tile_core(
+                  df, _TYPES[prec]) == "tc" else t_kern.TILES)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["fp32", "int8"])
-@pytest.mark.parametrize("dataflow", ["weight_stationary",
-                                      "output_stationary"])
-@pytest.mark.parametrize("tile", range(len(t_kern.TILES)))
+@pytest.mark.parametrize("tile,dataflow,precision", EVERY_TILE,
+                         ids=["-".join(map(str, c)) for c in EVERY_TILE])
 def test_cuda_every_tile_matches_plain_version(cuda_device, tile, dataflow,
                                                precision):
-    """Each CTA tile of the tile core, forced through the launcher, against
-    the plain walk with the scale + residual epilogue: fp32 within
-    1e-4·max(1, max|plain|), int8 bitwise."""
+    """Each CTA tile of the instance's core, forced through the launcher,
+    against the plain walk with the scale + residual epilogue: fp32 within
+    1e-4·max(1, max|plain|), int8 bitwise, bf16 within one bf16 step of
+    each element plus 1e-4·max(1, max|plain|)."""
     n, c, x_, y_, nf, r, stride, pad, plan = TILE_GEOM
     if precision == "int8":
         x, w, kw = _int8_kernel_case(cuda_device, SCR, dataflow, plan,
                                      geom=TILE_GEOM, seed=24)
     else:
-        x, w, _ = (torch.from_numpy(a).to(cuda_device) for a in
+        dt = _TYPES[precision]
+        x, w, _ = (torch.from_numpy(a).to(cuda_device, dt) for a in
                    _inputs(n, c, x_ + 2 * pad, y_ + 2 * pad, nf, r, r,
                            seed=24))
         p, q = x_ + 2 * pad - r + 1, y_ + 2 * pad - r + 1
         kw = dict(stride=stride, plan=_plan(TPlan, plan, nf, c),
                   dataflow=dataflow, epilogue=TEpilogue(**SCR),
-                  **_as(lambda a: torch.from_numpy(a).to(cuda_device),
+                  **_as(lambda a: torch.from_numpy(a).to(cuda_device, dt),
                         _epi_operands(SCR, n, nf, p, q, seed=24)))
     spec, *ops = t_kern.prepare(
         x, w, kw["stride"], kw["plan"], kw["dataflow"], kw.get("bias"),
@@ -898,6 +907,11 @@ def test_cuda_every_tile_matches_plain_version(cuda_device, tile, dataflow,
     want = t_kern.conv2d_folded_plain(x, w, **kw)
     if precision == "int8":
         assert torch.equal(got, want)
+    elif precision == "bf16":
+        assert got.dtype == want.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs()
+        assert (err <= 2.0 ** -7 * want.float().abs() + 1e-4 * max(
+            1.0, want.float().abs().max().item())).all()
     else:
         assert (got - want).abs().max().item() <= \
             1e-4 * max(1.0, want.abs().max().item())
