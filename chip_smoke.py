@@ -12,8 +12,9 @@ Phases (any failed check raises, and the script exits non-zero):
    ``HGMMA``) and ``FFMA`` instructions of each attention and fold-conv
    instance in its SASS (``cuobjdump -sass``): the bf16 attention
    instances and every tensor-core fold instance (``ws_tc_kernel``,
-   ``psum_tc_kernel``) must hold ``HMMA``, and no FFMA ``ws_kernel`` or
-   ``psum_kernel`` instance may take bf16 operands.
+   ``os_tc_kernel``, ``psum_tc_kernel``) must hold ``HMMA``, and no FFMA
+   ``ws_kernel``, ``os_kernel`` or ``psum_kernel`` instance may take bf16
+   operands.
 2. Kernels: each CUDA kernel (WS, OS, depthwise) against its plain-torch
    version on the card over random shapes and every epilogue the zoo
    models fuse, grouped 1 < G < C included (the JAX tests' shapes and
@@ -109,20 +110,26 @@ Phases (any failed check raises, and the script exits non-zero):
     MobileNetV2's at 32 b4, within one bf16 step of each element
     (``2^-7·|plain|``, the psum staging's widened by its depth folds'
     magnitudes) plus ``1e-4·max(1, max|plain|)``; every tensor-core tile
-    of the WS and psum kernels forced through the launcher at g_c = 1, 3
-    and 4 with a ragged P, Q and NF; timed beside the fp32 instance (WS
-    and psum per layer with the tile picked, and their FFMA instances'
-    times before the redesign), ``F.conv2d`` / ``torch.addmm`` in bf16
-    and the bf16 tensor-core bound; then the bf16 main path: VGG-16 at
+    of the WS, OS and psum kernels forced through the launcher at g_c =
+    1, 3 and 4 with a ragged P, Q and NF; every OS tensor-core tile forced
+    on phase 2's geometries (grouped ones included) and on the 54 OS
+    layers of VGG-16, ResNet-18 and MobileNetV2 at 32, batch 1 and 4:
+    bitwise across tiles and batch widths, and bitwise the same layer and
+    plan launched weight-stationary (the WS and OS kernels run one chain
+    of 16-tap steps); timed beside the fp32 instance (WS, OS and psum per
+    layer with the tile picked, and the FFMA instances' times before the
+    redesign), ``F.conv2d`` / ``torch.addmm`` in bf16 and the bf16
+    tensor-core bound; then the bf16 main path: VGG-16 at
     224 b1 and MobileNetV2 / ResNet-18 at 32 b4 from ``init_params(dtype=
     torch.bfloat16)``, jitted bitwise eager, one bf16 launch per conv
     and dense layer, bf16 logits within ``3e-2·max(1, max|ref|)`` of the
     bf16 reference policy, ms beside fp32; ``ops.conv2d(impl=
     "fold_ws_psum")`` in bf16 over VGG-16's 13 layers; the bf16 VGG-16
-    trunk at 224 bitwise across batch widths 1 and 4; and bf16 VGG-16
-    served at 224 by ``VisionEngine`` over buckets (1, 2, 4), as phase 5
-    serves fp32: nothing lost, every request from the primary rung,
-    served logits bitwise an eager direct forward.
+    trunk at 224 bitwise across batch widths 1 and 4; bf16 VGG-16 served
+    at 224 by ``VisionEngine`` over buckets (1, 2, 4), as phase 5 serves
+    fp32, and bf16 MobileNetV2 at 32 over (1, 2, 4, 8): nothing lost,
+    every request from the primary rung, served logits bitwise an eager
+    direct forward.
 12e. ``[http]``: full-width MobileNetV2 (phase 8's configuration and
     stream, base64 bodies, 8 keep-alive clients) through
     ``launch/server.start_server`` with 2 in-process workers (and again
@@ -211,7 +218,11 @@ BEFORE_REDESIGN = {"fold_conv_psum": 6.667, "fold_conv_dw": 0.1047,
                    "conv1d_causal": 0.0889,
                    # the FFMA bf16 instances, VGG-16's 13 layers at 224 b1
                    "fold_conv_ws_bf16": 4.2103,
-                   "fold_conv_psum_bf16": 4.0023}
+                   "fold_conv_psum_bf16": 4.0023,
+                   # and MobileNetV2's 28 OS layers at 32 b4; the bf16
+                   # head's 8-byte loads, VGG-16's fc1-fc3 at 224 b1
+                   # (kernel_ab.py, the parent's mean of four runs)
+                   "fold_conv_os_bf16": 0.7252, "dense_bf16": 0.1108}
 SEED = 0
 TOL_KERNEL = 1e-4      # kernel vs plain: two fp32 sums in different orders
 TOL_MODEL = 1e-4       # kernel path vs reference policy, over the network
@@ -440,18 +451,19 @@ def demangle(names):
 # the kernels whose SASS phase 1 reads, and those that must run on the
 # tensor cores
 SASS_KERNELS = ("attention_", "ws_kernel", "os_kernel", "psum_kernel",
-                "dw_kernel", "ws_tc_kernel", "psum_tc_kernel")
-TC_INSTANCES = ("attention_tc_kernel", "ws_tc_kernel", "psum_tc_kernel")
+                "dw_kernel", "ws_tc_kernel", "os_tc_kernel", "psum_tc_kernel")
+TC_INSTANCES = ("attention_tc_kernel", "ws_tc_kernel", "os_tc_kernel",
+                "psum_tc_kernel")
 
 
 def kernel_sass(lib_path: str):
     """The tensor-core (HMMA, HGMMA) and FFMA instructions of every
     attention and fold-conv kernel instance in the built library, from
     ``cuobjdump -sass``; fails if a tensor-core instance (bf16 attention,
-    the bf16 WS and psum fold kernels) holds no HMMA, if one of them is
-    missing, or if an FFMA ``ws_kernel`` / ``psum_kernel`` instance takes
-    bf16 operands.  An empty dict where ``cuobjdump`` is not there to
-    ask."""
+    the bf16 WS, OS and psum fold kernels) holds no HMMA, if one of them
+    is missing, or if an FFMA ``ws_kernel`` / ``os_kernel`` /
+    ``psum_kernel`` instance takes bf16 operands.  An empty dict where
+    ``cuobjdump`` is not there to ask."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -491,7 +503,8 @@ def kernel_sass(lib_path: str):
         if any(k in name for k in TC_INSTANCES):
             check(counts[mangled]["HMMA"] + counts[mangled]["HGMMA"] > 0,
                   f"{name} runs no tensor-core instruction")
-        check(not (("::ws_kernel<" in name or "::psum_kernel<" in name)
+        check(not (any(f"::{k}<" in name for k in (
+                       "ws_kernel", "os_kernel", "psum_kernel"))
                    and "bfloat16" in name),
               f"{name}: an FFMA fold instance on bf16 operands")
     for k in TC_INSTANCES:
@@ -688,7 +701,7 @@ def phase_dense(torch, dev, dtype=None):
             else:
                 check(torch.equal(got, full[:rows]),
                       f"head {label}: rows differ between batch {rows} and 8")
-        cols, groups, row_tiles = dn.launch_grid(8, k, n)
+        cols, groups, row_tiles = dn.launch_grid(8, k, n, dtype)
         sums[label] = hashlib.sha256(
             full.float().cpu().numpy().tobytes()).hexdigest()[:16]
         per_call = graph_kernels(torch, lambda: dn.launch(x8[:1], w, b),
@@ -876,6 +889,9 @@ def time_model_layers(torch, dev, layers, reps, dtype=None):
             epi, cv.groups, ops.get("residual"), ops.get("scale"),
             ops.get("shift"))
         launch = cw.LAUNCHERS[spec.dataflow]
+        if spec.dataflow != "depthwise":
+            t = cw.fold_tile(spec, cv.n, cw._sm_count(dev), dtype=dtype)
+            row["tile"] = f"{t.core}{t.index}"
         row["ms"] = time_graph_ms(torch, lambda: launch(spec, *prepared),
                                   reps)
         row["call_ms"] = time_ms(
@@ -1083,31 +1099,35 @@ def phase_model_32(torch, dev):
     return net
 
 
-def phase_serving(torch, dev, params, jit):
-    """VGG-16 served at 224 over buckets (1, 2, 4), its bucket forwards
-    CUDA graphs (``jit``) or eager; each request's logits bitwise equal
-    to an eager direct forward of its images (in the parameters' type:
-    fp32, or bf16, whose engine rounds the images to bf16 and widens the
-    logits to fp32)."""
+def phase_serving(torch, dev, params, jit, module=None, img=224,
+                  buckets=(1, 2, 4)):
+    """A zoo model (VGG-16 by default) served at ``img`` over ``buckets``
+    (VGG-16: 224, (1, 2, 4)), 8 requests of 1 to the widest bucket less
+    one images, its bucket forwards CUDA graphs (``jit``) or eager; each
+    request's logits bitwise equal to an eager direct forward of its
+    images (in the parameters' type: fp32, or bf16, whose engine rounds
+    the images to bf16 and widens the logits to fp32)."""
     import numpy as np
     from repro_torch.models import vgg
     from repro_torch.serve.vision import VisionEngine
-    eng = VisionEngine(params, vgg.to_graph(), img=224, buckets=(1, 2, 4),
+    module = module or vgg
+    eng = VisionEngine(params, module.to_graph(), img=img, buckets=buckets,
                        jit=jit, device=dev)
     what = ("jitted" if jit else "eager") + (
-        "" if eng.input_dtype == torch.float32 else " bf16")
+        "" if eng.input_dtype == torch.float32 else " bf16") + (
+        "" if module is vgg else f" {module.__name__.split('.')[-1]}")
     eng.warmup()
     rng = np.random.default_rng(SEED)
-    imgs = [rng.standard_normal((int(k), 3, 224, 224)).astype(np.float32)
-            for k in rng.integers(1, 4, 8)]
+    imgs = [rng.standard_normal((int(k), 3, img, img)).astype(np.float32)
+            for k in rng.integers(1, max(buckets), 8)]
     reqs = [eng.submit(im) for im in imgs]
     m = eng.run()
     for req, im in zip(reqs, imgs):
         check(req.outcome.value == "ok", f"request {req.rid} ended "
               f"{req.outcome.value}")
-        direct = vgg.compile_forward(params, img=224, batch=im.shape[0],
-                                     cache=eng.compiler.cache, jit=False,
-                                     device=dev)
+        direct = module.compile_forward(params, img=img, batch=im.shape[0],
+                                        cache=eng.compiler.cache, jit=False,
+                                        device=dev)
         with torch.inference_mode():
             want = direct(params, torch.from_numpy(im).to(dev).to(
                 eng.input_dtype)).float()
@@ -2226,12 +2246,14 @@ def time_bf16_psum(torch, dev, layers, reps):
 
 
 def phase_bf16_tc_tiles(torch, dev):
-    """Each tensor-core tile (``TC_TILES``) forced through
-    ``launch_ws(tile=)`` and ``launch_psum(tile=)``, against the plain walk
+    """Each tensor-core tile (``TC_TILES``; WS and psum the first
+    ``TC_WS_TILES``) forced through ``launch_ws(tile=)``,
+    ``launch_os(tile=)`` and ``launch_psum(tile=)``, against the plain walk
     under the bf16 rule: 2 images of 48 channels, 17 x 19 outputs (ragged
     P and Q against every tile), 40 filters (ragged against 16, 32 and
-    64), 3x3, at g_c = 1, 3 and 4 (c_block 48, 16, 12), WS with bias +
-    ReLU + pool and with every step but the pool, psum with its identity.
+    64), 3x3, at g_c = 1, 3 and 4 (c_block 48, 16, 12), WS and OS with
+    bias + ReLU + pool and with every step but the pool, psum with its
+    identity; each OS tile bitwise the WS tiles on the same epilogue.
     Returns the largest error by kernel."""
     from repro_torch.core.epilogue import Epilogue
     from repro_torch.core.mapping import ConvBlockPlan
@@ -2249,15 +2271,19 @@ def phase_bf16_tc_tiles(torch, dev):
            "scale": (1.0 + 0.2 * torch.randn(nf, device=dev,
                                              generator=gen)).to(bf)}
     every = Epilogue(bias=True, scale=True, residual=True, relu6=True)
-    errs = {"fold_conv_ws_bf16": 0.0, "fold_conv_psum_bf16": 0.0}
+    pooled = Epilogue(bias=True, relu=True, pool="max2")
+    errs = {"fold_conv_ws_bf16": 0.0, "fold_conv_os_bf16": 0.0,
+            "fold_conv_psum_bf16": 0.0}
     runs = 0
     for c_b in (48, 16, 12):
         plan = ConvBlockPlan(nf_block=nf, c_block=c_b, p_block=6,
                              grid=(1, c // c_b, 3), vmem_bytes=0)
+        first = {}
         for name, df, epi in (
-                ("fold_conv_ws_bf16", "weight_stationary",
-                 Epilogue(bias=True, relu=True, pool="max2")),
+                ("fold_conv_ws_bf16", "weight_stationary", pooled),
                 ("fold_conv_ws_bf16", "weight_stationary", every),
+                ("fold_conv_os_bf16", "output_stationary", pooled),
+                ("fold_conv_os_bf16", "output_stationary", every),
                 ("fold_conv_psum_bf16", "weight_stationary_psum",
                  Epilogue())):
             kw = {k: v for k, v in ops.items()
@@ -2270,17 +2296,118 @@ def phase_bf16_tc_tiles(torch, dev):
                                           epilogue=epi, **kw)
             extra = psum_extra(torch, x, w) if name.startswith(
                 "fold_conv_psum") else None
-            for t in range(len(cw.TC_TILES)):
+            for t in range(cw.tile_count("tc", df)):
                 got = cw._finish(spec, cw.LAUNCHERS[df](spec, *prep, tile=t),
                                  bf)
                 errs[name] = max(errs[name], bf16_err(
                     torch, got, want, f"{name} g_c={c // c_b} "
                     f"epi={epi} tensor-core tile {t}", extra))
                 runs += 1
+                ref = first.setdefault(str(epi), got)
+                check(torch.equal(got, ref), f"{name} g_c={c // c_b} "
+                      f"epi={epi} tile {t}: not bitwise the WS tiles")
     print(f"[bf16] every tensor-core tile forced ({runs} launches, g_c 1, "
-          f"3, 4, ragged P, Q and NF) against the plain walk: max abs err "
+          f"3, 4, ragged P, Q and NF) against the plain walk, OS bitwise "
+          f"WS: max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
+
+
+def os_tiles_bitwise(torch, cw, x, w, what, **kw):
+    """One bf16 layer launched output-stationary with every tensor-core
+    tile and weight-stationary with its picked tile, on one plan: every
+    output bitwise the first OS tile's, which is held against the plain
+    walk under the bf16 rule.  Returns (the OS output, its largest error,
+    the launches made)."""
+    args = (x, w, kw.get("stride", 1), kw.get("plan"))
+    outs, launches = [], 0
+    for df in ("output_stationary", "weight_stationary"):
+        spec, *ops = cw.prepare(*args, df, kw.get("bias"), kw.get("epilogue"),
+                                kw.get("groups", 1), kw.get("residual"),
+                                kw.get("scale"), kw.get("shift"))
+        if spec.dataflow != df:
+            continue            # WS spilled to another kernel: no partner
+        tiles = range(cw.tile_count("tc", df)) if df == "output_stationary" \
+            else [None]
+        for t in tiles:
+            outs.append(cw._finish(spec, cw.LAUNCHERS[df](spec, *ops, tile=t),
+                                   torch.bfloat16))
+            launches += 1
+    err = bf16_err(torch, outs[0], cw.conv2d_folded_plain(
+        x, w, dataflow="output_stationary", **{
+            k: v for k, v in kw.items() if k != "dataflow"}), f"bf16 OS {what}")
+    for i, o in enumerate(outs[1:], 1):
+        check(torch.equal(o, outs[0]), f"bf16 {what}: "
+              + ("OS tile " + str(i) if i < cw.tile_count(
+                  "tc", "output_stationary") else "the WS launch")
+              + " is not bitwise OS tile 0")
+    return outs[0], err, launches
+
+
+def phase_bf16_os(torch, dev, cases):
+    """Every OS tensor-core tile forced on phase 2's geometries (every
+    epilogue; the grouped layers too) and on the 54 OS layers of VGG-16,
+    ResNet-18 and MobileNetV2 at 32 (full width), each at batch 4 and on
+    its first image alone: the tiles bitwise one another and the
+    weight-stationary launch of the same layer and plan, batch 1 bitwise
+    row 0 of batch 4, within the bf16 rule of the plain walk.  Returns
+    the largest error."""
+    from repro_torch.kernels import conv2d_ws as cw
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+
+    def rand(*shape, fan=1):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                / fan ** 0.5).to(bf)
+
+    def ops_of(epi, n, nf, p, q):
+        return {k: v.to(bf) for k, v in epi_operands(
+            torch, gen, dev, epi, n, nf, p, q).items()}
+
+    err, launches, geoms = 0.0, 0, 0
+    for (n, c, h, w_, nf, r, s_, st, pad, epi, plan) in cases:
+        x = rand(n, c, h + 2 * pad, w_ + 2 * pad)
+        w = rand(nf, c, r, s_, fan=c * r * s_)
+        p, q = (h + 2 * pad - r) // st + 1, (w_ + 2 * pad - s_) // st + 1
+        _, e, k = os_tiles_bitwise(
+            torch, cw, x, w, f"n={n} c={c} {h}x{w_} nf={nf} {r}x{s_}/s{st}",
+            stride=st, plan=plan, epilogue=epi, **ops_of(epi, n, nf, p, q))
+        err, launches, geoms = max(err, e), launches + k, geoms + 1
+    for (n, c, h, nf, g, r, st, pad, epi) in grouped_cases():
+        x = rand(n, c, h + 2 * pad, h + 2 * pad)
+        w = rand(nf, c // g, r, r, fan=c // g * r * r)
+        p = (h + 2 * pad - r) // st + 1
+        _, e, k = os_tiles_bitwise(
+            torch, cw, x, w, f"grouped n={n} c={c} {h}x{h} nf={nf} G={g}",
+            stride=st, epilogue=epi, groups=g, **ops_of(epi, n, nf, p, p))
+        err, launches, geoms = max(err, e), launches + k, geoms + 1
+    zoo = 0
+    for model in ("vgg16", "resnet18", "mobilenetv2"):
+        for name, sched, cv, epi in model_layers(model, 32, 4):
+            if sched.dataflow != "output_stationary":
+                continue
+            x = rand(cv.n, cv.c, cv.x + 2 * cv.pad, cv.y + 2 * cv.pad)
+            w = rand(cv.nf, cv.c // cv.groups, cv.r, cv.s,
+                     fan=cv.c // cv.groups * cv.r * cv.s)
+            ops = ops_of(epi, cv.n, cv.nf, cv.p, cv.q)
+            kw = dict(stride=cv.stride, plan=sched.plan, epilogue=epi,
+                      groups=cv.groups)
+            y4, e, k = os_tiles_bitwise(torch, cw, x, w,
+                                        f"{model} {name} b4", **kw, **ops)
+            y1, e1, k1 = os_tiles_bitwise(
+                torch, cw, x[:1], w, f"{model} {name} b1", **kw,
+                **{key: v[:1] if key == "residual" else v
+                   for key, v in ops.items()})
+            check(torch.equal(y1[0], y4[0]), f"bf16 OS {model} {name}: "
+                  "batch 1 is not bitwise row 0 of batch 4")
+            err, launches, zoo = max(err, e, e1), launches + k + k1, zoo + 1
+    check(zoo == 54, f"{zoo} OS layers in the zoo at 32, expected 54")
+    print(f"[bf16] OS: every tensor-core tile on {geoms} phase 2 "
+          f"geometries and the zoo's {zoo} OS layers at 32 (batch 4 and 1), "
+          f"{launches} launches: bitwise across tiles, batch widths and the "
+          f"weight-stationary launch of the same layer; max abs err vs the "
+          f"plain walk {err:.3e}")
+    return err
 
 
 def phase_bf16_trunk(torch, dev, params):
@@ -3342,6 +3469,8 @@ def main() -> int:
     errs.update(phase_bf16_kernels(torch, dev, cases, dw_cases))
     for name, e in phase_bf16_tc_tiles(torch, dev).items():
         errs[name] = max(errs[name], e)
+    errs["fold_conv_os_bf16"] = max(errs["fold_conv_os_bf16"],
+                                    phase_bf16_os(torch, dev, cases))
     errs[dn.KERNEL_BF16], _ = phase_dense(torch, dev, bf)
     bf16_rows224 = time_layers(torch, dev, ws_layers,
                                ("weight_stationary",), 5, dtype=bf)
@@ -3350,11 +3479,37 @@ def main() -> int:
         + [r["weight_stationary_max_abs_err"] for r in bf16_rows224])
     bf16_mb_rows = time_model_layers(
         torch, dev, model_layers("mobilenetv2", 32, 4), 10, dtype=bf)
+    bf16_os_rows = {m: [r for r in time_model_layers(
+        torch, dev, model_layers(m, 32, 4), 10, dtype=bf)
+        if r["dataflow"] == "output_stationary"]
+        for m in ("vgg16", "resnet18")}
+    bf16_os_rows["mobilenetv2"] = [r for r in bf16_mb_rows
+                                   if r["dataflow"] == "output_stationary"]
     for name, df in (("fold_conv_ws_bf16", "weight_stationary"),
                      ("fold_conv_os_bf16", "output_stationary"),
                      ("fold_conv_dw_bf16", "depthwise")):
         errs[name] = max([errs[name]] + [r["max_abs_err"] for r in bf16_mb_rows
                                          if r["dataflow"] == df])
+    errs["fold_conv_os_bf16"] = max(
+        [errs["fold_conv_os_bf16"]] + [r["max_abs_err"] for r in
+                                       bf16_os_rows["vgg16"]
+                                       + bf16_os_rows["resnet18"]])
+    # the fp32 instance on the same layers (phase 2's rows)
+    fp32_os = {m: {r["layer"]: r["ms"] for r in zoo_rows[m]}
+               for m in ("mobilenetv2", "resnet18")}
+    fp32_os["vgg16"] = {r["layer"]: r["output_stationary_ms"]
+                        for r in rows32_os}
+    for m, rows in bf16_os_rows.items():
+        t = summarize(rows, "ms")
+        print(f"[bf16] OS layers of {m} at 32, batch 4 (ms, device time; "
+              f"tile, fp32 instance, F.conv2d in bf16): "
+              + ", ".join(f"{r['layer']} {r['ms']:.4f} ({r['tile']}, "
+                          f"{fp32_os[m][r['layer']]:.4f}, "
+                          f"{r['library_ms']:.4f})" for r in rows)
+              + f"; {len(rows)} layers: {t['ms']:.4f} ms, fp32 instance "
+              f"{sum(fp32_os[m][r['layer']] for r in rows):.4f}, F.conv2d "
+              f"in bf16 {t['library_ms']:.4f}, bound {t['bound_ms']:.5f} "
+              f"({t['bound_by']})")
     bf16_dense_rows = time_dense(torch, dev, 1, 10, dtype=bf)
     bf16_psum_rows = time_bf16_psum(torch, dev, ws_layers, 5)
     print("[bf16] VGG-16 layers at 224, batch 1 (ms, device time): bf16 "
@@ -3370,6 +3525,8 @@ def main() -> int:
               f"bound={r['bound_ms']:.5f}")
     report["bf16_layers"] = {"vgg16_224_b1": bf16_rows224,
                              "mobilenetv2_32_b4": bf16_mb_rows,
+                             "os_vgg16_32_b4": bf16_os_rows["vgg16"],
+                             "os_resnet18_32_b4": bf16_os_rows["resnet18"],
                              "dense_vgg16_224_b1": bf16_dense_rows,
                              "psum_vgg16_224_b1": bf16_psum_rows}
 
@@ -3389,6 +3546,14 @@ def main() -> int:
     phase_bf16_trunk(torch, dev, bf16_vgg)
     report["serving_bf16"] = phase_serving(torch, dev, bf16_vgg, jit=True)
     del bf16_vgg
+    from repro_torch.models import mobilenet
+    bf16_mb = randomize_bn(torch, mobilenet.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 52), img=32,
+        device=dev, dtype=bf))
+    report["serving_bf16_mobilenetv2"] = phase_serving(
+        torch, dev, bf16_mb, jit=True, module=mobilenet, img=32,
+        buckets=(1, 2, 4, 8))
+    del bf16_mb
     bf16_launches = cw.launch_counts()
     bf16_launches[dn.KERNEL_BF16] = dn.launch_counts()[dn.KERNEL_BF16]
     report["bf16_seconds"] = time.perf_counter() - t_bf16
@@ -3527,7 +3692,7 @@ def main() -> int:
                          sum(r["ms"] for r in dense_rows[1]),
                          "VGG-16 fc1-fc3 at 224 b1")}
     for name, (t, fp32, what) in bf16_sum.items():
-        before = (f", the FFMA instance before the redesign "
+        before = (f", the instance before the redesign "
                   f"{BEFORE_REDESIGN[name]}" if name in BEFORE_REDESIGN
                   else "")
         print(f"[bf16] {name} ({what}): {t['ms']:.4f} ms (fp32 instance "
@@ -3653,6 +3818,7 @@ def main() -> int:
                  "source": "src/repro_torch/kernels/csrc/" + {
                      dn.KERNEL_BF16: "dense.cu",
                      "fold_conv_ws_bf16": "fold_conv_tc.cuh",
+                     "fold_conv_os_bf16": "fold_conv_tc.cuh",
                      "fold_conv_psum_bf16": "fold_conv_tc.cuh"}.get(
                          name, "fold_conv.cuh"),
                  "replaces": ("src/repro/core/engine.py:1242" if head else

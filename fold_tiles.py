@@ -14,9 +14,9 @@ the plain walk (fp32 within 1e-4·max(1, max|plain|); ``--int8``, the int8
 kernels on quantized operands, bitwise; ``--bf16``, the bf16 instances on
 bf16 operands within one bf16 step of each element plus
 1e-4·max(1, max|plain|), ``chip_smoke.bf16_err``: every tile of
-``TC_TILES`` on the WS layers, of ``TILES`` on the OS ones, and every
-tensor-core tile of the psum staging on VGG-16's 13 layers at 224, batch 1,
-its step widened by the depth folds' magnitudes).  Prints one line per
+``TC_TILES`` on the OS layers, its first ``TC_WS_TILES`` on the WS ones,
+and every tensor-core tile of the psum staging on VGG-16's 13 layers at
+224, batch 1, its step widened by the depth folds' magnitudes).  Prints one line per
 layer (the
 tile ``fold_tile`` picks, each tile's ms) and, as the last line, a JSON
 summary: per model and dataflow the sum of the picked tiles against the

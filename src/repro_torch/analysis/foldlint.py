@@ -73,8 +73,8 @@ def _check_layers(net, params, input_shape: Tuple[int, ...], sms: int,
                   rep: Report) -> int:
     """Re-walk the lowered graph and prove every conv layer's plan, kernel
     index maps and CTA tile (on the network's operand type: int8 for an
-    int8 schedule, else its parameters', so a bf16 network's WS and psum
-    launches prove tensor-core tiles).  Mirrors the engine's shape walk
+    int8 schedule, else its parameters', so a bf16 network's WS, OS and
+    psum launches prove tensor-core tiles).  Mirrors the engine's shape walk
     (pool demotion included) but reports findings instead of raising."""
     from repro_torch.core.epilogue import epilogue_out_hw
     from repro_torch.core.graph import DEPTHWISE

@@ -33,16 +33,18 @@ accumulate into (or sub-slice) the same resident block.
 
 On the card a WS / OS / psum launch runs the fold grid as CTA tiles
 (``kernels/conv2d_ws.py:fold_tile``, the mirror of ``launch_tile`` in
-``csrc/fold_conv.cuh`` and, for bf16 WS and psum, of ``launch_tc_tile`` in
+``csrc/fold_conv.cuh`` and, for bf16, of ``launch_tc_tile`` in
 ``csrc/fold_conv_tc.cuh``): output pixels flattened over (n, p, q) in
 tiles of ``bm``, each group's filters in tiles of ``bn``.
 ``check_launch_tile`` proves that geometry, CTA by CTA, as the kernel
 derives it:
 
   tile.shape          the tile is not of the core the launch's operand
-                      type runs on (``tile_core``), or its fields disagree
+                      type runs on (``tile_core``) or not one its dataflow
+                      may run (``tile_count``), or its fields disagree
                       with its entry of ``TILES`` / ``TC_TILES`` or with
-                      the launch (pixel count, depth fold, shared memory)
+                      the launch (dataflow, pixel count, depth fold,
+                      shared memory: OS's weight ring, WS's resident fold)
   tile.m-coverage     the CTAs' M-tile ranges do not cover every output
                       pixel exactly once
   tile.n-coverage     the filter tiles do not cover every group's filters
@@ -64,9 +66,10 @@ import torch
 
 from repro_torch.analysis.plan_check import check_tile_residency
 from repro_torch.analysis.report import Report
-from repro_torch.kernels.conv2d_ws import (TC_TILES, TILES, FoldKernelSpec,
-                                           FoldTile, OperandSpec, fold_tile,
-                                           tile_core, tile_shape, tile_smem)
+from repro_torch.kernels.conv2d_ws import (FoldKernelSpec, FoldTile,
+                                           OperandSpec, fold_tile,
+                                           tile_core, tile_count, tile_shape,
+                                           tile_smem)
 
 __all__ = ["check_kernel_spec", "check_launch_tile", "MAX_POINTS"]
 
@@ -237,8 +240,11 @@ def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
     """Prove the CTA tile of one WS / OS / psum launch on ``dtype``
     operands (``fold_tile``'s choice at ``sm_count`` SMs, or ``tile``):
     it is a tile of the core that type runs on (the tensor-core tiles for
-    bf16 WS and psum), its shape, depth fold and shared memory are its
-    tile set's entry at this launch, it fits the shared memory of a CTA
+    bf16) that the launch's dataflow may run (``tile_count``: OS's
+    small-M tensor-core tiles have no WS or psum kernel), its dataflow,
+    shape, depth fold and shared memory (a resident depth fold of the
+    filter tile for WS and psum, the weight ring for OS) are its tile
+    set's entry at this launch, it fits the shared memory of a CTA
     (``plan_check.check_tile_residency``; no tile that fits is the same
     finding), every output pixel and every filter of the launch falls in
     exactly one CTA tile, no filter tile straddles a group, and psum's
@@ -256,12 +262,12 @@ def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
     rep.extend(check_tile_residency(tile, where))
     loc = f"{where}:tile"
     core = tile_core(spec.dataflow, dtype)
-    tiles = TC_TILES if core == "tc" else TILES
-    if tile.core != core or not 0 <= tile.index < len(tiles):
+    count = tile_count(core, spec.dataflow)
+    if tile.core != core or not 0 <= tile.index < count:
         rep.add("tile.shape", loc,
                 f"tile {tile.index} of the {tile.core} core, but a "
-                f"{spec.dataflow} launch on {dtype} runs one of the "
-                f"{len(tiles)} tiles of the {core} core")
+                f"{spec.dataflow} launch on {dtype} runs one of the first "
+                f"{count} tiles of the {core} core")
         return rep
     pool = spec.epilogue.pool == "max2"
     po, qo = (spec.p_pad // 2, spec.q // 2) if pool else (spec.p_pad, spec.q)
@@ -270,16 +276,16 @@ def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
     kf = spec.plan.c_block * spec.r * spec.s
     k_total = spec.c_pad // spec.groups * spec.r * spec.s
     tm, tn, bm, bn, threads = tile_shape(core, tile.index)
-    want = (tm, tn, bm, bn, threads, m, kf,
+    want = (spec.dataflow, tm, tn, bm, bn, threads, m, kf,
             tile_smem(core, spec.dataflow != "output_stationary", bm, bn,
-                      kf, k_total))
-    got = (tile.tm, tile.tn, tile.bm, tile.bn, tile.threads, tile.m,
-           tile.kf, tile.smem)
+                      kf, k_total, threads))
+    got = (tile.dataflow, tile.tm, tile.tn, tile.bm, tile.bn, tile.threads,
+           tile.m, tile.kf, tile.smem)
     if got != want:
         rep.add("tile.shape", loc,
-                f"{core} tile {tile.index} reads (tm, tn, bm, bn, threads, "
-                f"M, Kf, smem) = {got}, but its tile set and the launch "
-                f"give {want}")
+                f"{core} tile {tile.index} reads (dataflow, tm, tn, bm, bn, "
+                f"threads, M, Kf, smem) = {got}, but its tile set and the "
+                f"launch give {want}")
         return rep
 
     # M: a WS / psum CTA walks m_per_cta consecutive M tiles, an OS CTA

@@ -65,14 +65,15 @@ def _covers_exactly(grid: int, block: int, extent: int) -> bool:
 
 def check_tile_residency(tile: FoldTile, where: str = "plan") -> Report:
     """Prove one launch's CTA tile fits the shared memory a CTA may
-    take: its recorded bytes and, for a tensor-core tile (always a WS or
-    psum one, with a resident filter tile), the bytes its shape and depth
-    fold need."""
+    take: its recorded bytes and, for a tensor-core tile, the bytes its
+    shape and dataflow need (WS, psum: a resident depth fold of the filter
+    tile; OS: the ring of its chunks, whatever the depth)."""
     rep = Report()
     need = tile.smem
     if tile.core == "tc":
-        need = max(need, tile_smem("tc", True, tile.bm, tile.bn, tile.kf,
-                                   tile.k_len * tile.folds))
+        need = max(need, tile_smem(
+            "tc", tile.dataflow != "output_stationary", tile.bm, tile.bn,
+            tile.kf, tile.k_len * tile.folds, tile.threads))
     if need > SMEM_LIMIT:
         rep.add("plan.smem-overflow", where,
                 f"{tile.core} CTA tile {tile.index} ({tile.bm} pixels x "

@@ -952,7 +952,7 @@ def _verify_schedule(name: str, cv: ConvLoopNest, sched: "ConvSchedule",
     int32-accumulator overflow bound), the launch's index-map coverage and
     race analysis (``FoldKernelSpec``) and, with ``sm_count`` (a CUDA
     device), the CTA tile the kernel will run on ``dtype`` operands (the
-    tensor-core tiles for bf16 WS and psum) and its shared memory.
+    tensor-core tiles for bf16) and its shared memory.
     ``epi`` is the epilogue the kernel actually flushes — the requant form
     for int8 schedules."""
     plan = sched.plan.clamped(cv.nf, cv.c, cv.p)

@@ -11,8 +11,8 @@ with the epilogue bias -> BN scale/shift -> residual add -> ReLU or ReLU6
 -> optional 2x2/2 max-pool, the sum taken in true fp32 (FFMA on the CUDA
 cores: ``wgmma`` takes no fp32 operands and TF32 is not fp32; bf16
 operands' products, exact in fp32, are summed in fp32 on the tensor cores
-by the bf16 WS and psum kernels), and the output written to device memory
-once — the pre-activation never reaches it.  Bias, scale and shift ride
+by the bf16 WS, OS and psum kernels), and the output written to device
+memory once — the pre-activation never reaches it.  Bias, scale and shift ride
 in one ``(NF_pad, 3)`` vector block (``_vector_block``); the residual is
 an ``(N, NF, P, Q)`` shortcut.  The dense kernels differ in loop order,
 as the paper's dataflows do:
@@ -27,10 +27,10 @@ as the paper's dataflows do:
   and the input through shared memory.
 
 Both run one tile core, an implicit GEMM over (pixels, one group's
-filters, the group's taps) with a register tile per thread (for bf16 WS,
-the same GEMM on the tensor cores, ``csrc/fold_conv_tc.cuh``); the CTA
-tile of each launch comes from ``fold_tile``, a pure function of the
-launch spec, the operand type and the SM count.  Grouped layers
+filters, the group's taps) with a register tile per thread (in bf16, the
+same GEMM on the tensor cores, ``csrc/fold_conv_tc.cuh``); the CTA tile
+of each launch comes from ``fold_tile``, a pure function of the launch
+spec, the operand type and the SM count.  Grouped layers
 (1 < G < C) run on both: a filter tile never straddles a group and reads
 its own group's channels.
 
@@ -61,9 +61,9 @@ sums of exact bf16 products, an fp32 WS slab and an fp32 epilogue, and
 each output is rounded once to bf16 at the store (the psum staging rounds
 each depth fold's partial sums, as the JAX package stores them in the
 output type): the JAX package's arithmetic (``_fold_partial`` widens both
-operands).  The WS and psum instances run ``mma.sync`` m16n8k16 on the
-tensor cores with bf16 operands in shared memory (``TC_TILES``); the OS
-and depthwise instances widen each bf16 value to fp32 as it loads and run
+operands).  The WS, OS and psum instances run ``mma.sync`` m16n8k16 on
+the tensor cores with bf16 operands in shared memory (``TC_TILES``); the
+depthwise instance widens each bf16 value to fp32 as it loads and runs
 FFMA.  fp32 and bf16 may mix: the wrapper widens the bf16 operand (exact)
 and runs the fp32 instance, then rounds to ``out_dtype``.
 
@@ -77,15 +77,14 @@ depthwise walk); on a CUDA tensor it launches the kernel or raises.
 The order of the sum for one output element is channel-ascending, then
 R, then S, from 0, in the dense kernels, and R then S in the depthwise
 one: one fused multiply-add a tap on the FFMA core, one ``mma.sync`` a
-16-tap step on the tensor cores (bf16 WS and psum; the steps start at
-each depth fold's first tap, as ``csrc/fold_conv_tc.cuh`` states).  It depends only on (C/G,
-R, S, c_block) — never on N, the grid or the CTA tile — so a layer gives
-bitwise-identical rows at every batch width (int8 sums are exact, so
-their order does not matter at all).  In fp32 and int8 the two dataflows
-give the same bits; in bf16 WS (16-tap steps) and OS (one tap at a time)
-do not.  The epilogue rounds each step on its own (no fused multiply-add),
-so a fused layer gives the bits of the same steps run as separate torch
-ops.
+16-tap step on the tensor cores (bf16 WS, OS and psum; the steps start
+at each depth fold's first tap, as ``csrc/fold_conv_tc.cuh`` states).  It
+depends only on (C/G, R, S, c_block) — never on N, the grid, the CTA tile
+or the dataflow — so a layer gives bitwise-identical rows at every batch
+width (int8 sums are exact, so their order does not matter at all), and
+the two dataflows give the same bits in fp32, int8 and bf16.  The
+epilogue rounds each step on its own (no fused multiply-add), so a fused
+layer gives the bits of the same steps run as separate torch ops.
 
 Inputs are NCHW, weights OIHW.  The caller pre-pads spatially
 (``ops.py``).
@@ -109,7 +108,8 @@ __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "launch_os", "launch_dw", "launch_psum", "LAUNCHERS", "KERNELS",
            "launch_counts", "reset_launch_counts", "prepare", "FoldTile",
            "fold_tile", "tile_candidates", "tile_cycles", "TILES",
-           "TC_TILES", "tile_core", "tile_shape", "tile_smem"]
+           "TC_TILES", "tile_core", "tile_count", "tile_shape",
+           "tile_chunk", "tile_smem"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
 
@@ -705,25 +705,29 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # operands are widened to int32 as they are staged, so their sums are
 # exact.  Their bound is the card's int8 tensor-core rate (1979 TOP/s),
 # which IMAD on the CUDA cores does not reach (``mma.sync`` s8 is the
-# redesign).  The bf16 OS instance runs the tile core on FFMA, each
-# operand widened to fp32 as it is gathered and staged; its bound, the
-# bf16 tensor-core rate, is out of its reach (the next redesign).
+# redesign).
 #
-# The bf16 WS and psum kernels (``fold_conv_ws_bf16``, ``fold_conv_psum_bf16``;
-# they replace ``_ws_kernel`` and ``_ws_psum_kernel`` on bf16 operands) run
-# on the tensor cores (``csrc/fold_conv_tc.cuh``): the same implicit GEMM
-# with the operands kept bf16 in shared memory, ``mma.sync`` m16n8k16 with
-# fp32 sums, a warp a block of m16n8 accumulators (``TC_TILES``).  Their
-# bound is the bf16 tensor-core rate (989 TFLOP/s); what binds them is the
-# gather, one 2-byte load a tap and pixel for BN multiply-adds, and on the
-# deepest layers (Kf 4608, BN 16, one CTA an SM) its latency, which two
-# chunks of loads in flight only partly hide (PERF.md); so the tile set
-# reaches for a wide filter tile where the resident weights fit
-# (``tile_smem``), and the finished tile flushes through shared memory
-# with the FFMA core's epilogue.  Each output's sum
-# is a chain of 16-tap MMA steps from its depth fold's first tap, in k
-# order (stated in ``csrc/fold_conv_tc.cuh``): the tile changes no bit
-# there either.
+# The bf16 WS, OS and psum kernels (``fold_conv_ws_bf16``,
+# ``fold_conv_os_bf16``, ``fold_conv_psum_bf16``; they replace
+# ``_ws_kernel``, ``_os_kernel`` and ``_ws_psum_kernel`` on bf16 operands)
+# run on the tensor cores (``csrc/fold_conv_tc.cuh``): the same implicit
+# GEMM with the operands kept bf16 in shared memory, ``mma.sync`` m16n8k16
+# with fp32 sums, a warp a block of m16n8 accumulators (``TC_TILES``).
+# Their bound is the bf16 tensor-core rate (989 TFLOP/s); what binds them
+# is the gather, one 2-byte load a tap and pixel for BN multiply-adds, and
+# on the deepest layers (Kf 4608, BN 16, one CTA an SM) its latency, which
+# two chunks of loads in flight only partly hide (PERF.md); so WS's tile
+# set reaches for a wide filter tile where the resident weights fit
+# (``tile_smem``), OS streams its filter tile through a ring of
+# ``TC_STAGES`` chunks of ``TC_OS_BK`` taps (52 KB at BN 64 whatever the
+# depth; its 16- to 64-pixel layers run one CTA of 4 warps an SM or fewer,
+# where a chunk's fixed costs bind, so its chunks are twice WS's) and adds
+# the small-M tiles those layers need, and the finished
+# tile flushes through shared memory with the FFMA core's epilogue.  Each
+# output's sum is a chain of 16-tap MMA steps from its depth fold's first
+# tap, in k order, one walk (``tc_run``) for all three (stated in
+# ``csrc/fold_conv_tc.cuh``): neither the tile nor the dataflow changes a
+# bit there either.
 #
 # The psum kernel is the WS fold sum without the in-kernel reduction: each
 # depth fold writes a partial-sum tensor, so the bytes grow by 2*g_c+1
@@ -740,20 +744,25 @@ SMEM_PER_SM = 233_472   # shared memory of one SM that CTAs may take
 # taps per K chunk, chunks of the OS weights copied ahead (BK, PB in
 # csrc/fold_conv.cuh); the input's ring has two stages
 BK, PB = 32, 8
-# The CTA tiles of the FFMA tile core (fp32 and int8 WS / OS / psum, bf16
-# OS), (TM, TN, MG, NG): MG x NG threads, each with TM pixels x TN filters
+# The CTA tiles of the FFMA tile core (fp32 and int8 WS / OS, fp32 psum),
+# (TM, TN, MG, NG): MG x NG threads, each with TM pixels x TN filters
 # (Tile0..Tile6 in csrc/fold_conv.cuh): the tiles some conv of the zoo runs
 # fastest with (fold_tiles.py, PERF.md)
 TILES = ((2, 4, 32, 4), (1, 4, 64, 2), (4, 2, 32, 4), (4, 2, 64, 4),
          (4, 4, 32, 4), (4, 4, 64, 4), (4, 1, 16, 8))
-# The CTA tiles of the tensor-core core (bf16 WS and psum), (WTM, WTN, WM,
-# WN): WM x WN warps, each with WTM pixels x WTN filters of m16n8
-# accumulators (TcTile0..TcTile5 in csrc/fold_conv_tc.cuh): 64 or 128
-# pixels by 16, 32 or 64 filters
+# The CTA tiles of the tensor-core core (bf16 WS, OS and psum), (WTM, WTN,
+# WM, WN): WM x WN warps, each with WTM pixels x WTN filters of m16n8
+# accumulators (TcTile0..TcTile7 in csrc/fold_conv_tc.cuh): 64 or 128
+# pixels by 16, 32 or 64 filters, then OS's 16 and 32 pixels by 64 filters
+# for its small-M layers.  WS and psum run the first TC_WS_TILES.
 TC_TILES = ((16, 16, 4, 1), (16, 16, 8, 1), (16, 32, 4, 1), (32, 16, 4, 2),
-            (32, 32, 2, 2), (32, 32, 4, 2))
+            (32, 32, 2, 2), (32, 32, 4, 2), (16, 16, 1, 4), (16, 32, 2, 2))
+TC_WS_TILES = 6
 MMA_K = 16              # taps of one mma.sync m16n8k16 step
-TC_BK = 64              # taps a chunk of the tensor-core gather
+# taps a chunk of the tensor-core walk (WS, psum; OS at most, where a
+# thread's gather stays at 16 taps: ``tile_chunk``), and the chunks of the
+# OS weight ring (csrc/fold_conv_tc.cuh)
+TC_BK, TC_OS_BK, TC_STAGES = 64, 128, 3
 # Epilogue flags, one bit per step (EPI_* in csrc/fold_conv.cuh)
 EPI_BIAS, EPI_SCALE, EPI_RESIDUAL, EPI_RELU, EPI_RELU6, EPI_POOL = \
     1, 2, 4, 8, 16, 32
@@ -771,8 +780,8 @@ class FoldTile:
 
     ``core`` is ``"ffma"`` (the tile core of ``csrc/fold_conv.cuh``: a tile
     of ``TILES``, ``tm`` x ``tn`` accumulators a thread) or ``"tc"`` (the
-    tensor-core core of ``csrc/fold_conv_tc.cuh``, bf16 WS and psum: a tile
-    of ``TC_TILES``, ``tm`` x ``tn`` m16n8 accumulators a warp).  ``m``
+    tensor-core core of ``csrc/fold_conv_tc.cuh``, bf16 WS, OS and psum: a
+    tile of ``TC_TILES``, ``tm`` x ``tn`` m16n8 accumulators a warp).  ``m``
     output pixels (four per pooled output where the pool is fused) are cut
     into ``m_tiles`` tiles of ``bm``; each group's ``nfg`` filters into
     tiles of ``bn``, so ``n_tiles`` = groups x ceil(nfg / bn) and no filter
@@ -780,11 +789,12 @@ class FoldTile:
     CTA walks ``m_per_cta`` consecutive M tiles past its resident filter
     tile, a psum CTA the same for one of ``folds`` depth folds (the grid's
     third axis; 1 for WS and OS).  ``resident`` CTAs of ``smem`` bytes fit
-    one SM.  Each sum a CTA finishes is ``k_len`` taps long, c then r then
-    s (the whole depth for WS and OS, one depth fold for psum), in depth
-    folds of ``kf`` taps: one tap at a time on the FFMA core, 16-tap MMA
-    steps from each fold's first tap on the tensor cores (the order
-    ``csrc/fold_conv_tc.cuh`` states)."""
+    one SM (WS and psum hold a depth fold of the filter tile, OS a ring of
+    its chunks: ``dataflow`` says which).  Each sum a CTA finishes is
+    ``k_len`` taps long, c then r then s (the whole depth for WS and OS,
+    one depth fold for psum), in depth folds of ``kf`` taps: one tap at a
+    time on the FFMA core, 16-tap MMA steps from each fold's first tap on
+    the tensor cores (the order ``csrc/fold_conv_tc.cuh`` states)."""
     index: int                 # into TILES ("ffma") or TC_TILES ("tc")
     tm: int
     tn: int
@@ -804,14 +814,23 @@ class FoldTile:
     k_len: int
     core: str
     kf: int
+    dataflow: str
 
 
 def tile_core(dataflow: str, dtype: torch.dtype) -> str:
-    """The tile core a launch runs on: ``"tc"`` (tensor cores) for bf16 WS
-    and psum, ``"ffma"`` otherwise."""
-    return ("tc" if dtype == torch.bfloat16
-            and dataflow in ("weight_stationary", "weight_stationary_psum")
-            else "ffma")
+    """The tile core a WS / OS / psum launch runs on: ``"tc"`` (tensor
+    cores) for bf16, ``"ffma"`` otherwise."""
+    return "tc" if dtype == torch.bfloat16 else "ffma"
+
+
+def tile_count(core: str, dataflow: str) -> int:
+    """How many tiles of its core's set a launch may run: every tile of
+    ``TILES``; of ``TC_TILES`` every one for OS, the first ``TC_WS_TILES``
+    for WS and psum (the kernels have no WS or psum instance of OS's
+    small-M tiles)."""
+    if core != "tc":
+        return len(TILES)
+    return len(TC_TILES) if dataflow == "output_stationary" else TC_WS_TILES
 
 
 def tile_shape(core: str, index: int) -> Tuple[int, int, int, int, int]:
@@ -824,17 +843,27 @@ def tile_shape(core: str, index: int) -> Tuple[int, int, int, int, int]:
     return tm, tn, tm * mg, tn * ng, mg * ng
 
 
+def tile_chunk(ws: bool, bm: int, threads: int) -> int:
+    """Taps a chunk of a tensor-core walk (``TcTile::BK``): ``TC_BK`` for
+    WS and psum; for OS (``TcOs``) ``TC_OS_BK`` where a thread then
+    gathers at most 16 taps of its two pixels, else ``TC_BK``."""
+    return TC_BK if ws else min(TC_OS_BK, 16 * threads // (bm // 2))
+
+
 def tile_smem(core: str, ws: bool, bm: int, bn: int, kf: int,
-              k_total: int) -> int:
+              k_total: int, threads: int) -> int:
     """Shared memory bytes of one CTA (``launch_tile`` / ``tc_smem`` in the
     sources): the resident filter tile of a depth fold of ``kf`` taps (WS,
     psum; OS: the weight ring), the input ring and the k offset table of
     the group's ``k_total`` taps.  The tensor-core tile keeps bf16 rows of
-    16-tap steps plus 8 and stages its finished fp32 tile in the ring."""
+    16-tap steps plus 8 (OS: ``TC_STAGES`` chunks plus 8), gathers the
+    input a chunk at a time (``tile_chunk``, of the tile's ``threads``)
+    and stages its finished fp32 tile in the input ring."""
     if core == "tc":
         kpad = -(-kf // MMA_K) * MMA_K
-        return (2 * bn * (kpad + 8)
-                + max(2 * 2 * TC_BK * (bm + 8), 4 * bn * (bm + 4))
+        bk = tile_chunk(ws, bm, threads)
+        weights = bn * (kpad + 8) if ws else TC_STAGES * bn * (bk + 8)
+        return (2 * weights + max(2 * 2 * bk * (bm + 8), 4 * bn * (bm + 4))
                 + 4 * k_total)
     bnp = bn + 4 if bn >= 32 else bn
     return 4 * (((kf * bnp) if ws else (PB + 1) * BK * bnp)
@@ -876,9 +905,9 @@ def _candidates(dataflow: str, core: str, pool: bool, g: int, c_pad: int,
     po, qo = (p_pad // 2, q // 2) if pool else (p_pad, q)
     m = (4 if pool else 1) * n * po * qo
     out = []
-    for idx in range(len(TC_TILES if core == "tc" else TILES)):
+    for idx in range(tile_count(core, dataflow)):
         tm, tn, bm, bn, threads = tile_shape(core, idx)
-        smem = tile_smem(core, ws, bm, bn, kf, k_len)
+        smem = tile_smem(core, ws, bm, bn, kf, k_len, threads)
         if (core == "ffma" and pool and tm % 4) or smem > SMEM_LIMIT:
             continue
         m_tiles, n_tiles = -(-m // bm), g * -(-nfg // bn)
@@ -896,7 +925,8 @@ def _candidates(dataflow: str, core: str, pool: bool, g: int, c_pad: int,
             m_tiles=m_tiles, groups=g, nfg=nfg, n_tiles=n_tiles,
             m_per_cta=m_per_cta, grid=(-(-m_tiles // m_per_cta), n_tiles),
             folds=folds, smem=smem, resident=resident,
-            k_len=kf if folds > 1 else k_len, core=core, kf=kf))
+            k_len=kf if folds > 1 else k_len, core=core, kf=kf,
+            dataflow=dataflow))
     return tuple(out)
 
 
@@ -927,18 +957,25 @@ def tile_cycles(tile: FoldTile, sm_count: int) -> float:
 # instructions of the gather per pixel and 16-tap step, SM cycles per
 # m16n8k16 MMA, warps an SM needs to hide the gather's latency, cycles of
 # the flush per output; fitted to ``fold_tiles.py --bf16`` on the card
-# (the picks' sum within 0.5% of the fastest tiles', PERF.md)
+# (the picks' sum within 0.5% of the fastest tiles', PERF.md).  OS's
+# streamed weights: warp instructions per 16 filters of a step (the
+# 16-byte copies, their addresses and the wait), and the bytes an SM
+# reads from L2 a cycle; fitted to the OS layers of the same sweep (the
+# picks' sum within 0.3% of the fastest tiles', PERF.md).
 TC_GATHER, TC_MMA_CYCLES, TC_WARPS_HIDE, TC_FLUSH = 7 / 4, 1.0, 8, 0.5
+TC_STREAM, TC_L2_BYTES = 1.0, 128.0
 
 
 def _tc_cycles(tile: FoldTile, sm_count: int) -> float:
     """The tensor-core tile model: per 16-tap step, the CTAs resident on
     one SM issue the gather's instructions (``TC_GATHER`` a pixel), their
-    ldmatrix and MMA instructions, four a cycle when ``TC_WARPS_HIDE``
-    warps hide the gather's latency (fewer issue proportionally slower),
-    and the tensor cores take ``TC_MMA_CYCLES`` an MMA; the longer of the
-    two sets the step.  A launch takes as many rounds of resident CTAs as
-    its grid needs, each CTA walking its M tiles' steps in series, plus
+    ldmatrix and MMA instructions (OS: and ``TC_STREAM`` per 16 filters
+    for the weights it streams), four a cycle when ``TC_WARPS_HIDE`` warps
+    hide the gather's latency (fewer issue proportionally slower), the
+    tensor cores take ``TC_MMA_CYCLES`` an MMA, and (OS) the SM reads the
+    step's BN x 16 weights, 2 bytes each, at ``TC_L2_BYTES`` a cycle; the
+    longest sets the step.  A launch takes as many rounds of resident CTAs
+    as its grid needs, each CTA walking its M tiles' steps in series, plus
     the flush of each tile."""
     per_sm = -(-tile.grid[0] * tile.grid[1] * tile.folds // sm_count)
     rounds = -(-per_sm // tile.resident)
@@ -948,8 +985,12 @@ def _tc_cycles(tile: FoldTile, sm_count: int) -> float:
     mmas = (tile.bm // 16) * (tile.bn // 8)
     instr = TC_GATHER * tile.bm + mmas + (tile.bm // 16) * wn \
         + wm * (tile.bn // 16)
+    stream = 0.0
+    if tile.dataflow == "output_stationary":
+        instr += TC_STREAM * tile.bn / 16
+        stream = ctas * tile.bn * MMA_K * 2 / TC_L2_BYTES
     issue = ctas * instr / 4 / min(1.0, warps / TC_WARPS_HIDE)
-    step = max(issue, ctas * mmas * TC_MMA_CYCLES)
+    step = max(issue, ctas * mmas * TC_MMA_CYCLES, stream)
     steps = tile.k_len // tile.kf * -(-tile.kf // MMA_K)
     flush = ctas * TC_FLUSH * tile.bm * tile.bn
     return rounds * tile.m_per_cta * (steps * step + flush)
@@ -961,9 +1002,9 @@ def fold_tile(spec: "FoldKernelSpec", n: int, sm_count: int,
     """Pick the CTA tile of a WS / OS / psum launch on ``dtype`` operands:
     the candidate with the least ``tile_cycles``, among those whose filter
     tile is no wider than a group (where any is); or, with ``index``, that
-    tile of the core's tile set (``TILES``, or ``TC_TILES`` for bf16 WS and
-    psum).  Raises where no tile (or not that one) fits the launch: a bf16
-    WS or psum launch no tensor-core tile fits has no other kernel."""
+    tile of the core's tile set (``TILES``, or ``TC_TILES`` for bf16,
+    ``tile_count``).  Raises where no tile (or not that one) fits the
+    launch: a bf16 launch no tensor-core tile fits has no other kernel."""
     key = _launch_key(spec, n, sm_count, dtype)
     if index is None:
         tile = _pick(*key)
@@ -983,7 +1024,11 @@ def fold_tile(spec: "FoldKernelSpec", n: int, sm_count: int,
 @functools.lru_cache(maxsize=None)
 def _pick(*key) -> Optional[FoldTile]:
     cands = _candidates(*key)
-    fit = [t for t in cands if t.bn <= max(t.nfg, 4)] or cands
+    # OS's small-M tensor-core tiles are 64 filters wide and the fastest
+    # on the zoo's 32-filter OS layers all the same (fold_tiles.py --bf16,
+    # PERF.md): the model prices their masked filters, no rule drops them
+    fit = [t for t in cands if t.bn <= max(t.nfg, 4)
+           or (t.core, t.dataflow) == ("tc", "output_stationary")] or cands
     return min(fit, key=lambda t: tile_cycles(t, key[-1]), default=None)
 
 
@@ -1073,7 +1118,8 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
               vec: torch.Tensor, res: Optional[torch.Tensor],
               tile: Optional[int] = None) -> torch.Tensor:
     """Launch the output-stationary kernel on padded CUDA operands, with
-    the CTA tile ``fold_tile`` picks (or tile ``tile`` of ``TILES``)."""
+    the CTA tile ``fold_tile`` picks (or tile ``tile`` of the core's tile
+    set: ``TC_TILES`` for bf16, ``TILES`` otherwise)."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
     n, name = xp.shape[0], _entry("fold_conv_os", xp)

@@ -16,7 +16,11 @@
 // are widened to fp32 as they are loaded, and the sums run as in fp32.  The
 // JAX package rounds the product to bf16 and rounds again after the bias,
 // so the last step rounds the finished sum to bf16, widens it, adds the
-// widened bias in fp32 and rounds to bf16 (finish).
+// widened bias in fp32 and rounds to bf16 (finish).  A lane owns V = 8
+// consecutive bf16 columns and reads them as one 16-byte load, so a warp
+// reads 512 contiguous bytes of a w row, as in fp32; and a CTA keeps the
+// sums of ROWS = 1, 2, 4 or 8 rows, the fewest that hold the call's rows
+// (up to 8), so that batch 1 issues one FFMA a weight, not 8.
 //
 // Sum order: K is cut into chunks of kc taps, kc a function of (K, N)
 // alone (dense.py: k_chunk), and the chunks into groups of GROUP.  The sum
@@ -25,17 +29,18 @@
 // ascending order, then the group sums in ascending order, each add
 // rounded on its own, and the bias last (one group: its chunk sums, then
 // the bias).  No float atomics, and nothing depends on B, on the row tile
-// a row falls into, or on which CTA finishes first, so row i gives the
-// same bits at every batch width.
+// a row falls into, the rows a CTA keeps, or on which CTA finishes first,
+// so row i gives the same bits at every batch width.
 //
 // Bound: bytes.  At batch 1-8 the head does 2B flops per weight of 4
 // bytes, far below the card's ridge, so the weights' read sets the time
 // (VGG-16's fc1 at 224 is 25088 x 4096, 411 MB).  The design reads w
 // once per call for up to ROWS rows: a CTA owns 32 V columns and one
-// group of chunks, a warp one chunk; a lane owns V consecutive columns and
-// keeps ROWS x V sums in registers, the warp's x rows sit in shared memory
-// (two 16-byte broadcast reads a tap), the w rows stream by 16-byte loads
-// UNROLL taps ahead, and a warp reads 512 contiguous bytes of a w row.
+// group of chunks, a warp one chunk; a lane owns V consecutive columns
+// (4 fp32 or 8 bf16, 16 bytes) and keeps ROWS x V sums in registers, the
+// warp's x rows sit in shared memory (broadcast reads of ROWS floats a
+// tap), the w rows stream by 16-byte loads UNROLL taps ahead, and a warp
+// reads 512 contiguous bytes of a w row.
 // The K split puts enough warps on the card to keep its memory busy where
 // N alone gives only a few thousand threads.  More than ROWS rows are
 // tiled, each tile reading w again.
@@ -52,18 +57,19 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
 constexpr int GROUP = 8;             // chunks per group = warps per CTA
 constexpr int THREADS = 32 * GROUP;  // V columns a lane
-constexpr int ROWS = 8;              // rows of x per CTA (a row tile)
-constexpr int UNROLL = 16;           // w rows loaded ahead
-// largest chunk: the CTA stages GROUP x ROWS x KC_MAX floats of x, and two
-// CTAs share an SM
+constexpr int MAX_ROWS = 8;          // rows of x per CTA (a row tile), at most
+// largest chunk: the CTA stages GROUP x MAX_ROWS x KC_MAX floats of x, and
+// two CTAs share an SM
 constexpr int KC_MAX = 448;
 
-static_assert(ROWS == GROUP, "the group sums give each thread one row");
+static_assert(MAX_ROWS <= GROUP,
+              "the group sums give each of the first ROWS warps one row");
 
 // V consecutive values of type T as one load, split into fp32 (a bf16's
 // 16 bits are the top half of its fp32 word, so widening is exact)
@@ -80,13 +86,15 @@ template <> struct WVec<float, 1> {
     v[0] = t;
   }
 };
-template <> struct WVec<__nv_bfloat16, 4> {
-  using type = uint2;
-  static __device__ __forceinline__ void split(const uint2& t, float (&v)[4]) {
-    v[0] = __uint_as_float(t.x << 16);
-    v[1] = __uint_as_float(t.x & 0xffff0000u);
-    v[2] = __uint_as_float(t.y << 16);
-    v[3] = __uint_as_float(t.y & 0xffff0000u);
+template <> struct WVec<__nv_bfloat16, 8> {
+  using type = uint4;
+  static __device__ __forceinline__ void split(const uint4& t, float (&v)[8]) {
+    const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
   }
 };
 template <> struct WVec<__nv_bfloat16, 1> {
@@ -96,6 +104,61 @@ template <> struct WVec<__nv_bfloat16, 1> {
     v[0] = __uint_as_float(static_cast<unsigned>(t) << 16);
   }
 };
+
+// V group sums of one output row from the part buffer, past L1 (which is
+// not coherent with the other SMs' stores): 16-byte loads where V allows
+template <int V>
+__device__ __forceinline__ void load_part(const float* p, float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 t = __ldcg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __ldcg(p + i);
+  }
+}
+
+// ROWS floats of x, one tap's rows, to and from shared memory as 16-, 8-
+// or 4-byte words
+template <int ROWS>
+__device__ __forceinline__ void put_rows(float* d, const float (&v)[ROWS]) {
+  if constexpr (ROWS % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < ROWS / 4; ++i) {
+      reinterpret_cast<float4*>(d)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    }
+  } else if constexpr (ROWS == 2) {
+    *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+  } else {
+    d[0] = v[0];
+  }
+}
+template <int ROWS>
+__device__ __forceinline__ void get_rows(const float* s, float (&v)[ROWS]) {
+  if constexpr (ROWS % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < ROWS / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(s)[i];
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
+    }
+  } else if constexpr (ROWS == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(s);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = s[0];
+  }
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -133,18 +196,20 @@ __device__ __forceinline__ bool arrive_last(int* ticket, int expected) {
 }
 
 // grid (column tiles, groups, row tiles).  Warp w of group g sums chunk
-// g * GROUP + w over the tile's columns: lane l owns columns n0 .. n0 + V.
-// Shared memory: each warp's x rows as [k][ROWS] (zeros past B; only the
-// chunk's taps are read), then, reused, each warp's chunk sums.
-template <typename T, int V>
+// g * GROUP + w over the tile's columns: lane l owns columns n0 .. n0 + V,
+// for ROWS rows.  Shared memory: each warp's x rows as [k][ROWS] (zeros
+// past B; only the chunk's taps are read), then, reused, each warp's chunk
+// sums.
+template <typename T, int V, int ROWS>
 __global__ void __launch_bounds__(THREADS, 2)
 dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const T* __restrict__ b, float* __restrict__ part,
              T* __restrict__ out, int* __restrict__ counters, int rows,
              int k_len, int n_len, int kc, int splits) {
   using WT = typename WVec<T, V>::type;
-  using PT = typename WVec<float, V>::type;
   constexpr int COLS = 32 * V;  // the tile's columns
+  // w rows loaded ahead: fewer where the sums take many registers
+  constexpr int UNROLL = ROWS * V > 32 ? 8 : 16;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x >> 5;
@@ -156,7 +221,7 @@ dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int k0 = chunk * kc;
   const int kn = chunk < splits ? min(kc, k_len - k0) : 0;
   // the chunk's x rows, a lane a tap: coalesced loads, the rows past B
-  // zero, each tap's ROWS values stored as two 16-byte words
+  // zero, each tap's ROWS values stored together
   float* xs = sm + warp * ROWS * kc;
   const T* xb = x + static_cast<size_t>(r0) * k_len + k0;
 #pragma unroll 2
@@ -167,9 +232,7 @@ dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
       v[r] = r0 + r < rows ? widen(xb[static_cast<size_t>(r) * k_len + k])
                            : 0.f;
     }
-    float4* d = reinterpret_cast<float4*>(xs + k * ROWS);
-    d[0] = make_float4(v[0], v[1], v[2], v[3]);
-    d[1] = make_float4(v[4], v[5], v[6], v[7]);
+    put_rows<ROWS>(xs + k * ROWS, v);
   }
   __syncwarp();
   const int n0 = (blockIdx.x * 32 + lane) * V;
@@ -197,11 +260,8 @@ dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
         if (k + u < kn) {
           float wf[V];
           WVec<T, V>::split(wv[u], wf);
-          const float4* xr =
-              reinterpret_cast<const float4*>(xs + (k + u) * ROWS);
-          const float4 xa = xr[0], xb = xr[1];
-          const float xv[ROWS] = {xa.x, xa.y, xa.z, xa.w,
-                                  xb.x, xb.y, xb.z, xb.w};
+          float xv[ROWS];
+          get_rows<ROWS>(xs + (k + u) * ROWS, xv);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
@@ -226,18 +286,24 @@ dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   __syncthreads();
 
-  // thread (row = warp, lane): its output's group sum, chunks ascending
+  // thread (row = warp, lane) of the first ROWS warps: its output's group
+  // sum, chunks ascending
+  const bool has_row = warp < ROWS;
   const int row = r0 + warp;
-  const bool mine = live && row < rows;
+  const bool mine = live && has_row && row < rows;
   const size_t at = static_cast<size_t>(row) * n_len + n0;
   const int members = min(GROUP, splits - g * GROUP);
   float s[V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) s[j] = red[warp * COLS + lane * V + j];
-  for (int m = 1; m < members; ++m) {
+  for (int j = 0; j < V; ++j) s[j] = 0.f;
+  if (has_row) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      s[j] = __fadd_rn(s[j], red[(m * ROWS + warp) * COLS + lane * V + j]);
+    for (int j = 0; j < V; ++j) s[j] = red[warp * COLS + lane * V + j];
+    for (int m = 1; m < members; ++m) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        s[j] = __fadd_rn(s[j], red[(m * ROWS + warp) * COLS + lane * V + j]);
+      }
     }
   }
   if (groups == 1) {
@@ -262,21 +328,17 @@ dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   const float* p = part + at;
   for (int u0 = 0; u0 < groups; u0 += GROUP) {
-    PT pv[GROUP];
+    float pv[GROUP][V];
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
-      if (u0 + u < groups) {
-        pv[u] = __ldcg(reinterpret_cast<const PT*>(p + (u0 + u) * plane));
-      }
+      if (u0 + u < groups) load_part<V>(p + (u0 + u) * plane, pv[u]);
     }
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
       if (u0 + u < groups) {
-        float f[V];
-        WVec<float, V>::split(pv[u], f);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          s[j] = u0 + u == 0 ? f[j] : __fadd_rn(s[j], f[j]);
+          s[j] = u0 + u == 0 ? pv[u][j] : __fadd_rn(s[j], pv[u][j]);
         }
       }
     }
@@ -285,7 +347,7 @@ dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int j = 0; j < V; ++j) finish(out + at + j, s[j], b[n0 + j]);
 }
 
-template <typename T, int V>
+template <typename T, int V, int ROWS>
 int launch(const T* x, const T* w, const T* b, float* part, T* out,
            int* counters, int rows, int k_len, int n_len, int kc,
            cudaStream_t stream) {
@@ -293,7 +355,7 @@ int launch(const T* x, const T* w, const T* b, float* part, T* out,
   const dim3 grid((n_len + 32 * V - 1) / (32 * V),
                   (splits + GROUP - 1) / GROUP, (rows + ROWS - 1) / ROWS);
   const size_t smem = sizeof(float) * GROUP * ROWS * max(kc, 32 * V);
-  const auto kernel = dense_kernel<T, V>;
+  const auto kernel = dense_kernel<T, V, ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -303,10 +365,36 @@ int launch(const T* x, const T* w, const T* b, float* part, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 instance with the fewest rows a CTA (1, 2, 4, 8) that hold the
+// call's rows, up to 8 (more are tiled by 8)
+template <int V>
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const __nv_bfloat16* b, float* part, __nv_bfloat16* out,
+                int* counters, int rows, int k_len, int n_len, int kc,
+                cudaStream_t s) {
+  using T = __nv_bfloat16;
+  if (rows == 1) {
+    return launch<T, V, 1>(x, w, b, part, out, counters, rows, k_len, n_len,
+                           kc, s);
+  }
+  if (rows == 2) {
+    return launch<T, V, 2>(x, w, b, part, out, counters, rows, k_len, n_len,
+                           kc, s);
+  }
+  if (rows <= 4) {
+    return launch<T, V, 4>(x, w, b, part, out, counters, rows, k_len, n_len,
+                           kc, s);
+  }
+  return launch<T, V, MAX_ROWS>(x, w, b, part, out, counters, rows, k_len,
+                                n_len, kc, s);
+}
+
 // x (rows, k_len), w (k_len, n_len), b (n_len), out (rows, n_len); part
 // (groups = ceil(ceil(k_len / kc) / 8), rows, n_len), the group sums;
-// counters (ceil(rows / 8) x ceil(n_len / 128) ints, or / 32 when n_len % 4
-// != 0), all 0, and left at 0
+// counters (row tiles x ceil(n_len / 32) ints, as many as the narrowest
+// instance's column tiles), all 0, and left at 0.  The wide instance (16
+// bytes of w a lane) where N is a multiple of its columns and w and part
+// are 16-byte aligned, else one column a lane.
 template <typename T>
 int dense_entry(const void* x, const void* w, const void* b, void* part,
                 void* out, void* counters, int rows, int k_len, int n_len,
@@ -321,11 +409,24 @@ int dense_entry(const void* x, const void* w, const void* b, void* part,
   auto* pf = static_cast<float*>(part);
   auto* ot = static_cast<T*>(out);
   auto* cf = static_cast<int*>(counters);
-  if (n_len % 4 == 0 && reinterpret_cast<size_t>(w) % 16 == 0 &&
-      reinterpret_cast<size_t>(part) % 16 == 0) {
-    return launch<T, 4>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len, kc, s);
+  constexpr int V = 16 / sizeof(T);
+  const bool wide = n_len % V == 0 &&
+                    reinterpret_cast<size_t>(w) % 16 == 0 &&
+                    reinterpret_cast<size_t>(part) % 16 == 0;
+  if constexpr (std::is_same<T, float>::value) {
+    if (wide) {
+      return launch<T, V, MAX_ROWS>(xt, wt, bt, pf, ot, cf, rows, k_len,
+                                    n_len, kc, s);
+    }
+    return launch<T, 1, MAX_ROWS>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len,
+                                  kc, s);
+  } else {
+    if (wide) {
+      return launch_bf16<V>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len, kc,
+                            s);
+    }
+    return launch_bf16<1>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len, kc, s);
   }
-  return launch<T, 1>(xt, wt, bt, pf, ot, cf, rows, k_len, n_len, kc, s);
 }
 
 }  // namespace

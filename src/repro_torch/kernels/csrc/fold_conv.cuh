@@ -5,7 +5,7 @@
 // the fused bias -> BN scale/shift -> residual add -> ReLU or ReLU6 ->
 // 2x2/2 max-pool epilogue, in fp32 and int8; the partial-sum staging
 // formulation of the weight-stationary dataflow (the paper's Fig. 5) in
-// fp32; and bf16 instances of the OS and depthwise kernels.  The bf16 WS
+// fp32; and the bf16 instance of the depthwise kernel.  The bf16 WS, OS
 // and psum kernels run on the tensor cores (fold_conv_tc.cuh), on this
 // header's geometry, gather table and epilogue.
 //
@@ -38,20 +38,16 @@
 // order.  The fp32 and int8 kernels are one template on the operand type T
 // and the accumulator type A.
 //
-// bf16 OS and depthwise (the *_bf16 entries of those two; the JAX kernels
-// with bf16 operands, which _fold_partial widens to fp32): T =
-// __nv_bfloat16, A = float.  Each bf16 value is widened to fp32 where it is
-// loaded (the weights as they are staged, the im2col gather in registers,
-// the depthwise window), so the shared-memory tiles, the FFMAs and the
-// epilogue are the fp32 instance's, and each output is rounded once to
-// bf16 at its store (put).  Their bound is the bf16 tensor-core rate, out
-// of reach of FFMA: the OS kernel's move to the tensor cores, as WS and
-// psum made in fold_conv_tc.cuh, is the next redesign.  This core has no
-// bf16 WS or psum instance.
+// bf16 depthwise (fold_conv_dw_bf16; the JAX kernel with bf16 operands,
+// which it widens to fp32): T = __nv_bfloat16, A = float.  Each bf16 value
+// is widened to fp32 where it is loaded (the depthwise window), so the
+// FMAs and the epilogue are the fp32 instance's, and each output is
+// rounded once to bf16 at its store (put).  This core has no bf16 WS, OS
+// or psum instance: those run on the tensor cores (fold_conv_tc.cuh).
 //
 // The WS, OS and psum kernels (ws_kernel, os_kernel, psum_kernel; they replace
-// _ws_kernel and _os_kernel, fp32 and int8 (and _os_kernel on bf16), and
-// _ws_psum_kernel in fp32) share one tile core: a fold interaction as an
+// _ws_kernel and _os_kernel, fp32 and int8, and _ws_psum_kernel in fp32)
+// share one tile core: a fold interaction as an
 // implicit GEMM, M = output pixels flattened over (n, p, q) (2x2 quads of them
 // where the pool is fused, so each pool window is finished in one thread), N =
 // the filters of one group, K = the group's (c, r, s) taps.  A CTA owns BM
@@ -82,8 +78,7 @@
 // the SM count; the shared memory a tile needs is checked here again.
 //
 // Bound: the FFMA rate (67 TFLOP/s fp32) for every dense layer of the zoo (the
-// int8 tensor-core rate for int8, the bf16 one for bf16 OS, which IMAD and FFMA
-// do not reach).  What binds the kernels instead (PERF.md): the gather, one
+// int8 tensor-core rate for int8, which IMAD does not reach).  What binds the kernels instead (PERF.md): the gather, one
 // 4-byte load per tap and pixel, which takes more issue slots and more latency
 // than the TM*TN FFMAs it feeds where the tile is small; and, on the smallest
 // layers (4x4 outputs, K up to 4608), too few outputs to put more than one or
@@ -99,8 +94,8 @@
 // whatever the tile, the grid, N, the dataflow or the epilogue: no split
 // of K across threads or CTAs, no atomics.  So a conv trunk gives the same
 // bits at every batch width, and in fp32 and int8 the two dataflows give
-// the same bits (bf16 WS sums in 16-tap MMA steps, fold_conv_tc.cuh, so
-// bf16 WS and bf16 OS do not).  The depthwise kernel is bound by bytes;
+// the same bits (as bf16 WS and OS do, each output a chain of 16-tap MMA
+// steps in fold_conv_tc.cuh).  The depthwise kernel is bound by bytes;
 // a thread owns DW_TQ outputs along Q, loads the input window they share
 // once per row, and sums each output's R*S taps, R then S (dw_kernel
 // below).
@@ -274,8 +269,7 @@ __device__ __forceinline__ void filter_tile(const Dims& d, int bn, int& f0,
 }
 
 // One weight into shared memory: a 4-byte cp.async (zero-filled where the
-// filter is not real) for fp32; a load widened to int32 (int8) or to fp32
-// (bf16) otherwise
+// filter is not real) for fp32; a load widened to int32 for int8
 __device__ __forceinline__ void stage_elem(float* dst, const float* src,
                                            bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -740,8 +734,8 @@ int launch_tile(int kind, const void* x, const void* w, const void* vec,
   const auto* rf = static_cast<const O*>(res);
   auto* of = static_cast<O*>(out);
   cudaError_t err;
-  // bf16 WS and psum run on the tensor cores (fold_conv_tc.cuh): this core
-  // has no bf16 instance of either
+  // the psum staging is fp32 only (int8 has none; bf16 runs on the tensor
+  // cores, fold_conv_tc.cuh, as bf16 WS and OS do)
   if (kind == KIND_PSUM) {
     if constexpr (std::is_same<T, float>::value) {
       err = allow_smem(psum_kernel<TL>, smem);
@@ -752,14 +746,10 @@ int launch_tile(int kind, const void* x, const void* w, const void* vec,
       return static_cast<int>(cudaErrorInvalidValue);
     }
   } else if (kind == KIND_WS) {
-    if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
-      err = allow_smem(ws_kernel<TL, T, A, O>, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      ws_kernel<TL, T, A, O><<<grid, TL::THREADS, smem, stream>>>(
-          xt, wt, vf, rf, of, static_cast<A*>(slab), g);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    err = allow_smem(ws_kernel<TL, T, A, O>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ws_kernel<TL, T, A, O><<<grid, TL::THREADS, smem, stream>>>(
+        xt, wt, vf, rf, of, static_cast<A*>(slab), g);
   } else {
     err = allow_smem(os_kernel<TL, T, A, O>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);

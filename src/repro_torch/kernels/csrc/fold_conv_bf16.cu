@@ -1,16 +1,17 @@
 // Fold-streamed convolution for Hopper (sm_90a): the bf16 entry points of
-// the WS, OS, depthwise and psum kernels.  WS and psum run on the tensor
-// cores (fold_conv_tc.cuh: bf16 operands, fp32 sums, one rounding to bf16
-// at the store); OS and depthwise on fold_conv.cuh's FFMA kernels (T =
-// __nv_bfloat16, A = float: each bf16 value widened to fp32 as it loads).
+// the WS, OS, depthwise and psum kernels.  WS, OS and psum run on the
+// tensor cores (fold_conv_tc.cuh: bf16 operands, fp32 sums, one rounding to
+// bf16 at the store, one chain of 16-tap MMA steps per output whatever the
+// dataflow); depthwise on fold_conv.cuh's FFMA kernel (T = __nv_bfloat16,
+// A = float: each bf16 value widened to fp32 as it loads).
 
 #include "fold_conv_tc.cuh"
 
 extern "C" {
 
 // The bf16 instances: the same arguments as their fp32 counterparts; x, w,
-// res, out (and psum) are bf16, vec fp32, the WS slab fp32.  The tile of WS
-// and psum is one of TcTile0..TcTile5, of OS one of Tile0..Tile6.
+// res, out (and psum) are bf16, vec fp32, the WS slab fp32.  The tile is
+// one of TcTile0..TcTile7 for OS, of the first TC_WS_TILES for WS and psum.
 
 int fold_conv_ws_bf16(const void* x, const void* w, const void* vec,
                       const void* res, void* out, void* slab, int n,
@@ -29,8 +30,8 @@ int fold_conv_os_bf16(const void* x, const void* w, const void* vec,
                       int epi, int tile, void* stream) {
   const Geom g{n, c_pad, x_rows, yp, nf_pad, r, s, stride, q, p_pad, groups,
                c_b, epi, 1};
-  return launch_fold<__nv_bfloat16, float>(tile, KIND_OS, x, w, vec, res, out,
-                                           nullptr, g, stream);
+  return launch_fold_tc(tile, KIND_OS, x, w, vec, res, out, nullptr, g,
+                        stream);
 }
 
 int fold_conv_dw_bf16(const void* x, const void* w, const void* vec,

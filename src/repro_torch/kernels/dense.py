@@ -9,11 +9,10 @@ the head runs inside one compiled program).  A library matrix product
 does not promise that: its algorithm may change with the row count.
 
 The kernel splits K into chunks of ``k_chunk(K, N)`` taps, a function of
-(K, N) alone: each chunk's sum runs k ascending from 0 in one thread; the
-chunk sums are added in a fixed two-level tree, each group of 8 chunks
-in ascending order, then the group sums in ascending order, then the
-bias.  It reads ``w`` once per call for up to 8 rows and keeps their
-sums in registers; more rows are tiled.  It is one launch: a CTA's 8
+(K, N) alone: each chunk's sum runs k ascending from 0 in one thread; the chunk sums are added in a fixed
+two-level tree, each group of 8 chunks in ascending order, then the group
+sums in ascending order, then the bias.  It reads ``w`` once per call for
+up to 8 rows and keeps their sums in registers; more rows are tiled.  It is one launch: a CTA's 8
 warps sum the 8 chunks of one group and add them in shared memory, and
 the last CTA of a column tile adds the group sums, found through
 per-device arrival counters that the wrapper zeroes once and every
@@ -24,7 +23,10 @@ batch-invariant on the CPU too.
 bf16 ``x``, ``w`` and ``b`` (all three) run the kernel's bf16 instance:
 the operands are widened to fp32 as they load and summed in the same
 order, and the result is rounded as the JAX package's bf16 ``x @ w + b``
-rounds it: the product to bf16, then the sum with the bias to bf16.  A
+rounds it: the product to bf16, then the sum with the bias to bf16.  It
+reads ``w`` by 16-byte loads, 8 columns a lane and 256 a CTA, and keeps
+the sums of 1, 2, 4 or 8 rows a CTA, the fewest that hold the call's rows
+(``rows_per_cta``): which instance runs changes no sum's order.  A
 mix of fp32 and bf16 is widened to fp32 (exact), as jnp promotes it, and
 gives fp32.
 
@@ -37,13 +39,22 @@ from typing import Dict, List
 import torch
 
 __all__ = ["dense", "dense_plain", "launch", "k_chunk", "launch_grid",
-           "launch_counts", "reset_launch_counts", "KERNEL", "KERNEL_BF16"]
+           "rows_per_cta", "launch_counts", "reset_launch_counts", "KERNEL",
+           "KERNEL_BF16"]
 
 KERNEL = "dense"
 KERNEL_BF16 = "dense_bf16"
-_COLS_PER_CTA = 128       # 32 lanes x 4 columns (csrc/dense.cu)
-_COLS_NARROW = 32         # 32 lanes x 1 column, where N % 4 != 0
-_ROWS_PER_CTA = 8
+# columns a CTA: 32 lanes x 16 bytes of w (4 fp32 or 8 bf16 columns; the
+# wide instances of csrc/dense.cu), or 32 x 1 column where N is not a
+# multiple of a lane's columns.  The K split counts the fp32 instance's
+# 128 columns a CTA for both types: one chunking of (K, N) whatever the
+# type (a 256-column split for bf16 ran no faster on VGG-16's head at
+# batch 1 and 4, PERF.md), so bf16 kept its sum order when its lanes
+# widened to 16 bytes.
+_COLS_WIDE = {torch.float32: 128, torch.bfloat16: 256}
+_COLS_PER_CTA = 128
+_COLS_NARROW = 32
+_ROWS_PER_CTA = 8         # at most
 _GROUP = 8                # chunks per group (a CTA's warps), the first level
 # warps (chunk x column tile) per row tile the K split aims at: 2048 was
 # the fastest of 1024 to 8192 on VGG-16's fc layers at 224 (H100 sweeps,
@@ -67,10 +78,11 @@ _REPLACED: List[torch.Tensor] = []
 
 def k_chunk(k: int, n: int) -> int:
     """Taps per K chunk of the kernel: a function of (K, N) alone, so the
-    order of every output's sum is fixed by the layer's shape.  Enough
-    chunks that about ``_TARGET_WARPS`` warps share the weights' read, but
-    no more than ``_MAX_SPLITS`` chunks unless K needs more, each a
-    multiple of 8 taps between ``_KC_MIN`` and ``_KC_MAX``."""
+    order of every output's sum is fixed by the layer's shape, never by
+    the rows or the instance.  Enough chunks that about ``_TARGET_WARPS``
+    warps share the weights' read, but no more than ``_MAX_SPLITS`` chunks
+    unless K needs more, each a multiple of 8 taps between ``_KC_MIN`` and
+    ``_KC_MAX``."""
     col_tiles = -(-n // _COLS_PER_CTA)
     splits = max(1, min(_MAX_SPLITS, _TARGET_WARPS // col_tiles))
     kc = -(-k // splits)
@@ -112,13 +124,25 @@ def dense_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.cat([x[i:i + 1] @ w + b for i in range(x.shape[0])])
 
 
-def launch_grid(rows: int, k: int, n: int) -> tuple:
-    """The kernel's grid for x (rows, k) @ w (k, n): (column tiles, groups
-    of chunks, row tiles), with 16-byte aligned w (as torch allocates
-    it)."""
-    cols = _COLS_PER_CTA if n % 4 == 0 else _COLS_NARROW
+def rows_per_cta(rows: int, dtype: torch.dtype = torch.float32) -> int:
+    """Rows of x a CTA keeps sums for: 8 for fp32; for bf16 the fewest of
+    1, 2, 4 and 8 that hold ``rows`` (up to 8: more are tiled by 8)."""
+    if dtype != torch.bfloat16:
+        return _ROWS_PER_CTA
+    return next(r for r in (1, 2, 4, _ROWS_PER_CTA)
+                if r >= min(rows, _ROWS_PER_CTA))
+
+
+def launch_grid(rows: int, k: int, n: int,
+                dtype: torch.dtype = torch.float32) -> tuple:
+    """The kernel's grid for x (rows, k) @ w (k, n) of ``dtype``: (column
+    tiles, groups of chunks, row tiles), with 16-byte aligned w (as torch
+    allocates it)."""
+    wide = _COLS_WIDE[dtype]
+    cols = wide if n % (wide // 32) == 0 else _COLS_NARROW
     chunks = -(-k // k_chunk(k, n))
-    return -(-n // cols), -(-chunks // _GROUP), -(-rows // _ROWS_PER_CTA)
+    return (-(-n // cols), -(-chunks // _GROUP),
+            -(-rows // rows_per_cta(rows, dtype)))
 
 
 def _counters(device: torch.device, tiles: int) -> torch.Tensor:
@@ -161,7 +185,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"offsets: x {tuple(x.shape)}, w {tuple(w.shape)}")
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     kc = k_chunk(k, n)
-    _, groups, row_tiles = launch_grid(rows, k, n)
+    _, groups, row_tiles = launch_grid(rows, k, n, x.dtype)
     out = torch.empty((rows, n), device=x.device, dtype=x.dtype)
     part = torch.empty((groups, rows, n), device=x.device,
                        dtype=torch.float32)

@@ -120,3 +120,61 @@ def test_cuda_dense_kernel_matches_plain_version(cuda_device, k, n):
         1e-5 * want.abs().max().item()
     for rows in range(1, 11):
         assert torch.equal(t_dense.dense(x[:rows], w, b), full[:rows])
+
+
+def test_bf16_k_chunk_is_a_function_of_the_layer_alone():
+    """The bf16 instance's K chunk (its sum order) depends on (K, N) alone:
+    its launches at batch 1 to 8 run one chunking (the same K chunk, the
+    same groups of chunks, the fp32 instance's), a multiple of 8 taps
+    within the kernel's limits, while its CTAs' columns (256 bf16, 16
+    bytes a lane) and the rows a CTA keeps follow the instance (1, 2, 4,
+    4, 8, 8, 8, 8 rows at batch 1 to 8; a ninth row takes a second row
+    tile)."""
+    bf16 = torch.bfloat16
+    for k, n in SHAPES + CARD_SHAPES:
+        kc = t_dense.k_chunk(k, n)
+        assert kc % 8 == 0 and 32 <= kc <= 448
+        assert -(-k // kc) <= 128
+        grids = [t_dense.launch_grid(rows, k, n, bf16) for rows in range(1, 9)]
+        assert {g[:2] for g in grids} == {grids[0][:2]}
+        assert grids[0][1] == -(-(-(-k // kc)) // 8)
+        assert [g[2] for g in grids] == [1] * 8
+        assert t_dense.launch_grid(9, k, n, bf16)[2] == 2
+    assert [t_dense.rows_per_cta(r, bf16) for r in range(1, 12)] == \
+        [1, 2, 4, 4, 8, 8, 8, 8, 8, 8, 8]
+    assert {t_dense.rows_per_cta(r) for r in range(1, 12)} == {8}
+    # fc1 at 224: 16 column tiles of 256 bf16 columns (32 of 128 fp32
+    # ones) over its 64 chunks of 392 taps
+    assert t_dense.k_chunk(25088, 4096) == 392
+    assert t_dense.launch_grid(1, 25088, 4096, bf16) == (16, 8, 1)
+    assert t_dense.launch_grid(1, 25088, 4096) == (32, 8, 1)
+    assert t_dense.launch_grid(8, 300, 13, bf16)[0] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", CARD_SHAPES)
+def test_cuda_bf16_head_at_every_row_instance(cuda_device, k, n):
+    """The bf16 head kernel at batch 1, 2, 4 and 8 (its instances of 1, 2,
+    4 and 8 rows a CTA) against ``dense_plain``, and row i bitwise equal at
+    every width.  Both round the product to bf16 before the bias is added:
+    where their fp32 sums (chunked, unchunked) fall on two sides of a
+    rounding boundary of the product, the outputs differ by a bf16 step of
+    the product, not of the output.  So each element is held within one
+    bf16 step of the product and one of the output, plus
+    1e-4·max(1, max|plain|)."""
+    bf16 = torch.bfloat16
+    x, w, b = (torch.from_numpy(a).to(cuda_device, bf16)
+               for a in _operands(8, k, n, seed=3))
+    prod = (x.float() @ w.float()).abs()
+    full = t_dense.dense(x, w, b)
+    for rows in (1, 2, 4, 8):
+        before = t_dense.launch_counts()[t_dense.KERNEL_BF16]
+        got = t_dense.dense(x[:rows], w, b)
+        torch.cuda.synchronize()
+        assert t_dense.launch_counts()[t_dense.KERNEL_BF16] == before + 1
+        want = t_dense.dense_plain(x[:rows], w, b).float()
+        assert got.dtype == bf16 and got.shape == want.shape
+        assert ((got.float() - want).abs() <= 2.0 ** -7 * (
+            want.abs() + prod[:rows])
+            + 1e-4 * max(1.0, want.abs().max().item())).all()
+        assert torch.equal(got, full[:rows])

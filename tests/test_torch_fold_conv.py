@@ -866,13 +866,13 @@ def test_cuda_grouped_int8_kernel_is_bitwise_its_plain_version(
 TILE_GEOM = (2, 40, 9, 11, 30, 3, 1, 1, (24, 16, 5))
 _TYPES = {"fp32": torch.float32, "int8": torch.int8, "bf16": torch.bfloat16}
 # (tile, dataflow, precision): every tile of the core each instance runs
-# on (``tile_core``: the tensor-core tiles for bf16 WS)
+# on (``tile_core``: the tensor-core tiles for bf16; ``tile_count``)
 EVERY_TILE = [(t, df, prec) for t in range(max(len(t_kern.TILES),
                                                len(t_kern.TC_TILES)))
               for df in ("weight_stationary", "output_stationary")
               for prec in _TYPES
-              if t < len(t_kern.TC_TILES if t_kern.tile_core(
-                  df, _TYPES[prec]) == "tc" else t_kern.TILES)]
+              if t < t_kern.tile_count(t_kern.tile_core(df, _TYPES[prec]),
+                                       df)]
 
 
 @pytest.mark.cuda

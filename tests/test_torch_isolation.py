@@ -1,5 +1,5 @@
 """The port stands alone: no file of it (nor ``chip_smoke.py``,
-``fold_tiles.py`` and ``serve_ab.py``) imports
+``fold_tiles.py``, ``serve_ab.py`` and ``kernel_ab.py``) imports
 jax or the JAX package, it imports in a process where jax cannot load,
 and asking for a GPU that is not there raises instead of falling back."""
 import ast
@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "fold_tiles.py", ROOT / "serve_ab.py"]
+    [ROOT / "chip_smoke.py", ROOT / "fold_tiles.py", ROOT / "serve_ab.py",
+     ROOT / "kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -148,3 +149,15 @@ def test_fold_tiles_refuses_to_run_without_a_gpu(tmp_path):
                          cwd=tmp_path)
     assert out.returncode != 0
     assert '"card"' not in out.stdout
+
+
+def test_kernel_ab_refuses_to_run_without_a_gpu(tmp_path):
+    """The same-card A/B script exits non-zero without a card and prints
+    no time."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run([sys.executable, str(ROOT / "kernel_ab.py"),
+                          str(ROOT), "change"], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "KAB" not in out.stdout
