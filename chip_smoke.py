@@ -14,7 +14,9 @@ Phases (any failed check raises, and the script exits non-zero):
    instances and every tensor-core fold instance (``ws_tc_kernel``,
    ``os_tc_kernel``, ``psum_tc_kernel``) must hold ``HMMA``, and no FFMA
    ``ws_kernel``, ``os_kernel`` or ``psum_kernel`` instance may take bf16
-   operands.
+   operands; for each of the 36 fixed-tap depthwise instances, whether it
+   issues every ``LDG`` before its first ``FFMA`` (fp32 and bf16; int8's
+   taps are IMADs).
 2. Kernels: each CUDA kernel (WS, OS, depthwise) against its plain-torch
    version on the card over random shapes and every epilogue the zoo
    models fuse, grouped 1 < G < C included (the JAX tests' shapes and
@@ -30,6 +32,12 @@ Phases (any failed check raises, and the script exits non-zero):
    across commits that keep the sum order), one device kernel per call
    (the nodes of a captured CUDA graph), and timed beside ``torch.addmm``
    at batch 1 and 4.
+   ``[dw strips]``: the depthwise kernel at every strip it has (TQ 2, 4,
+   8 outputs a thread along Q; 2, 4 under the pool) on phase 2's
+   depthwise geometries and MobileNetV2's 17 depthwise layers at 32,
+   batch 4 and 1: bitwise across strips and batch widths, against the
+   plain version, each zoo layer's strips timed beside ``dw_geometry``'s
+   pick (again in int8 in phase 9 and in bf16 in ``[bf16]``).
 3. Full-width VGG-16 at 224x224, batch 1 and 4: fold reuse, one WS launch
    per conv and one head launch per dense layer, logits against the
    reference policy, and the conv trunk bitwise-identical across batch
@@ -477,19 +485,26 @@ def kernel_sass(lib_path: str):
     if proc.returncode != 0:
         print(f"[env] cuobjdump -sass failed: {proc.stderr.strip()[:200]}")
         return {}
-    counts, cur = {}, None
+    counts, cur, at = {}, None, 0
     for line in proc.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1) if any(k in m.group(1)
                                     for k in SASS_KERNELS) else None
             if cur:
-                counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}
+                counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0, "LDG": 0,
+                               "last_ldg": None, "first_ffma": None}
+                at = 0
             continue
-        if cur:
-            m = re.search(r"\s(HMMA|HGMMA|FFMA)\b", line)
+        if cur and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            at += 1
+            m = re.search(r"\s(HMMA|HGMMA|FFMA|LDG)\b", line)
             if m:
                 counts[cur][m.group(1)] += 1
+                if m.group(1) == "LDG":
+                    counts[cur]["last_ldg"] = at
+                elif m.group(1) == "FFMA":
+                    counts[cur]["first_ffma"] = counts[cur]["first_ffma"] or at
     names = demangle(list(counts))
     out = {}
     for mangled, name in zip(counts, names):
@@ -509,6 +524,24 @@ def kernel_sass(lib_path: str):
               f"{name}: an FFMA fold instance on bf16 operands")
     for k in TC_INSTANCES:
         check(any(k in n for n in out), f"no {k} instance in the SASS")
+    # the fixed-tap depthwise instances (KR > 0): whether each issues
+    # every load before its first multiply-add (FFMA for fp32 and bf16;
+    # int8's are IMADs, which SASS does not tell from address arithmetic).
+    # ptxas moves a few loads past the first FFMAs in some of them; a CTA
+    # fence that forbids it made no layer faster and the forward slower
+    # (PERF.md), so this is read, not required
+    fixed = {n: c for n, c in out.items() if re.search(
+        r"dw_kernel<[^>]*, 3, 3, [12], \d, (true|false)>", n)}
+    check(len(fixed) == 36, f"expected 36 fixed-tap depthwise instances in "
+          f"the SASS, found {len(fixed)}")
+    ffma = {n: c for n, c in fixed.items() if c["first_ffma"] is not None}
+    late = {n: c for n, c in ffma.items() if c["last_ldg"] > c["first_ffma"]}
+    print(f"[env] SASS dw_kernel: {len(fixed)} fixed-tap instances, "
+          f"{len(ffma)} with FFMA taps (fp32, bf16), {len(ffma) - len(late)} "
+          f"of them with every LDG before the first FFMA; the others "
+          + ", ".join(f"{n.split('dw_kernel')[1].split('(')[0]} "
+                      f"({c['LDG']} LDG, last at {c['last_ldg']}, first "
+                      f"FFMA at {c['first_ffma']})" for n, c in late.items()))
     return out
 
 
@@ -620,6 +653,125 @@ def phase_kernels(torch, dev):
                          epilogue=epi, groups=g, **ops)
     # the same geometries serve the int8 phase
     return errs, cases, dw_cases
+
+
+DW_NAMES = {"float32": "fold_conv_dw", "int8": "fold_conv_dw_i8",
+            "bfloat16": "fold_conv_dw_bf16"}
+
+
+def dw_operands(torch, gen, dev, dtype, n, c, h, w_, st, epi, plan):
+    """A depthwise layer's operands in ``dtype`` (int8: quantized, with
+    its requant vectors), its input padded by 1: (x, w, keyword arguments
+    of ``conv2d_folded``)."""
+    pad = torch.nn.functional.pad
+    x = torch.randn(n, c, h, w_, device=dev, generator=gen)
+    w = torch.randn(c, 1, 3, 3, device=dev, generator=gen)
+    p, q = (h - 1) // st + 1, (w_ - 1) // st + 1
+    kw = dict(stride=st, plan=plan, dataflow="depthwise", groups=c)
+    if dtype == torch.int8:
+        xq, wq, ops = int8_operands(torch, gen, dev, x, w, epi, n, c, p, q)
+        return pad(xq, (1, 1, 1, 1)), wq, {**kw, **ops}
+    ops = epi_operands(torch, gen, dev, epi, n, c, p, q)
+    if dtype == torch.bfloat16:
+        ops = {k: v.to(dtype) for k, v in ops.items()}
+        w = w / 3.0
+    return (pad(x, (1, 1, 1, 1)).to(dtype), w.to(dtype),
+            {**kw, "epilogue": epi, **ops})
+
+
+def dw_strips(torch, dev, cw, x, w, kw, what, reps=0):
+    """One depthwise launch at every strip the kernel has for it
+    (``dw_tq_choices``): bitwise across strips, at x's batch and at batch
+    1 (its first image), and against the plain version (fp32 within
+    TOL_KERNEL·max(1, max|plain|), bf16 under the bf16 rule, int8
+    bitwise).  With ``reps``, each strip's device time at x's batch.
+    Returns (max abs err against the plain version, {tq: ms}, the strip
+    ``dw_geometry`` picks)."""
+    name = DW_NAMES[str(x.dtype).split(".")[-1]]
+    outs, ms = {}, {}
+    for n in (x.shape[0], 1):
+        xn = x[:n].contiguous()
+        kwn = {k: (v[:n].contiguous() if k == "residual" else v)
+               for k, v in kw.items()}
+        spec, *ops = cw.prepare(xn, w, kwn["stride"], kwn.get("plan"),
+                                "depthwise", kwn.get("bias"),
+                                kwn["epilogue"], kwn["groups"],
+                                kwn.get("residual"), kwn.get("scale"),
+                                kwn.get("shift"))
+        for tq in cw.dw_tq_choices(spec):
+            before = cw.launch_counts()[name]
+            got = cw._finish(spec, cw.launch_dw(spec, *ops, tq=tq))
+            torch.cuda.synchronize()
+            check(cw.launch_counts()[name] == before + 1,
+                  f"{name} did not launch")
+            ref = outs.setdefault(n, got)
+            check(torch.equal(got, ref), f"{name} {what} b{n}: strip {tq} "
+                  "is not bitwise the other strips")
+            if n == x.shape[0] and reps:
+                ms[tq] = time_graph_ms(
+                    torch, lambda: cw.launch_dw(spec, *ops, tq=tq), reps)
+        if n == x.shape[0]:
+            picked = cw.dw_geometry(spec, n, cw._sm_count(dev), x.dtype).tq
+    check(torch.equal(outs[x.shape[0]][:1], outs[1]),
+          f"{name} {what}: batch 1 is not bitwise the batch's first image")
+    want = cw.conv2d_folded_plain(x, w, **kw)
+    got = outs[x.shape[0]]
+    if x.dtype == torch.bfloat16:
+        err = bf16_err(torch, got, want, f"{name} {what}")
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 0.0 if x.dtype == torch.int8 else \
+            TOL_KERNEL * max(1.0, want.abs().max().item())
+        check(got.shape == want.shape and err <= tol
+              and (x.dtype != torch.int8 or torch.equal(got, want)),
+              f"{name} {what} disagrees with its plain version "
+              f"(max abs err {err:.3e})")
+    return err, ms, picked
+
+
+def phase_dw_strips(torch, dev, dw_cases, dtype):
+    """The depthwise kernel in ``dtype`` at every strip (``dw_strips``) on
+    phase 2's depthwise geometries and on MobileNetV2's 17 depthwise
+    layers at 32, batch 4 and 1, each strip of the zoo layers timed
+    (device time): which strip ``dw_geometry`` picks beside the fastest.
+    Returns (max abs err, per-layer rows)."""
+    from repro_torch.core.mapping import ConvBlockPlan
+    from repro_torch.kernels import conv2d_ws as cw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    tag = str(dtype).split(".")[-1]
+    err, launches0 = 0.0, cw.launch_counts()[DW_NAMES[tag]]
+    for (n, c, h, w_, st, epi, c_b) in dw_cases:
+        plan = None if c_b is None else ConvBlockPlan(
+            nf_block=c_b, c_block=c_b, p_block=4, grid=(1, -(-c // c_b), 1),
+            vmem_bytes=0, groups=c)
+        x, w, kw = dw_operands(torch, gen, dev, dtype, n, c, h, w_, st, epi,
+                               plan)
+        err = max(err, dw_strips(torch, dev, cw, x, w, kw,
+                                 f"n={n} c={c} {h}x{w_} 3x3/s{st}")[0])
+    rows = []
+    for name, sched, cv, epi in model_layers("mobilenetv2", 32, 4):
+        if sched.dataflow != "depthwise":
+            continue
+        x, w, kw = dw_operands(torch, gen, dev, dtype, cv.n, cv.c, cv.x,
+                               cv.y, cv.stride, epi, sched.plan)
+        e, ms, picked = dw_strips(torch, dev, cw, x, w, kw, name, reps=10)
+        err = max(err, e)
+        rows.append({"layer": name, "c": cv.c, "h": cv.x,
+                     "stride": cv.stride, "picked": picked,
+                     "fastest": min(ms, key=ms.get), "ms": ms})
+    check(len(rows) == 17, "expected 17 depthwise layers in MobileNetV2")
+    picked = sum(r["ms"][r["picked"]] for r in rows)
+    best = sum(min(r["ms"].values()) for r in rows)
+    print(f"[dw strips] {tag}: every strip bitwise the others at the batch "
+          f"and at batch 1, within the plain version's rule "
+          f"({len(dw_cases)} geometries, 17 MobileNetV2 layers at b4 and b1, "
+          f"{cw.launch_counts()[DW_NAMES[tag]] - launches0} launches), max "
+          f"abs err {err:.3e}; ms a strip (TQ), b4: "
+          + ", ".join(f"{r['layer']} " + "/".join(
+              f"{t}:{v:.4f}" for t, v in r["ms"].items())
+              + f" (picked {r['picked']})" for r in rows)
+          + f"; picked sum {picked:.4f} ms, fastest sum {best:.4f}")
+    return err, rows
 
 
 def grouped_cases():
@@ -3335,7 +3487,13 @@ def main() -> int:
 
     report["env"] = phase_environment(torch)
     errs, cases, dw_cases = phase_kernels(torch, dev)
+    dw_err, report["dw_strips_fp32"] = phase_dw_strips(torch, dev, dw_cases,
+                                                       torch.float32)
+    errs["fold_conv_dw"] = max(errs["fold_conv_dw"], dw_err)
     errs.update(phase_int8_kernels(torch, dev, cases, dw_cases))
+    dw_err, report["dw_strips_int8"] = phase_dw_strips(torch, dev, dw_cases,
+                                                       torch.int8)
+    errs["fold_conv_dw_i8"] = max(errs["fold_conv_dw_i8"], dw_err)
 
     from repro_torch.kernels import conv2d_ws as cw
     from repro_torch.kernels import dense as dn
@@ -3467,6 +3625,9 @@ def main() -> int:
     bf = torch.bfloat16
     t_bf16 = time.perf_counter()
     errs.update(phase_bf16_kernels(torch, dev, cases, dw_cases))
+    dw_err, report["dw_strips_bf16"] = phase_dw_strips(torch, dev, dw_cases,
+                                                       bf)
+    errs["fold_conv_dw_bf16"] = max(errs["fold_conv_dw_bf16"], dw_err)
     for name, e in phase_bf16_tc_tiles(torch, dev).items():
         errs[name] = max(errs[name], e)
     errs["fold_conv_os_bf16"] = max(errs["fold_conv_os_bf16"],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the bf16 output-stationary fold kernel and the bf16
-head of one checkout of the port, and of the bf16 forwards that run them,
-for a same-card A/B.
+"""Device times of the depthwise fold kernel (fp32, int8, bf16), the bf16
+output-stationary fold kernel and the bf16 head of one checkout of the
+port, and of the bf16 forwards that run them, for a same-card A/B.
 
     python3 kernel_ab.py ROOT LABEL [--runs 2]
 
@@ -21,6 +21,11 @@ timers and shapes:
                                      batch 1 and 4, summed
     KAB LABEL fwd_<model>_b4 MS      the bf16 forward at 32, batch 4,
                                      jitted (one CUDA-graph replay)
+    KAB LABEL dw_<fp32|int8|bf16>_mobilenetv2 MS
+                                     MobileNetV2's 17 depthwise layers at
+                                     32, batch 4, summed (device time of
+                                     the bare launches, the geometry the
+                                     checkout picks)
 
 Run the two checkouts in turns (parent, change, change, parent) in one
 call on one card; each process needs the card.
@@ -32,6 +37,24 @@ import pathlib
 import sys
 
 import chip_smoke as cs
+
+
+def dw_ms(torch, dev, cw, layers, dtype, reps=10):
+    """The depthwise launches of ``layers`` in ``dtype`` on prepared
+    operands, device ms summed; only the wrapper's API that every checkout
+    has (``prepare``, the dataflow's launcher)."""
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 60)
+    total = 0.0
+    for _, sched, cv, epi in layers:
+        x, w, kw = cs.dw_operands(torch, gen, dev, dtype, cv.n, cv.c, cv.x,
+                                  cv.y, cv.stride, epi, sched.plan)
+        spec, *ops = cw.prepare(x, w, cv.stride, sched.plan, "depthwise",
+                                kw.get("bias"), kw["epilogue"], cv.groups,
+                                kw.get("residual"), kw.get("scale"),
+                                kw.get("shift"))
+        launch = cw.LAUNCHERS["depthwise"]
+        total += cs.time_graph_ms(torch, lambda: launch(spec, *ops), reps)
+    return total
 
 
 def main() -> int:
@@ -61,7 +84,15 @@ def main() -> int:
         x = torch.randn(4, 3, 32, 32, device=dev, generator=gen).to(bf)
         nets[m] = (module.compile_forward(params, img=32, batch=4,
                                           device=dev), params, x)
+    from repro_torch.kernels import conv2d_ws as cw
+    dw_layers = [r for r in cs.model_layers("mobilenetv2", 32, 4)
+                 if r[1].dataflow == "depthwise"]
     for _ in range(args.runs):
+        for tag, dt in (("fp32", torch.float32), ("int8", torch.int8),
+                        ("bf16", bf)):
+            ms = dw_ms(torch, dev, cw, dw_layers, dt)
+            print(f"KAB {args.label} dw_{tag}_mobilenetv2 {ms:.4f}",
+                  flush=True)
         for m, rows in layers.items():
             ms = sum(r["ms"] for r in cs.time_model_layers(
                 torch, dev, rows, 10, dtype=bf))

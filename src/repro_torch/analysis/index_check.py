@@ -54,7 +54,22 @@ derives it:
                       not cover the group's depth exactly
 
 with the tile's shared memory proven by ``plan_check``'s residency rule
-(``plan.smem-overflow``).
+(``plan.smem-overflow``).  A depthwise launch has no CTA tile but a thread
+geometry (``kernels/conv2d_ws.py:dw_geometry``, the mirror of
+``launch_dw`` in ``csrc/fold_conv.cuh``: TQ outputs along Q a thread,
+ROWS x CHANS a CTA), proven the same way, thread by thread of a CTA:
+
+  dw.shape            the strip is not one the kernel has for the launch
+                      (``dw_tq_choices``; none fits is the same finding),
+                      or the geometry's strips, threads, grid or pair
+                      loads disagree with the launch
+  dw.cta-threads      a CTA has more threads than ``DW_THREADS``, more
+                      rows or channels than the launch (or than
+                      ``DW_MAX_CHANS``), or a grid axis past the card's
+                      limit
+  dw.coverage         the threads do not cover every output (image,
+                      channel, row, column) of the launch exactly once
+  dw.pool-split       a 2x2 pool window spans two threads' strips
 """
 from __future__ import annotations
 
@@ -66,12 +81,16 @@ import torch
 
 from repro_torch.analysis.plan_check import check_tile_residency
 from repro_torch.analysis.report import Report
-from repro_torch.kernels.conv2d_ws import (FoldKernelSpec, FoldTile,
-                                           OperandSpec, fold_tile,
+from repro_torch.kernels.conv2d_ws import (DW_MAX_CHANS, DW_THREADS,
+                                           DwGeometry,
+                                           FoldKernelSpec, FoldTile,
+                                           OperandSpec, dw_geometry,
+                                           dw_tq_choices, fold_tile,
                                            tile_core, tile_count, tile_shape,
                                            tile_smem)
 
-__all__ = ["check_kernel_spec", "check_launch_tile", "MAX_POINTS"]
+__all__ = ["check_kernel_spec", "check_launch_tile", "check_dw_geometry",
+           "MAX_POINTS"]
 
 # full enumeration cap; past it each grid axis is sampled at its
 # boundary/middle strata (races found in a sample are still real — only
@@ -233,6 +252,78 @@ def _ranges_cover(ranges, extent: int) -> Tuple[int, int]:
     return missed + extent - cur, twice
 
 
+def check_dw_geometry(spec: FoldKernelSpec, n: int, geom: DwGeometry,
+                      where: str = "kernel") -> Report:
+    """Prove one depthwise launch's thread geometry as ``dw_kernel``
+    decodes it: thread (x, y, z) of CTA (bx, by, bz), a CTA of (strips,
+    rows, chans) threads, ``t`` = x + strips * (y + rows * z) in all,
+    owns strip x (columns x*tq .. +tq, clipped at the row's ``qlim``
+    pre-pool columns) of output row ``bx*rows + y`` (a pooled row: both
+    pre-pool rows) of channel ``by*chans + z`` of image ``bz``, and idles
+    past the launch's rows or channels."""
+    rep = Report()
+    loc = f"{where}:dw"
+    pool = spec.epilogue.pool == "max2"
+    span = 2 if pool else 1
+    po, qlim = spec.p_pad // span, spec.q // span * span
+    choices = dw_tq_choices(spec)
+    yp = spec.inputs[0].array_shape[3]
+    if geom.tq not in choices:
+        rep.add("dw.shape", loc,
+                f"a strip of {geom.tq} outputs, but the kernel has "
+                f"{choices or 'no strip'} for this launch (pool {pool}, "
+                f"{qlim} columns a row)")
+        if geom.tq < 1:
+            return rep
+    if not (1 <= geom.threads <= DW_THREADS and 1 <= geom.rows <= po
+            and 1 <= geom.chans <= min(spec.c, DW_MAX_CHANS)
+            and geom.grid[1] <= 65535 and geom.grid[2] <= 65535):
+        rep.add("dw.cta-threads", loc,
+                f"{geom.chans} channels x {geom.rows} rows x {geom.strips} "
+                f"strips = {geom.threads} threads a CTA (at most "
+                f"{DW_THREADS}, {DW_MAX_CHANS} channels; the launch has "
+                f"{po} rows, {spec.c} channels), grid {geom.grid}")
+        return rep
+    # one CTA's threads: each (channel, row, strip) slot decoded by exactly
+    # one of them
+    owned = {(t // (geom.strips * geom.rows), t // geom.strips % geom.rows,
+              t % geom.strips) for t in range(geom.threads)}
+    missed = geom.chans * geom.rows * geom.strips - len(owned)
+    if missed:
+        rep.add("dw.coverage", loc,
+                f"{missed} (channel, row, strip) slots of a CTA owned by no "
+                f"thread ({geom.threads} threads)")
+    # the grid: every image, row and channel in exactly one CTA, every
+    # column in exactly one strip
+    for what, ranges, extent in (
+            ("images", [(z, z + 1) for z in range(geom.grid[2])], n),
+            ("rows", [(b * geom.rows, (b + 1) * geom.rows)
+                      for b in range(geom.grid[0])], po),
+            ("channels", [(b * geom.chans, (b + 1) * geom.chans)
+                          for b in range(geom.grid[1])], spec.c),
+            ("columns", [(k * geom.tq, (k + 1) * geom.tq)
+                         for k in range(geom.strips)], qlim)):
+        lost, twice = _ranges_cover(ranges, extent)
+        if lost or twice:
+            rep.add("dw.coverage", loc,
+                    f"{len(ranges)} blocks of the launch's {extent} "
+                    f"{what}: {lost} covered by no thread, {twice} by two")
+    if pool and (geom.tq % 2 or qlim % 2):
+        rep.add("dw.pool-split", loc,
+                f"strips of {geom.tq} columns over {qlim}: a 2x2 window's "
+                f"two columns fall in two threads")
+    # what the kernel derives from the strip, rows and channels it is given
+    want = (-(-qlim // geom.tq), geom.chans * geom.rows * geom.strips,
+            (-(-po // geom.rows), -(-spec.c // geom.chans), n), yp % 2 == 0)
+    got = (geom.strips, geom.threads, tuple(geom.grid), geom.pairs)
+    if got != want:
+        rep.add("dw.shape", loc,
+                f"(strips, threads, grid, pairs) = {got}, but strips of "
+                f"{geom.tq} over {qlim} columns, {geom.chans} x {geom.rows} "
+                f"strip rows a CTA and rows of {yp} elements give {want}")
+    return rep
+
+
 def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
                       where: str = "kernel",
                       tile: Optional[FoldTile] = None,
@@ -249,10 +340,17 @@ def check_launch_tile(spec: FoldKernelSpec, n: int, sm_count: int,
     finding), every output pixel and every filter of the launch falls in
     exactly one CTA tile, no filter tile straddles a group, and psum's
     depth folds cover the depth exactly.  A depthwise launch has no CTA
-    tile: nothing to prove."""
+    tile: its thread geometry (``dw_geometry``'s pick, or ``tile``, a
+    ``DwGeometry``) is proven by ``check_dw_geometry``."""
     rep = Report()
     if spec.dataflow == "depthwise":
-        return rep
+        if tile is None:
+            try:
+                tile = dw_geometry(spec, n, sm_count, dtype)
+            except ValueError as e:
+                rep.add("dw.shape", f"{where}:dw", str(e))
+                return rep
+        return check_dw_geometry(spec, n, tile, where)
     if tile is None:
         try:
             tile = fold_tile(spec, n, sm_count, dtype=dtype)

@@ -62,7 +62,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                        for k in ("ws", "os", "dw"))
         ws.argtypes = [ptr] * 6 + geom + [i32, i32, ptr]   # tile, m_per_cta
         os_.argtypes = [ptr] * 5 + geom + [i32, ptr]       # tile
-        dw.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
+        # n .. epi, then tq, rows, chans, pairs (dw_geometry)
+        dw.argtypes = [ptr] * 5 + [i32] * 15 + [ptr]
         ws.restype = os_.restype = dw.restype = i32
     # n .. p_pad, then c_block, the tile, the M tiles one CTA walks
     for psum in (lib.fold_conv_psum, lib.fold_conv_psum_bf16):

@@ -109,7 +109,9 @@ __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "launch_counts", "reset_launch_counts", "prepare", "FoldTile",
            "fold_tile", "tile_candidates", "tile_cycles", "TILES",
            "TC_TILES", "tile_core", "tile_count", "tile_shape",
-           "tile_chunk", "tile_smem"]
+           "tile_chunk", "tile_smem", "DwGeometry", "dw_geometry",
+           "dw_tq_choices", "DW_THREADS", "DW_MAX_CHANS", "DW_TQS",
+           "DW_POOL_TQS", "DW_WARPS_PER_SM"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
 
@@ -693,13 +695,21 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # gather (one 4-byte load per tap and pixel) and, on the smallest layers,
 # too few outputs to fill the card: nothing splits K (PERF.md).
 #
-# The depthwise kernel is bound by bytes instead: 2*R*S flops per output
-# element (18 at 3x3) against the 4 bytes it writes and about as many it
-# reads, far below the ridge, so its instructions per output are what to
-# keep down: a CTA owns (image, channels, rows), a thread 4 consecutive
-# outputs along Q (``DW_TQ`` in ``csrc/fold_conv.cuh``) with its channel's
-# weights in registers, each input row's window its outputs share loaded
-# once, and its indices come from the block and thread ids in 32 bits.
+# The depthwise kernel's bound is bytes instead: 2*R*S flops per output
+# element (18 at 3x3) against the bytes it writes and about as many it
+# reads, far below the ridge.  But the zoo's depthwise layers move 0.1-2 MB
+# each, a fraction of a microsecond at the card's rate, so what binds them
+# is the launch and the memory round trips a thread waits on, and on the
+# small planes (8x8, 4x4) too few threads to fill the card.  So a CTA owns
+# (image, channels, rows), a thread TQ consecutive outputs along Q with
+# TQ picked per launch (``dw_geometry``: narrow strips where the plane is
+# small, so every SM has warps; wide ones where it is large, so fewer
+# loads and instructions an output), and each thread's source issues every
+# load it needs (weights, its channel's vector, residual, the window of
+# each input row its outputs share) before its first multiply-add, the
+# window two elements a load and its outputs stored as one word where
+# aligned.  Its channel, row and strip are its thread index's three axes
+# (no division), its offsets 32-bit.
 #
 # The int8 instances (``*_i8``) run the same tile core on int32 IMAD: the
 # operands are widened to int32 as they are staged, so their sums are
@@ -740,6 +750,18 @@ def _plain_dw_walk(spec: "FoldKernelSpec", xp: torch.Tensor,
 # cores.
 
 SMEM_LIMIT = 232_448    # dynamic shared memory one CTA may use on sm_90
+# The depthwise launch (``csrc/fold_conv.cuh``: dw_kernel): threads a CTA
+# at most, the outputs along Q a thread may own (the kernel's TQ
+# instances; the fused pool takes 2 or 4, so each 2x2 window stays in one
+# thread), and the warps an SM a strip must leave the launch for
+# ``dw_geometry`` to pick it (PERF.md: on the zoo's 17 layers at batch 1, 4
+# and 8, wider strips with fewer warps ran slower; a strip of 1 was no
+# faster than one of 2 beyond the timings' spread, so the kernel has none)
+DW_THREADS = 128
+DW_MAX_CHANS = 64       # a CTA's channels are its z axis: the card's limit
+DW_TQS = (2, 4, 8)
+DW_POOL_TQS = (2, 4)
+DW_WARPS_PER_SM = 12
 SMEM_PER_SM = 233_472   # shared memory of one SM that CTAs may take
 # taps per K chunk, chunks of the OS weights copied ahead (BK, PB in
 # csrc/fold_conv.cuh); the input's ring has two stages
@@ -1033,6 +1055,85 @@ def _pick(*key) -> Optional[FoldTile]:
 
 
 
+@dataclasses.dataclass(frozen=True)
+class DwGeometry:
+    """The thread and CTA geometry of one depthwise launch, as the kernel
+    runs it (``launch_dw`` in ``csrc/fold_conv.cuh``).
+
+    A thread owns ``tq`` consecutive outputs along Q of one output row (of
+    one pooled row, both pre-pool rows, where the pool is fused): each
+    row's ``qlim`` pre-pool columns are ``strips`` threads.  A CTA of
+    (``strips``, ``rows``, ``chans``) threads, ``threads`` in all, owns
+    ``rows`` output rows of ``chans`` channels of one image; the grid is
+    (row blocks, channel blocks, images).  ``pairs``: the input rows start
+    on a two-element boundary (``yp`` even), so the window loads two
+    elements at a time.  ``warps_per_sm``: the launch's threads in warps
+    over the card's SMs."""
+    tq: int
+    strips: int
+    rows: int
+    chans: int
+    threads: int
+    grid: Tuple[int, int, int]
+    pairs: bool
+    warps_per_sm: float
+
+
+def dw_tq_choices(spec: "FoldKernelSpec") -> Tuple[int, ...]:
+    """The outputs along Q a depthwise thread may own at this launch: the
+    kernel's ``DW_TQS`` (``DW_POOL_TQS`` where the pool is fused) whose
+    strips of a row fit one CTA."""
+    pool = spec.epilogue.pool == "max2"
+    qlim = spec.q // 2 * 2 if pool else spec.q
+    return tuple(t for t in (DW_POOL_TQS if pool else DW_TQS)
+                 if -(-qlim // t) <= DW_THREADS)
+
+
+def dw_geometry(spec: "FoldKernelSpec", n: int, sm_count: int,
+                dtype: torch.dtype = torch.float32,
+                tq: Optional[int] = None) -> DwGeometry:
+    """Pick the geometry of a depthwise launch on ``dtype`` operands at
+    batch ``n`` on ``sm_count`` SMs: the widest strip (``tq``) that still
+    puts ``DW_WARPS_PER_SM`` warps on every SM (TQ 4 on MobileNetV2's
+    32x32 layer of 96 channels at batch 4), else the narrowest (the small
+    planes); whole rows of strips in one CTA of up to ``DW_THREADS``
+    threads, a few channels' planes where a plane has fewer.  With
+    ``tq``, that strip.  Raises where no strip (or not that one) fits: a
+    row wider than ``DW_THREADS`` threads of the widest.  A pure function
+    of the launch spec, the batch and the SM count: the pick is the same
+    for every operand type (``dtype`` is the launch's, as ``fold_tile``
+    takes it)."""
+    del dtype
+    pool = spec.epilogue.pool == "max2"
+    span = 2 if pool else 1
+    po, qlim = spec.p_pad // span, spec.q // span * span
+    choices = dw_tq_choices(spec)
+
+    def warps(t: int) -> float:
+        return n * spec.c * po * -(-qlim // t) / 32 / sm_count
+
+    if tq is None:
+        tq = next((t for t in sorted(choices, reverse=True)
+                   if warps(t) >= DW_WARPS_PER_SM), min(choices, default=0))
+    if tq not in choices:
+        raise ValueError(
+            f"no depthwise strip of {tq or 'any'} outputs fits this launch: "
+            f"{qlim} columns a row, {DW_THREADS} threads a CTA, strips of "
+            f"{choices or DW_TQS}")
+    strips = -(-qlim // tq)
+    per_chan = po * strips
+    if per_chan >= DW_THREADS:
+        chans, rows = 1, DW_THREADS // strips
+    else:
+        rows = po
+        chans = max(1, min(spec.c, DW_THREADS // per_chan, DW_MAX_CHANS))
+    return DwGeometry(tq=tq, strips=strips, rows=rows, chans=chans,
+                      threads=chans * rows * strips,
+                      grid=(-(-po // rows), -(-spec.c // chans), n),
+                      pairs=spec.inputs[0].array_shape[3] % 2 == 0,
+                      warps_per_sm=warps(tq))
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -1138,24 +1239,28 @@ def launch_os(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
 
 
 def launch_dw(spec: "FoldKernelSpec", xp: torch.Tensor, wp: torch.Tensor,
-              vec: torch.Tensor, res: Optional[torch.Tensor]
-              ) -> torch.Tensor:
-    """Launch the depthwise kernel on padded CUDA operands.  Only the
-    layer's own C channels are computed: the output's channels past C
-    (``c_pad``) are left unwritten and sliced away by the caller.  The
-    entry refuses (``RuntimeError``) an output row wider than 512 columns
-    (128 threads of ``DW_TQ`` = 4): one CTA holds a whole row."""
+              vec: torch.Tensor, res: Optional[torch.Tensor],
+              tq: Optional[int] = None) -> torch.Tensor:
+    """Launch the depthwise kernel on padded CUDA operands, with the
+    geometry ``dw_geometry`` picks (or its strip of ``tq`` outputs a
+    thread).  Only the layer's own C channels are computed: the output's
+    channels past C (``c_pad``) are left unwritten and sliced away by the
+    caller.  Raises (``ValueError``) where no strip fits: an output row
+    wider than ``DW_THREADS`` threads of the widest strip."""
     from repro_torch.kernels import build
     _check_cuda_operands(xp, wp, vec, res)
-    name = _entry("fold_conv_dw", xp)
+    n, name = xp.shape[0], _entry("fold_conv_dw", xp)
+    geom = dw_geometry(spec, n, _sm_count(xp.device), xp.dtype, tq)
     out = torch.empty(spec.output.array_shape, device=xp.device,
                       dtype=_out_type(xp))
+    # two-element loads need the rows on that boundary and x aligned to it
+    pairs = geom.pairs and xp.data_ptr() % (2 * xp.element_size()) == 0
     lib = build.library()
     err = getattr(lib, name)(
-        _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out),
-        xp.shape[0], spec.c, spec.c_pad, spec.x_rows,
-        spec.inputs[0].array_shape[3], spec.r, spec.s, spec.stride, spec.q,
-        spec.p_pad, _epi_flags(spec.epilogue),
+        _ptr(xp), _ptr(wp), _ptr(vec), _ptr(res), _ptr(out), n, spec.c,
+        spec.c_pad, spec.x_rows, spec.inputs[0].array_shape[3], spec.r,
+        spec.s, spec.stride, spec.q, spec.p_pad, _epi_flags(spec.epilogue),
+        geom.tq, geom.rows, geom.chans, int(pairs),
         torch.cuda.current_stream(xp.device).cuda_stream)
     build.raise_on_error(lib, err, name)
     _LAUNCHES[name] += 1

@@ -59,20 +59,29 @@ int fold_conv_os_i8(const void* x, const void* w, const void* vec,
                                   g, stream);
 }
 
+// The depthwise entries: the operands, then n, c, c_pad, x_rows, yp, r, s,
+// stride, q, p_pad, epi and the geometry dw_geometry picks: the outputs a
+// thread owns along Q, the output rows and channels a CTA, and whether the
+// window loads two elements at a time.
+
 int fold_conv_dw(const void* x, const void* w, const void* vec,
                  const void* res, void* out, int n, int c, int c_pad,
                  int x_rows, int yp, int r, int s, int stride, int q,
-                 int p_pad, int epi, void* stream) {
+                 int p_pad, int epi, int tq, int rows, int chans,
+                 int pairs, void* stream) {
   return launch_dw<float, float>(x, w, vec, res, out, n, c, c_pad, x_rows,
-                                 yp, r, s, stride, q, p_pad, epi, stream);
+                                 yp, r, s, stride, q, p_pad, epi, tq, rows,
+                                 chans, pairs, stream);
 }
 
 int fold_conv_dw_i8(const void* x, const void* w, const void* vec,
                     const void* res, void* out, int n, int c, int c_pad,
                     int x_rows, int yp, int r, int s, int stride, int q,
-                    int p_pad, int epi, void* stream) {
+                    int p_pad, int epi, int tq, int rows, int chans,
+                    int pairs, void* stream) {
   return launch_dw<int8_t, int>(x, w, vec, res, out, n, c, c_pad, x_rows,
-                                yp, r, s, stride, q, p_pad, epi, stream);
+                                yp, r, s, stride, q, p_pad, epi, tq, rows,
+                                chans, pairs, stream);
 }
 
 // n .. p_pad as above, then c_b, the tile and the M tiles one CTA walks

@@ -40,10 +40,11 @@
 //
 // bf16 depthwise (fold_conv_dw_bf16; the JAX kernel with bf16 operands,
 // which it widens to fp32): T = __nv_bfloat16, A = float.  Each bf16 value
-// is widened to fp32 where it is loaded (the depthwise window), so the
-// FMAs and the epilogue are the fp32 instance's, and each output is
-// rounded once to bf16 at its store (put).  This core has no bf16 WS, OS
-// or psum instance: those run on the tensor cores (fold_conv_tc.cuh).
+// is widened to fp32 where it is loaded (the window, two values a 4-byte
+// load), so the FMAs and the epilogue are the fp32 instance's, and each
+// output is rounded once to bf16 at its store (a thread's outputs in one
+// word where aligned).  This core has no bf16 WS, OS or psum instance:
+// those run on the tensor cores (fold_conv_tc.cuh).
 //
 // The WS, OS and psum kernels (ws_kernel, os_kernel, psum_kernel; they replace
 // _ws_kernel and _os_kernel, fp32 and int8, and _ws_psum_kernel in fp32)
@@ -95,10 +96,11 @@
 // of K across threads or CTAs, no atomics.  So a conv trunk gives the same
 // bits at every batch width, and in fp32 and int8 the two dataflows give
 // the same bits (as bf16 WS and OS do, each output a chain of 16-tap MMA
-// steps in fold_conv_tc.cuh).  The depthwise kernel is bound by bytes;
-// a thread owns DW_TQ outputs along Q, loads the input window they share
-// once per row, and sums each output's R*S taps, R then S (dw_kernel
-// below).
+// steps in fold_conv_tc.cuh).  The depthwise kernel's bound is bytes, but
+// a launch and a thread's memory round trips are what bind it: a thread
+// owns TQ outputs along Q (TQ picked per launch), issues every load before
+// its first multiply-add, and sums each output's R*S taps, R then S
+// (dw_kernel below).
 
 #pragma once
 
@@ -110,8 +112,7 @@
 
 namespace {
 
-constexpr int DW_THREADS = 128;     // threads of a depthwise CTA
-constexpr int DW_TQ = 4;            // outputs along Q a depthwise thread owns
+constexpr int DW_THREADS = 128;     // threads of a depthwise CTA at most
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory of one CTA
 constexpr int BK = 32;               // taps per K chunk of the tile core
 constexpr int PB = 8;                // OS weight chunks copied ahead
@@ -126,21 +127,29 @@ constexpr int EPI_RELU = 8;
 constexpr int EPI_RELU6 = 16;
 constexpr int EPI_POOL = 32;
 
-// _flush_value on one finished sum of filter f: bias -> scale/shift ->
-// residual -> ReLU or ReLU6.  Each step is rounded on its own: __fmul_rn /
-// __fadd_rn keep nvcc from contracting v*scale + shift into one fmaf, so a
-// fused layer gives the bits of the same steps run as separate torch ops.
-__device__ __forceinline__ float epilogue(float v,
-                                          const float* __restrict__ vec,
-                                          int f, int epi, float res) {
-  if (epi & EPI_BIAS) v = __fadd_rn(v, vec[3 * f]);
-  if (epi & EPI_SCALE) {
-    v = __fadd_rn(__fmul_rn(v, vec[3 * f + 1]), vec[3 * f + 2]);
-  }
+// _flush_value on one finished sum: bias -> scale/shift -> residual -> ReLU
+// or ReLU6.  Each step is rounded on its own: __fmul_rn / __fadd_rn keep
+// nvcc from contracting v*scale + shift into one fmaf, so a fused layer
+// gives the bits of the same steps run as separate torch ops.
+__device__ __forceinline__ float epilogue(float v, float bias, float scale,
+                                          float shift, int epi, float res) {
+  if (epi & EPI_BIAS) v = __fadd_rn(v, bias);
+  if (epi & EPI_SCALE) v = __fadd_rn(__fmul_rn(v, scale), shift);
   if (epi & EPI_RESIDUAL) v = __fadd_rn(v, res);
   if (epi & EPI_RELU) v = v < 0.f ? 0.f : v;
   if (epi & EPI_RELU6) v = fminf(fmaxf(v, 0.f), 6.f);
   return v;
+}
+
+// The same for filter f, its bias, scale and shift read from the vector
+// block as the steps need them
+__device__ __forceinline__ float epilogue(float v,
+                                          const float* __restrict__ vec,
+                                          int f, int epi, float res) {
+  const float* p = vec + 3 * f;
+  const bool scaled = epi & EPI_SCALE;
+  return epilogue(v, epi & EPI_BIAS ? p[0] : 0.f, scaled ? p[1] : 0.f,
+                  scaled ? p[2] : 0.f, epi, res);
 }
 
 // The arithmetic that differs between the fp32 and the int8 instances
@@ -776,34 +785,151 @@ int launch_fold(int tile, int kind, const void* x, const void* w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The depthwise kernel
+// ---------------------------------------------------------------------------
+
 struct DwGeom {
   int n, c, c_pad, x_rows, yp;
   int r, s, stride;
   int q, p_pad;
   int epi;
-  int strips;  // thread strips per output row
-  int rows;    // output rows per CTA (pooled rows where the pool is fused)
-  int chans;   // channels per CTA
 };
 
-// Depthwise (replaces _dw_kernel): grid (row strips, channel blocks,
-// images), a CTA owning CHANS channels x ROWS output rows of one image.  A
-// thread owns DW_TQ consecutive outputs along Q of one row (and the row
-// below it where the pool is fused, so each 2x2 window is finished in one
-// thread), with its channel's R*S weights in registers.  Per input row it
-// loads the window of (DW_TQ - 1) * stride + S values its outputs share
-// once, into registers, and runs its outputs' taps from there: at 3x3,
-// stride 1, 6 loads for 12 multiply-adds, against 2 loads per
-// multiply-add for one thread per output.  All index arithmetic is
-// 32-bit, from blockIdx and threadIdx (the wrapper keeps every offset
-// below 2^31).
+// blockDim.z of a depthwise CTA at most (the card's limit)
+constexpr int DW_MAX_CHANS = 64;
+
+// Keep a loaded value where it was loaded: the front end may not sink the
+// load below this point, into a branch of the epilogue
+__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)); }
+__device__ __forceinline__ void pin(int& v) { asm volatile("" : "+r"(v)); }
+
+// Two neighbouring elements at an even element offset in one load (8
+// bytes of fp32, 4 of bf16, 2 of int8), widened as ldg_wide widens
+__device__ __forceinline__ void ldg_pair(const float* p, float& a, float& b) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void ldg_pair(const int8_t* p, int& a, int& b) {
+  const char2 v = __ldg(reinterpret_cast<const char2*>(p));
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void ldg_pair(const __nv_bfloat16* p, float& a,
+                                         float& b) {
+  const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+  a = __uint_as_float(v << 16);
+  b = __uint_as_float(v & 0xffff0000u);
+}
+
+// WIN values of one input row from column col0 on, widened; a column at yp
+// or past it reads 0 (only outputs past the row's end take it).  PAIRS:
+// two elements a load (the wrapper passes it where yp is even and x is
+// aligned, so every row starts on a two-element boundary; col0, a multiple
+// of the even TQ, is even).
+template <int WIN, bool PAIRS, typename T, typename A>
+__device__ __forceinline__ void load_row(A (&win)[WIN], const T* row,
+                                         int col0, int yp) {
+  if constexpr (PAIRS) {
+    A raw[WIN + 1];
+#pragma unroll
+    for (int i = 0; i < WIN; i += 2) {
+      raw[i] = raw[i + 1] = A(0);
+      if (col0 + i < yp) ldg_pair(row + col0 + i, raw[i], raw[i + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < WIN; ++i) win[i] = raw[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < WIN; ++i) {
+      const int col = col0 + i;
+      win[i] = col < yp ? ldg_wide(row + col) : A(0);
+    }
+  }
+}
+
+// L consecutive outputs from p on as 16-, 8- or 4-byte words (each bf16
+// rounded once, as put rounds it), where all L are real and p is aligned
+// to the run (up to 16 bytes); else one put each for the first `valid`
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+template <int L>
+__device__ __forceinline__ void put_words(float* p, const float (&v)[L]) {
+  if constexpr (L == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; j += 4) {
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    }
+  }
+}
+template <int L>
+__device__ __forceinline__ void put_words(__nv_bfloat16* p,
+                                          const float (&v)[L]) {
+  unsigned u[L / 2];
+#pragma unroll
+  for (int k = 0; k < L / 2; ++k) {
+    u[k] = bf16_bits(v[2 * k]) | (bf16_bits(v[2 * k + 1]) << 16);
+  }
+  if constexpr (L == 2) {
+    *reinterpret_cast<unsigned*>(p) = u[0];
+  } else if constexpr (L == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+}
+template <int L, typename O>
+__device__ __forceinline__ void put_run(O* p, const float (&v)[L],
+                                        int valid) {
+  constexpr size_t WORD = L * sizeof(O) < 16 ? L * sizeof(O) : 16;
+  if constexpr (L >= 2) {
+    if (valid >= L && reinterpret_cast<uintptr_t>(p) % WORD == 0) {
+      put_words<L>(p, v);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (j < valid) put(p + j, v[j]);
+  }
+}
+
+// Depthwise (replaces _dw_kernel): grid (row blocks, channel blocks,
+// images), a CTA of (strips, ROWS, CHANS) threads owning CHANS channels x
+// ROWS output rows of one image, thread (x, y, z) TQ consecutive outputs
+// along Q of one row (and the row below it where the pool is fused, so
+// each 2x2 window is finished in one thread; the pool takes TQ 2 or 4).  The wrapper picks TQ, ROWS and CHANS per
+// launch (conv2d_ws.py: dw_geometry) so that the small planes put enough
+// warps on every SM and the large ones keep wide strips; launch_dw checks
+// them again.  What binds it is not bytes (the zoo's layers move 0.1-2 MB)
+// but a launch and the memory round trips a thread waits on, so a thread
+// aims at one: its source issues every load it needs (its channel's R*S
+// weights, the channel's bias, scale and shift, the residual of its
+// outputs, and the window of (TQ - 1) * stride + S columns of each input
+// row its outputs read, shared by its outputs and by both rows of a pool
+// window) before its first multiply-add, each value pinned where it is
+// loaded so that none sinks into a branch of the epilogue (ptxas still
+// moves a few loads past the first FFMAs in some instances; a fence that
+// stops it made the forward slower: PERF.md), the window two elements a
+// load where the rows allow (PAIRS), and it stores its outputs as one 4-
+// to 16-byte word where alignment allows.  Its channel, row and strip are
+// its thread index's three axes, so no division stands between its start
+// and its loads; all index arithmetic is 32-bit (the wrapper keeps every
+// offset below 2^31).
 // Each output's sum runs R then S from 0, one fmaf (integer multiply-add)
-// per tap, and the epilogue flushes at once: there is no depth fold.
+// per tap, and the epilogue flushes at once: there is no depth fold, and
+// neither TQ nor the CTA's shape nor the batch changes a bit.
 // Channels C..C_pad-1 of the output are padding and are not written.
 // KR, KS, ST fix the taps and the stride at compile time (3x3, stride 1
 // or 2: every depthwise layer of the zoo); KR = 0 takes them from g and
-// reads each tap from the read-only cache instead of a register window.
-template <typename T, typename A, typename O, int KR, int KS, int ST>
+// reads each tap from the read-only cache as it sums.
+template <typename T, typename A, typename O, int KR, int KS, int ST, int TQ,
+          bool PAIRS>
 __global__ void __launch_bounds__(DW_THREADS)
 dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
           const float* __restrict__ vec, const O* __restrict__ res,
@@ -812,107 +938,191 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int R = FIXED ? KR : g.r;
   const int S = FIXED ? KS : g.s;
   const int st = FIXED ? ST : g.stride;
-  const int strip = threadIdx.x % g.strips;
-  const int u = threadIdx.x / g.strips;
-  const int rl = u % g.rows;
-  const int cl = u / g.rows;
   const bool pool = g.epi & EPI_POOL;
   const int span = pool ? 2 : 1;
-  const int po = g.p_pad / span;
-  const int qo = g.q / span;
-  const int qlim = span * qo;  // pre-pool columns an output needs
-  const int op = blockIdx.x * g.rows + rl;
-  const int c = blockIdx.y * g.chans + cl;
-  if (cl >= g.chans || op >= po || c >= g.c) return;
+  const int po = g.p_pad >> pool;
+  const int qo = g.q >> pool;
+  const int qlim = qo << pool;  // pre-pool columns an output needs
+  const int op = blockIdx.x * blockDim.y + threadIdx.y;
+  const int c = blockIdx.y * blockDim.z + threadIdx.z;
+  if (op >= po || c >= g.c) return;
   const int plane = blockIdx.z * g.c_pad + c;
+  const int q0 = threadIdx.x * TQ;
+  const int nq = min(TQ, qlim - q0);  // the thread's real (pre-pool) columns
   const T* xc = x + plane * g.x_rows * g.yp;
   const T* wc = w + c * R * S;
-  const O* rp = (g.epi & EPI_RESIDUAL) ? res + plane * g.p_pad * g.q
-                                       : nullptr;
-  const int q0 = strip * DW_TQ;
-  A wr[FIXED ? KR * KS : 1];
-  if constexpr (FIXED) {
+
+  // -- the loads: the channel's vector, the residual of the thread's
+  // outputs, then (fixed taps) the weights and every input row's window
+  float bias = __ldg(vec + 3 * c);
+  float scale = __ldg(vec + 3 * c + 1);
+  float shift = __ldg(vec + 3 * c + 2);
+  pin(bias);
+  pin(scale);
+  pin(shift);
+  const bool residual = g.epi & EPI_RESIDUAL;
+  float rv[2][TQ];
 #pragma unroll
-    for (int k = 0; k < KR * KS; ++k) wr[k] = ldg_wide(wc + k);
+  for (int dp = 0; dp < 2; ++dp) {
+    const O* rp = res + (plane * g.p_pad + op * span + dp) * g.q + q0;
+#pragma unroll
+    for (int j = 0; j < TQ; ++j) {
+      rv[dp][j] = residual && dp < span && j < nq ? ldg_wide(rp + j) : 0.f;
+      pin(rv[dp][j]);
+    }
   }
-  float best[DW_TQ];
-  for (int dp = 0; dp < span; ++dp) {
-    const int p = op * span + dp;
-    A acc[DW_TQ];
+  float best[TQ];
+  if constexpr (FIXED) {
+    constexpr int WIN = (TQ - 1) * ST + KS;
+    // input rows: R, or ST + R for both rows of a pool window
+    constexpr int NR = TQ < 8 ? ST + KR : KR;
+    A wr[KR * KS];
 #pragma unroll
-    for (int j = 0; j < DW_TQ; ++j) acc[j] = A(0);
-    for (int r = 0; r < R; ++r) {
-      const T* row = xc + (p * st + r) * g.yp;
-      if constexpr (FIXED) {
-        constexpr int WIN = (DW_TQ - 1) * ST + KS;
-        A win[WIN];
+    for (int k = 0; k < KR * KS; ++k) {
+      wr[k] = ldg_wide(wc + k);
+      pin(wr[k]);
+    }
+    A win[NR][WIN];
+    const int nr = pool ? ST + KR : KR;
+    const T* row0 = xc + op * span * ST * g.yp;
 #pragma unroll
-        for (int i = 0; i < WIN; ++i) {
-          const int col = q0 * ST + i;
-          win[i] = col < g.yp ? ldg_wide(row + col) : A(0);
-        }
+    for (int i = 0; i < NR; ++i) {
+      if (i < nr) {
+        load_row<WIN, PAIRS>(win[i], row0 + i * g.yp, q0 * ST, g.yp);
 #pragma unroll
-        for (int j = 0; j < DW_TQ; ++j) {
-#pragma unroll
-          for (int s = 0; s < KS; ++s) {
-            acc[j] = mac(win[j * ST + s], wr[r * KS + s], acc[j]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < DW_TQ; ++j) {
-          if (q0 + j >= qlim) break;
-          for (int s = 0; s < S; ++s) {
-            acc[j] = mac(ldg_wide(row + (q0 + j) * st + s),
-                         ldg_wide(wc + r * S + s), acc[j]);
-          }
-        }
+        for (int k = 0; k < WIN; ++k) pin(win[i][k]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < DW_TQ; ++j) {
-      const int q = q0 + j;
-      const float v = q < qlim
-          ? epilogue(to_float(acc[j]), vec, c, g.epi,
-                     rp ? widen(rp[p * g.q + q]) : 0.f)
-          : 0.f;
-      best[j] = dp == 0 ? v : fmaxf(best[j], v);
+    for (int dp = 0; dp < 2; ++dp) {
+      if (dp < span) {
+        A acc[TQ];
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) acc[j] = A(0);
+#pragma unroll
+        for (int r = 0; r < KR; ++r) {
+#pragma unroll
+          for (int j = 0; j < TQ; ++j) {
+#pragma unroll
+            for (int s = 0; s < KS; ++s) {
+              acc[j] = mac(win[dp * ST + r][j * ST + s], wr[r * KS + s],
+                           acc[j]);
+            }
+          }
+        }
+        // every column's epilogue (put_run stores none past nq)
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) {
+          const float v = epilogue(to_float(acc[j]), bias, scale, shift,
+                                   g.epi, rv[dp][j]);
+          best[j] = dp == 0 ? v : fmaxf(best[j], v);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      if (dp < span) {
+        const int p = op * span + dp;
+        A acc[TQ];
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) acc[j] = A(0);
+        for (int r = 0; r < R; ++r) {
+          const T* row = xc + (p * st + r) * g.yp;
+#pragma unroll
+          for (int j = 0; j < TQ; ++j) {
+            if (j < nq) {
+              for (int s = 0; s < S; ++s) {
+                acc[j] = mac(ldg_wide(row + (q0 + j) * st + s),
+                             ldg_wide(wc + r * S + s), acc[j]);
+              }
+            }
+          }
+        }
+        // every column's epilogue (put_run stores none past nq)
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) {
+          const float v = epilogue(to_float(acc[j]), bias, scale, shift,
+                                   g.epi, rv[dp][j]);
+          best[j] = dp == 0 ? v : fmaxf(best[j], v);
+        }
+      }
     }
   }
   O* o = out + (plane * po + op) * qo;
   if (pool) {
+    float pv[TQ / 2];
 #pragma unroll
-    for (int j = 0; j < DW_TQ; j += 2) {
-      if (q0 + j < qlim) put(o + (q0 + j) / 2, fmaxf(best[j], best[j + 1]));
+    for (int k = 0; k < TQ / 2; ++k) {
+      pv[k] = fmaxf(best[2 * k], best[2 * k + 1]);
     }
+    put_run<TQ / 2>(o + q0 / 2, pv, nq / 2);
   } else {
-#pragma unroll
-    for (int j = 0; j < DW_TQ; ++j) {
-      if (q0 + j < qlim) put(o + q0 + j, best[j]);
-    }
+    put_run<TQ>(o + q0, best, nq);
   }
 }
 
+template <typename T, typename A, int KR, int KS, int ST, int TQ>
+void launch_dw_taps(bool pairs, dim3 grid, dim3 threads, cudaStream_t st,
+                    const T* x, const T* w, const float* vec,
+                    const typename OutOf<T>::type* res,
+                    typename OutOf<T>::type* out, const DwGeom& g) {
+  using O = typename OutOf<T>::type;
+  if constexpr (KR > 0) {
+    if (pairs) {
+      dw_kernel<T, A, O, KR, KS, ST, TQ, true><<<grid, threads, 0, st>>>(
+          x, w, vec, res, out, g);
+      return;
+    }
+  }
+  dw_kernel<T, A, O, KR, KS, ST, TQ, false><<<grid, threads, 0, st>>>(
+      x, w, vec, res, out, g);
+}
+
+template <typename T, typename A, int KR, int KS, int ST>
+void launch_dw_tq(int tq, bool pairs, dim3 grid, dim3 threads,
+                  cudaStream_t st, const T* x, const T* w, const float* vec,
+                  const typename OutOf<T>::type* res,
+                  typename OutOf<T>::type* out, const DwGeom& g) {
+  switch (tq) {
+    case 2: return launch_dw_taps<T, A, KR, KS, ST, 2>(
+        pairs, grid, threads, st, x, w, vec, res, out, g);
+    case 4: return launch_dw_taps<T, A, KR, KS, ST, 4>(
+        pairs, grid, threads, st, x, w, vec, res, out, g);
+    default: return launch_dw_taps<T, A, KR, KS, ST, 8>(
+        pairs, grid, threads, st, x, w, vec, res, out, g);
+  }
+}
+
+// The depthwise launch on the wrapper's geometry: TQ outputs a thread
+// (2, 4 or 8; 2 or 4 under the pool), ROWS x CHANS a CTA (CHANS up to
+// DW_MAX_CHANS), whole rows of strips in one CTA, and PAIRS (two-element
+// window loads) only where every row starts on a two-element boundary.  A
+// geometry it cannot run is refused with cudaErrorInvalidValue.
 template <typename T, typename A>
 int launch_dw(const void* x, const void* w, const void* vec, const void* res,
               void* out, int n, int c, int c_pad, int x_rows, int yp, int r,
-              int s, int stride, int q, int p_pad, int epi, void* stream) {
+              int s, int stride, int q, int p_pad, int epi, int tq, int rows,
+              int chans, int pairs, void* stream) {
   const int span = (epi & EPI_POOL) ? 2 : 1;
   const int po = p_pad / span;
-  const int strips = (span * (q / span) + DW_TQ - 1) / DW_TQ;
-  if (n == 0 || c == 0 || po == 0 || strips == 0) {
+  const int qlim = span * (q / span);
+  if (n == 0 || c == 0 || po == 0 || qlim == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (strips > DW_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-  // DW_THREADS threads a CTA: whole rows of one channel, or every row of
-  // a few channels where a channel has fewer outputs
-  const int per_chan = po * strips;
-  const int chans = per_chan >= DW_THREADS ? 1 : min(c, DW_THREADS / per_chan);
-  const int rows = per_chan >= DW_THREADS ? DW_THREADS / strips : po;
-  const DwGeom g{n, c, c_pad, x_rows, yp, r, s, stride, q, p_pad, epi,
-                 strips, rows, chans};
-  const dim3 grid((po + rows - 1) / rows, (c + chans - 1) / chans, n);
-  const int threads = chans * rows * strips;
+  const bool tq_ok = tq == 2 || tq == 4 || (tq == 8 && span == 1);
+  const int strips = tq_ok ? (qlim + tq - 1) / tq : 0;
+  const int gy = chans > 0 ? (c + chans - 1) / chans : 0;
+  if (!tq_ok || rows < 1 || rows > po || chans < 1 || chans > c ||
+      chans > DW_MAX_CHANS || chans * rows * strips > DW_THREADS ||
+      gy > 65535 || n > 65535 ||
+      (pairs && (yp % 2 != 0 ||
+                 reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DwGeom g{n, c, c_pad, x_rows, yp, r, s, stride, q, p_pad, epi};
+  const dim3 grid((po + rows - 1) / rows, gy, n);
+  const dim3 threads(strips, rows, chans);
   using O = typename OutOf<T>::type;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xt = static_cast<const T*>(x);
@@ -921,14 +1131,14 @@ int launch_dw(const void* x, const void* w, const void* vec, const void* res,
   const auto* rf = static_cast<const O*>(res);
   auto* of = static_cast<O*>(out);
   if (r == 3 && s == 3 && stride == 1) {
-    dw_kernel<T, A, O, 3, 3, 1><<<grid, threads, 0, st>>>(xt, wt, vf, rf, of,
-                                                          g);
+    launch_dw_tq<T, A, 3, 3, 1>(tq, pairs, grid, threads, st, xt, wt, vf, rf,
+                                of, g);
   } else if (r == 3 && s == 3 && stride == 2) {
-    dw_kernel<T, A, O, 3, 3, 2><<<grid, threads, 0, st>>>(xt, wt, vf, rf, of,
-                                                          g);
+    launch_dw_tq<T, A, 3, 3, 2>(tq, pairs, grid, threads, st, xt, wt, vf, rf,
+                                of, g);
   } else {
-    dw_kernel<T, A, O, 0, 0, 0><<<grid, threads, 0, st>>>(xt, wt, vf, rf, of,
-                                                          g);
+    launch_dw_tq<T, A, 0, 0, 0>(tq, false, grid, threads, st, xt, wt, vf, rf,
+                                of, g);
   }
   return static_cast<int>(cudaGetLastError());
 }

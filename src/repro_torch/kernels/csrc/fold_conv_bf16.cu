@@ -3,7 +3,7 @@
 // tensor cores (fold_conv_tc.cuh: bf16 operands, fp32 sums, one rounding to
 // bf16 at the store, one chain of 16-tap MMA steps per output whatever the
 // dataflow); depthwise on fold_conv.cuh's FFMA kernel (T = __nv_bfloat16,
-// A = float: each bf16 value widened to fp32 as it loads).
+// A = float: each bf16 value widened to fp32 as it loads, two a load).
 
 #include "fold_conv_tc.cuh"
 
@@ -37,10 +37,11 @@ int fold_conv_os_bf16(const void* x, const void* w, const void* vec,
 int fold_conv_dw_bf16(const void* x, const void* w, const void* vec,
                       const void* res, void* out, int n, int c, int c_pad,
                       int x_rows, int yp, int r, int s, int stride, int q,
-                      int p_pad, int epi, void* stream) {
+                      int p_pad, int epi, int tq, int rows, int chans,
+                      int pairs, void* stream) {
   return launch_dw<__nv_bfloat16, float>(x, w, vec, res, out, n, c, c_pad,
                                          x_rows, yp, r, s, stride, q, p_pad,
-                                         epi, stream);
+                                         epi, tq, rows, chans, pairs, stream);
 }
 
 int fold_conv_psum_bf16(const void* x, const void* w, void* psum, int n,

@@ -70,8 +70,10 @@ DW_CASES = [
     (2, 12, 8, 10, 3, 1, 1, SCR, (8, 3)),            # residual, c_pad 16
 ]
 # the depthwise kernel's cases on the card: DW_CASES, and its thread strips
-# of DW_TQ outputs along Q against stride 2, the fused pool, the residual
-# and Q not a multiple of DW_TQ (the 5x5 layer takes its generic path)
+# of TQ outputs along Q (dw_geometry's pick) against stride 2, the fused
+# pool, the residual and Q not a multiple of TQ (the 5x5 layer takes its
+# generic path); tests/test_torch_dw_geometry.py proves their geometry at
+# every strip on the CPU
 SC6P = {"scale": True, "relu6": True, "pool": "max2"}
 DW_CUDA_CASES = DW_CASES + [
     (2, 5, 9, 11, 3, 1, 1, SC6P, None),              # pool, odd P and Q
