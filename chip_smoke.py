@@ -148,6 +148,19 @@ Phases (any failed check raises, and the script exits non-zero):
     ``/metrics.json`` valid, the spawned worker's boot seconds and its
     SIGTERM drain (503 on ``/healthz`` and ``/v1/infer``, exit 0);
     images/s and p50 / p99 over the wire beside phase 8's.
+12f. ``[simulator]``: ``simulate_cycles`` and ``stream_counts`` over
+    VGG-16's 13 layers on ``PEArray(64, 64)`` with the KIPS model beside
+    them (analytical MAVeC cycles), then ``execute_conv_by_folds`` on the
+    card for conv3_1 (56x56, b1; 104 fold pairs) within
+    ``1e-5·max(1, max|ref|)`` of the fp32 WS kernel on the same operands,
+    with the seconds it took.
+12g. ``[vgg per-layer]``: full-width VGG-16 at 224, batch 1 and 4,
+    through ``vgg.forward`` with ``impl`` fold_ws, fold_os, fold_auto
+    (with and without a ``ScheduleCache``), im2col, direct and torch,
+    each within ``1e-4·max|ref|`` of the compiled engine's logits; 13
+    conv launches (fold_ws: 13 WS, fold_os: 13 OS) and 3 head launches a
+    fold forward, 8 schedules / 5 hits with the cache; eager ms of each
+    beside the jitted engine's.
 13. LM kernels: the causal conv1d kernel bitwise against its plain
     version (fp32 and bf16; zamba2's prefill shape, a ragged D, T = 1,
     K = 1, 2, 3 and 8, T < K - 1, D = 8k + 3 and an x off the 16-byte
@@ -170,6 +183,17 @@ Phases (any failed check raises, and the script exits non-zero):
     capture; the ``[decode]`` line: the decode step's host ms beside its
     device work (a graph replay) and busy share, captured and eager, its
     graph nodes, and the prompt stepping's ms, captured and eager.
+16b. ``[dense lm]``: gemma3-12b at its published config (48 layers, d
+    3840, 16 heads of 256, window 1024, 5:1 local:global, ~22 GiB of
+    bf16 weights from a seeded generator): prefill B=1 x 1024 (ms,
+    prompt tokens/s), then ``BatchEngine`` at batch 4 with
+    ``window_cache`` (8 requests of 16 + 16 tokens) captured against
+    eager (``decode_capture``: tokens and logits bitwise, 0 lost); the
+    ring against the full cache (12 layers, fp32, 1088 positions, the
+    rings wrap) within ``2e-3·max|logits|``; llama3-8b, qwen3-4b and
+    qwen2.5-14b at full width and 4 layers (fp32): prefill and captured
+    decode within ``2e-3·max|logits|`` of ``forward``.  No kernel of the
+    port runs on the dense family's path (checked).
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
@@ -193,7 +217,8 @@ Each main path is driven with the kernel launch counts set to 0 just
 before it and read just after: phases 3-8 (fp32, the head kernel's
 count too), 10-11 (int8), 12 (psum), 12d (bf16), 12c and 12e (the
 serving runtime and HTTP serving; launches tick at warm-ups and
-captures), 14-16 (the LM path), 17 (the attention op).  The second-to-last
+captures), 12g (the per-layer VGG-16 path), 14-16 (the LM path), 16b
+(the dense family, which launches no kernel), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -3308,7 +3333,11 @@ def phase_lm_serving(torch, dev):
           f"(a functional check's reading, not a serving rate)")
     check(d["requests_done"] == 8 and d["requests_lost"] == 0
           and d["tokens"] == 8 * 16, "token serving lost requests")
-    d["decode"] = decode_capture(torch, dev)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import DTypePolicy
+    cfg = get_config(ZAMBA)
+    d["decode"] = decode_capture(
+        torch, dev, cfg, lm_params(torch, dev, cfg, DTypePolicy(), SEED + 28))
     return d
 
 
@@ -3318,9 +3347,10 @@ def _leaves(tree):
     return [tree]
 
 
-def decode_capture(torch, dev):
-    """The same 8 requests (prompt 16, 16 new tokens, batch 4, full width,
-    bf16) served by a ``BatchEngine`` through its captured decode step and
+def decode_capture(torch, dev, cfg, params):
+    """8 requests (prompt 16, 16 new tokens, batch 4; ``cfg`` and
+    ``params`` at full width, bf16) served by a ``BatchEngine`` through its
+    captured decode step and
     by one whose step is ``make_decode_step``'s functional eager step:
     every served token and each decode call's logits bitwise equal, the
     captured engine's cache tensors at the same addresses throughout, one
@@ -3330,13 +3360,9 @@ def decode_capture(torch, dev):
     replayed between CUDA events) and the busy share, the graph's nodes
     per step, and the prompt-stepping ms of both engines."""
     import numpy as np
-    from repro_torch.configs.registry import get_config
     from repro_torch.models import api
-    from repro_torch.models.common import DTypePolicy
     from repro_torch.serve import engine as se
     from repro_torch.serve.steps import make_decode_step
-    cfg = get_config(ZAMBA)
-    params = lm_params(torch, dev, cfg, DTypePolicy(), SEED + 28)
     functional = make_decode_step(cfg)
     runs = {}
     for what in ("captured", "eager"):
@@ -3410,8 +3436,10 @@ def decode_capture(torch, dev):
            "prompt_calls": cap["prompt_calls"],
            "calls_bitwise": len(cap["logits"]),
            "elapsed_s": cap["elapsed_s"],
-           "eager_elapsed_s": eag["elapsed_s"]}
-    print(f"[decode] {ZAMBA} B=4 bf16: step {out['step_ms']:.3f} ms host "
+           "eager_elapsed_s": eag["elapsed_s"],
+           "requests_done": sum(len(t) == 16 for t in cap["tokens"]),
+           "requests_lost": sum(len(t) != 16 for t in cap["tokens"])}
+    print(f"[decode] {cfg.name} B=4 bf16: step {out['step_ms']:.3f} ms host "
           f"clock captured, {out['eager_step_ms']:.3f} eager; device work "
           f"{device_ms:.3f} ms (graph replay): busy share "
           f"{out['busy_share']:.3f} captured, {out['eager_busy_share']:.3f}"
@@ -3420,6 +3448,350 @@ def decode_capture(torch, dev):
           f" eager ({out['prompt_calls']} calls); "
           f"{out['calls_bitwise']} decode calls' logits and every served "
           f"token bitwise the eager engine's; cache fixed; 1 capture")
+    return out
+
+
+# -- the paper's planning and oracle side, the per-layer VGG-16 path and
+# the dense attention LM family -------------------------------------------
+
+SIM_LAYER = "conv3_1"      # the fold walk's full-size layer: 56x56, b1
+TOL_FOLD_WALK = 1e-5       # fold walk vs the fp32 WS kernel, of max|ref|
+VGG_PER_LAYER_IMPLS = ("fold_ws", "fold_os", "fold_auto", "im2col", "direct",
+                       "torch")
+VGG_PER_LAYER_IMG = 224
+DENSE_SERVED = "gemma3-12b"         # at its published config
+DENSE_PREFILL = (1, 1024)           # B x prompt tokens
+DENSE_RING_LAYERS = 12              # two 6-layer local:global groups
+DENSE_CUT = ("llama3-8b", "qwen3-4b", "qwen2.5-14b")
+DENSE_CUT_LAYERS = 4
+
+
+def phase_simulator(torch, dev):
+    """``[simulator]``: the cycle accounting and the message stream over
+    VGG-16's 13 layers on ``PEArray(64, 64)`` (store-and-forward
+    multicast) with the KIPS model beside them (analytical, no card
+    time), then ``execute_conv_by_folds`` on the card for conv3_1 at
+    56x56, b1: every (filter fold, depth fold) pair of the schedule,
+    held within TOL_FOLD_WALK·max(1, max|ref|) of the fp32 WS kernel on
+    the same operands, with the seconds it took."""
+    from repro_torch.core import (PEArray, decompose, execute_conv_by_folds,
+                                  kips, simulate_cycles, vgg16_conv_layers)
+    from repro_torch.core.streaming import stream_counts
+    from repro_torch.kernels import ops
+    pe = PEArray(64, 64)
+    layers = vgg16_conv_layers()
+    cycles, msgs = {}, {}
+    for _, cv in layers:
+        for k, v in simulate_cycles(cv, pe).as_dict().items():
+            cycles[k] = cycles.get(k, 0) + v
+        for k, v in stream_counts(decompose(cv, pe)).items():
+            msgs[k] = msgs.get(k, 0) + v
+    model = kips([cv for _, cv in layers], pe)
+    print(f"[simulator] VGG-16's 13 layers on PEArray(64, 64), multicast "
+          f"hops: cycles {cycles}; stream messages {msgs['total']} "
+          f"(MCAST_COL {msgs['MCAST_COL']}, PROG_WEIGHT "
+          f"{msgs['PROG_WEIGHT']}, MAC {msgs['MAC']}); KIPS model "
+          f"{model['kips']:.4f} at util {model['util_avg_pct']:.2f}% "
+          "(analytical MAVeC cycles, not a card time)")
+    cv = dict(layers)[SIM_LAYER]
+    plan = decompose(cv, pe)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    x = torch.randn(cv.n, cv.c, cv.x, cv.y, device=dev, generator=gen)
+    w = torch.randn(cv.nf, cv.c, cv.r, cv.s, device=dev, generator=gen)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = execute_conv_by_folds(x, w, cv, pe)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        want = ops.conv2d(x, w, stride=cv.stride, pad=cv.pad, impl="fold_ws")
+    err = (got - want).abs().max().item()
+    tol = TOL_FOLD_WALK * max(1.0, want.abs().max().item())
+    pairs = plan.n_row_splits * plan.n_col_splits
+    print(f"[simulator] execute_conv_by_folds {SIM_LAYER} ({cv}, b1) on the "
+          f"card: {pairs} fold pairs ({plan.n_row_splits} filter x "
+          f"{plan.n_col_splits} depth) in {seconds:.3f} s; max_abs_err vs "
+          f"the fp32 WS kernel {err:.3e} (tol {tol:.3e})")
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and err <= tol, "the fold walk disagrees with the WS kernel")
+    return {"cycles": cycles, "messages": msgs, "kips": model,
+            "fold_walk": {"layer": SIM_LAYER, "fold_pairs": pairs,
+                          "seconds": seconds, "max_abs_err": err,
+                          "tol": tol}}
+
+
+def phase_vgg_per_layer(torch, dev, params):
+    """``[vgg per-layer]``: full-width VGG-16 at 224, batch 1 and 4,
+    through ``vgg.forward`` with every impl (``fold_auto`` with and
+    without a ``ScheduleCache``), each held within TOL_MODEL·max|ref| of
+    the compiled engine's logits; the fold impls launch 13 conv kernels
+    and the 3 head kernels a forward, the cache plans 8 schedules with 5
+    hits; the eager ms of each impl beside the jitted engine's."""
+    from repro_torch.core.engine import ScheduleCache, kernel_launch_counts
+    from repro_torch.kernels import dense as dn
+    from repro_torch.models import vgg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    img = VGG_PER_LAYER_IMG
+    x4 = torch.randn(4, 3, img, img, device=dev, generator=gen)
+    out = {}
+    runs = [(impl, False) for impl in VGG_PER_LAYER_IMPLS] \
+        + [("fold_auto", True)]
+    for b in (1, 4):
+        x = x4[:b]
+        net = vgg.compile_forward(params, img=img, batch=b, device=dev)
+        with torch.inference_mode():
+            want = net(params, x)
+            jit_ms = time_ms(torch, lambda: net(params, x), 5)
+        scale = want.abs().max().item()
+        rows = []
+        for impl, cached in runs:
+            cache = ScheduleCache() if cached else None
+
+            def fwd(impl=impl, cache=cache):
+                return vgg.forward(params, x, impl=impl, cache=cache)
+            with torch.inference_mode():
+                before = kernel_launch_counts()
+                y = fwd()
+                torch.cuda.synchronize()
+                after = kernel_launch_counts()
+                stats = (cache.distinct, cache.stats.hits) if cached \
+                    else None
+                ms = time_ms(torch, fwd, 3)
+            counts = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+            head = counts.pop(dn.KERNEL, 0)
+            err = (y - want).abs().max().item()
+            what = f"vgg.forward({impl}{', cache' if cached else ''}) b{b}"
+            rows.append({"impl": impl, "cache": cached, "ms": ms,
+                         "max_abs_err": err, "launches": counts,
+                         "head_launches": head, "schedules": stats})
+            print(f"[vgg per-layer] {what}: {ms:.3f} ms eager, "
+                  f"max_abs_err {err:.3e} (tol {TOL_MODEL * scale:.3e}), "
+                  f"conv launches {counts}, head {head}"
+                  + (f", {stats[0]} schedules / {stats[1]} hits"
+                     if cached else ""))
+            check(y.shape == (b, 1000) and bool(torch.isfinite(y).all())
+                  and err <= TOL_MODEL * scale,
+                  f"{what} disagrees with the compiled engine")
+            check(head == 3, f"{what}: {head} head launches, expected 3")
+            folds = impl.startswith("fold_")
+            check(sum(counts.values()) == (13 if folds else 0),
+                  f"{what}: conv launches {counts}")
+            if impl in ("fold_ws", "fold_os"):
+                name = "fold_conv_" + impl[-2:]
+                check(counts == {name: 13}, f"{what}: launches {counts}")
+            if cached:
+                check(stats == (8, 5), f"{what}: schedules/hits {stats}")
+        out[f"b{b}"] = {"jit_ms": jit_ms, "rows": rows}
+        print(f"[vgg per-layer] b{b}: jitted engine {jit_ms:.3f} ms; eager "
+              "per-layer " + ", ".join(
+                  f"{r['impl']}{'+cache' if r['cache'] else ''} "
+                  f"{r['ms']:.3f}" for r in rows) + " ms")
+    return out
+
+
+def dense_cfg(arch, n_layers=None, **replace):
+    """An arch's published config, its depth cut to ``n_layers``."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return dataclasses.replace(cfg, **replace)
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dense_served(torch, dev):
+    """gemma3-12b at its published config (48 layers, d 3840, 16 heads of
+    256, window 1024, 5:1 local:global, tied 262144-row vocabulary), bf16
+    weights from a seeded generator: prefill B=1 x 1024 (last-token
+    logits), then ``BatchEngine`` at batch 4 with ``window_cache`` (40
+    local layers on 1024-slot rings), 8 requests of 16 + 16 tokens,
+    captured against eager (``decode_capture``).  Returns the summary and,
+    for the profiler, which runs last, the prefill and one captured decode
+    step (batch 4, position 16); they hold the weights until then."""
+    import dataclasses
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.serve.engine import CapturedDecode
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    cfg = dense_cfg(DENSE_SERVED)
+    t0 = time.perf_counter()
+    params = lm_params(torch, dev, cfg, DTypePolicy(), SEED + 62)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in leaves),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves)}
+    print(f"[dense lm] {cfg.name}: {out['params']} parameters, "
+          f"{out['weight_bytes'] / 2**30:.2f} GiB bf16, drawn in "
+          f"{out['init_s']:.1f} s")
+    b, t = DENSE_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    tokens = torch.randint(0, cfg.vocab, (b, t), device=dev, generator=gen)
+    step = make_prefill_step(cfg)
+
+    def run():
+        cache = api.init_cache(cfg, b, t, device=dev)
+        with torch.inference_mode():
+            return step(params, {"tokens": tokens}, cache)
+    tok, logits, cache = run()                    # warm-up
+    torch.cuda.synchronize()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tok, logits, cache = run()
+    torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    out["prompt_tokens_per_s"] = b * t / (out["prefill_ms"] / 1e3)
+    check(logits.shape == (b, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all())
+          and bool(((tok >= 0) & (tok < cfg.vocab)).all())
+          and int(cache["k"][:, :, :t].abs().sum(-1).eq(0).sum()) == 0,
+          "dense prefill: bad logits, tokens or cache")
+    print(f"[dense lm] {cfg.name} prefill B={b} x {t} bf16: "
+          f"{out['prefill_ms']:.3f} ms (host clock, eager), "
+          f"{out['prompt_tokens_per_s']:.1f} prompt tokens/s")
+    del cache, logits
+    _free(torch)
+    wcfg = dataclasses.replace(cfg, window_cache=True)
+    out["serving"] = decode_capture(torch, dev, wcfg, params)
+    check(out["serving"]["requests_lost"] == 0,
+          "dense serving lost requests")
+    decoder = CapturedDecode(make_decode_step(wcfg, donate=True), dev)
+    scratch = api.init_cache(wcfg, 4, 64, device=dev)
+    token = torch.zeros(4, dtype=torch.long, device=dev)
+
+    def decode_step():
+        with torch.inference_mode():
+            decoder(params, token, scratch, 16)
+    decode_step()                                 # the capture
+    return out, {"prefill": run, "decode step": decode_step}
+
+
+def phase_dense_ring(torch, dev):
+    """gemma3-12b at full width and DENSE_RING_LAYERS layers (two
+    local:global groups), fp32: ``decode_step`` over W + 64 positions
+    with the ring-buffer window cache and with the full-length cache,
+    each a captured donated step; the ring's logits within
+    TOL_DECODE·max|logits| of the full cache's at every position (the
+    rings wrap at W)."""
+    import dataclasses
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.serve.engine import CapturedDecode
+    from repro_torch.serve.steps import make_decode_step
+    cfg = dense_cfg(DENSE_SERVED, DENSE_RING_LAYERS)
+    ring_cfg = dataclasses.replace(cfg, window_cache=True)
+    params = lm_params(torch, dev, cfg, DTypePolicy.fp32(), SEED + 64)
+    b, s = 2, cfg.sliding_window + 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 65)
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    caches = {"ring": api.init_cache(ring_cfg, b, s, dtype=torch.float32,
+                                     device=dev),
+              "full": api.init_cache(cfg, b, s, dtype=torch.float32,
+                                     device=dev)}
+    steps = {"ring": CapturedDecode(make_decode_step(ring_cfg, donate=True),
+                                    dev),
+             "full": CapturedDecode(make_decode_step(cfg, donate=True),
+                                    dev)}
+    err = torch.zeros((), device=dev)
+    scale = torch.zeros((), device=dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i in range(s):
+            _, lr, caches["ring"] = steps["ring"](params, tokens[:, i],
+                                                  caches["ring"], i)
+            _, lf, caches["full"] = steps["full"](params, tokens[:, i],
+                                                  caches["full"], i)
+            err = torch.maximum(err, (lr - lf).abs().max())
+            scale = torch.maximum(scale, lf.abs().max())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nbytes = {k: sum(t.numel() * t.element_size() for t in _leaves(c))
+              for k, c in caches.items()}
+    out = {"layers": cfg.n_layers, "positions": s, "seconds": seconds,
+           "max_abs_err": err.item(), "max_abs_logits": scale.item(),
+           "cache_bytes": nbytes}
+    print(f"[dense lm] ring vs full cache: {cfg.name} at full width, "
+          f"{cfg.n_layers} layers, fp32, B={b}, {s} positions (W "
+          f"{cfg.sliding_window}: the rings wrap): max_abs_err "
+          f"{out['max_abs_err']:.3e} (tol "
+          f"{TOL_DECODE * out['max_abs_logits']:.3e}), caches "
+          f"{nbytes['ring'] / 2**20:.1f} MiB ring vs "
+          f"{nbytes['full'] / 2**20:.1f} MiB full, {seconds:.2f} s for both "
+          f"captured walks")
+    check(out["max_abs_err"] <= TOL_DECODE * out["max_abs_logits"]
+          and out["max_abs_logits"] > 0, "the ring decode disagrees with the "
+          "full-cache decode")
+    del params, caches, steps
+    _free(torch)
+    return out
+
+
+def phase_dense_cut(torch, dev):
+    """llama3-8b, qwen3-4b and qwen2.5-14b (40 heads padded to 48) at full
+    width and DENSE_CUT_LAYERS layers, fp32: prefill 32 tokens at batch 2,
+    then 8 captured decode steps, held within TOL_DECODE·max|logits| of
+    ``forward``'s logits at each of those positions."""
+    from repro_torch.models import api, transformer
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.serve.engine import CapturedDecode
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    b, k, s = 2, 32, 40
+    out = {}
+    for i, arch in enumerate(DENSE_CUT):
+        cfg = dense_cfg(arch, DENSE_CUT_LAYERS)
+        params = lm_params(torch, dev, cfg, DTypePolicy.fp32(),
+                           SEED + 66 + i)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
+        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                               generator=gen)
+        decoder = CapturedDecode(make_decode_step(cfg, donate=True), dev)
+        with torch.inference_mode():
+            logits_f = transformer.forward(params, cfg, tokens)
+            cache = api.init_cache(cfg, b, s, dtype=torch.float32,
+                                   device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, lp, cache = make_prefill_step(cfg)(
+                params, {"tokens": tokens[:, :k]}, cache)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            got = [lp]
+            for j in range(k, s):
+                if j == k + 1:       # the first call captured the graph
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                _, lg, cache = decoder(params, tokens[:, j], cache, j)
+                got.append(lg)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / (s - k - 1)
+        v = cfg.vocab
+        scale = logits_f[..., :v].abs().max().item()
+        err = max((g[:, :v] - logits_f[:, k - 1 + j, :v]).abs().max().item()
+                  for j, g in enumerate(got))
+        out[arch] = {"layers": cfg.n_layers, "padded_heads": cfg.padded_heads,
+                     "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                     "captures": decoder.captures, "max_abs_err": err,
+                     "max_abs_logits": scale}
+        print(f"[dense lm] {arch} full width, {cfg.n_layers} layers, fp32, "
+              f"{cfg.n_heads} heads ({cfg.padded_heads} padded), B={b}: "
+              f"prefill {k} tokens {prefill_ms:.3f} ms (first call), "
+              f"captured decode {step_ms:.3f} ms a step (host clock, after "
+              f"the capture); prefill + decode vs forward max_abs_err "
+              f"{err:.3e} (tol {TOL_DECODE * scale:.3e})")
+        check(bool(torch.isfinite(logits_f[..., :v]).all())
+              and err <= TOL_DECODE * scale and decoder.captures == 1,
+              f"{arch}: decode disagrees with forward")
+        del params, cache, logits_f, got, decoder
+        _free(torch)
     return out
 
 
@@ -3591,6 +3963,23 @@ def main() -> int:
     print(f"[main path] launches {launches}")
     for name in ("fold_conv_ws", "fold_conv_os", "fold_conv_dw", dn.KERNEL):
         check(launches[name] > 0, f"{name} never launched on the main path")
+
+    # -- the planning side, then the per-layer VGG-16 path: counts from 0
+    # just before the path, read just after --------------------------------
+    report["simulator"] = phase_simulator(torch, dev)
+    cw.reset_launch_counts()
+    dn.reset_launch_counts()
+    t_pl = time.perf_counter()
+    report["vgg_per_layer"] = phase_vgg_per_layer(torch, dev, params)
+    per_layer = cw.launch_counts()
+    per_layer[dn.KERNEL] = dn.launch_counts()[dn.KERNEL]
+    report["vgg_per_layer"]["seconds"] = time.perf_counter() - t_pl
+    print(f"[vgg per-layer path] launches "
+          f"{ {k: v for k, v in per_layer.items() if v} }, "
+          f"{report['vgg_per_layer']['seconds']:.1f} s")
+    for name in ("fold_conv_ws", "fold_conv_os", dn.KERNEL):
+        check(per_layer[name] > 0,
+              f"{name} never launched on the per-layer VGG-16 path")
 
     # -- the int8 main path: counts from 0 just before, read just after ---
     cw.reset_launch_counts()
@@ -3898,11 +4287,43 @@ def main() -> int:
     check(launches[af.KERNEL] == 1, "the attention op did not launch once")
     lm_rows = time_lm_kernels(torch, dev, attn_per_call)
     report["lm_kernels"] = lm_rows
+
+    # -- the dense attention family: no kernel of the port on its path
+    # (the JAX package's attention is plain einsum too) --------------------
+    del params
+    _free(torch)
+    cc.reset_launch_counts()
+    af.reset_launch_counts()
+    t_dense = time.perf_counter()
+    served, dense_runs = phase_dense_served(torch, dev)
+    report["dense_lm"] = {"served": served,
+                          "ring": phase_dense_ring(torch, dev),
+                          "cut": phase_dense_cut(torch, dev)}
+    report["dense_lm"]["seconds"] = time.perf_counter() - t_dense
+    print(f"[dense lm] {report['dense_lm']['seconds']:.1f} s; conv1d "
+          f"{cc.launch_counts()[cc.KERNEL]}, attention_fold "
+          f"{af.launch_counts()[af.KERNEL]} launches (the dense family "
+          "runs none)")
+    check(cc.launch_counts()[cc.KERNEL] == 0
+          and af.launch_counts()[af.KERNEL] == 0,
+          "the dense family launched an LM kernel")
     # torch.profiler last: once it has run, every kernel of the process
     # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
     report["decode_zamba2"] = phase_lm_device(
         torch, report["prefill_zamba2"], prefill_run, decode_run)
     del prefill_run, decode_run
+    for what, fn in dense_runs.items():
+        ms, n, top = profile_device(torch, fn, top=8)
+        served[f"profile_{what.replace(' ', '_')}"] = {
+            "device_ms": ms, "kernels": n, "top_kernels": top}
+        if ms is not None:
+            print(f"[profile] {DENSE_SERVED} {what} (prefill B=1 x 1024; "
+                  f"the decode step captured, B=4, window cache, position "
+                  f"16): {ms:.3f} ms of kernels in {n} launches; top: "
+                  + "; ".join(f"{r['kernel'][:56]} {r['ms']:.3f} ms "
+                              f"({r['share']:.3f}, {r['calls']} calls)"
+                              for r in top))
+    del dense_runs
 
     # the jit rows, side by side: every conv cell, then served images/s
     print("[jit] conv cells, ms: jitted / eager / device work (busy share "

@@ -1,9 +1,21 @@
-"""The fold block-plan solver: the paper's fold-geometry equations (1)-(2)
-solved once per layer into a ``ConvBlockPlan``.
+"""The Spatial-Map / Temporal-Map directive algebra (paper Fig 6b) and the
+fold block-plan solver: the paper's fold-geometry equations (1)-(2) solved
+once per layer into a ``ConvBlockPlan``.
 
-The plan is the *logical* schedule.  It fixes the filter fold (``nf_block``
-filters), the depth fold (``c_block`` channels) and the image fold
-(``p_block`` output rows), and with them the schedule table, the fold
+The paper expresses its dataflow with two data-centric directives:
+
+  Spatial Map (tile, tile) dim   -- distribute a loop dim across hardware
+  Temporal Map (1, 1) dim        -- serialize a loop dim in time
+
+``MappingPlan`` carries a set of directives for a named loop nest, checks
+them and gives the extents of its temporal (streamed) dims.  The canonical
+plans below are pure directive sets: the weight-stationary conv of Fig 6,
+batched conv serving and LM training.  Binding a plan's spatial dims to a
+device mesh comes with the mesh slice.
+
+The block plan is the *logical* schedule.  It fixes the filter fold
+(``nf_block`` filters), the depth fold (``c_block`` channels) and the image
+fold (``p_block`` output rows), and with them the schedule table, the fold
 reuse across layers and the WS/OS choice (``core/engine.py``).  It carries
 the same numbers as the JAX package's solver so the two packages build
 identical schedule tables.
@@ -16,15 +28,22 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, List, Tuple, Union
 
 from repro_torch.core.loopnest import ConvLoopNest
 
 __all__ = [
+    "SpatialMap",
+    "TemporalMap",
+    "Directive",
+    "MappingPlan",
     "ConvBlockPlan",
     "conv_working_set",
     "largest_divisor_le",
     "plan_conv_blocks",
+    "weight_stationary_conv_plan",
+    "serving_conv_plan",
+    "lm_train_plan",
     "WS_ACC_BYTES_LIMIT",
 ]
 
@@ -37,6 +56,62 @@ __all__ = [
 # the H100 enforces 16 MiB; the constant stays because it decides the
 # dataflow, and the dataflow must match the JAX package's.
 WS_ACC_BYTES_LIMIT = 16 * 1024 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialMap:
+    """Distribute ``dim`` across the hardware axis ``axis``."""
+    dim: str
+    axis: str            # mesh axis name ("data", "model", "pod") or "mxu"
+
+    def __str__(self) -> str:
+        return f"SpatialMap({self.dim} -> {self.axis})"
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalMap:
+    """Serialize ``dim`` in time (streaming order = declaration order)."""
+    dim: str
+    tile: int = 1        # streaming tile size along the dim
+
+    def __str__(self) -> str:
+        return f"TemporalMap({self.dim}, tile={self.tile})"
+
+
+Directive = Union[SpatialMap, TemporalMap]
+
+
+@dataclasses.dataclass(frozen=True)
+class MappingPlan:
+    """A complete binding of a loop nest's dims to space and time."""
+    name: str
+    dims: Dict[str, int]                      # loop extents
+    directives: Tuple[Directive, ...]         # Spatial/Temporal maps, ordered
+
+    def spatial(self) -> List[SpatialMap]:
+        return [d for d in self.directives if isinstance(d, SpatialMap)]
+
+    def temporal(self) -> List[TemporalMap]:
+        return [d for d in self.directives if isinstance(d, TemporalMap)]
+
+    def validate(self) -> None:
+        seen = set()
+        for d in self.directives:
+            if d.dim not in self.dims:
+                raise ValueError(f"{d}: unknown dim (have {list(self.dims)})")
+            if d.dim in seen:
+                raise ValueError(f"{d}: dim bound twice")
+            seen.add(d.dim)
+
+    def grid(self) -> Tuple[int, ...]:
+        """Extents of the temporal dims in tiles, in streaming order (the
+        launch grid of a kernel that streams them)."""
+        return tuple(math.ceil(self.dims[t.dim] / t.tile)
+                     for t in self.temporal())
+
+    def __str__(self) -> str:
+        body = "; ".join(str(d) for d in self.directives)
+        return f"MappingPlan[{self.name}]({body})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +229,60 @@ def plan_conv_blocks(conv: ConvLoopNest,
             math.ceil(conv.p / p_block))
     return ConvBlockPlan(nf_block=nf_block, c_block=c_block, p_block=p_block,
                          grid=grid, vmem_bytes=working_set(nf_block, c_block))
+
+
+# --------------------------------------------------------------------------
+# Canonical plans (Fig 6)
+# --------------------------------------------------------------------------
+
+def weight_stationary_conv_plan(conv: ConvLoopNest) -> MappingPlan:
+    """Fig 6(b): FF spatial, IF/IB temporal, PS reduced."""
+    plan = MappingPlan(
+        name=f"ws-conv[{conv}]",
+        dims=conv.dims(),
+        directives=(
+            SpatialMap("N_F", "mxu"),       # filters across PE rows
+            SpatialMap("R", "mxu"),         # flattened filter cols
+            SpatialMap("S", "mxu"),
+            TemporalMap("C", 1),            # image blocks (depth)
+            TemporalMap("N", 1),            # image folds
+            TemporalMap("P", 1),
+            TemporalMap("Q", 1),            # shift cycles
+        ),
+    )
+    plan.validate()
+    return plan
+
+
+def serving_conv_plan(batch: int, nf: int, *, data_axis: str = "data",
+                      model_axis: str = "model") -> MappingPlan:
+    """The Spatial-Map directive set for batched conv serving: the batch
+    (image-fold streaming) axis distributes across the ``data`` mesh axis
+    and the N_F (filter-fold stationary) axis across ``model`` — the same
+    two bindings Fig 6 assigns on-fabric, lifted one level to the mesh."""
+    plan = MappingPlan(
+        name=f"serve-conv[n={batch},nf={nf}]",
+        dims={"N": batch, "N_F": nf},
+        directives=(
+            SpatialMap("N", data_axis),      # image folds -> DP
+            SpatialMap("N_F", model_axis),   # filter folds -> TP
+        ),
+    )
+    plan.validate()
+    return plan
+
+
+def lm_train_plan(batch: int, seq: int, d_model: int) -> MappingPlan:
+    """The directive set behind the LM sharding rules: batch spatial on
+    data (and pod), model dims spatial on model, sequence temporal."""
+    plan = MappingPlan(
+        name="lm-train",
+        dims={"B": batch, "T": seq, "D": d_model},
+        directives=(
+            SpatialMap("B", "data"),
+            SpatialMap("D", "model"),
+            TemporalMap("T", seq),
+        ),
+    )
+    plan.validate()
+    return plan

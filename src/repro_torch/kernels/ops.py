@@ -14,6 +14,13 @@ bf16, and int8 through ``conv2d_int8``).
                    reduction)
   "direct"       — the plain-torch shifted-product reference (grouped via
                    ``groups``)
+  "im2col"       — the GEMM baseline the paper argues against (dense only)
+  "torch"        — one ``F.conv2d`` call with TF32 off: an oracle, never a
+                   default
+
+``default_conv_impl(x)`` is ``"fold_auto"`` for a CUDA tensor and
+``"direct"`` for a CPU one (the JAX package's backend rule: the kernels on
+the accelerator, the reference on the CPU).
 
 ``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
 passes these in).  ``conv1d_causal(x, w, impl=None)`` is the Mamba2
@@ -34,10 +41,16 @@ from repro_torch.kernels.conv1d_causal import conv1d_causal_folded
 from repro_torch.kernels.conv2d_ws import conv2d_folded
 
 __all__ = ["conv2d", "conv2d_fused", "conv2d_int8", "conv1d_causal",
-           "FOLD_IMPLS", "IMPLS"]
+           "default_conv_impl", "FOLD_IMPLS", "IMPLS"]
 
 FOLD_IMPLS = ("fold_ws", "fold_os", "fold_dw", "fold_auto", "fold_ws_psum")
-IMPLS = FOLD_IMPLS + ("direct",)
+IMPLS = FOLD_IMPLS + ("direct", "im2col", "torch")
+
+
+def default_conv_impl(x: torch.Tensor) -> str:
+    """The fold kernels (cost-model dataflow) for a CUDA tensor, the plain
+    reference for a CPU one."""
+    return "fold_auto" if x.device.type == "cuda" else "direct"
 
 
 def _resolve_fold_dataflow(x, w, stride: int, pad: int, impl: str, plan,
@@ -66,6 +79,15 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"unknown conv impl {impl!r} (want one of {IMPLS})")
 
 
+def _plain(x, w, stride, pad, impl, groups):
+    """The conv of a non-fold impl."""
+    if impl == "direct":
+        return _ref.conv2d_direct(x, w, stride, pad, groups)
+    if impl == "torch":
+        return _ref.conv2d_torch(x, w, stride, pad, groups)
+    return _ref.conv2d_im2col(x, w, stride, pad)
+
+
 def _folded(x, w, stride, pad, impl, plan, groups, **epilogue_operands):
     plan, dataflow = _resolve_fold_dataflow(x, w, stride, pad, impl, plan,
                                             groups)
@@ -80,8 +102,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
     """Convolution through the fold framework.  x: NCHW, w: OIHW (the
     channel dim is per group, C/groups, when ``groups > 1``)."""
     _check_impl(impl)
-    if impl == "direct":
-        return _ref.conv2d_direct(x, w, stride, pad, groups)
+    if impl not in FOLD_IMPLS:
+        return _plain(x, w, stride, pad, impl, groups)
     return _folded(x, w, stride, pad, impl, plan, groups)
 
 
@@ -114,8 +136,8 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
     if epi.scale != (scale is not None and shift is not None):
         raise ValueError("epilogue.scale and the scale/shift arguments "
                          "must be supplied together")
-    if impl == "direct":
-        y = _ref.conv2d_direct(x, w, stride, pad, groups)
+    if impl not in FOLD_IMPLS:
+        y = _plain(x, w, stride, pad, impl, groups)
         return apply_epilogue(y, b, epi, residual, scale, shift)
     return _folded(x, w, stride, pad, impl, plan, groups, bias=b,
                    epilogue=epi, residual=residual, scale=scale, shift=shift)
@@ -141,8 +163,8 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
     bias and batch-norm into the flush affine (``requant_affine``), so
     residual / ReLU[6] / pool run in fp32 after it.  The fold impls stream
     int8 blocks through one kernel launch per conv, accumulating in int32;
-    ``"direct"`` takes the exact int32 reference conv and the same
-    epilogue chain.  Output is fp32.
+    every other impl takes the exact int32 reference conv and the same
+    epilogue chain (as in the JAX package).  Output is fp32.
     """
     from repro_torch.core.quant import (quantize_act, quantize_weight,
                                         requant_affine, requant_epilogue,
@@ -162,7 +184,7 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
     comb_scale, comb_shift = requant_affine(
         w_scale * scalar(x_scale, x.device), epi, b, scale, shift)
     epi_q = requant_epilogue(epi)
-    if impl == "direct":
+    if impl not in FOLD_IMPLS:
         acc = _ref.conv2d_direct(xq, wq, stride, pad, groups)
         return apply_epilogue(acc.float(), None, epi_q, residual,
                               comb_scale, comb_shift)

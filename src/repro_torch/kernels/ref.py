@@ -1,11 +1,34 @@
 """Plain-torch oracles: the fold kernels' (the ``"reference"`` policy's
-conv and the tests' semantics oracle) and the causal conv1d's."""
+conv and the tests' semantics oracle), the im2col GEMM baseline, one
+``F.conv2d`` call at full fp32, and the causal conv1d's.
+
+``conv2d_im2col`` is the GEMM-lowering baseline the paper argues against
+(§II): it materializes the Toeplitz/im2col patch matrix and runs one big
+matmul, discarding the 7-D structure."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d_direct", "conv1d_causal_ref"]
+__all__ = ["conv2d_direct", "conv2d_im2col", "conv2d_torch",
+           "conv1d_causal_ref"]
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 matmuls and convs without TF32 for the block, the flags put
+    back after it."""
+    mm, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -61,6 +84,34 @@ def conv2d_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             acc = acc + torch.einsum("ngcpq,gfc->ngfpq", win.to(acc_dtype),
                                      wg[:, :, :, ri, si].to(acc_dtype))
     return acc.reshape(n, nf, p, q).to(out_dtype)
+
+
+def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """The GEMM baseline: im2col + one (N*P*Q, C*R*S) x (C*R*S, NF) matmul
+    with fp32 sums (TF32 off), cast to x's type.  Dense only."""
+    n, c, _, _ = x.shape
+    nf, cw, r, s = w.shape
+    if cw != c:
+        raise ValueError(f"the im2col baseline is dense-only (grouped "
+                         f"oracle: 'direct' or 'torch'): input has {c} "
+                         f"channels, weights expect {cw}")
+    # (N, C*R*S, P*Q), channel-major to match OIHW
+    patches = F.unfold(x.float(), (r, s), padding=pad, stride=stride)
+    p = (x.shape[2] + 2 * pad - r) // stride + 1
+    q = (x.shape[3] + 2 * pad - s) // stride + 1
+    wmat = w.float().reshape(nf, c * r * s).T             # (C*R*S, NF)
+    with _full_fp32():
+        out = torch.matmul(patches.transpose(1, 2), wmat)  # (N, P*Q, NF)
+    return out.transpose(1, 2).reshape(n, nf, p, q).to(x.dtype)
+
+
+def conv2d_torch(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                 pad: int = 0, groups: int = 1) -> torch.Tensor:
+    """One ``F.conv2d`` call with TF32 off (the counterpart of the JAX
+    package's ``lax.conv_general_dilated`` oracle)."""
+    with _full_fp32():
+        return F.conv2d(x, w, stride=stride, padding=pad, groups=groups)
 
 
 def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,9 @@ The token path serves ``--requests`` random prompts of ``--prompt-len``
 tokens, ``--new-tokens`` each, at batch width ``--batch``, over random
 weights from ``--seed`` (the bf16 policy; ``--full`` for the published
 widths, else the reduced config), and prints requests done/lost, tokens,
-tokens/s and the prefill/decode times as one JSON object.  zamba2-1.2b is
-the only LM ported; another ``--arch`` is refused, naming its ROADMAP
+tokens/s and the prefill/decode times as one JSON object.  The dense
+attention family (llama3-8b, qwen3-4b, qwen2.5-14b, gemma3-12b) and
+zamba2-1.2b are ported; another ``--arch`` is refused, naming its ROADMAP
 item.
 
 The vision path serves a deterministic mixed-size request stream through
@@ -46,8 +47,9 @@ exit), and the summary prints under the key ``chaos``.
 and ``--metrics-json PATH`` the metrics registry's snapshot (serving,
 robustness and foldlint counters); ``python -m repro_torch.obs.report
 --validate-trace PATH --expect-requests N`` and ``--validate-metrics
-PATH`` check them.  No other file is written (``--bench-json`` is not
-ported).
+PATH`` check them.  No other file is written: ``--bench-json`` (the perf
+snapshot the JAX package's ``check_bench`` gate reads) waits for the
+port's ``benchmark`` PR, which defines the port's benchmark.
 """
 from __future__ import annotations
 

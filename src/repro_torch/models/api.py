@@ -1,6 +1,7 @@
 """Family-dispatch facade over the LM models (the JAX package's
 ``models/api.py``): the serve steps and the tests go through these
-functions.  The port has the decoder-only zamba2 hybrid
+functions.  The port has the decoder-only dense attention family
+(llama3, qwen3, qwen2.5, gemma3) and the zamba2 hybrid
 (``models/transformer.py``); the enc-dec family raises, naming its ROADMAP
 item."""
 from __future__ import annotations
@@ -18,7 +19,7 @@ __all__ = ["init_params", "init_cache", "prefill", "decode_step"]
 def _mod(cfg):
     if cfg.is_encdec:
         raise NotImplementedError("the enc-dec family is not ported yet "
-                                  "(ROADMAP queue A item 15c)")
+                                  "(ROADMAP queue A item 4c)")
     return transformer
 
 
@@ -38,7 +39,7 @@ def init_cache(cfg, batch: int, max_len: int, *,
 def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache):
     if batch.get("patches") is not None:
         raise NotImplementedError("the VLM frontend is not ported yet "
-                                  "(ROADMAP queue A item 15c)")
+                                  "(ROADMAP queue A item 4c)")
     return _mod(cfg).prefill(params, cfg, batch["tokens"], cache)
 
 

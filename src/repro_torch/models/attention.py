@@ -7,8 +7,10 @@ Attention is the 5-D loop nest (B, H, Tq, Tkv, D): Q stationary, K/V
 streamed.  ``_mha`` materializes the (T, S) scores; ``_mha_blockwise`` is
 the flash-style online softmax over KV blocks.  Both are plain torch, as
 in the JAX package; the fold-attention kernel (``kernels/attention_fold``)
-is an op no model calls.  Cross-attention (the enc-dec family) and the
-ring-buffer decode of gemma3's local layers are not ported yet.
+is an op no model calls.  ``ring_decode_attention`` is the one-token
+decode of a sliding-window layer against a ring buffer of W slots (gemma3's
+local layers under ``window_cache``).  Cross-attention (the enc-dec
+family) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.settings import get_attn_impl
 
 __all__ = ["attn_params", "attention", "init_kv_cache", "make_mask",
-           "device_position"]
+           "device_position", "ring_decode_attention"]
 
 _NEG = -1e30
 
@@ -67,6 +69,30 @@ def _project_kv(p, cfg, x):
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return k, v
+
+
+def _project_qkv(p, cfg, x, positions, inv_freq):
+    """q, k and v of ``x``: the projections, QKV biases, qk-norm, and RoPE
+    at ``positions`` on q and k."""
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = _project_kv(p, cfg, x)
+    if inv_freq is not None:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+    return q, k, v
+
+
+def _project_out(p, cfg, out):
+    """The heads' outputs, padded heads zeroed (exactness), through wo."""
+    if cfg.padded_heads != cfg.n_heads:
+        hmask = torch.arange(cfg.padded_heads, device=out.device) \
+            < cfg.n_heads
+        out = out * hmask[None, None, :, None].to(out.dtype)
+    return torch.einsum("bthk,hkd->btd", out, p["wo"])
 
 
 def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,17 +226,8 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
     if kv_x is not None:
         raise NotImplementedError(
             "cross-attention belongs to the enc-dec family, not ported yet "
-            "(ROADMAP queue A item 15c)")
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    if inv_freq is not None:
-        q = apply_rope(q, positions, inv_freq)
-    k, v = _project_kv(p, cfg, x)
-    if inv_freq is not None:
-        k = apply_rope(k, positions, inv_freq)
+            "(ROADMAP queue A item 4c)")
+    q, k, v = _project_qkv(p, cfg, x, positions, inv_freq)
     if cache is None:
         kv_pos, kv_len, new_cache = positions, None, None
     else:
@@ -230,11 +247,7 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
         mask = make_mask(positions, kv_pos, causal=causal, window=window,
                          kv_len=kv_len)
         out = _mha(q, k.to(q.dtype), v.to(q.dtype), mask, cfg.head_dim_)
-    if cfg.padded_heads != cfg.n_heads:   # zero the padded heads (exactness)
-        hmask = torch.arange(cfg.padded_heads, device=x.device) < cfg.n_heads
-        out = out * hmask[None, None, :, None].to(out.dtype)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"])
-    return out, new_cache
+    return _project_out(p, cfg, out), new_cache
 
 
 def init_kv_cache(cfg, batch: int, max_len: int,
@@ -251,3 +264,34 @@ def _to_cache_heads(cfg, kv: torch.Tensor) -> torch.Tensor:
     the q->kv group mapping is preserved by the repeat order)."""
     rep = cfg.cache_kv_heads // kv.shape[2]
     return kv.repeat_interleave(rep, dim=2) if rep > 1 else kv
+
+
+def ring_decode_attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
+                          pos: torch.Tensor,
+                          inv_freq: Optional[torch.Tensor],
+                          cache: Dict[str, torch.Tensor],
+                          donate: bool = False
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode against a RING buffer of W slots (sliding-window
+    layers).  Slot i holds the K/V of the newest position p <= pos with
+    p = i (mod W); RoPE is applied at write time, so ring order is
+    irrelevant to the attention math.  Memory: O(W) instead of O(seq).
+
+    ``pos`` is a 0-d integer tensor on x's device (a CUDA graph replays
+    it): the slot ``pos mod W``, each slot's absolute position
+    ``pos - ((pos - i) mod W)`` and the warm-up mask ``slot_pos >= 0`` are
+    computed on the device from it, never on the host.  The new K/V go
+    into a copy of the ring (the one passed in is not changed), or with
+    ``donate`` into ``cache``'s own tensors, which come back.
+    """
+    w = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos.reshape(1), inv_freq)
+    slot = torch.remainder(pos, w)
+    k = _write_rows(cache["k"], _to_cache_heads(cfg, k_new), slot, donate)
+    v = _write_rows(cache["v"], _to_cache_heads(cfg, v_new), slot, donate)
+    # per-slot absolute position: latest p <= pos with p = i (mod W)
+    idx = torch.arange(w, device=x.device)
+    slot_pos = pos - torch.remainder(pos - idx, w)
+    mask = (slot_pos >= 0)[None, :]               # (1, W): warm-up guard
+    out = _mha(q, k.to(q.dtype), v.to(q.dtype), mask, cfg.head_dim_)
+    return _project_out(p, cfg, out), {"k": k, "v": v}

@@ -1,11 +1,12 @@
-"""Primitive layers: RMS norms and RoPE (the JAX package's
-``models/layers.py``).  Norms and rotations compute in fp32 and cast back
-to the input's type."""
+"""Primitive layers: RMS norms, RoPE and logit soft-capping (the JAX
+package's ``models/layers.py``).  Norms and rotations compute in fp32 and
+cast back to the input's type."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm", "group_rms_norm", "rope_freqs", "apply_rope"]
+__all__ = ["rms_norm", "group_rms_norm", "rope_freqs", "apply_rope",
+           "softcap"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -47,3 +48,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Logit soft-capping (gemma): cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)

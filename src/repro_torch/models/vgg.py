@@ -1,5 +1,8 @@
 """VGG-16 — the paper's end-to-end evaluation model (Table 2B), exported
-as a streaming graph and lowered through the fold-schedule engine.
+as a streaming graph and lowered through the fold-schedule engine, or run
+layer by layer through ``kernels.ops.conv2d`` with a named impl
+(``forward``: the fold kernels, the im2col GEMM baseline, the direct
+reference or ``F.conv2d``), the validation path.
 
 Parameters are a plain dict shaped like the JAX package's pytree
 (``params[name]["w"]`` OIHW for convs, (in, out) for the dense layers,
@@ -8,15 +11,19 @@ other entry by entry.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.engine import BucketCompiler, CompiledNetwork
+from repro_torch.core.engine import (BucketCompiler, CompiledNetwork,
+                                     ScheduleCache)
+from repro_torch.core.epilogue import maxpool2x2
 from repro_torch.core.graph import StreamGraph
+from repro_torch.core.loopnest import ConvLoopNest
+from repro_torch.kernels.ops import conv2d, default_conv_impl
 from repro_torch.models.common import cast, normal, zeros
 
-__all__ = ["VGG_LAYERS", "init_params", "vgg_head", "to_graph",
+__all__ = ["VGG_LAYERS", "init_params", "forward", "vgg_head", "to_graph",
            "compile_forward", "bucket_compiler", "n_classes"]
 
 # (name, in_ch, out_ch) conv3x3 blocks; "M" = 2x2 maxpool (paper Table 2B)
@@ -83,6 +90,45 @@ def to_graph(*, include_head: bool = True) -> StreamGraph:
         g.relu()
         g.dense("fc3")
     return g
+
+
+_FOLD_IMPLS = ("fold_ws", "fold_os", "fold_auto")
+
+
+def forward(params: Dict[str, Any], x: torch.Tensor,
+            impl: Optional[str] = None,
+            cache: Optional[ScheduleCache] = None) -> torch.Tensor:
+    """x: (N, 3, H, W) NCHW -> (N, classes) logits, one conv at a time.
+
+    Each of the 13 convs runs through ``ops.conv2d`` with ``impl`` (one
+    kernel launch per conv on the fold impls), then bias + ReLU, with the
+    2x2 pools between the stages, and ``vgg_head`` last.  With a ``cache``
+    and a fold impl, each layer's block plan (and, for ``fold_auto``, the
+    dataflow) comes from ``cache.schedule_for``: the 13 convs plan their 8
+    distinct geometries.  ``impl=None`` is ``ops.default_conv_impl(x)``
+    (the fold kernels on a CUDA tensor, the reference on a CPU one), with
+    or without a cache.
+    """
+    impl = impl or default_conv_impl(x)
+    use_cache = cache is not None and impl in _FOLD_IMPLS
+    for entry in VGG_LAYERS:
+        if entry == "M":
+            x = maxpool2x2(x)
+            continue
+        name = entry[0]
+        w, b = params[name]["w"], params[name]["b"]
+        if use_cache:
+            n_, c_, xh, xw = x.shape
+            nf, _, r, s = w.shape
+            sched = cache.schedule_for(ConvLoopNest(
+                n=n_, nf=nf, c=c_, r=r, s=s, x=xh, y=xw, stride=1, pad=1))
+            layer_impl = sched.impl() if impl == "fold_auto" else impl
+            x = conv2d(x, w, stride=1, pad=1, impl=layer_impl,
+                       plan=sched.plan)
+        else:
+            x = conv2d(x, w, stride=1, pad=1, impl=impl)
+        x = torch.relu(x + b[None, :, None, None])
+    return vgg_head(params, x)
 
 
 def compile_forward(params: Dict[str, Any], *, img: int,

@@ -1,8 +1,9 @@
 """The port stands alone: no file of it (nor ``chip_smoke.py``,
-``fold_tiles.py``, ``serve_ab.py`` and ``kernel_ab.py``) imports
-jax or the JAX package, it imports in a process where jax cannot load,
-and asking for a GPU that is not there raises instead of falling back."""
+``fold_tiles.py``, ``serve_ab.py``, ``kernel_ab.py``, ``dw_variants.py``
+and the port's examples) imports jax or the JAX package, it imports in a
+process where jax cannot load, and asking for a GPU that is not there raises instead of falling back."""
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -14,7 +15,8 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "fold_tiles.py", ROOT / "serve_ab.py",
-     ROOT / "kernel_ab.py"]
+     ROOT / "kernel_ab.py", ROOT / "dw_variants.py"] + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -51,7 +53,8 @@ def test_port_imports_where_jax_cannot_load():
         "from repro_torch.launch import serve\n"
         "from repro_torch.kernels import (attention_fold, build,\n"
         "                                 conv1d_causal, conv2d_ws, ops, ref)\n"
-        "from repro_torch.core import engine, quant\n"
+        "from repro_torch.core import (engine, mapping, quant,\n"
+        "                              simulator, streaming)\n"
         "from repro_torch.analysis import (foldlint, graph_check,\n"
         "                                  index_check, launch_audit,\n"
         "                                  plan_check, report)\n"
@@ -72,7 +75,8 @@ def test_port_imports_where_jax_cannot_load():
                                    "bucket_compiler", "resnet18",
                                    "mobilenetv2", "serving_summary",
                                    "launcher", "lm_init_params",
-                                   "lm_init_cache", "batch_engine",
+                                   "lm_init_cache", "dense_lm_init_params",
+                                   "dense_lm_init_cache", "batch_engine",
                                    "token_serving_summary",
                                    "token_launcher", "foldlint",
                                    "chaos_summary", "chaos_launcher",
@@ -93,6 +97,7 @@ def test_cuda_without_a_gpu_raises(entry):
     params = vgg.init_params(torch.Generator(), width_mult=0.0625, img=32,
                              classes=10, device="cpu")
     lm = get_config("zamba2-1.2b", reduced=True)
+    dense = get_config("gemma3-12b", reduced=True)
 
     def zoo_model(module):
         p = module.init_params(torch.Generator(), width_mult=0.0625,
@@ -112,6 +117,9 @@ def test_cuda_without_a_gpu_raises(entry):
         # the prefill step's caller makes its weights and cache first
         "lm_init_params": lambda: api.init_params(lm),
         "lm_init_cache": lambda: api.init_cache(lm, 1, 8),
+        "dense_lm_init_params": lambda: api.init_params(dense),
+        "dense_lm_init_cache": lambda: api.init_cache(
+            dataclasses.replace(dense, window_cache=True), 1, 8),
         "batch_engine": lambda: BatchEngine(
             lm, api.init_params(lm, device="cpu"), batch=1, max_len=8),
         "token_serving_summary": lambda: token_serving_summary(),

@@ -158,5 +158,5 @@ def test_launcher_refuses_the_unported_token_path():
     port has not reached is refused, naming its ROADMAP item."""
     from repro_torch.launch.serve import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--model", "resnet18", "--arch", "llama3-8b", "--device",
+        main(["--model", "resnet18", "--arch", "rwkv6-1.6b", "--device",
               "cpu"])
