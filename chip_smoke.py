@@ -194,12 +194,33 @@ Phases (any failed check raises, and the script exits non-zero):
     qwen2.5-14b at full width and 4 layers (fp32): prefill and captured
     decode within ``2e-3·max|logits|`` of ``forward``.  No kernel of the
     port runs on the dense family's path (checked).
+16c. ``[lm families]``: the other five LM families, each model freed
+    before the next (its parameter count, GiB and peak memory printed),
+    no kernel of the port launched on any of their paths (checked):
+    rwkv6-1.6b at its published config (24 layers, d 2048, ~3 GiB bf16):
+    prefill B=1 x 1024 (ms, prompt tokens/s), its WKV time loop's kernels
+    and device ms a layer, ``decode_capture``; at full width and 4
+    layers, fp32: prefill 32 + 8 captured decode steps within
+    ``2e-3·max|logits|`` of ``forward``, and a time mix split in two
+    halves (state and last x carried) against the whole.
+    granite-moe-1b-a400m and qwen2-moe-a2.7b at their published configs
+    (~28 GiB bf16 for qwen2-moe): prefill B=1 x 1024, ``decode_capture``
+    with the B=4 step's device ms beside the whole expert stack's read
+    bound; at 4 layers, fp32, capacity factor n_experts / top_k: decode
+    against ``forward``.  seamless-m4t-medium at its published config:
+    fp32 prefill of 512 source frames and 64 tokens, 8 decode steps on
+    the cached cross K/V against ``forward``; bf16 ``decode_capture``.
+    internvl2-26b at published widths and 4 layers: fp32 prefill of 256
+    patch embeddings and 32 tokens, 8 decode steps against ``forward``
+    with the patches; bf16 ``decode_capture``.
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
     then the prefill replayed as a CUDA graph and the prefill and the
-    captured decode steps under ``torch.profiler``: last, because once
-    the profiler has run every kernel of the process reads slower.
+    captured decode steps under ``torch.profiler`` (gemma3-12b's prefill
+    and decode step, and one decode step of rwkv6-1.6b and of
+    qwen2-moe-a2.7b too): last, because once the profiler has run every
+    kernel of the process reads slower.
 
 Every conv forward of phases 3, 4, 6, 7 and 10 is a compiled network
 at the default ``jit`` and ``verify``: its graph, plans, launches and CTA
@@ -218,7 +239,8 @@ before it and read just after: phases 3-8 (fp32, the head kernel's
 count too), 10-11 (int8), 12 (psum), 12d (bf16), 12c and 12e (the
 serving runtime and HTTP serving; launches tick at warm-ups and
 captures), 12g (the per-layer VGG-16 path), 14-16 (the LM path), 16b
-(the dense family, which launches no kernel), 17 (the attention op).  The second-to-last
+(the dense family, which launches no kernel), 16c (the other families,
+none either: every kernel's count), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -226,6 +248,7 @@ the registers and spills of every fold_conv instance) go to
 """
 from __future__ import annotations
 
+import importlib
 import json
 import pathlib
 import subprocess
@@ -2948,7 +2971,7 @@ def phase_lm_kernels(torch, dev):
     kernel within TOL_ATTN of its plain version, in fp32 and bf16 (bf16
     also element by element within BF16_STEP)."""
     from repro_torch.kernels import attention_fold as af
-    from repro_torch.kernels import conv1d_causal as cc
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     # (B, T, D, K, cache prefix, x off the 16-byte grid); the vector path
     # takes D a multiple of 8 (bf16) or 4 (fp32) on 16-byte boundaries
@@ -3052,7 +3075,7 @@ def time_lm_kernels(torch, dev, attn_per_call):
     (``phase_lm_kernels``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_fold as af
-    from repro_torch.kernels import conv1d_causal as cc
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     rows = {}
     b, t, d, k = PREFILL_B, PREFILL_T, 4224, 4
@@ -3159,7 +3182,7 @@ def phase_prefill(torch, dev):
     captured step, one CUDA graph), to be profiled once the launch counts
     are read."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import conv1d_causal as cc
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
     from repro_torch.models import api
     from repro_torch.models.common import DTypePolicy
     from repro_torch.serve.engine import CapturedDecode
@@ -3739,59 +3762,384 @@ def phase_dense_cut(torch, dev):
     """llama3-8b, qwen3-4b and qwen2.5-14b (40 heads padded to 48) at full
     width and DENSE_CUT_LAYERS layers, fp32: prefill 32 tokens at batch 2,
     then 8 captured decode steps, held within TOL_DECODE·max|logits| of
-    ``forward``'s logits at each of those positions."""
-    from repro_torch.models import api, transformer
+    ``forward``'s logits at each of those positions
+    (``decode_vs_forward``)."""
     from repro_torch.models.common import DTypePolicy
-    from repro_torch.serve.engine import CapturedDecode
-    from repro_torch.serve.steps import make_decode_step, make_prefill_step
-    b, k, s = 2, 32, 40
     out = {}
     for i, arch in enumerate(DENSE_CUT):
         cfg = dense_cfg(arch, DENSE_CUT_LAYERS)
         params = lm_params(torch, dev, cfg, DTypePolicy.fp32(),
                            SEED + 66 + i)
         gen = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
-        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+        tokens = torch.randint(0, cfg.vocab, (2, 40), device=dev,
                                generator=gen)
-        decoder = CapturedDecode(make_decode_step(cfg, donate=True), dev)
-        with torch.inference_mode():
-            logits_f = transformer.forward(params, cfg, tokens)
-            cache = api.init_cache(cfg, b, s, dtype=torch.float32,
-                                   device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, lp, cache = make_prefill_step(cfg)(
-                params, {"tokens": tokens[:, :k]}, cache)
-            torch.cuda.synchronize()
-            prefill_ms = 1e3 * (time.perf_counter() - t0)
-            got = [lp]
-            for j in range(k, s):
-                if j == k + 1:       # the first call captured the graph
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                _, lg, cache = decoder(params, tokens[:, j], cache, j)
-                got.append(lg)
-            torch.cuda.synchronize()
-            step_ms = 1e3 * (time.perf_counter() - t0) / (s - k - 1)
-        v = cfg.vocab
-        scale = logits_f[..., :v].abs().max().item()
-        err = max((g[:, :v] - logits_f[:, k - 1 + j, :v]).abs().max().item()
-                  for j, g in enumerate(got))
-        out[arch] = {"layers": cfg.n_layers, "padded_heads": cfg.padded_heads,
-                     "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-                     "captures": decoder.captures, "max_abs_err": err,
-                     "max_abs_logits": scale}
-        print(f"[dense lm] {arch} full width, {cfg.n_layers} layers, fp32, "
-              f"{cfg.n_heads} heads ({cfg.padded_heads} padded), B={b}: "
-              f"prefill {k} tokens {prefill_ms:.3f} ms (first call), "
-              f"captured decode {step_ms:.3f} ms a step (host clock, after "
-              f"the capture); prefill + decode vs forward max_abs_err "
-              f"{err:.3e} (tol {TOL_DECODE * scale:.3e})")
-        check(bool(torch.isfinite(logits_f[..., :v]).all())
-              and err <= TOL_DECODE * scale and decoder.captures == 1,
-              f"{arch}: decode disagrees with forward")
-        del params, cache, logits_f, got, decoder
+        out[arch] = decode_vs_forward(
+            torch, dev, cfg, params, {"tokens": tokens}, 32,
+            f"[dense lm] {arch} full width, {cfg.n_layers} layers, "
+            f"{cfg.n_heads} heads ({cfg.padded_heads} padded)")
+        out[arch]["padded_heads"] = cfg.padded_heads
+        del params
         _free(torch)
+    return out
+
+
+# -- the other LM families: rwkv6, the MoE pair, the enc-dec, the VLM -------
+
+FAMILY_PREFILL = (1, 1024)          # B x prompt tokens, bf16
+FAMILY_CUT_LAYERS = 4
+RWKV = "rwkv6-1.6b"
+MOE_ARCHS = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b")
+ENCDEC = "seamless-m4t-medium"
+VLM = "internvl2-26b"
+ENCDEC_SRC = 512                    # source frames of the enc-dec prefill
+
+
+def family_params(torch, dev, cfg, policy, seed, what):
+    """Random weights of ``cfg`` from a seeded generator, with their
+    parameter count and bytes printed; the peak-memory count restarts
+    here (``held_gib``: what the process held before)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    params = lm_params(torch, dev, cfg, policy, seed)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    out = {"layers": cfg.n_layers, "params": sum(t.numel() for t in leaves),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves),
+           "init_s": time.perf_counter() - t0, "held_gib": held}
+    kind = "bf16" if policy.param == torch.bfloat16 else "fp32"
+    print(f"[lm families] {what}: {out['params']} parameters, "
+          f"{out['weight_bytes'] / 2**30:.2f} GiB {kind}, drawn in "
+          f"{out['init_s']:.1f} s")
+    return params, out
+
+
+def peak_gib(torch, dev):
+    """The process's peak device memory since ``family_params``, GiB."""
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def family_prefill(torch, dev, cfg, params, seed):
+    """bf16 prefill of B=1 x 1024 random tokens through
+    ``make_prefill_step``: the second call's host-clock ms (the first
+    warms up), prompt tokens/s, and finite logits, in-vocabulary tokens
+    and a finite, filled cache."""
+    from repro_torch.models import api
+    from repro_torch.serve.steps import make_prefill_step
+    b, t = FAMILY_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (b, t), device=dev, generator=gen)
+    step = make_prefill_step(cfg)
+
+    def run():
+        cache = api.init_cache(cfg, b, t, device=dev)
+        with torch.inference_mode():
+            return step(params, {"tokens": tokens}, cache)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, logits, cache = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    leaves = _leaves(cache)
+    check(logits.shape == (b, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+          and bool(((tok >= 0) & (tok < cfg.vocab)).all())
+          and all(bool(torch.isfinite(x).all()) for x in leaves)
+          and all(bool(x.any()) for x in leaves),
+          f"{cfg.name} prefill: bad logits, tokens or cache")
+    out = {"prefill_ms": ms, "prompt_tokens_per_s": b * t / (ms / 1e3)}
+    print(f"[lm families] {cfg.name} prefill B={b} x {t} bf16: {ms:.3f} ms "
+          f"(host clock, eager), {out['prompt_tokens_per_s']:.1f} prompt "
+          f"tokens/s")
+    return out
+
+
+def decode_vs_forward(torch, dev, cfg, params, batch, k, what):
+    """fp32: ``make_prefill_step`` on the first ``k`` tokens of
+    ``batch["tokens"]`` (with the batch's source frames or patch
+    embeddings), then one captured donated decode step (``CapturedDecode``)
+    per token after them, each step's logits within
+    TOL_DECODE·max|logits| of the teacher-forced forward's at that
+    position."""
+    from repro_torch.models import api, encdec, transformer
+    from repro_torch.serve.engine import CapturedDecode
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    off = batch["patches"].shape[1] if "patches" in batch else 0
+    decoder = CapturedDecode(make_decode_step(cfg, donate=True), dev)
+    with torch.inference_mode():
+        if cfg.is_encdec:
+            logits_f = encdec.forward(params, cfg, batch)
+        else:
+            logits_f = transformer.forward(params, cfg, tokens,
+                                           extra_embeds=batch.get("patches"))
+        cache = api.init_cache(cfg, b, off + s, dtype=torch.float32,
+                               device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lp, cache = make_prefill_step(cfg)(
+            params, dict(batch, tokens=tokens[:, :k]), cache)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        got = [lp]
+        for j in range(k, s):
+            if j == k + 1:           # the first call captured the graph
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            _, lg, cache = decoder(params, tokens[:, j], cache, off + j)
+            got.append(lg)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / (s - k - 1)
+    v = cfg.vocab
+    scale = logits_f[..., :v].abs().max().item()
+    err = max((g[:, :v] - logits_f[:, off + k - 1 + j, :v]).abs().max()
+              .item() for j, g in enumerate(got))
+    out = {"layers": cfg.n_layers, "prefill_ms": prefill_ms,
+           "decode_step_ms": step_ms, "captures": decoder.captures,
+           "max_abs_err": err, "max_abs_logits": scale}
+    front = f"{off} patch embeddings and " if off else ""
+    print(f"{what}, fp32, B={b}: prefill {front}{k} tokens "
+          f"{prefill_ms:.3f} ms (first call), captured decode "
+          f"{step_ms:.3f} ms a step (host clock, after the capture); "
+          f"prefill + {s - k} decode steps vs forward max_abs_err "
+          f"{err:.3e} (tol {TOL_DECODE * scale:.3e})")
+    check(bool(torch.isfinite(logits_f[..., :v]).all())
+          and err <= TOL_DECODE * scale and decoder.captures == 1,
+          f"{what}: decode disagrees with forward")
+    return out
+
+
+def phase_rwkv(torch, dev):
+    """rwkv6-1.6b at its published config, bf16: prefill B=1 x 1024, the
+    WKV time loop of one layer at that shape (its kernels, captured, and
+    its device ms replayed), ``decode_capture``; then fp32 at full width
+    and FAMILY_CUT_LAYERS layers: prefill 32 + 8 captured decode steps
+    against ``forward``, and one layer's time mix over 64 tokens split at
+    29 (the WKV state and last x carried) against the whole."""
+    from repro_torch.models import rwkv
+    from repro_torch.models.common import DTypePolicy
+    cfg = dense_cfg(RWKV)
+    params, out = family_params(torch, dev, cfg, DTypePolicy(), SEED + 80,
+                                f"{RWKV} (published)")
+    out.update(family_prefill(torch, dev, cfg, params, SEED + 81))
+    h, hd = cfg.n_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(SEED + 82)
+    shape = (FAMILY_PREFILL[0], FAMILY_PREFILL[1], h, hd)
+    r, k, v = (torch.randn(shape, device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    w = torch.rand(shape, device=dev, generator=gen) * 0.5 + 0.4
+    u = torch.randn((h, hd), device=dev, generator=gen)
+    s0 = torch.zeros((shape[0], h, hd, hd), device=dev)
+    with torch.inference_mode():
+        scan = lambda: rwkv._wkv_scan(r, k, v, w, u, s0)  # noqa: E731
+        nodes = graph_nodes(torch, scan)
+        wkv_ms = time_graph_ms(torch, scan, 1)
+    out.update(wkv_kernels_per_layer=nodes, wkv_device_ms_per_layer=wkv_ms,
+               wkv_share=wkv_ms * cfg.n_layers / out["prefill_ms"])
+    per_step = "?" if nodes is None else f"{nodes / FAMILY_PREFILL[1]:.2f}"
+    print(f"[lm families] {RWKV} WKV time loop at the prefill's shape "
+          f"{shape}: {nodes} kernels a layer ({per_step} a step), "
+          f"{wkv_ms:.3f} ms of device work a layer (graph replay), x "
+          f"{cfg.n_layers} layers = {out['wkv_share']:.3f} of the "
+          f"prefill's host-clock ms")
+    out["serving"] = decode_capture(torch, dev, cfg, params)
+    out["peak_gib"] = peak_gib(torch, dev)
+    del params
+    _free(torch)
+
+    cut = dense_cfg(RWKV, FAMILY_CUT_LAYERS)
+    params, _ = family_params(torch, dev, cut, DTypePolicy.fp32(),
+                              SEED + 83, f"{RWKV} cut to "
+                              f"{FAMILY_CUT_LAYERS} layers")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 84)
+    tokens = torch.randint(0, cut.vocab, (2, 40), device=dev, generator=gen)
+    out["cut"] = decode_vs_forward(
+        torch, dev, cut, params, {"tokens": tokens}, 32,
+        f"[lm families] {RWKV} {FAMILY_CUT_LAYERS} layers")
+    lp = {name: t[0] for name, t in params["blocks"]["rwkv"].items()}
+    x = torch.randn((2, 64, cut.d_model), device=dev, generator=gen)
+    with torch.inference_mode():
+        full, sf, _ = rwkv.rwkv_time_mix(lp, cut, x)
+        o1, s1, x1 = rwkv.rwkv_time_mix(lp, cut, x[:, :29])
+        o2, s2, _ = rwkv.rwkv_time_mix(lp, cut, x[:, 29:], last_x=x1, s0=s1)
+    err = max((torch.cat([o1, o2], 1) - full).abs().max().item(),
+              (s2 - sf).abs().max().item())
+    ref = max(full.abs().max().item(), sf.abs().max().item())
+    out["halves"] = {"max_abs_err": err, "max_abs_ref": ref}
+    print(f"[lm families] {RWKV} time mix, 64 tokens split at 29 (state "
+          f"and last x carried) vs the whole: max_abs_err {err:.3e} (tol "
+          f"{TOL_KERNEL * max(1.0, ref):.3e})")
+    check(err <= TOL_KERNEL * max(1.0, ref),
+          "rwkv6: the split time mix disagrees with the whole")
+    del params
+    _free(torch)
+    return out
+
+
+def phase_moe(torch, dev, arch, seed):
+    """A MoE arch at its published config, bf16: prefill B=1 x 1024
+    (routing groups of 512), ``decode_capture`` with the B=4 step's
+    device work beside the least time to read the whole expert stack
+    (the dispatch einsums cover every expert, so a decode step reads all
+    of them); then fp32 at full width and FAMILY_CUT_LAYERS layers with
+    the lossless capacity factor n_experts / top_k (at the default 1.25
+    a 512-token group drops tokens that a one-token decode group keeps):
+    prefill 32 + 8 captured decode steps against ``forward``."""
+    import dataclasses
+    from repro_torch.models.common import DTypePolicy
+    cfg = dense_cfg(arch)
+    params, out = family_params(torch, dev, cfg, DTypePolicy(), seed,
+                                f"{arch} (published)")
+    moe = params["blocks"]["moe"]
+    expert_bytes = sum(moe[n].numel() * moe[n].element_size()
+                       for n in ("wi_gate", "wi_up", "wo"))
+    out["expert_bytes"] = expert_bytes
+    out["expert_read_bound_ms"] = 1e3 * expert_bytes / HBM_BYTES_PER_S
+    out.update(family_prefill(torch, dev, cfg, params, seed + 1))
+    out["serving"] = decode_capture(torch, dev, cfg, params)
+    out["peak_gib"] = peak_gib(torch, dev)
+    print(f"[lm families] {arch}: {cfg.n_experts} experts padded to "
+          f"{moe['wo'].shape[1]}, top-{cfg.top_k}, "
+          f"{cfg.shared_experts} shared; the decode step's dispatch "
+          f"einsums read every expert: {expert_bytes / 2**30:.2f} GiB, so "
+          f">= {out['expert_read_bound_ms']:.3f} ms a step at 3.35 TB/s, "
+          f"beside the B=4 step's measured device work "
+          f"{out['serving']['device_ms']:.3f} ms (graph replay)")
+    del params, moe
+    _free(torch)
+
+    cut = dataclasses.replace(
+        dense_cfg(arch, FAMILY_CUT_LAYERS),
+        moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    params, _ = family_params(torch, dev, cut, DTypePolicy.fp32(),
+                              seed + 2, f"{arch} cut to "
+                              f"{FAMILY_CUT_LAYERS} layers")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    tokens = torch.randint(0, cut.vocab, (2, 40), device=dev, generator=gen)
+    out["cut"] = decode_vs_forward(
+        torch, dev, cut, params, {"tokens": tokens}, 32,
+        f"[lm families] {arch} {FAMILY_CUT_LAYERS} layers, capacity factor "
+        f"{cut.moe_capacity_factor:g}")
+    del params
+    _free(torch)
+    return out
+
+
+def phase_encdec(torch, dev):
+    """seamless-m4t-medium at its published config (12 + 12 layers):
+    fp32, prefill over 512 source frames (random ``src_embeds``) and 64
+    tokens, then 8 captured decode steps on the cached cross K/V, against
+    the teacher-forced forward; bf16 ``decode_capture`` (the engine
+    decodes over the zero cross K/V of its ``max_len`` rows)."""
+    from repro_torch.models.common import DTypePolicy
+    cfg = dense_cfg(ENCDEC)
+    params, out = family_params(torch, dev, cfg, DTypePolicy.fp32(),
+                                SEED + 100, f"{ENCDEC} (published)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 72), device=dev,
+                                     generator=gen),
+             "src_embeds": torch.randn((2, ENCDEC_SRC, cfg.d_model),
+                                       device=dev, generator=gen)}
+    out["check"] = decode_vs_forward(
+        torch, dev, cfg, params, batch, 64,
+        f"[lm families] {ENCDEC} ({ENCDEC_SRC} source frames)")
+    del params
+    _free(torch)
+    params, out["bf16"] = family_params(torch, dev, cfg, DTypePolicy(),
+                                        SEED + 102, f"{ENCDEC} (published)")
+    out["held_gib"] = out["bf16"]["held_gib"]
+    out["serving"] = decode_capture(torch, dev, cfg, params)
+    out["peak_gib"] = peak_gib(torch, dev)
+    del params
+    _free(torch)
+    return out
+
+
+def phase_vlm(torch, dev):
+    """internvl2-26b at its published widths cut to FAMILY_CUT_LAYERS
+    layers: fp32, prefill of 256 patch embeddings (through
+    ``frontend_proj``) and 32 tokens, then 8 captured decode steps at
+    positions 288-295, against ``forward`` with the patches; bf16
+    ``decode_capture`` (tokens only)."""
+    from repro_torch.models.common import DTypePolicy
+    cfg = dense_cfg(VLM, FAMILY_CUT_LAYERS)
+    params, out = family_params(torch, dev, cfg, DTypePolicy.fp32(),
+                                SEED + 110, f"{VLM} cut to "
+                                f"{FAMILY_CUT_LAYERS} layers")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 111)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), device=dev,
+                                     generator=gen),
+             "patches": torch.randn((2, cfg.frontend_len, cfg.d_model),
+                                    device=dev, generator=gen)}
+    out["check"] = decode_vs_forward(
+        torch, dev, cfg, params, batch, 32,
+        f"[lm families] {VLM} {FAMILY_CUT_LAYERS} layers "
+        f"({cfg.frontend_len} patches)")
+    del params
+    _free(torch)
+    params, out["bf16"] = family_params(
+        torch, dev, cfg, DTypePolicy(), SEED + 112,
+        f"{VLM} cut to {FAMILY_CUT_LAYERS} layers")
+    out["held_gib"] = out["bf16"]["held_gib"]
+    out["serving"] = decode_capture(torch, dev, cfg, params)
+    out["peak_gib"] = peak_gib(torch, dev)
+    del params
+    _free(torch)
+    return out
+
+
+def profile_lm_families(torch, dev):
+    """Where a decode step's device time goes: one captured decode step
+    (B=4, position 16, bf16) of rwkv6-1.6b and of qwen2-moe-a2.7b at
+    their published configs under ``torch.profiler`` (run with the other
+    profiles, last): its kernels' ms, their number and the top ones."""
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.serve.engine import CapturedDecode
+    from repro_torch.serve.steps import make_decode_step
+    out = {}
+    for arch, seed in ((RWKV, SEED + 120), (MOE_ARCHS[1], SEED + 121)):
+        cfg = dense_cfg(arch)
+        params = lm_params(torch, dev, cfg, DTypePolicy(), seed)
+        decoder = CapturedDecode(make_decode_step(cfg, donate=True), dev)
+        cache = api.init_cache(cfg, 4, 64, device=dev)
+        token = torch.zeros(4, dtype=torch.long, device=dev)
+
+        def step():
+            with torch.inference_mode():
+                decoder(params, token, cache, 16)
+        step()                                    # the capture
+        ms, n, top = profile_device(torch, step, top=8)
+        out[arch] = {"device_ms": ms, "kernels": n, "top_kernels": top}
+        if ms is not None:
+            print(f"[profile] {arch} decode step (captured, B=4, bf16, "
+                  f"position 16): {ms:.3f} ms of kernels in {n} launches; "
+                  "top: " + "; ".join(
+                      f"{r['kernel'][:56]} {r['ms']:.3f} ms "
+                      f"({r['share']:.3f}, {r['calls']} calls)"
+                      for r in top))
+        del params, decoder, cache
+        _free(torch)
+    return out
+
+
+def phase_lm_families(torch, dev):
+    """``[lm families]``: rwkv6-1.6b, granite-moe-1b-a400m,
+    qwen2-moe-a2.7b, seamless-m4t-medium and internvl2-26b, each model
+    freed before the next, with its peak device memory."""
+    out = {RWKV: phase_rwkv(torch, dev)}
+    for i, arch in enumerate(MOE_ARCHS):
+        out[arch] = phase_moe(torch, dev, arch, SEED + 90 + 5 * i)
+    out[ENCDEC] = phase_encdec(torch, dev)
+    out[VLM] = phase_vlm(torch, dev)
+    for arch, d in out.items():
+        print(f"[lm families] {arch}: peak device memory "
+              f"{d['peak_gib']:.2f} GiB from its bf16 weights' draw to "
+              f"the end of their serving ({d['held_gib']:.2f} GiB held by "
+              f"earlier phases before it)")
     return out
 
 
@@ -4252,7 +4600,7 @@ def main() -> int:
 
     # -- the LM kernels against their plain versions (not a main path) ----
     from repro_torch.kernels import attention_fold as af
-    from repro_torch.kernels import conv1d_causal as cc
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
     lm_errs, attn_per_call = phase_lm_kernels(torch, dev)
     errs.update(lm_errs)
 
@@ -4307,6 +4655,23 @@ def main() -> int:
     check(cc.launch_counts()[cc.KERNEL] == 0
           and af.launch_counts()[af.KERNEL] == 0,
           "the dense family launched an LM kernel")
+
+    # -- the other LM families: no kernel of the port on their paths (the
+    # JAX package's RWKV-6, MoE, enc-dec and VLM reach no Pallas call) ----
+    counted = (cw, dn, cc, af)
+    for mod in counted:
+        mod.reset_launch_counts()
+    t_fam = time.perf_counter()
+    report["lm_families"] = phase_lm_families(torch, dev)
+    report["lm_families"]["seconds"] = time.perf_counter() - t_fam
+    fam_launches = {k: n for mod in counted
+                    for k, n in mod.launch_counts().items()}
+    print(f"[lm families] {report['lm_families']['seconds']:.1f} s; "
+          f"launches of the port's kernels: "
+          f"{sum(fam_launches.values())} over {len(fam_launches)} kernels "
+          "(the families run none)")
+    check(not any(fam_launches.values()),
+          f"an LM family launched a kernel of the port: {fam_launches}")
     # torch.profiler last: once it has run, every kernel of the process
     # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
     report["decode_zamba2"] = phase_lm_device(
@@ -4324,6 +4689,7 @@ def main() -> int:
                               f"({r['share']:.3f}, {r['calls']} calls)"
                               for r in top))
     del dense_runs
+    report["lm_families"]["profile"] = profile_lm_families(torch, dev)
 
     # the jit rows, side by side: every conv cell, then served images/s
     print("[jit] conv cells, ms: jitted / eager / device work (busy share "

@@ -1,5 +1,5 @@
 """End-to-end token serving on the port: batched requests through the
-continuous-batching engine (the dense attention family and zamba2), its
+continuous-batching engine (any arch of ``configs/registry.py``), its
 decode step one CUDA graph on the card.
 
     PYTHONPATH=src python examples/torch_serve_lm.py --arch qwen3-4b \
@@ -12,18 +12,15 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import arch_names, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serve.engine import BatchEngine, Request
 
-ARCHS = ("llama3-8b", "qwen3-4b", "qwen2.5-14b", "gemma3-12b",
-         "zamba2-1.2b")
-
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b", choices=ARCHS)
+    ap.add_argument("--arch", default="qwen3-4b", choices=arch_names())
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
     ap.add_argument("--full", action="store_true",

@@ -117,8 +117,13 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
                            window: int = 0) -> torch.Tensor:
     """q: (B, T, H, hd), k/v: (B, S, KV, hd) with H % KV == 0 ->
     (B, T, H, hd).  The KV head of query head h is h // (H // KV).  On
-    CUDA tensors this launches the kernel (its own tiles), on CPU tensors
-    it runs the plain version at its default kv block."""
+    CUDA tensors this launches the kernel, on CPU tensors it runs the
+    plain version at its default kv block.
+
+    The JAX function's ``q_block`` / ``k_block`` (its Pallas grid's tiles)
+    and ``interpret`` (Pallas's interpret mode) are not parameters here:
+    the CUDA kernel picks its own tiles, and the plain version is the CPU
+    path."""
     _check(q, k, v)
     if q.device.type == "cuda":
         return launch(q, k, v, causal=causal, window=window)

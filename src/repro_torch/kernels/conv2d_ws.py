@@ -104,6 +104,7 @@ from repro_torch.core.mapping import (WS_ACC_BYTES_LIMIT, ConvBlockPlan,
                                       plan_conv_blocks)
 
 __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
+           "default_plan",
            "OperandSpec", "FoldKernelSpec", "fold_kernel_spec", "launch_ws",
            "launch_os", "launch_dw", "launch_psum", "LAUNCHERS", "KERNELS",
            "launch_counts", "reset_launch_counts", "prepare", "FoldTile",
@@ -114,6 +115,12 @@ __all__ = ["conv2d_folded", "conv2d_folded_plain", "DATAFLOWS",
            "DW_POOL_TQS", "DW_WARPS_PER_SM"]
 
 DATAFLOWS = ("weight_stationary", "output_stationary", "depthwise")
+
+
+def default_plan(conv: ConvLoopNest, **kw) -> ConvBlockPlan:
+    """The block plan ``conv2d_folded`` solves when it is given none
+    (``plan_conv_blocks``)."""
+    return plan_conv_blocks(conv, **kw)
 
 
 # --------------------------------------------------------------------------

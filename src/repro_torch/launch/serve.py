@@ -4,6 +4,7 @@ request stream through the vision engine (``serve/vision.py``).
 
     python -m repro_torch.launch.serve --device cpu
     python -m repro_torch.launch.serve --arch zamba2-1.2b --full
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
     python -m repro_torch.launch.serve --vision --model mobilenetv2
     python -m repro_torch.launch.serve --vision --model resnet18 --width 1.0
     python -m repro_torch.launch.serve --vision --model vgg16 --device cpu
@@ -19,10 +20,13 @@ The token path serves ``--requests`` random prompts of ``--prompt-len``
 tokens, ``--new-tokens`` each, at batch width ``--batch``, over random
 weights from ``--seed`` (the bf16 policy; ``--full`` for the published
 widths, else the reduced config), and prints requests done/lost, tokens,
-tokens/s and the prefill/decode times as one JSON object.  The dense
-attention family (llama3-8b, qwen3-4b, qwen2.5-14b, gemma3-12b) and
-zamba2-1.2b are ported; another ``--arch`` is refused, naming its ROADMAP
-item.
+tokens/s and the prefill/decode times as one JSON object.  Every
+``--arch`` of ``configs/registry.py`` serves: the dense attention family
+(llama3-8b, qwen3-4b, qwen2.5-14b, gemma3-12b), the MoE pair
+(granite-moe-1b-a400m, qwen2-moe-a2.7b), rwkv6-1.6b, zamba2-1.2b, the VLM
+internvl2-26b (tokens only: the engine steps prompts through decode) and
+the enc-dec seamless-m4t-medium (over a zero cross cache: the engine
+never prefills, as the JAX engine does not).
 
 The vision path serves a deterministic mixed-size request stream through
 the bucketed compiled forwards of any registered conv model

@@ -1,26 +1,22 @@
 """Family-dispatch facade over the LM models (the JAX package's
 ``models/api.py``): the serve steps and the tests go through these
-functions.  The port has the decoder-only dense attention family
-(llama3, qwen3, qwen2.5, gemma3) and the zamba2 hybrid
-(``models/transformer.py``); the enc-dec family raises, naming its ROADMAP
-item."""
+functions.  The decoder-only families (dense attention, MoE, RWKV-6, the
+zamba2 hybrid, the VLM) are ``models/transformer.py``, the enc-dec family
+``models/encdec.py``."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import DTypePolicy
 
 __all__ = ["init_params", "init_cache", "prefill", "decode_step"]
 
 
 def _mod(cfg):
-    if cfg.is_encdec:
-        raise NotImplementedError("the enc-dec family is not ported yet "
-                                  "(ROADMAP queue A item 4c)")
-    return transformer
+    return encdec if cfg.is_encdec else transformer
 
 
 def init_params(cfg, gen: Optional[torch.Generator] = None,
@@ -30,17 +26,24 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
                                  device=device)
 
 
-def init_cache(cfg, batch: int, max_len: int, *,
+def init_cache(cfg, batch: int, max_len: int, *, src_len: int = 0,
                dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"):
-    return _mod(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
-                                device=device)
+    """The decode cache; the enc-dec's cross K/V hold ``src_len`` rows
+    (0: ``max_len``)."""
+    if cfg.is_encdec:
+        return encdec.init_cache(cfg, batch, max_len, src_len or max_len,
+                                 dtype=dtype, device=device)
+    return transformer.init_cache(cfg, batch, max_len, dtype=dtype,
+                                  device=device)
 
 
 def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache):
-    if batch.get("patches") is not None:
-        raise NotImplementedError("the VLM frontend is not ported yet "
-                                  "(ROADMAP queue A item 4c)")
-    return _mod(cfg).prefill(params, cfg, batch["tokens"], cache)
+    """``batch``: the prompt under "tokens"; the enc-dec's source frames
+    under "src_embeds", the VLM's patch embeddings under "patches"."""
+    if cfg.is_encdec:
+        return encdec.prefill(params, cfg, batch, cache)
+    return transformer.prefill(params, cfg, batch["tokens"], cache,
+                               extra_embeds=batch.get("patches"))
 
 
 def decode_step(params, cfg, token, cache, pos, donate: bool = False):

@@ -9,8 +9,8 @@ the flash-style online softmax over KV blocks.  Both are plain torch, as
 in the JAX package; the fold-attention kernel (``kernels/attention_fold``)
 is an op no model calls.  ``ring_decode_attention`` is the one-token
 decode of a sliding-window layer against a ring buffer of W slots (gemma3's
-local layers under ``window_cache``).  Cross-attention (the enc-dec
-family) is not ported yet.
+local layers under ``window_cache``).  Cross-attention (``kv_x=``) serves
+the enc-dec family.
 """
 from __future__ import annotations
 
@@ -71,14 +71,19 @@ def _project_kv(p, cfg, x):
     return k, v
 
 
-def _project_qkv(p, cfg, x, positions, inv_freq):
-    """q, k and v of ``x``: the projections, QKV biases, qk-norm, and RoPE
-    at ``positions`` on q and k."""
+def _project_q(p, cfg, x):
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_qkv(p, cfg, x, positions, inv_freq):
+    """q, k and v of ``x``: the projections, QKV biases, qk-norm, and RoPE
+    at ``positions`` on q and k."""
+    q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if inv_freq is not None:
         q = apply_rope(q, positions, inv_freq)
@@ -208,9 +213,10 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos=None,
               kv_x: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None,
               donate: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention.
+    """Self- or cross-attention.
 
     * train/prefill: cache=None, full sequence in ``x``.
     * decode / cached prefill: ``cache`` holds (k, v) of shape
@@ -220,13 +226,22 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
       ``cache_pos + T`` entries (unclamped, as in the JAX package).  The
       rows go into a new cache (the one passed in is not changed), or
       with ``donate`` into ``cache``'s own tensors, which come back.
+    * cross-attention: ``kv_x`` (B, S, D) is the encoder output, the keys'
+      and values' source; every row of it is visible (no mask), k gets no
+      RoPE, q gets it only when ``inv_freq`` is given, and no cache is
+      written.  As in the JAX package, the unmasked ``_mha`` takes it
+      whatever the attention impl, so ``kv_positions`` (the encoder rows'
+      positions) changes no value.
 
     Returns (output (B,T,D), the new cache or None).
     """
     if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention belongs to the enc-dec family, not ported yet "
-            "(ROADMAP queue A item 4c)")
+        q = _project_q(p, cfg, x)
+        if inv_freq is not None:
+            q = apply_rope(q, positions, inv_freq)
+        k, v = _project_kv(p, cfg, kv_x)
+        out = _mha(q, k.to(q.dtype), v.to(q.dtype), None, cfg.head_dim_)
+        return _project_out(p, cfg, out), None
     q, k, v = _project_qkv(p, cfg, x, positions, inv_freq)
     if cache is None:
         kv_pos, kv_len, new_cache = positions, None, None

@@ -1,12 +1,12 @@
-"""Primitive layers: RMS norms, RoPE and logit soft-capping (the JAX
-package's ``models/layers.py``).  Norms and rotations compute in fp32 and
-cast back to the input's type."""
+"""Primitive layers: RMS and layer norms, RoPE and logit soft-capping
+(the JAX package's ``models/layers.py``).  Norms and rotations compute in
+fp32 and cast back to the input's type."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm", "group_rms_norm", "rope_freqs", "apply_rope",
-           "softcap"]
+__all__ = ["rms_norm", "group_rms_norm", "layer_norm", "rope_freqs",
+           "apply_rope", "softcap"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -22,13 +22,22 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
 
 def group_rms_norm(x: torch.Tensor, weight: torch.Tensor, groups: int,
                    eps: float = 1e-6) -> torch.Tensor:
-    """Per-group RMSNorm over the last dim (the Mamba2 gated norm
-    normalizes per head)."""
+    """Per-group RMSNorm over the last dim (RWKV6's ln_x and the Mamba2
+    gated norm normalize per head)."""
     *lead, d = x.shape
     xg = x.float().reshape(*lead, groups, d // groups)
     var = xg.square().mean(dim=-1, keepdim=True)
     y = (xg * torch.rsqrt(var + eps)).reshape(*lead, d)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,

@@ -1,15 +1,19 @@
 """Decoder-only LM (the JAX package's ``models/transformer.py``): the dense
 attention family (GQA, qk-norm, QKV bias, RoPE, per-layer sliding windows,
-gemma3's local:global pattern with its ring-buffer window cache) and the
-zamba2 hybrid (groups of Mamba2 layers with one *shared* attention block
-applied between groups: weights reused, one KV cache per application),
-with position-indexed caches and the fused prefill and decode paths.
+gemma3's local:global pattern with its ring-buffer window cache), the MoE
+family (the attention layer with ``models/moe.py``'s FFN), RWKV-6
+(``models/rwkv.py``), the zamba2 hybrid (groups of Mamba2 layers with one
+*shared* attention block applied between groups: weights reused, one KV
+cache per application) and the VLM frontend (projected patch embeddings
+prepended to the tokens), with position-indexed caches and the fused
+prefill and decode paths.  The enc-dec family is ``models/encdec.py``.
 
 The layers are stacked on a leading "layers" axis, as in the JAX package,
 and walked by a Python loop where it scans.  Caches are returned new and
 the ones passed in are not changed, except in the donated decode step,
-which writes into the cache it is given.  The other families (rwkv6, MoE,
-VLM, enc-dec) raise ``NotImplementedError`` naming their ROADMAP item.
+which writes into the cache it is given.  ``forward`` returns the logits:
+the summed MoE auxiliary loss that the JAX function returns beside them
+is training's.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import DTypePolicy, TreeMaker
 from repro_torch.models.layers import rms_norm, rope_freqs
@@ -29,39 +35,32 @@ __all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
            "uses_window_cache"]
 
 
-def _unported(cfg) -> None:
-    """Raise for a family the port has not reached: every one but the
-    dense attention family and the Mamba2 hybrid, each naming its ROADMAP
-    item."""
-    what = None
-    if cfg.is_encdec:
-        what = "the enc-dec family", "4c"
-    elif cfg.frontend == "vlm":
-        what = "the VLM frontend", "4c"
-    elif cfg.block == "rwkv6":
-        what = "the rwkv6 family", "4b"
-    elif cfg.is_moe:
-        what = "the MoE family", "4b"
-    if what is not None:
-        raise NotImplementedError(f"{what[0]} is not ported yet (ROADMAP "
-                                  f"queue A item {what[1]})")
-
-
 # ---------------------------------------------------------------------------
 # parameter construction
 # ---------------------------------------------------------------------------
 
 def _attn_layer_tree(tm: TreeMaker, cfg):
     d = cfg.d_model
-    return {"ln1": tm.param((d,), init="ones"),
-            "attn": attn_mod.attn_params(tm, cfg),
-            "ln2": tm.param((d,), init="ones"),
-            "mlp": mlp_params(tm, cfg)}
+    t = {"ln1": tm.param((d,), init="ones"),
+         "attn": attn_mod.attn_params(tm, cfg),
+         "ln2": tm.param((d,), init="ones")}
+    if cfg.is_moe:
+        t["moe"] = moe_mod.moe_params(tm, cfg)
+    else:
+        t["mlp"] = mlp_params(tm, cfg)
+    return t
 
 
-def _mamba_layer_tree(tm: TreeMaker, cfg):
-    return {"ln1": tm.param((cfg.d_model,), init="ones"),
-            "mamba": ssm_mod.mamba_params(tm, cfg)}
+def _layer_tree(tm: TreeMaker, cfg):
+    d = cfg.d_model
+    if cfg.block == "rwkv6":
+        return {"ln1": tm.param((d,), init="ones"),
+                "ln2": tm.param((d,), init="ones"),
+                "rwkv": rwkv_mod.rwkv_params(tm, cfg)}
+    if cfg.block == "mamba2":
+        return {"ln1": tm.param((d,), init="ones"),
+                "mamba": ssm_mod.mamba_params(tm, cfg)}
+    return _attn_layer_tree(tm, cfg)
 
 
 def _stack(trees):
@@ -90,21 +89,21 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
     """Random parameters on ``device``: the JAX package's laws (other
     random bits), drawn from ``gen`` (a generator on ``device`` seeded 0
     when None)."""
-    _unported(cfg)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
     tm = TreeMaker(gen, dev, dtype_policy or DTypePolicy())
     d, v = cfg.d_model, cfg.padded_vocab
-    layer = _attn_layer_tree if cfg.block == "attn" else _mamba_layer_tree
     p = {"embed": tm.param((v, d), scale=0.02),
          "final_norm": tm.param((d,), init="ones"),
-         "blocks": _stack_layers([layer(tm, cfg)
+         "blocks": _stack_layers([_layer_tree(tm, cfg)
                                   for _ in range(cfg.n_layers)])}
     if not cfg.tie_embeddings:
         p["lm_head"] = tm.param((d, v))
     if cfg.shared_attn_every:
         p["shared_attn"] = _attn_layer_tree(tm, cfg)
+    if cfg.frontend == "vlm":
+        p["frontend_proj"] = tm.param((d, d))
     return p
 
 
@@ -122,9 +121,28 @@ def _attn_block(lp, cfg, x, *, positions, inv_freq, window, cache=None,
 
 
 def _ffn(lp, cfg, x):
-    """The residual MLP half of an attention layer."""
+    """The residual FFN half of an attention layer: the MLP, or the MoE
+    FFN (its aux loss dropped: training's)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
+    if cfg.is_moe:
+        f, _ = moe_mod.moe_ffn(
+            lp["moe"], cfg, h, group_size=cfg.moe_group_size,
+            capacity_factor=cfg.moe_capacity_factor,
+            renorm_topk=cfg.shared_experts == 0,
+            dispatch_dtype=(torch.bfloat16
+                            if cfg.moe_dispatch_dtype == "bf16" else None))
+        return x + f
     return x + mlp(lp["mlp"], h, act="gelu" if cfg.rms_plus_one else "silu")
+
+
+def _rwkv_block(lp, cfg, x, *, state=None, x_tm=None, x_cm=None):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    o, sf, xl_tm = rwkv_mod.rwkv_time_mix(lp["rwkv"], cfg, h, last_x=x_tm,
+                                          s0=state)
+    x = x + o
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    o, xl_cm = rwkv_mod.rwkv_channel_mix(lp["rwkv"], cfg, h, last_x=x_cm)
+    return x + o, sf, xl_tm, xl_cm
 
 
 def _mamba_layer(lp, cfg, x, *, h0=None, conv_init=None):
@@ -138,10 +156,15 @@ def _mamba_layer(lp, cfg, x, *, h0=None, conv_init=None):
 # full-sequence forward (eval / prefill)
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, extra_embeds=None):
+    """Token embeddings; for the VLM, ``extra_embeds`` (B, L, D) projected
+    by ``frontend_proj`` and put in front of them."""
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
+    if cfg.frontend == "vlm" and extra_embeds is not None:
+        patches = extra_embeds.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([patches, x], dim=1)
     return x
 
 
@@ -182,9 +205,29 @@ def _run_attn_stack(params, cfg, x, *, positions, cache=None,
 
 
 def _run_stack(params, cfg, x, *, positions, cache=None, cache_pos=None):
+    if cfg.block == "rwkv6":
+        return _run_rwkv_stack(params, cfg, x, cache=cache)
     run = _run_attn_stack if cfg.block == "attn" else _run_zamba_stack
     return run(params, cfg, x, positions=positions, cache=cache,
                cache_pos=cache_pos)
+
+
+def _run_rwkv_stack(params, cfg, x, *, cache=None):
+    """Walk the RWKV-6 stack over a full sequence, from the states in
+    ``cache`` when given.  Returns (x, the states after it, or None), the
+    last token-shift inputs in the cache's type."""
+    blocks, new = params["blocks"], []
+    for i in range(cfg.n_layers):
+        lp = _layer(blocks, i)
+        if cache is None:
+            x, _, _, _ = _rwkv_block(lp, cfg, x)
+            continue
+        c = _layer(cache, i)
+        x, sf, xl_tm, xl_cm = _rwkv_block(lp, cfg, x, state=c["s"],
+                                          x_tm=c["x_tm"], x_cm=c["x_cm"])
+        new.append({"s": sf, "x_tm": xl_tm.to(c["x_tm"].dtype),
+                    "x_cm": xl_cm.to(c["x_cm"].dtype)})
+    return x, (_stack(new) if cache is not None else None)
 
 
 def _zamba_groups(cfg):
@@ -250,11 +293,12 @@ def _logits(x, head):
     return x.float() @ head.float()
 
 
-def forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits.  tokens: (B, S) -> (B, S, padded vocab) fp32.
-    (The JAX function's MoE auxiliary loss is always 0 here.)"""
-    _unported(cfg)
-    x = _embed(params, cfg, tokens)
+def forward(params, cfg, tokens: torch.Tensor, *,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence logits.  tokens: (B, S) -> (B, S_total, padded vocab)
+    fp32, S_total = S plus, for the VLM, the L rows of ``extra_embeds``
+    (B, L, D) in front."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_stack(params, cfg, x, positions=positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
@@ -281,8 +325,8 @@ def init_cache(cfg, batch: int, max_len: int,
     max_len, cache KV heads, head dim) per k and v for the dense family;
     with ``uses_window_cache``, ``{"local": (groups, ge-1, B, W, ...),
     "global": (groups, B, max_len, ...)}``; the Mamba2 states and the
-    shared block's KV caches for zamba2."""
-    _unported(cfg)
+    shared block's KV caches for zamba2; the WKV states (fp32) and the
+    token-shift inputs for rwkv6."""
     dev = resolve_device(device)
 
     def kv(length):
@@ -295,6 +339,9 @@ def init_cache(cfg, batch: int, max_len: int,
                 "global": _stack([kv(max_len)] * ng)}
     if cfg.block == "attn":
         return _stack([kv(max_len)] * cfg.n_layers)
+    if cfg.block == "rwkv6":
+        return _stack([rwkv_mod.init_rwkv_cache(cfg, batch, dtype, dev)]
+                      * cfg.n_layers)
     n_attn = sum(1 for _, _, has in _zamba_groups(cfg) if has)
     return {
         "mamba": _stack([ssm_mod.init_mamba_cache(cfg, batch, dtype, dev)]
@@ -309,6 +356,8 @@ def _decode_stack(params, cfg, x, cache, pos: torch.Tensor, donate: bool):
     device position ``pos``.  With ``donate`` every layer writes its new
     cache into ``cache``'s own tensors, which come back; otherwise the new
     per-layer caches are stacked into new tensors."""
+    if cfg.block == "rwkv6":
+        return _decode_rwkv(params, cfg, x, cache, donate)
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = pos.reshape(1)
     blocks = params["blocks"]
@@ -337,6 +386,23 @@ def _decode_stack(params, cfg, x, cache, pos: torch.Tensor, donate: bool):
         return x, cache
     return x, {"mamba": _stack(new_mamba),
                "attn": _stack(new_attn) if new_attn else cache["attn"]}
+
+
+def _decode_rwkv(params, cfg, x, cache, donate):
+    """One token through the RWKV-6 stack.  The new states come back in
+    the activations' type, as the JAX decode step's do; with ``donate``
+    they are written into ``cache``'s tensors (in the cache's type)."""
+    blocks, new = params["blocks"], []
+    for i in range(cfg.n_layers):
+        c = _layer(cache, i)
+        x, sf, xl_tm, xl_cm = _rwkv_block(_layer(blocks, i), cfg, x,
+                                          state=c["s"], x_tm=c["x_tm"],
+                                          x_cm=c["x_cm"])
+        new.append({"s": sf, "x_tm": xl_tm, "x_cm": xl_cm})
+        if donate:
+            for name, t in new[-1].items():
+                c[name].copy_(t)
+    return x, (cache if donate else _stack(new))
 
 
 def _decode_window_cache(params, cfg, x, cache, pos, inv_freq, donate):
@@ -380,7 +446,6 @@ def decode_step(params, cfg, token: torch.Tensor, cache, pos,
     ``cache`` (the counterpart of ``jax.jit(..., donate_argnums=...)``):
     its addresses stay fixed and nothing syncs with the host, so the step
     can be captured as a CUDA graph."""
-    _unported(cfg)
     x = _embed(params, cfg, token[:, None])
     pos = attn_mod.device_position(pos, x.device)
     x, ncache = _decode_stack(params, cfg, x, cache, pos, donate)
@@ -390,23 +455,25 @@ def decode_step(params, cfg, token: torch.Tensor, cache, pos,
     return logits[:, 0], ncache
 
 
-def prefill(params, cfg, tokens: torch.Tensor, cache
+def prefill(params, cfg, tokens: torch.Tensor, cache, *,
+            extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Any]:
     """Fill the cache with a full prompt; returns (last-token logits, new
     cache).  For attention the whole prompt is written at cache slots
-    [0, S); for the Mamba2 layers the state after the prompt is stored.
+    [0, S); for the Mamba2 and RWKV-6 layers the state after the prompt is
+    stored.  The VLM's ``extra_embeds`` (B, L, D) go in front of the
+    prompt, at slots [0, L).
 
     A ring-buffer window cache (``uses_window_cache``) is not prefilled,
     as in the JAX package: step the prompt through ``decode_step``, as
     ``BatchEngine`` does."""
-    _unported(cfg)
     if uses_window_cache(cfg):
         raise ValueError(
             f"{cfg.name}: prefill fills a full-length cache, not the "
             "{'local', 'global'} ring-buffer window cache; step the prompt "
             "through decode_step (as BatchEngine does) or prefill with "
             "window_cache=False")
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     x, ncache = _run_stack(params, cfg, x, positions=positions, cache=cache,
                            cache_pos=0)

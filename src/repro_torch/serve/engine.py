@@ -13,11 +13,14 @@ engine:
 * a slot is prefilled by stepping its prompt through the *decode* step
   (never the prefill step, so serving launches no conv1d kernel);
 * each of those decode calls advances every batch row: while slot j
-  prefills, the other rows' Mamba2 state and conv tail advance and their
-  KV cache is written at ``pos[j]``;
+  prefills, the other rows' recurrent state (Mamba2's state and conv
+  tail, RWKV-6's WKV state and token shifts) advances and their KV cache
+  is written at ``pos[j]``;
 * a refilled slot keeps the previous request's recurrent state (its
   position is reset; no state is cleared);
-* a step runs every slot at ``pos = max(pos[active])``.
+* a step runs every slot at ``pos = max(pos[active])``;
+* the enc-dec family decodes over the zero cross K/V of ``max_len`` rows
+  that ``init_cache`` makes (no source is encoded).
 """
 from __future__ import annotations
 

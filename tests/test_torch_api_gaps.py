@@ -7,6 +7,10 @@ and the reference's result on the same inputs.
 * ``core/engine.plan_and_dataflow(cv, cfg=None, precision="fp32")``
 * ``core/graph.lower(graph, params, input_shape, **compile_kw)``
 * ``models/zoo.ConvModelSpec.graph()``
+
+and the package-level names of ``repro.kernels`` (C5):
+``conv1d_causal``, ``conv2d``, ``flash_attention_folded``, and
+``kernels/conv2d_ws.default_plan``.
 """
 import inspect
 
@@ -124,3 +128,36 @@ def test_spec_graph_and_lower_match_reference(model):
     direct = t_engine.compile_network(tp, tg, shape, policy="reference",
                                       device="cpu", cache=got.cache)
     assert torch.equal(direct(tp, torch.from_numpy(x)), y)
+
+
+def test_kernels_package_exports_the_reference_names():
+    """``repro_torch.kernels`` exports what ``repro.kernels`` does, each
+    name the port's op of that name."""
+    import repro.kernels as j_kernels
+    import repro_torch.kernels as t_kernels
+    from repro_torch.kernels import attention_fold as t_af
+    assert sorted(t_kernels.__all__) == sorted(j_kernels.__all__)
+    assert t_kernels.conv2d is t_ops.conv2d
+    assert t_kernels.conv1d_causal is t_ops.conv1d_causal
+    assert t_kernels.flash_attention_folded is t_af.flash_attention_folded
+    # the JAX op's q_block / k_block / interpret (Pallas tiles and
+    # interpret mode) are not accepted: the CUDA kernel picks its tiles
+    j_names = set(inspect.signature(
+        j_kernels.flash_attention_folded).parameters)
+    t_names = set(inspect.signature(
+        t_kernels.flash_attention_folded).parameters)
+    assert j_names - t_names == {"q_block", "k_block", "interpret"}
+    assert t_names <= j_names
+
+
+@pytest.mark.parametrize("nest", NESTS, ids=lambda d: "x".join(
+    str(d[k]) for k in ("nf", "c", "r", "x", "stride")))
+def test_default_plan_matches_reference(nest):
+    from repro.kernels import conv2d_ws as j_cw
+    from repro_torch.kernels import conv2d_ws as t_cw
+    assert "default_plan" in t_cw.__all__
+    assert _params_of(t_cw.default_plan) == _params_of(j_cw.default_plan)
+    tp = t_cw.default_plan(TNest(**nest))
+    jp = j_cw.default_plan(JNest(**nest))
+    assert (tp.nf_block, tp.c_block, tp.p_block, tuple(tp.grid)) == \
+        (jp.nf_block, jp.c_block, jp.p_block, tuple(jp.grid))

@@ -41,7 +41,9 @@ def test_vgg16_pipeline(impl):
 
 @pytest.mark.parametrize("arch,extra", [("qwen3-4b", ()),
                                         ("gemma3-12b", ("--window-cache",)),
-                                        ("zamba2-1.2b", ())])
+                                        ("zamba2-1.2b", ()),
+                                        ("rwkv6-1.6b", ()),
+                                        ("seamless-m4t-medium", ())])
 def test_serve_lm(arch, extra):
     out = _run("torch_serve_lm.py", "--arch", arch, "--requests", "3",
                "--batch", "2", "--prompt-len", "4", "--new-tokens", "4",

@@ -43,8 +43,9 @@ def test_port_imports_where_jax_cannot_load():
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "from repro_torch.models import mobilenet, resnet, vgg, zoo\n"
-        "from repro_torch.models import (api, attention, common, layers,\n"
-        "                                mlp, settings, ssm, transformer)\n"
+        "from repro_torch.models import (api, attention, common, encdec,\n"
+        "                                layers, mlp, moe, rwkv, settings,\n"
+        "                                ssm, transformer)\n"
         "from repro_torch.configs import base, registry\n"
         "from repro_torch.serve import (admission, batcher, chaos, engine,\n"
         "                               steps, vision)\n"
@@ -53,6 +54,9 @@ def test_port_imports_where_jax_cannot_load():
         "from repro_torch.launch import serve\n"
         "from repro_torch.kernels import (attention_fold, build,\n"
         "                                 conv1d_causal, conv2d_ws, ops, ref)\n"
+        "from repro_torch.kernels import (conv1d_causal, conv2d,\n"
+        "                                 flash_attention_folded)\n"
+        "assert build._build.cache_info().currsize == 0  # nothing built\n"
         "from repro_torch.core import (engine, mapping, quant,\n"
         "                              simulator, streaming)\n"
         "from repro_torch.analysis import (foldlint, graph_check,\n"
@@ -76,7 +80,9 @@ def test_port_imports_where_jax_cannot_load():
                                    "mobilenetv2", "serving_summary",
                                    "launcher", "lm_init_params",
                                    "lm_init_cache", "dense_lm_init_params",
-                                   "dense_lm_init_cache", "batch_engine",
+                                   "dense_lm_init_cache", "rwkv_init_cache",
+                                   "moe_init_params", "encdec_init_params",
+                                   "encdec_init_cache", "batch_engine",
                                    "token_serving_summary",
                                    "token_launcher", "foldlint",
                                    "chaos_summary", "chaos_launcher",
@@ -120,6 +126,14 @@ def test_cuda_without_a_gpu_raises(entry):
         "dense_lm_init_params": lambda: api.init_params(dense),
         "dense_lm_init_cache": lambda: api.init_cache(
             dataclasses.replace(dense, window_cache=True), 1, 8),
+        "rwkv_init_cache": lambda: api.init_cache(
+            get_config("rwkv6-1.6b", reduced=True), 1, 8),
+        "moe_init_params": lambda: api.init_params(
+            get_config("qwen2-moe-a2.7b", reduced=True)),
+        "encdec_init_params": lambda: api.init_params(
+            get_config("seamless-m4t-medium", reduced=True)),
+        "encdec_init_cache": lambda: api.init_cache(
+            get_config("seamless-m4t-medium", reduced=True), 1, 8),
         "batch_engine": lambda: BatchEngine(
             lm, api.init_params(lm, device="cpu"), batch=1, max_len=8),
         "token_serving_summary": lambda: token_serving_summary(),

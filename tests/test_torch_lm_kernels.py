@@ -5,6 +5,7 @@ and ``conv1d_causal_ref``, the fold attention's plain version against
 the bf16 attention kernel's rounding points (emulated in torch ops)
 against both, and — on a card — each CUDA kernel against its plain
 version."""
+import importlib
 import types
 
 import numpy as np
@@ -13,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import attention_fold as t_attn  # noqa: E402
-from repro_torch.kernels import conv1d_causal as t_conv  # noqa: E402
+# the module: the package's name ``conv1d_causal`` is the op, as in
+# ``repro.kernels``
+t_conv = importlib.import_module("repro_torch.kernels.conv1d_causal")
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 

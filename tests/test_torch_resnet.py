@@ -153,10 +153,12 @@ def test_launcher_serves_resnet18(capsys):
     assert d["verify"]["max_abs_err"] <= TOL * d["verify"]["max_abs_ref"]
 
 
-def test_launcher_refuses_the_unported_token_path():
-    """Without ``--vision`` the launcher serves tokens; an LM family the
-    port has not reached is refused, naming its ROADMAP item."""
+def test_launcher_serves_the_rwkv6_token_path(capsys):
+    """Without ``--vision`` the launcher serves tokens, whatever
+    ``--model`` says: rwkv6 (reduced) serves every request."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--model", "resnet18", "--arch", "rwkv6-1.6b", "--device",
-              "cpu"])
+    d = main(["--model", "resnet18", "--arch", "rwkv6-1.6b", "--device",
+              "cpu", "--requests", "3", "--new-tokens", "5"])
+    assert '"rwkv6-1.6b-smoke"' in capsys.readouterr().out
+    assert d["requests_done"] == 3 and d["requests_lost"] == 0
+    assert d["tokens"] == 15

@@ -178,12 +178,33 @@ def test_attention_matches_reference(jx, arch, t, pos, window, impl):
             _close(got_cache[n], want_cache[n], f"cache {n}")
 
 
-def test_unported_families_raise():
-    for name in ("rwkv6-1.6b", "granite-moe-1b-a400m", "internvl2-26b",
-                 "seamless-m4t-medium"):
-        cfg = t_registry.get_config(name, reduced=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_api.init_params(cfg, device="cpu")
+FAMILIES = ["rwkv6-1.6b", "granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+            "seamless-m4t-medium", "internvl2-26b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_lm_families_build_the_reference_tree(jx, name):
+    """``api.init_params`` builds each of the other families' reduced
+    trees (RWKV-6's fp32 decay base and bonus, the padded experts and the
+    fp32 router, the enc-dec's two stacks, the VLM's frontend
+    projection) with the JAX package's leaf names, shapes and types, and
+    the weight bridge carries the JAX tree across leaf for leaf in
+    them."""
+    cfg = jx.registry.get_config(name, reduced=True)
+    want = jx.api.init_params(cfg, jx.jax.random.PRNGKey(0))
+    got = t_api.init_params(t_registry.get_config(name, reduced=True),
+                            torch.Generator().manual_seed(0), device="cpu")
+    carried = params_from_jax(want, "cpu")
+    flat = jx.jax.tree_util.tree_leaves_with_path(want)
+    assert len(flat) == len(jx.jax.tree_util.tree_leaves(got))
+    for path, leaf in flat:
+        t, c = got, carried
+        for key in path:
+            t, c = t[key.key], c[key.key]
+        assert tuple(t.shape) == tuple(c.shape) == leaf.shape, path
+        assert t.dtype == c.dtype == getattr(torch, str(leaf.dtype)), path
+        np.testing.assert_array_equal(
+            c.float().numpy(), np.asarray(leaf.astype("float32")))
 
 
 # --------------------------------------------------------------------------
