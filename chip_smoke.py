@@ -213,14 +213,38 @@ Phases (any failed check raises, and the script exits non-zero):
     internvl2-26b at published widths and 4 layers: fp32 prefill of 256
     patch embeddings and 32 tokens, 8 decode steps against ``forward``
     with the patches; bf16 ``decode_capture``.
+16d. ``[train]``: zamba2-1.2b at its published config (1.17B
+    parameters, bf16 with fp32 AdamW state, ``remat="full"``: ``none``
+    does not fit beside the optimizer state) trained on the synthetic
+    ``TokenPipeline`` at B=4 x 1024 under
+    ``torch.use_deterministic_algorithms``: 6 steps through ``Trainer``
+    (every loss and grad norm finite; step ms, mean and spread of steps
+    2-6, tokens/s, peak device memory; 114 conv1d launches a step: 38
+    forward, 38 recomputed, 38 dx through the kernel); the restart, a
+    ``Trainer`` that checkpoints at step 3 into a temporary directory and
+    a new one that restores and runs to 6, bitwise the uninterrupted run
+    (parameters, optimizer state, losses); then one step at the seeded
+    weights with the kernel against the same step with the plain conv1d
+    (``ssm``'s ``conv1d_causal`` swapped for its ``impl="ref"`` form):
+    the loss, every gradient and the new parameters bitwise, and every
+    parameter leaf's gradient finite and nonzero (a detach would leave
+    zeros).  Only the conv1d kernel launches on the path (checked).
+16e. ``[fold grads]``: gradients through ``ops.conv2d_fused`` on the
+    card for a full-width ResNet-18 basic block (s2b1, 16x16, the
+    residual fused) with fold_ws, fold_os and fold_auto, a full-width
+    MobileNetV2 inverted residual (b2, 32x32, BN / ReLU6 fused, the
+    depthwise on fold_dw, the projection's residual fused), and one conv
+    on fold_ws_psum, batch 4, fp32: each within 1e-4 of its max of the
+    reference chain's (``impl="direct"``), every fold kernel launched.
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
     then the prefill replayed as a CUDA graph and the prefill and the
     captured decode steps under ``torch.profiler`` (gemma3-12b's prefill
     and decode step, and one decode step of rwkv6-1.6b and of
-    qwen2-moe-a2.7b too): last, because once the profiler has run every
-    kernel of the process reads slower.
+    qwen2-moe-a2.7b too, and one training step with its busy share
+    against ``[train]``'s step time): last, because once the profiler
+    has run every kernel of the process reads slower.
 
 Every conv forward of phases 3, 4, 6, 7 and 10 is a compiled network
 at the default ``jit`` and ``verify``: its graph, plans, launches and CTA
@@ -240,7 +264,9 @@ count too), 10-11 (int8), 12 (psum), 12d (bf16), 12c and 12e (the
 serving runtime and HTTP serving; launches tick at warm-ups and
 captures), 12g (the per-layer VGG-16 path), 14-16 (the LM path), 16b
 (the dense family, which launches no kernel), 16c (the other families,
-none either: every kernel's count), 17 (the attention op).  The second-to-last
+none either: every kernel's count), 16d (training: the conv1d kernel
+only, forward and backward), 16e (the fold convs' gradients), 17 (the
+attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -250,6 +276,8 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -4143,6 +4171,409 @@ def phase_lm_families(torch, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# training: zamba2-1.2b at its published config, the conv1d kernel under
+# autograd, and the fold convs' gradients
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 4, 1024          # 4,096 tokens a step
+TRAIN_STEPS, TRAIN_SAVE_AT = 6, 3   # the restart: save at 3, resume to 6
+TRAIN_SEED = SEED + 31
+TRAIN_LR = 3e-4
+# "none" keeps every activation the backward reads: 64.8 GiB for the
+# gradient alone, and beside AdamW's 13 GiB of state the step runs out of
+# the card's memory (PERF.md, the training findings); "full" recomputes
+# each layer body
+TRAIN_REMAT = "full"
+TOL_GRAD = 1e-4     # fold-conv grads vs the reference chain's, of max|ref|
+
+
+def train_setup():
+    """zamba2-1.2b's published config, the synthetic pipeline (B x T) and
+    AdamW with a 2-step warm-up and cosine decay over the run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import warmup_cosine
+    cfg = get_config(ZAMBA)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_T,
+                      global_batch=TRAIN_B, seed=TRAIN_SEED)
+    opt = AdamWConfig(lr=TRAIN_LR, schedule=warmup_cosine(TRAIN_LR, 2,
+                                                           TRAIN_STEPS))
+    return cfg, data, opt
+
+
+def train_conv1d_launches(cfg):
+    """conv1d launches a step: the forward and dx through the kernel, and
+    the forward once more under a remat that recomputes it."""
+    return (3 if TRAIN_REMAT != "none" else 2) * cfg.n_layers
+
+
+def train_params(torch, dev, cfg):
+    """The weights ``Trainer`` draws for seed ``TRAIN_SEED`` (bf16)."""
+    from repro_torch.models import api
+    return api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), device=dev)
+
+
+def leaves_equal(torch, got, want):
+    """Names of the leaves of two trees that differ in type, shape or
+    bits (empty: bitwise equal)."""
+    from repro_torch.tree import leaves_with_path
+    bad = []
+    for (path, a), (_, b) in zip(leaves_with_path(got),
+                                 leaves_with_path(want)):
+        if a.dtype != b.dtype or not torch.equal(a, b.to(a.device)):
+            bad.append("/".join(map(str, path)))
+    return bad
+
+
+def phase_train_grads(torch, dev, cfg, data, opt):
+    """One step at the seeded weights on the first batch, the conv1d
+    kernel against the plain conv1d: the smoke swaps ``ssm``'s
+    ``conv1d_causal`` for its ``impl="ref"`` form.  The kernel's forward
+    is bitwise its plain version and so is dx through it (the forward of
+    the time-reversed gradient), so the loss, every gradient and the new
+    parameters must be bitwise equal.  Every leaf's gradient finite and
+    not all zero (a detach would leave zeros), and the conv1d launches of
+    the step counted."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.settings import remat
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.train.steps import batch_to, lm_grads
+    from repro_torch.tree import leaves_with_path
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    params = train_params(torch, dev, cfg)
+    batch = batch_to(TokenPipeline(data).next_batch(), dev)
+
+    def step():
+        before = cc.launch_counts()[cc.KERNEL]
+        with remat(TRAIN_REMAT):
+            m, g = lm_grads(params, cfg, batch)
+        new, _, om = adamw_update(params, g, init_opt_state(params), opt)
+        torch.cuda.synchronize()
+        return m, g, new, om, cc.launch_counts()[cc.KERNEL] - before
+
+    out = {}
+    m_k, g_k, p_k, om_k, n_k = step()
+    want = train_conv1d_launches(cfg)
+    print(f"[train] one step at the seeded weights: {n_k} conv1d launches "
+          f"({cfg.n_layers} forward + {cfg.n_layers} dx"
+          + (f" + {cfg.n_layers} recompute" if TRAIN_REMAT != "none"
+             else "") + f"), loss {float(m_k['loss']):.6f}, grad norm "
+          f"{float(om_k['grad_norm']):.4f}")
+    check(n_k == want, f"train step: {n_k} conv1d launches, {want} "
+          "expected")
+    dead = [("/".join(map(str, p)), bool(torch.isfinite(g).all()))
+            for p, g in leaves_with_path(g_k)
+            if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    n_leaves = len(leaves_with_path(g_k))
+    print(f"[train] {n_leaves} parameter leaves: every gradient finite "
+          f"and nonzero: {not dead}")
+    check(not dead, f"leaves with no usable gradient (name, finite): "
+          f"{dead}")
+    orig = ssm.conv1d_causal
+    ssm.conv1d_causal = lambda x, w, impl=None: ops.conv1d_causal(
+        x, w, impl="ref")
+    try:
+        m_r, g_r, p_r, om_r, n_r = step()
+    finally:
+        ssm.conv1d_causal = orig
+    check(n_r == 0, "the plain conv1d launched the kernel")
+    bad = {"loss": [] if torch.equal(m_k["loss"], m_r["loss"]) else
+           ["loss"], "grads": leaves_equal(torch, g_k, g_r),
+           "params": leaves_equal(torch, p_k, p_r)}
+    bitwise = not any(bad.values())
+    worst = 0.0
+    for (path, a), (_, b) in zip(leaves_with_path(g_k),
+                                 leaves_with_path(g_r)):
+        err = (a.float() - b.float()).abs()
+        worst = max(worst, err.max().item()
+                    / max(b.float().abs().max().item(), 1e-30))
+        if not bitwise:
+            # the fallback: the bf16 element limit scaled by the leaf
+            lim = BF16_STEP * b.float().abs() + TOL_KERNEL * \
+                b.float().abs().max().item()
+            check(bool((err <= lim).all()),
+                  f"train: kernel vs plain conv1d, {path} beyond the bf16 "
+                  "element limit")
+    print(f"[train] the step with the kernel against the step with the "
+          f"plain conv1d (deterministic algorithms): loss, {n_leaves} "
+          f"gradients and the new parameters bitwise: {bitwise}"
+          + ("" if bitwise else f" (differing: {bad}; largest gradient "
+             f"error {worst:.3e} of its leaf's max)"))
+    out.update(conv1d_launches_per_step=n_k, leaves=n_leaves,
+               kernel_vs_plain_bitwise=bitwise, differing=bad,
+               max_rel_grad_err=worst, loss=float(m_k["loss"]),
+               grad_norm=float(om_k["grad_norm"]))
+    return out
+
+
+def phase_train(torch, dev, cfg, data, opt):
+    """Six steps through ``Trainer`` (each timed between two syncs, its
+    conv1d launches counted), the peak device memory, then the restart:
+    a ``Trainer`` that checkpoints at step 3 into a directory under the
+    temporary directory and a new one that restores and runs to step 6,
+    held bitwise to the uninterrupted run (parameters, optimizer state
+    and every step's loss)."""
+    import shutil
+    import tempfile
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    step = make_train_step(cfg, opt, remat=TRAIN_REMAT)
+    rec = {"ms": [], "launches": []}
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize()
+        n0, t0 = cc.launch_counts()[cc.KERNEL], time.perf_counter()
+        out = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["launches"].append(cc.launch_counts()[cc.KERNEL] - n0)
+        return out
+
+    def trainer(total, ckpt_dir=None, step_fn=timed):
+        return Trainer(cfg, TrainerConfig(
+            total_steps=total, ckpt_dir=ckpt_dir, ckpt_every=TRAIN_SAVE_AT,
+            log_every=1, seed=TRAIN_SEED, remat=TRAIN_REMAT), opt_cfg=opt,
+            data_cfg=data, step_fn=step_fn, device=dev)
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    whole = trainer(TRAIN_STEPS)
+    t0 = time.perf_counter()
+    p_ref, o_ref = whole.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    hist = whole.history
+    check(len(hist) == TRAIN_STEPS and all(
+        math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+        for h in hist), "train: a non-finite loss or grad norm")
+    want = train_conv1d_launches(cfg)
+    check(rec["launches"] == [want] * TRAIN_STEPS,
+          f"train: conv1d launches per step {rec['launches']}, {want} "
+          "expected")
+    steady = rec["ms"][1:]
+    mean = sum(steady) / len(steady)
+    out = {"step_ms": rec["ms"], "step_ms_mean": mean,
+           "step_ms_min": min(steady), "step_ms_max": max(steady),
+           "tokens_per_s": TRAIN_B * TRAIN_T / (mean / 1e3),
+           "peak_gib": peak, "held_before_gib": held,
+           "conv1d_launches_per_step": want, "remat": TRAIN_REMAT,
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "params": cfg.param_count(), "run_s": run_s}
+    print(f"[train] {ZAMBA} ({cfg.param_count():,} parameters, bf16, "
+          f"remat {TRAIN_REMAT}) B={TRAIN_B} x T={TRAIN_T}: steps 2-"
+          f"{TRAIN_STEPS} {mean:.2f} ms mean ({min(steady):.2f}-"
+          f"{max(steady):.2f}), {out['tokens_per_s']:.1f} tokens/s; step 1 "
+          f"{rec['ms'][0]:.2f} ms; peak device memory {peak:.2f} GiB "
+          f"({held:.2f} GiB held before); {want} conv1d launches a step")
+    print("[train] losses " + ", ".join(f"{x:.4f}" for x in out["losses"])
+          + "; grad norms " + ", ".join(f"{x:.3f}" for x in
+                                        out["grad_norms"]))
+    ref = [t.cpu() for t in leaves({"params": p_ref, "opt": o_ref})]
+    del p_ref, o_ref, whole
+    _free(torch)
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        first = trainer(TRAIN_SAVE_AT, d)
+        first.run()
+        second = trainer(TRAIN_STEPS, d)
+        p, o = second.run()
+        t2 = time.perf_counter()
+        got = leaves({"params": p, "opt": o})
+        bad = [i for i, (a, b) in enumerate(zip(got, ref))
+               if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+        losses = [h["loss"] for h in first.history + second.history]
+        # the directory holds steps 3 and 6: two checkpoints of one size
+        ckpt_gib = sum(f.stat().st_size for f in pathlib.Path(d).rglob(
+            "*.npy")) / 2**30 / 2
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    step_s = sum(rec["ms"][TRAIN_STEPS:]) / 1e3
+    out.update(restart_bitwise=not bad and losses == out["losses"],
+               restart_s=t2 - t0, restart_steps_s=step_s,
+               checkpoint_gib=ckpt_gib)
+    print(f"[train] restart: checkpoint at step {TRAIN_SAVE_AT} "
+          f"({ckpt_gib:.2f} GiB on disk), a new Trainer restores and runs "
+          f"to {TRAIN_STEPS}: {t2 - t0:.1f} s ({step_s:.1f} s of it "
+          f"steps); parameters, optimizer state and losses bitwise the "
+          f"uninterrupted run: {out['restart_bitwise']}"
+          + ("" if not bad else f" ({len(bad)} leaves differ)"))
+    check(out["restart_bitwise"], "train: the restart is not bitwise the "
+          "uninterrupted run")
+    del p, o, got, ref
+    _free(torch)
+    return out
+
+
+def profile_train(torch, dev, cfg, data, opt, host_ms):
+    """One training step under ``torch.profiler`` after a warm-up step:
+    its device time by kernel and the busy share against the steps'
+    host-clock mean."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import batch_to, make_train_step
+    params = train_params(torch, dev, cfg)
+    state = init_opt_state(params)
+    batch = batch_to(TokenPipeline(data).next_batch(), dev)
+    step = make_train_step(cfg, opt, remat=TRAIN_REMAT)
+    step(params, state, batch)
+    ms, n, top = profile_device(torch, lambda: step(params, state, batch),
+                                top=8)
+    out = {"device_ms": ms, "kernels": n, "top_kernels": top}
+    if ms is not None:
+        out["busy_share"] = ms / host_ms
+        print(f"[profile] train step ({ZAMBA}, B={TRAIN_B} x {TRAIN_T}): "
+              f"{ms:.3f} ms of kernels in {n} launches against "
+              f"{host_ms:.2f} ms on the host clock: busy share "
+              f"{out['busy_share']:.3f}; top: "
+              + "; ".join(f"{r['kernel'][:56]} {r['ms']:.3f} ms "
+                          f"({r['share']:.3f}, {r['calls']} calls)"
+                          for r in top))
+    del params, state
+    _free(torch)
+    return out
+
+
+def grads_of(torch, fn, tensors):
+    """Gradients of ``mean(fn() ** 2)`` with respect to ``tensors``."""
+    live = [t.detach().clone().requires_grad_(True) for t in tensors]
+    y = fn(*live)
+    return y, torch.autograd.grad((y.float() ** 2).mean(), live)
+
+
+def hold_grads(torch, got, want, names, what):
+    """Each gradient within TOL_GRAD of its reference's max |value|;
+    returns the largest error relative to it."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, err)
+        check(err <= TOL_GRAD, f"{what}: d{name} off the reference chain's "
+              f"by {err:.3e} of its max")
+    return worst
+
+
+def phase_fold_grads(torch, dev):
+    """Gradients through ``ops.conv2d_fused`` on the fold impls, on the
+    card, each against the reference chain's (``impl="direct"``: the
+    plain conv and ``apply_epilogue``) on the same operands: a full-width
+    ResNet-18 basic block (s2b1, 128 channels at 16x16, the residual
+    fused) with fold_ws, fold_os and fold_auto; a full-width MobileNetV2
+    inverted residual (b2: 24 -> 144 -> 24 at 32x32, BN and ReLU6 fused,
+    the depthwise on fold_dw, the projection's residual fused) with its
+    1x1s on fold_ws and fold_os; one conv on fold_ws_psum; batch 4, fp32.
+    Returns {impl: largest error} and the kernels' launches."""
+    from repro_torch.core.epilogue import Epilogue
+    from repro_torch.core.graph import bn_scale_shift
+    from repro_torch.kernels import conv2d_ws as cw
+    from repro_torch.kernels import ops
+    from repro_torch.models import mobilenet, resnet
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    rp = resnet.init_params(gen, img=32, device=dev)
+    mp = randomize_bn(torch, mobilenet.init_params(gen, img=32, device=dev))
+    errs = {}
+    cw.reset_launch_counts()
+
+    # ResNet-18 s2b1: relu(conv(x)+b) -> conv(.)+b + x -> relu
+    c1, c2 = rp["s2b1_c1"], rp["s2b1_c2"]
+    xr = torch.randn(4, 128, 16, 16, device=dev, generator=gen)
+    br = Epilogue(bias=True, relu=True)
+    brr = Epilogue(bias=True, relu=True, residual=True)
+
+    def resnet_block(impl):
+        def fn(x, w1, b1, w2, b2):
+            h = ops.conv2d_fused(x, w1, b1, pad=1, epilogue=br, impl=impl)
+            return ops.conv2d_fused(h, w2, b2, pad=1, epilogue=brr,
+                                    impl=impl, residual=x)
+        return fn
+    r_ops = [xr, c1["w"], c1["b"], c2["w"], c2["b"]]
+    r_names = ["x", "c1.w", "c1.b", "c2.w", "c2.b"]
+    _, r_ref = grads_of(torch, resnet_block("direct"), r_ops)
+
+    # MobileNetV2 b2: 1x1 expand (BN, ReLU6) -> 3x3 depthwise (BN,
+    # ReLU6) -> 1x1 project (BN) + x
+    ex, dw, pr = (mp[f"b2_{k}"] for k in ("exp", "dw", "proj"))
+    bn = {k: mp[f"b2_{k}_bn"] for k in ("exp", "dw", "proj")}
+    xm = torch.randn(4, 24, 32, 32, device=dev, generator=gen)
+    act = Epilogue(scale=True, relu6=True)
+    lin = Epilogue(scale=True, residual=True)
+    m_names = ["x", "exp.w", "dw.w", "proj.w"] + [
+        f"{k}_bn.{s}" for k in ("exp", "dw", "proj")
+        for s in ("gamma", "beta", "mean", "var")]
+    m_ops = [xm, ex["w"], dw["w"], pr["w"]] + [
+        bn[k][s] for k in ("exp", "dw", "proj")
+        for s in ("gamma", "beta", "mean", "var")]
+    hidden = dw["w"].shape[0]
+
+    def mnv2_block(impl, dw_impl):
+        def fn(x, we, wd, wp, *stats):
+            s = [bn_scale_shift(dict(zip(("gamma", "beta", "mean", "var"),
+                                         stats[4 * i:4 * i + 4])))
+                 for i in range(3)]
+            h = ops.conv2d_fused(x, we, epilogue=act, impl=impl,
+                                 scale=s[0][0], shift=s[0][1])
+            h = ops.conv2d_fused(h, wd, pad=1, epilogue=act, impl=dw_impl,
+                                 scale=s[1][0], shift=s[1][1],
+                                 groups=hidden)
+            return ops.conv2d_fused(h, wp, epilogue=lin, impl=impl,
+                                    residual=x, scale=s[2][0],
+                                    shift=s[2][1])
+        return fn
+    _, m_ref = grads_of(torch, mnv2_block("direct", "direct"), m_ops)
+
+    launched = {}
+    for impl in ("fold_ws", "fold_os", "fold_auto"):
+        before = cw.launch_counts()
+        _, g = grads_of(torch, resnet_block(impl), r_ops)
+        errs[f"resnet18 s2b1 {impl}"] = hold_grads(
+            torch, g, r_ref, r_names, f"resnet18 s2b1 {impl}")
+        dw_impl = "fold_dw"
+        _, g = grads_of(torch, mnv2_block(impl, dw_impl), m_ops)
+        errs[f"mobilenetv2 b2 {impl} + fold_dw"] = hold_grads(
+            torch, g, m_ref, m_names, f"mobilenetv2 b2 {impl}")
+        after = cw.launch_counts()
+        launched[impl] = {k: after[k] - before[k] for k in after
+                          if after[k] > before[k]}
+    # one conv on psum staging: its identity epilogue, bias and ReLU after
+    psum_fn = lambda impl: (  # noqa: E731
+        lambda x, w, b: torch.relu(ops.conv2d_fused(
+            x, w, pad=1, epilogue=Epilogue(), impl=impl)
+            + b[None, :, None, None]))
+    p_ops = [xr, c1["w"], c1["b"]]
+    _, p_ref = grads_of(torch, psum_fn("direct"), p_ops)
+    before = cw.launch_counts()
+    _, g = grads_of(torch, psum_fn("fold_ws_psum"), p_ops)
+    after = cw.launch_counts()
+    launched["fold_ws_psum"] = {k: after[k] - before[k] for k in after
+                                if after[k] > before[k]}
+    errs["resnet18 s2b1_c1 fold_ws_psum"] = hold_grads(
+        torch, g, p_ref, ["x", "w", "b"], "psum")
+    for what, e in errs.items():
+        print(f"[fold grads] {what}: every gradient within {e:.3e} of its "
+              f"reference chain's max (limit {TOL_GRAD:g})")
+    print(f"[fold grads] kernel launches by impl (forward only: the "
+          f"backward recomputes through the reference): {launched}")
+    for impl, kernels in (("fold_ws", "fold_conv_ws"),
+                          ("fold_os", "fold_conv_os"),
+                          ("fold_ws_psum", "fold_conv_psum")):
+        check(launched[impl].get(kernels, 0) > 0,
+              f"fold grads: {impl} launched no {kernels}")
+    check(all(launched[i].get("fold_conv_dw", 0) > 0
+              for i in ("fold_ws", "fold_os", "fold_auto")),
+          "fold grads: the depthwise layer launched no fold_conv_dw")
+    return {"max_rel_err": errs, "launches": launched}
+
+
 # fold calls per forward by kernel that foldlint's launch audit must count
 FOLDLINT_LAUNCHES = {
     ("vgg16", 224, 1): {"fold_conv_ws": 13},
@@ -4191,6 +4622,10 @@ def phase_foldlint(torch, dev):
 
 
 def main() -> int:
+    # cuBLAS's deterministic workspace, read when cuBLAS is first set up:
+    # the training phase's bitwise checks run under
+    # torch.use_deterministic_algorithms, which asks for it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4672,6 +5107,36 @@ def main() -> int:
           "(the families run none)")
     check(not any(fam_launches.values()),
           f"an LM family launched a kernel of the port: {fam_launches}")
+
+    # -- training: zamba2-1.2b through Trainer, the conv1d kernel in the
+    # forward and in the backward's dx; counts from 0 just before, read
+    # just after; deterministic algorithms for the bitwise checks --------
+    for mod in counted:
+        mod.reset_launch_counts()
+    t_train = time.perf_counter()
+    tcfg, tdata, topt = train_setup()
+    torch.use_deterministic_algorithms(True)
+    try:
+        report["train"] = phase_train(torch, dev, tcfg, tdata, topt)
+        report["train"]["grads"] = phase_train_grads(torch, dev, tcfg, tdata,
+                                                     topt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    report["train"]["seconds"] = time.perf_counter() - t_train
+    train_launches = {k: n for mod in counted
+                      for k, n in mod.launch_counts().items() if n}
+    # the steps that run the kernel: the uninterrupted run, the restart's
+    # two runs, and the kernel's side of the A/B step
+    n_train_steps = 2 * TRAIN_STEPS + 1
+    print(f"[train] {report['train']['seconds']:.1f} s; kernel launches "
+          f"over {n_train_steps} kernel steps: {train_launches}")
+    check(train_launches == {cc.KERNEL: n_train_steps
+                             * train_conv1d_launches(tcfg)},
+          f"train: unexpected kernel launches {train_launches}")
+    launches_train = train_launches[cc.KERNEL]
+
+    # -- the fold convs' gradients on the card (counts from 0 inside) -----
+    report["fold_grads"] = phase_fold_grads(torch, dev)
     # torch.profiler last: once it has run, every kernel of the process
     # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
     report["decode_zamba2"] = phase_lm_device(
@@ -4690,6 +5155,8 @@ def main() -> int:
                               for r in top))
     del dense_runs
     report["lm_families"]["profile"] = profile_lm_families(torch, dev)
+    report["train"]["profile"] = profile_train(
+        torch, dev, tcfg, tdata, topt, report["train"]["step_ms_mean"])
 
     # the jit rows, side by side: every conv cell, then served images/s
     print("[jit] conv cells, ms: jitted / eager / device work (busy share "
@@ -4799,6 +5266,11 @@ def main() -> int:
                  "ms_kind": "device"}
         entry.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")})
+        if name == cc.KERNEL:
+            # the training path: its own count, from 0 (forward and dx)
+            entry.update(train_launches=launches_train,
+                         train_launches_per_step=train_conv1d_launches(
+                             tcfg))
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -849,7 +849,10 @@ class CapturedForward:
     thread while another launches on the legacy default stream would be
     invalidated, so a server warms every bucket up (``VisionEngine.
     warmup``) before its worker threads serve, and a worker thread only
-    replays."""
+    replays.
+
+    A replay records no autograd graph: under grad mode a parameter or
+    input that requires grad raises (``jit=False`` trains)."""
 
     def __init__(self, forward: Callable, input_shape: Tuple[int, ...],
                  device: torch.device, dtype: torch.dtype = torch.float32):
@@ -909,8 +912,12 @@ class CapturedForward:
         self.captures += 1
 
     def __call__(self, p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels.build import refuse_grad
         self._check(x)
         leaves = _tensor_leaves(p, [])
+        refuse_grad("a captured forward (CUDA graph replay)", x, *leaves,
+                    hint=", or compile with jit=False to train: the eager "
+                    "forward's ops are differentiable")
         ptrs = tuple(t.data_ptr() for t in leaves)
         if self._graph is None or ptrs != self._ptrs:
             self._capture(p, x, leaves, ptrs)

@@ -88,6 +88,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16); returns (B, T, H, hd) in q's type."""
     from repro_torch.kernels import build
     _check(q, k, v)
+    build.refuse_grad("the attention kernel launch", q, k, v)
     if q.dtype not in _ENTRY:
         raise ValueError(f"the attention kernel takes fp32 or bf16, got "
                          f"{q.dtype}")
@@ -123,8 +124,14 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     The JAX function's ``q_block`` / ``k_block`` (its Pallas grid's tiles)
     and ``interpret`` (Pallas's interpret mode) are not parameters here:
     the CUDA kernel picks its own tiles, and the plain version is the CPU
-    path."""
+    path.
+
+    It has no backward, as the JAX function (a Pallas call with no VJP)
+    has none: under grad mode a q, k or v that requires grad raises, on
+    either device."""
+    from repro_torch.kernels import build
     _check(q, k, v)
+    build.refuse_grad("flash_attention_folded", q, k, v)
     if q.device.type == "cuda":
         return launch(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":

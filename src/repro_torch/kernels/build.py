@@ -19,8 +19,8 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["library", "build_info", "nvcc_path", "raise_on_error", "CSRC",
-           "BUILD_ROOT"]
+__all__ = ["library", "build_info", "nvcc_path", "raise_on_error",
+           "refuse_grad", "CSRC", "BUILD_ROOT"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -94,6 +94,20 @@ def raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:
     if err != 0:
         msg = lib.fold_conv_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def refuse_grad(name: str, *tensors, hint: str = "") -> None:
+    """Raise when grad mode is on and one of ``tensors`` requires grad:
+    ``name`` writes its output through raw pointers and has no backward,
+    so its result would be silently cut off from autograd.  ``None``
+    entries are skipped; ``hint`` names the differentiable way, where
+    there is one."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its output would be detached from "
+            f"autograd (call it under torch.no_grad(){hint})")
 
 
 def _compile_all(lib_path: pathlib.Path) -> str:

@@ -10,8 +10,13 @@ from the operands: 16-byte words of channels over 8 steps a thread where
 D is a multiple of the word (8 bf16, 4 fp32) and x, w and out sit on
 16-byte boundaries (``vector_path``), one channel a thread otherwise.  The plain version is the reference's
 ``conv1d_causal_ref`` (``kernels/ref.py``): the kernel keeps its order and
-rounding, so the two agree bit for bit.  Forward only; the backward comes
-with the training slice.
+rounding, so the two agree bit for bit.
+
+The launch has no backward: ``conv1d_causal_folded`` and ``launch`` raise
+under grad mode on an operand that requires grad.  The trainable op is
+``kernels/ops.py:conv1d_causal``, whose backward puts dx through this same
+kernel (the forward conv of the time-reversed gradient) and sums dw in
+torch, so a training step launches the kernel in its backward too.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ _ENTRY = {(torch.float32, torch.float32): "conv1d_causal_f32",
           (torch.bfloat16, torch.float32): "conv1d_causal_bf16",
           (torch.bfloat16, torch.bfloat16): "conv1d_causal_bf16_wbf16"}
 _LAUNCHES: Dict[str, int] = {KERNEL: 0}
+_GRAD_HINT = ", or train through kernels/ops.py:conv1d_causal"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -76,6 +82,7 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the same device; returns the (B, T, D) output in x's type.  The sum
     takes w in fp32 (``_operands``: exact for a bf16 w)."""
     from repro_torch.kernels import build
+    build.refuse_grad("the conv1d kernel launch", x, w, hint=_GRAD_HINT)
     wk, out, entry = _operands(x, w)
     b, t_len, d = x.shape
     lib = build.library()
@@ -90,8 +97,12 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv1d_causal_folded(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, T, D), w: (K, D) -> (B, T, D) in x's type.  On a CUDA tensor
     this launches the kernel (or raises); on a CPU tensor it runs the plain
-    version."""
+    version.  Under grad mode an operand that requires grad raises, on
+    either device (no backward: ``kernels/ops.py:conv1d_causal`` is the
+    trainable op)."""
+    from repro_torch.kernels import build
     _check(x, w)
+    build.refuse_grad("conv1d_causal_folded", x, w, hint=_GRAD_HINT)
     if x.device.type == "cuda":
         return launch(x, w)
     if x.device.type == "cpu":

@@ -1156,7 +1156,11 @@ def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
                          res: Optional[torch.Tensor] = None) -> None:
     """x and w of one type (fp32, bf16 or int8), the vector block fp32, the
     residual of the instance's output type, all contiguous on one device,
-    every offset within 32 bits."""
+    every offset within 32 bits, and none of them requiring grad under
+    grad mode (the launch has no backward)."""
+    from repro_torch.kernels import build
+    build.refuse_grad("a fold kernel launch", xp, wp, vec, res,
+                      hint=_GRAD_HINT)
     dev = xp.device
     for t, want in ((xp, xp.dtype), (wp, xp.dtype), (vec, torch.float32),
                     (res, _out_type(xp))):
@@ -1170,6 +1174,9 @@ def _check_cuda_operands(xp: torch.Tensor, wp: torch.Tensor,
         raise ValueError(f"the fold kernels index x with 32-bit offsets: "
                          f"{xp.numel()} elements")
 
+
+_GRAD_HINT = (", or train through kernels/ops.py's conv2d / conv2d_fused, "
+              "whose backward recomputes through the reference")
 
 # Launches so far, by the name of the kernel's C entry point
 KERNELS = ("fold_conv_ws", "fold_conv_os", "fold_conv_dw", "fold_conv_ws_i8",
@@ -1462,7 +1469,15 @@ def conv2d_folded(x_padded: torch.Tensor, w: torch.Tensor, *,
     launches the kernel; on a CPU tensor it runs the plain-torch fold loop.
     Grouped layers (1 < G < C) run on the WS and OS kernels like dense
     ones, each filter fold on its own group's channels.
+
+    It has no backward, as the JAX function (a Pallas call) has none: under
+    grad mode an operand that requires grad raises, on either device.
+    ``kernels/ops.py``'s ``conv2d`` / ``conv2d_fused`` are the trainable
+    ops over it.
     """
+    from repro_torch.kernels import build
+    build.refuse_grad("conv2d_folded", x_padded, w, bias, residual, scale,
+                      shift, hint=_GRAD_HINT)
     spec, *ops = prepare(x_padded, w, stride, plan, dataflow, bias,
                           epilogue, groups, residual, scale, shift,
                           out_dtype)

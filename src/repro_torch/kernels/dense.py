@@ -30,7 +30,10 @@ the sums of 1, 2, 4 or 8 rows a CTA, the fewest that hold the call's rows
 mix of fp32 and bf16 is widened to fp32 (exact), as jnp promotes it, and
 gives fp32.
 
-No TPU kernel stands behind this one.  Forward only.
+No TPU kernel stands behind this one.  ``dense`` is differentiable: its
+backward is plain torch with fp32 sums (``x^T g``, ``g w^T`` and the
+column sums of ``g``, TF32 off), what the JAX package's ``x @ w + b``
+differentiates to; a bare ``launch`` has none and raises under grad.
 """
 from __future__ import annotations
 
@@ -172,6 +175,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     type."""
     from repro_torch.kernels import build
     _check(x, w, b)
+    build.refuse_grad("the dense kernel launch", x, w, b,
+                      hint=", or train through dense(), which has one")
     for t in (x, w, b):
         if t.dtype not in _ENTRY or t.dtype != x.dtype \
                 or t.device != x.device:
@@ -202,15 +207,45 @@ def launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x (B, K) @ w (K, N) + b (N) -> (B, N).  On CUDA tensors this launches
-    the kernel (or raises); on CPU tensors it runs the plain version.
-    fp32 and bf16 may mix (``_operands``)."""
+def _dense_forward(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cuda":
         return launch(*_operands(x, w, b))
     if x.device.type == "cpu":
         return dense_plain(x, w, b)
     raise ValueError(f"dense runs on cuda or cpu tensors, got {x.device}")
+
+
+class _Dense(torch.autograd.Function):
+    """``dense`` under autograd: the forward as ``dense`` runs it, the
+    backward in plain torch with fp32 sums, each gradient rounded once to
+    its operand's type."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
+        return _dense_forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.ref import full_fp32
+        x, w = ctx.saved_tensors
+        g32 = g.float()
+        with full_fp32():
+            dx = (g32 @ w.float().T).to(x.dtype)
+            dw = (x.float().T @ g32).to(w.dtype)
+        return dx, dw, g32.sum(dim=0).to(ctx.b_dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x (B, K) @ w (K, N) + b (N) -> (B, N).  On CUDA tensors this launches
+    the kernel (or raises); on CPU tensors it runs the plain version.
+    fp32 and bf16 may mix (``_operands``).  Under grad mode with an operand
+    that requires grad it records the plain backward (``_Dense``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        return _Dense.apply(x, w, b)
+    return _dense_forward(x, w, b)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
-"""Public conv entry points over the fold kernels (forward only; fp32 and
-bf16, and int8 through ``conv2d_int8``).
+"""Public conv entry points over the fold kernels (fp32 and bf16, and int8
+through ``conv2d_int8``).
 
 ``impl`` selects the path:
   "fold_ws"      — weight-stationary fold kernel (the paper's dataflow)
@@ -25,8 +25,21 @@ the accelerator, the reference on the CPU).
 ``plan`` pins a pre-solved ``ConvBlockPlan`` (the engine's schedule cache
 passes these in).  ``conv1d_causal(x, w, impl=None)`` is the Mamba2
 mixer's causal depthwise conv1d (``kernels/conv1d_causal.py``): ``"fold"``
-the CUDA kernel, ``"ref"`` the plain version.  The backward passes wait
-for the training slice (ROADMAP queue A item 4d).
+the CUDA kernel, ``"ref"`` the plain version.
+
+Gradients, as in the JAX package's ``custom_vjp``s: ``conv2d``,
+``conv2d_fused`` and ``conv1d_causal`` are ``torch.autograd.Function``s
+under grad mode, so every impl is trainable and the fold impls still run
+the kernels in the forward.  ``conv2d``'s backward is the dense
+transposed-conv relations (dx one transposed conv, dw a per-tap
+correlation, fp32 sums, TF32 off), or for a grouped conv the reference
+conv's own autograd; ``conv2d_fused``'s recomputes the reference chain
+(``ref.conv2d_direct`` and ``apply_epilogue``), since the kernel keeps no
+pre-activation.  ``conv1d_causal``'s dx is the forward conv of the
+time-reversed gradient, through the same impl (the kernel for ``"fold"``),
+and its dw one fp32 reduction per tap.  ``conv2d_int8`` has no backward,
+as in the JAX package: under grad mode an operand that requires grad
+raises.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.epilogue import Epilogue, apply_epilogue
+from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv1d_causal import conv1d_causal_folded
 from repro_torch.kernels.conv2d_ws import conv2d_folded
@@ -96,15 +110,117 @@ def _folded(x, w, stride, pad, impl, plan, groups, **epilogue_operands):
                          groups=groups, **epilogue_operands)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _conv2d_forward(x, w, stride, pad, impl, plan, groups):
+    if impl not in FOLD_IMPLS:
+        return _plain(x, w, stride, pad, impl, groups)
+    return _folded(x, w, stride, pad, impl, plan, groups)
+
+
+def _conv2d_grads(x, w, g, stride: int, pad: int, groups: int):
+    """(dx, dw) of the conv at (x, w) for the output gradient ``g``: the
+    JAX package's ``_conv2d_vjp_bwd``.  Dense: dx is the transposed conv
+    of g (fp32, TF32 off), dw the correlation of the padded x with g, one
+    fp32 einsum per tap.  Grouped: the reference conv's own autograd."""
+    if groups > 1:
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            ww = w.detach().requires_grad_(True)
+            y = _ref.conv2d_direct(xx, ww, stride, pad, groups)
+            return torch.autograd.grad(y, (xx, ww), g)
+    xh, xw_ = x.shape[2], x.shape[3]
+    nf, c, r, s = w.shape
+    g32 = g.float()
+    with _ref.full_fp32():
+        dx = F.conv_transpose2d(
+            g32, w.float(), stride=stride, padding=pad,
+            output_padding=((xh + 2 * pad - r) % stride,
+                            (xw_ + 2 * pad - s) % stride))
+        xp = F.pad(x.float(), (pad, pad, pad, pad)) if pad else x.float()
+        p, q = g.shape[2], g.shape[3]
+        dw = torch.empty((nf, c, r, s), dtype=torch.float32,
+                         device=x.device)
+        for ri in range(r):
+            for si in range(s):
+                win = xp[:, :, ri:ri + p * stride:stride,
+                         si:si + q * stride:stride]
+                dw[:, :, ri, si] = torch.einsum("nfpq,ncpq->fc", g32, win)
+    return dx[:, :, :xh, :xw_].to(x.dtype), dw.to(w.dtype)
+
+
+class _Conv2d(torch.autograd.Function):
+    """``conv2d`` under autograd: the impl's forward, the transposed-conv
+    backward (``_conv2d_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pad, impl, plan, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, pad, groups)
+        return _conv2d_forward(x, w, stride, pad, impl, plan, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _conv2d_grads(x, w, g, *ctx.args)
+        return dx, dw, None, None, None, None, None
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
            impl: str = "fold_auto", plan=None,
            groups: int = 1) -> torch.Tensor:
     """Convolution through the fold framework.  x: NCHW, w: OIHW (the
-    channel dim is per group, C/groups, when ``groups > 1``)."""
+    channel dim is per group, C/groups, when ``groups > 1``).
+    Differentiable on every impl (``_Conv2d``)."""
     _check_impl(impl)
+    if _needs_grad(x, w):
+        return _Conv2d.apply(x, w, stride, pad, impl, plan, groups)
+    return _conv2d_forward(x, w, stride, pad, impl, plan, groups)
+
+
+def _conv2d_fused_forward(x, w, b, scale, shift, residual, stride, pad, epi,
+                          impl, plan, groups):
     if impl not in FOLD_IMPLS:
-        return _plain(x, w, stride, pad, impl, groups)
-    return _folded(x, w, stride, pad, impl, plan, groups)
+        y = _plain(x, w, stride, pad, impl, groups)
+        return apply_epilogue(y, b, epi, residual, scale, shift)
+    return _folded(x, w, stride, pad, impl, plan, groups, bias=b,
+                   epilogue=epi, residual=residual, scale=scale, shift=shift)
+
+
+class _Conv2dFused(torch.autograd.Function):
+    """``conv2d_fused`` under autograd: the impl's forward, and a backward
+    that recomputes the reference chain (``ref.conv2d_direct`` then
+    ``apply_epilogue``) and differentiates it, as the JAX package's
+    ``_conv2d_fused_vjp_bwd`` does.  An operand passed as None gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, shift, residual, stride, pad, epi,
+                impl, plan, groups):
+        ctx.save_for_backward(x, w, b, scale, shift, residual)
+        ctx.args = (stride, pad, epi, groups)
+        return _conv2d_fused_forward(x, w, b, scale, shift, residual,
+                                     stride, pad, epi, impl, plan, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        stride, pad, epi, groups = ctx.args
+        saved = ctx.saved_tensors
+        need = [t is not None and n for t, n in
+                zip(saved, ctx.needs_input_grad[:6])]
+        with torch.enable_grad():
+            ops = [t.detach().requires_grad_(n) if t is not None else None
+                   for t, n in zip(saved, need)]
+            x, w, b, scale, shift, res = ops
+            y = apply_epilogue(_ref.conv2d_direct(x, w, stride, pad, groups),
+                               b, epi, res, scale, shift)
+            wanted = [t for t, n in zip(ops, need) if n]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None, None, None)
 
 
 def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
@@ -124,7 +240,8 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
     On the fold impls the whole conv→bias/BN(→+shortcut)→ReLU[6](→pool)
     chain is one kernel launch and the pre-activation never reaches device
     memory.  Output is (N, NF, P, Q), or (N, NF, P//2, Q//2) when
-    ``epilogue.pool`` fuses the 2x2 max-pool.
+    ``epilogue.pool`` fuses the 2x2 max-pool.  Differentiable on every
+    impl (``_Conv2dFused``: the backward recomputes the reference chain).
     """
     _check_impl(impl)
     epi = epilogue if epilogue is not None else Epilogue(
@@ -136,11 +253,11 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor,
     if epi.scale != (scale is not None and shift is not None):
         raise ValueError("epilogue.scale and the scale/shift arguments "
                          "must be supplied together")
-    if impl not in FOLD_IMPLS:
-        y = _plain(x, w, stride, pad, impl, groups)
-        return apply_epilogue(y, b, epi, residual, scale, shift)
-    return _folded(x, w, stride, pad, impl, plan, groups, bias=b,
-                   epilogue=epi, residual=residual, scale=scale, shift=shift)
+    args = (x, w, b, scale, shift, residual, stride, pad, epi, impl, plan,
+            groups)
+    if _needs_grad(x, w, b, scale, shift, residual):
+        return _Conv2dFused.apply(*args)
+    return _conv2d_fused_forward(*args)
 
 
 def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
@@ -153,7 +270,8 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
                 shift: Optional[torch.Tensor] = None,
                 groups: int = 1) -> torch.Tensor:
     """Int8 convolution with the requantizing epilogue (inference only, as
-    in the JAX package: no autograd).
+    in the JAX package: no backward; under grad mode an operand that
+    requires grad raises).
 
     ``x``/``w`` are the fp32 tensors; ``x_scale`` is the calibrated
     per-tensor activation scale (``core/quant.py:quantize_graph``).  The
@@ -170,6 +288,7 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
                                         requant_affine, requant_epilogue,
                                         scalar)
     _check_impl(impl)
+    build.refuse_grad("conv2d_int8", x, w, b, residual, scale, shift)
     epi = epilogue or Epilogue()
     if epi.bias and b is None:
         raise ValueError("epilogue.bias=True needs a bias vector")
@@ -193,23 +312,62 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
                    shift=comb_shift)
 
 
-def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
-                  impl: Optional[str] = None) -> torch.Tensor:
-    """Depthwise causal conv1d (the Mamba2 mixer's).  x: (B, T, D), w: (K,
-    D) -> (B, T, D) in x's type.  Forward only.
-
-    ``impl="fold"`` launches the CUDA kernel (``kernels/conv1d_causal.py``)
-    and raises on a tensor that is not on a CUDA device; ``"ref"`` runs the
-    plain version (``kernels/ref.py:conv1d_causal_ref``); ``None`` means
-    ``"fold"`` on a CUDA tensor and ``"ref"`` on a CPU one."""
-    if impl is None:
-        impl = "fold" if x.device.type == "cuda" else "ref"
+def _conv1d_forward(x, w, impl: str):
     if impl == "ref":
         return _ref.conv1d_causal_ref(x, w)
-    if impl != "fold":
-        raise ValueError(f"unknown conv1d impl {impl!r} (want 'fold', 'ref' "
-                         "or None)")
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_causal(impl='fold') launches the CUDA "
                          f"kernel and needs a CUDA tensor, got {x.device}")
     return conv1d_causal_folded(x, w)
+
+
+class _Conv1dCausal(torch.autograd.Function):
+    """``conv1d_causal`` under autograd: the JAX package's
+    ``_conv1d_vjp_bwd``.  With t' = T-1-t, ``dx[t] = sum_k w[k] g[t+K-1-k]``
+    is the causal conv of the time-reversed g, so dx runs through the
+    forward of the same impl on ``flip_T(g)`` (the kernel for ``"fold"``:
+    its launch count ticks in the backward too), in the JAX backward's
+    order and rounding (fp32 sum from 0 over k ascending, one rounding to
+    g's type).  dw is one fp32 reduction over (B, T) per tap."""
+
+    @staticmethod
+    def forward(ctx, x, w, impl):
+        ctx.save_for_backward(x, w)
+        ctx.impl = impl
+        return _conv1d_forward(x, w, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.flip(_conv1d_forward(torch.flip(g, (1,)), w,
+                                            ctx.impl), (1,)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            k, t = w.shape[0], x.shape[1]
+            g32 = g.float()
+            xp = F.pad(x, (0, 0, k - 1, 0))
+            dw = torch.stack([(g32 * xp[:, ki:ki + t].float()).sum((0, 1))
+                              for ki in range(k)]).to(w.dtype)
+        return dx, dw, None
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """Depthwise causal conv1d (the Mamba2 mixer's).  x: (B, T, D), w: (K,
+    D) -> (B, T, D) in x's type.
+
+    ``impl="fold"`` launches the CUDA kernel (``kernels/conv1d_causal.py``)
+    and raises on a tensor that is not on a CUDA device; ``"ref"`` runs the
+    plain version (``kernels/ref.py:conv1d_causal_ref``); ``None`` means
+    ``"fold"`` on a CUDA tensor and ``"ref"`` on a CPU one.  Differentiable
+    (``_Conv1dCausal``): under ``"fold"`` the backward's dx launches the
+    kernel once more."""
+    if impl is None:
+        impl = "fold" if x.device.type == "cuda" else "ref"
+    if impl not in ("fold", "ref"):
+        raise ValueError(f"unknown conv1d impl {impl!r} (want 'fold', 'ref' "
+                         "or None)")
+    if _needs_grad(x, w):
+        return _Conv1dCausal.apply(x, w, impl)
+    return _conv1d_forward(x, w, impl)

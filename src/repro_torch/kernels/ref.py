@@ -13,11 +13,11 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["conv2d_direct", "conv2d_im2col", "conv2d_torch",
-           "conv1d_causal_ref"]
+           "conv1d_causal_ref", "full_fp32"]
 
 
 @contextlib.contextmanager
-def _full_fp32():
+def full_fp32():
     """fp32 matmuls and convs without TF32 for the block, the flags put
     back after it."""
     mm, cudnn = (torch.backends.cuda.matmul.allow_tf32,
@@ -101,7 +101,7 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     p = (x.shape[2] + 2 * pad - r) // stride + 1
     q = (x.shape[3] + 2 * pad - s) // stride + 1
     wmat = w.float().reshape(nf, c * r * s).T             # (C*R*S, NF)
-    with _full_fp32():
+    with full_fp32():
         out = torch.matmul(patches.transpose(1, 2), wmat)  # (N, P*Q, NF)
     return out.transpose(1, 2).reshape(n, nf, p, q).to(x.dtype)
 
@@ -110,7 +110,7 @@ def conv2d_torch(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                  pad: int = 0, groups: int = 1) -> torch.Tensor:
     """One ``F.conv2d`` call with TF32 off (the counterpart of the JAX
     package's ``lax.conv_general_dilated`` oracle)."""
-    with _full_fp32():
+    with full_fp32():
         return F.conv2d(x, w, stride=stride, padding=pad, groups=groups)
 
 

@@ -1,6 +1,6 @@
 """Family-dispatch facade over the LM models (the JAX package's
-``models/api.py``): the serve steps and the tests go through these
-functions.  The decoder-only families (dense attention, MoE, RWKV-6, the
+``models/api.py``): the train and serve steps and the tests go through
+these functions.  The decoder-only families (dense attention, MoE, RWKV-6, the
 zamba2 hybrid, the VLM) are ``models/transformer.py``, the enc-dec family
 ``models/encdec.py``."""
 from __future__ import annotations
@@ -12,7 +12,7 @@ import torch
 from repro_torch.models import encdec, transformer
 from repro_torch.models.common import DTypePolicy
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "lm_loss", "init_cache", "prefill", "decode_step"]
 
 
 def _mod(cfg):
@@ -24,6 +24,13 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
                 device: Any = "cuda"):
     return _mod(cfg).init_params(cfg, gen, dtype_policy=dtype_policy,
                                  device=device)
+
+
+def lm_loss(params, cfg, batch, aux_coef: float = 0.01):
+    """(total loss, {"loss", "aux_loss"}) of a training batch: "tokens",
+    "labels", and the frontend's "patches" (VLM) or "src_embeds"
+    (enc-dec)."""
+    return _mod(cfg).lm_loss(params, cfg, batch, aux_coef=aux_coef)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, src_len: int = 0,

@@ -5,8 +5,11 @@ mesh and are left out).
 
 Attention is the 5-D loop nest (B, H, Tq, Tkv, D): Q stationary, K/V
 streamed.  ``_mha`` materializes the (T, S) scores; ``_mha_blockwise`` is
-the flash-style online softmax over KV blocks.  Both are plain torch, as
-in the JAX package; the fold-attention kernel (``kernels/attention_fold``)
+the flash-style online softmax over KV blocks; under autograd it runs
+inside a checkpoint that keeps only q, k and v, as the JAX package's
+``jax.checkpoint(nothing_saveable)`` does, so the backward recomputes the
+block scores instead of holding them.  Both are plain torch, as in the JAX
+package; the fold-attention kernel (``kernels/attention_fold``)
 is an op no model calls.  ``ring_decode_attention`` is the one-token
 decode of a sliding-window layer against a ring buffer of W slots (gemma3's
 local layers under ``window_cache``).  Cross-attention (``kv_x=``) serves
@@ -180,6 +183,19 @@ def _mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _flash(q, k, v, q_pos, kv_pos, **kw) -> torch.Tensor:
+    """``_mha_blockwise``; under autograd inside a checkpoint that saves
+    nothing of the KV-block loop (its inputs only): the backward
+    recomputes the block scores (twice the attention flops) instead of
+    keeping O(T x S) probabilities.  Values are unchanged."""
+    if not (torch.is_grad_enabled()
+            and any(a.requires_grad for a in (q, k, v))):
+        return _mha_blockwise(q, k, v, q_pos, kv_pos, **kw)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(_mha_blockwise, q, k, v, q_pos, kv_pos,
+                      use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def device_position(pos, device) -> torch.Tensor:
     """``pos`` (an int or an integer tensor) as a 0-d int64 tensor on
     ``device``.  An int is filled in on the device (a kernel argument, no
@@ -255,9 +271,9 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
         kv_pos = torch.arange(k.shape[1], device=x.device)
         kv_len = pos + x.shape[1]
     if get_attn_impl() == "blockwise" and x.shape[1] > 1:
-        out = _mha_blockwise(q, k.to(q.dtype), v.to(q.dtype), positions,
-                             kv_pos, head_dim=cfg.head_dim_, causal=causal,
-                             window=window, kv_len=kv_len)
+        out = _flash(q, k.to(q.dtype), v.to(q.dtype), positions, kv_pos,
+                     head_dim=cfg.head_dim_, causal=causal, window=window,
+                     kv_len=kv_len)
     else:
         mask = make_mask(positions, kv_pos, causal=causal, window=window,
                          kv_len=kv_len)

@@ -1,6 +1,6 @@
 """Parameter initializers shared by the port's models: the conv models'
 ``normal``/``zeros``/``ones``/``width``, and for the LM side the
-parameter-type ``DTypePolicy`` and the ``init``-mode ``TreeMaker`` (the
+mixed-precision ``DTypePolicy`` and the ``init``-mode ``TreeMaker`` (the
 JAX package's ``models/common.py``; its ``abstract`` and ``axes`` modes
 come with the dry-run and mesh slice)."""
 from __future__ import annotations
@@ -55,15 +55,18 @@ def width(c: int, mult: float) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DTypePolicy:
-    """The parameters' type: bf16 by default.  Activations follow the
-    parameters, and norms, softmax and the SSD sums run in fp32 whatever
-    it is.  The compute, accumulator and master types of the JAX policy
-    come with the training slice, the first code that reads them."""
+    """Mixed-precision policy, the JAX package's: bf16 parameters and
+    compute, fp32 reductions (norms, softmax, the loss, the SSD sums) and
+    fp32 optimizer master copy and moments (``optim/adamw.py``, fp32 as
+    in the JAX package).  Activations follow the parameters."""
     param: torch.dtype = torch.bfloat16
+    compute: torch.dtype = torch.bfloat16
+    accum: torch.dtype = torch.float32
+    master: torch.dtype = torch.float32
 
     @classmethod
     def fp32(cls) -> "DTypePolicy":
-        return cls(param=torch.float32)
+        return cls(param=torch.float32, compute=torch.float32)
 
 
 class TreeMaker:

@@ -7,7 +7,8 @@ through a projection.  The decoder is a causal stack with cross-attention.
 ``prefill`` encodes the source and caches each layer's cross K/V, sized by
 the source it was given; ``decode_step`` attends over the cached cross K/V
 directly (``_mha`` on the decoder's q, with no q bias and no RoPE: the JAX
-decode branch's).
+decode branch's).  ``lm_loss`` is the teacher-forced cross entropy with no
+aux loss; as in the JAX package, no layer body is rematerialized.
 """
 from __future__ import annotations
 
@@ -20,11 +21,12 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import DTypePolicy, TreeMaker
 from repro_torch.models.layers import rms_norm, rope_freqs
 from repro_torch.models.mlp import mlp, mlp_params
-from repro_torch.models.transformer import (_layer, _logits, _mask_logits,
-                                            _stack, _stack_layers)
+from repro_torch.models.transformer import (_layer, _layers, _logits,
+                                            _mask_logits, _stack,
+                                            _stack_layers, masked_nll)
 
-__all__ = ["init_params", "encode", "forward", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["init_params", "encode", "forward", "lm_loss", "init_cache",
+           "prefill", "decode_step"]
 
 
 def _enc_layer(tm: TreeMaker, cfg):
@@ -75,8 +77,7 @@ def encode(params, cfg, src_embeds: torch.Tensor) -> torch.Tensor:
     x = src_embeds.to(params["src_proj"].dtype) @ params["src_proj"]
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["enc"], i)
+    for lp in _layers(params["enc"]):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attn_mod.attention(lp["attn"], cfg, h, positions=positions,
                                   inv_freq=inv_freq, causal=False)
@@ -123,11 +124,22 @@ def forward(params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     x = params["embed"][batch["tokens"]]
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x, _ = _dec_block(_layer(params["dec"], i), cfg, x,
-                          positions=positions, inv_freq=inv_freq,
-                          enc_out=enc_out)
+    for lp in _layers(params["dec"]):
+        x, _ = _dec_block(lp, cfg, x, positions=positions,
+                          inv_freq=inv_freq, enc_out=enc_out)
     return _head_logits(params, cfg, x)
+
+
+def lm_loss(params, cfg, batch: Dict[str, torch.Tensor],
+            aux_coef: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Teacher-forced cross entropy (fp32) of ``batch``'s "tokens" against
+    its "labels" (masked on labels >= 0) over the encoded "src_embeds".
+    The enc-dec has no aux loss: ``aux_coef`` is taken and reads nothing.
+    Returns (loss, {"loss", "aux_loss": 0})."""
+    loss = masked_nll(forward(params, cfg, batch), batch["labels"])
+    return loss, {"loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}
 
 
 def init_cache(cfg, batch: int, max_len: int, src_len: int,

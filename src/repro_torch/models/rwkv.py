@@ -7,10 +7,11 @@ matrix-state recurrence S <- diag(w) S + k^T v, the per-head group norm,
 and the squared-ReLU channel mix.
 
 The WKV core is an exact loop over time with the state (B, H, hd, hd) in
-fp32, in the JAX scan's per-step order.  The JAX function runs its scan in
-16-step chunks under ``jax.checkpoint``, which saves memory in training's
-backward and changes no value; this forward walks the steps one by one.
-Decode is the same loop over one step.
+fp32, in the JAX scan's per-step order.  Under autograd it walks 16-step
+chunks, each under a checkpoint that saves nothing but its inputs, as the
+JAX function's ``jax.checkpoint(nothing_saveable)`` chunks do: the
+backward recomputes a chunk's steps, residuals are kept per chunk instead
+of per step, and no value changes.  Decode is the same loop over one step.
 """
 from __future__ import annotations
 
@@ -77,21 +78,45 @@ def _ddlerp(p, x, dx):
     return x[:, None] + dx[:, None] * mix                      # (B,5,T,D)
 
 
-def _wkv_scan(r, k, v, w, u, s0):
+def _wkv_steps(r32, k32, v32, w32, u4, s):
+    """The recurrence over every step of fp32 (B, T, H, hd) inputs from
+    the state ``s``; returns (out (B, T, H, hd), the state after)."""
+    outs = []
+    for t in range(r32.shape[1]):
+        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]
+        outs.append((r32[:, t, :, None, :] @ (s + u4 * kv))[:, :, 0])
+        s = s * w32[:, t, :, :, None] + kv
+    return torch.stack(outs, dim=1), s
+
+
+def _wkv_scan(r, k, v, w, u, s0, chunk: int = 16):
     """Exact WKV6 recurrence.
 
     r, k, v, w: (B, T, H, hd), w the decay in (0, 1); u: (H, hd) fp32;
     s0: (B, H, hd, hd) fp32 [k-dim x v-dim].  Per step, in this order:
     ``kv = k (x) v``, ``out = r . (S + u * kv)``, ``S = S * w + kv``.
-    Returns (out (B, T, H, hd) fp32, the final state)."""
+    Returns (out (B, T, H, hd) fp32, the final state).
+
+    Under autograd, where ``chunk`` divides T, the steps run in chunks of
+    ``chunk``, each under a checkpoint that keeps only its inputs (the
+    JAX function's chunked ``jax.checkpoint``): the same ops, so the same
+    values, with the per-step residuals recomputed in the backward."""
     r32, k32, v32, w32 = (a.float() for a in (r, k, v, w))
     u4 = u[None, :, :, None]
+    t = r.shape[1]
+    trains = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (r32, k32, v32, w32, u4, s0))
+    if not trains or chunk <= 1 or t % chunk:
+        return _wkv_steps(r32, k32, v32, w32, u4, s0)
+    from torch.utils.checkpoint import checkpoint
     s, outs = s0, []
-    for t in range(r.shape[1]):
-        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]
-        outs.append((r32[:, t, :, None, :] @ (s + u4 * kv))[:, :, 0])
-        s = s * w32[:, t, :, :, None] + kv
-    return torch.stack(outs, dim=1), s
+    for c0 in range(0, t, chunk):
+        o, s = checkpoint(_wkv_steps, *(a[:, c0:c0 + chunk]
+                                        for a in (r32, k32, v32, w32)),
+                          u4, s, use_reentrant=False,
+                          preserve_rng_state=False)
+        outs.append(o)
+    return torch.cat(outs, dim=1), s
 
 
 def rwkv_time_mix(p: Dict[str, Any], cfg, x: torch.Tensor, *,

@@ -75,10 +75,16 @@ def _ssd_chunked(xh, dt, a_log, B, C, h0, chunk: int):
     Ch = C_.repeat_interleave(rep, dim=3)
     cum = torch.cumsum(la_, dim=2)           # (B,nc,L,H)
     # decay from step s (exclusive) to step t (inclusive): exp(cum_t - cum_s)
-    dmat = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    # for s <= t, and 0 above the diagonal.  The exponent is masked before
+    # the exp (exp(-inf) = 0, the JAX package's values bit for bit): above
+    # the diagonal cum_t - cum_s > 0 overflows to inf at full width, and
+    # masking after the exp, as the JAX function does, gives the backward
+    # 0 * inf = NaN there
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=xh.device))
-    dmat = torch.where(mask[None, None, :, :, None], dmat, 0.0)
+    dmat = torch.exp(torch.where(
+        mask[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))
     cb = torch.einsum("bnlhs,bnmhs->bnlmh", Ch, Bh)          # C_t . B_s
     scores = cb * dmat * dt_[:, :, None, :, :]               # (B,nc,L,L,H)
     xf = xh_.float()

@@ -9,11 +9,16 @@ prepended to the tokens), with position-indexed caches and the fused
 prefill and decode paths.  The enc-dec family is ``models/encdec.py``.
 
 The layers are stacked on a leading "layers" axis, as in the JAX package,
-and walked by a Python loop where it scans.  Caches are returned new and
-the ones passed in are not changed, except in the donated decode step,
-which writes into the cache it is given.  ``forward`` returns the logits:
-the summed MoE auxiliary loss that the JAX function returns beside them
-is training's.
+and walked by a Python loop where it scans; a full-sequence pass splits
+each stacked leaf once (``_layers``), so the backward stacks the layers'
+gradients in one op.  Caches are returned new and the ones passed in are
+not changed, except in the donated decode step, which writes into the
+cache it is given.  ``forward`` returns the logits; ``lm_loss`` is the
+training loss: the masked token cross entropy plus ``aux_coef`` times the
+MoE auxiliary loss summed over the layers, as the JAX package's.  Under
+``settings.remat`` each layer body of a full-sequence pass is
+checkpointed (``settings.maybe_remat``), where the JAX package wraps its
+scan bodies; zamba2's shared attention block is not, as there.
 """
 from __future__ import annotations
 
@@ -30,9 +35,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import DTypePolicy, TreeMaker
 from repro_torch.models.layers import rms_norm, rope_freqs
 from repro_torch.models.mlp import mlp, mlp_params
+from repro_torch.models.settings import maybe_remat
 
-__all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
-           "uses_window_cache"]
+__all__ = ["init_params", "forward", "lm_loss", "init_cache", "decode_step",
+           "prefill", "uses_window_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -113,26 +119,41 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
 
 def _attn_block(lp, cfg, x, *, positions, inv_freq, window, cache=None,
                 cache_pos=None, donate=False):
+    """Returns (x, the new KV cache or None, the MoE aux loss or None)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
     a, new_kv = attn_mod.attention(
         lp["attn"], cfg, h, positions=positions, inv_freq=inv_freq,
         window=window, cache=cache, cache_pos=cache_pos, donate=donate)
-    return _ffn(lp, cfg, x + a), new_kv
+    x, aux = _ffn(lp, cfg, x + a)
+    return x, new_kv, aux
 
 
 def _ffn(lp, cfg, x):
     """The residual FFN half of an attention layer: the MLP, or the MoE
-    FFN (its aux loss dropped: training's)."""
+    FFN.  Returns (x, the MoE aux loss, or None for the MLP)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
     if cfg.is_moe:
-        f, _ = moe_mod.moe_ffn(
+        f, aux = moe_mod.moe_ffn(
             lp["moe"], cfg, h, group_size=cfg.moe_group_size,
             capacity_factor=cfg.moe_capacity_factor,
             renorm_topk=cfg.shared_experts == 0,
             dispatch_dtype=(torch.bfloat16
                             if cfg.moe_dispatch_dtype == "bf16" else None))
-        return x + f
-    return x + mlp(lp["mlp"], h, act="gelu" if cfg.rms_plus_one else "silu")
+        return x + f, aux
+    return x + mlp(lp["mlp"], h, act="gelu" if cfg.rms_plus_one else "silu"), \
+        None
+
+
+def _add_aux(total, aux):
+    """The running sum of the layers' aux losses (None: none yet)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _aux_or_zero(total, device):
+    return (total if total is not None
+            else torch.zeros((), dtype=torch.float32, device=device))
 
 
 def _rwkv_block(lp, cfg, x, *, state=None, x_tm=None, x_cm=None):
@@ -153,7 +174,7 @@ def _mamba_layer(lp, cfg, x, *, h0=None, conv_init=None):
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (eval / prefill)
+# full-sequence forward (train / eval / prefill)
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg, tokens, extra_embeds=None):
@@ -175,6 +196,18 @@ def _layer(tree, i):
     return tree[i]
 
 
+def _layers(tree):
+    """Every entry of a tree stacked on a leading axis, each leaf split
+    once (``torch.unbind``).  Under autograd the split's one backward
+    stacks the entries' gradients, where ``_layer`` per entry would give
+    each entry's backward a zero tensor the size of the whole stack."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _layer_windows(cfg):
     """Per-layer attention window (0 = global).  gemma3: every Nth global."""
     n = cfg.n_layers
@@ -188,23 +221,35 @@ def _layer_windows(cfg):
 def _run_attn_stack(params, cfg, x, *, positions, cache=None,
                     cache_pos=None, donate=False):
     """Walk the dense attention stack (a full sequence, or one decode
-    token).  Returns (x, the new cache, or None without one); with
-    ``donate`` every layer writes into ``cache``, which comes back."""
+    token).  Returns (x, the summed MoE aux loss or None, the new cache
+    or None without one); with ``donate`` every layer writes into
+    ``cache``, which comes back.  A cached pass (prefill, decode) is not
+    trained and sums no aux loss."""
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
-    blocks = params["blocks"]
+    blocks, aux = params["blocks"], None
+    if cache is None:
+        def body(lp, xc, win):
+            xc, _, a = _attn_block(lp, cfg, xc, positions=positions,
+                                   inv_freq=inv_freq, window=win)
+            return xc, a
+        run = maybe_remat(body)
+        for lp, win in zip(_layers(blocks), _layer_windows(cfg)):
+            x, a = run(lp, x, win)
+            aux = _add_aux(aux, a)
+        return x, aux, None
     new_kv = []
     for i, win in enumerate(_layer_windows(cfg)):
-        kv = _layer(cache, i) if cache is not None else None
-        x, nkv = _attn_block(_layer(blocks, i), cfg, x, positions=positions,
-                             inv_freq=inv_freq, window=win, cache=kv,
-                             cache_pos=cache_pos, donate=donate)
+        x, nkv, _ = _attn_block(_layer(blocks, i), cfg, x,
+                                positions=positions, inv_freq=inv_freq,
+                                window=win, cache=_layer(cache, i),
+                                cache_pos=cache_pos, donate=donate)
         new_kv.append(nkv)
-    if cache is None or donate:
-        return x, cache
-    return x, _stack(new_kv)
+    return x, None, (cache if donate else _stack(new_kv))
 
 
 def _run_stack(params, cfg, x, *, positions, cache=None, cache_pos=None):
+    """Returns (x, the summed MoE aux loss or None, the new cache or
+    None)."""
     if cfg.block == "rwkv6":
         return _run_rwkv_stack(params, cfg, x, cache=cache)
     run = _run_attn_stack if cfg.block == "attn" else _run_zamba_stack
@@ -214,20 +259,22 @@ def _run_stack(params, cfg, x, *, positions, cache=None, cache_pos=None):
 
 def _run_rwkv_stack(params, cfg, x, *, cache=None):
     """Walk the RWKV-6 stack over a full sequence, from the states in
-    ``cache`` when given.  Returns (x, the states after it, or None), the
-    last token-shift inputs in the cache's type."""
+    ``cache`` when given.  Returns (x, None: no aux loss, the states after
+    it or None), the last token-shift inputs in the cache's type."""
     blocks, new = params["blocks"], []
+    if cache is None:
+        run = maybe_remat(lambda lp, xc: _rwkv_block(lp, cfg, xc)[0])
+        for lp in _layers(blocks):
+            x = run(lp, x)
+        return x, None, None
     for i in range(cfg.n_layers):
-        lp = _layer(blocks, i)
-        if cache is None:
-            x, _, _, _ = _rwkv_block(lp, cfg, x)
-            continue
         c = _layer(cache, i)
-        x, sf, xl_tm, xl_cm = _rwkv_block(lp, cfg, x, state=c["s"],
-                                          x_tm=c["x_tm"], x_cm=c["x_cm"])
+        x, sf, xl_tm, xl_cm = _rwkv_block(_layer(blocks, i), cfg, x,
+                                          state=c["s"], x_tm=c["x_tm"],
+                                          x_cm=c["x_cm"])
         new.append({"s": sf, "x_tm": xl_tm.to(c["x_tm"].dtype),
                     "x_cm": xl_cm.to(c["x_cm"].dtype)})
-    return x, (_stack(new) if cache is not None else None)
+    return x, None, _stack(new)
 
 
 def _zamba_groups(cfg):
@@ -244,26 +291,31 @@ def _zamba_groups(cfg):
 
 def _run_zamba_stack(params, cfg, x, *, positions, cache=None,
                      cache_pos=None):
-    """Walk the hybrid stack over a full sequence.  Returns (x, the new
-    cache, or None without one)."""
+    """Walk the hybrid stack over a full sequence.  Returns (x, the summed
+    aux loss of the shared block or None, the new cache or None without
+    one).  The shared block's weights serve every application, so their
+    gradients sum over the applications."""
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     blocks = params["blocks"]
-    new_mamba, new_attn_kv = [], []
+    if cache is None:
+        layers = _layers(blocks)
+        run = maybe_remat(lambda lp, xc: _mamba_layer(lp, cfg, xc)[0])
+    aux, new_mamba, new_attn_kv = None, [], []
     for gi, (lo, hi, has_attn) in enumerate(_zamba_groups(cfg)):
         for i in range(lo, hi):
-            lp = _layer(blocks, i)
             if cache is None:
-                x, _, _ = _mamba_layer(lp, cfg, x)
+                x = run(layers[i], x)
                 continue
             c = _layer(cache["mamba"], i)
-            x, hf, tail = _mamba_layer(lp, cfg, x, h0=c["h"],
+            x, hf, tail = _mamba_layer(_layer(blocks, i), cfg, x, h0=c["h"],
                                        conv_init=c["conv"])
             new_mamba.append({"h": hf, "conv": tail.to(c["conv"].dtype)})
         if has_attn:
             kv = _layer(cache["attn"], gi) if cache is not None else None
-            x, new_kv = _attn_block(
+            x, new_kv, a = _attn_block(
                 params["shared_attn"], cfg, x, positions=positions,
                 inv_freq=inv_freq, window=0, cache=kv, cache_pos=cache_pos)
+            aux = _add_aux(aux, a)
             if new_kv is not None:
                 new_attn_kv.append(new_kv)
     new_cache = None
@@ -271,7 +323,7 @@ def _run_zamba_stack(params, cfg, x, *, positions, cache=None,
         new_cache = {"mamba": _stack(new_mamba),
                      "attn": (_stack(new_attn_kv) if new_attn_kv
                               else cache["attn"])}
-    return x, new_cache
+    return x, aux, new_cache
 
 
 def _mask_logits(logits, cfg):
@@ -293,17 +345,50 @@ def _logits(x, head):
     return x.float() @ head.float()
 
 
+def _forward(params, cfg, tokens, extra_embeds=None):
+    """(logits, the summed MoE aux loss: a 0-d fp32 tensor) of a full
+    sequence."""
+    x = _embed(params, cfg, tokens, extra_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux, _ = _run_stack(params, cfg, x, positions=positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 plus_one=cfg.rms_plus_one)
+    return (_mask_logits(_logits(x, _head(params, cfg)), cfg),
+            _aux_or_zero(aux, x.device))
+
+
 def forward(params, cfg, tokens: torch.Tensor, *,
             extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence logits.  tokens: (B, S) -> (B, S_total, padded vocab)
     fp32, S_total = S plus, for the VLM, the L rows of ``extra_embeds``
-    (B, L, D) in front."""
-    x = _embed(params, cfg, tokens, extra_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_stack(params, cfg, x, positions=positions)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
-                 plus_one=cfg.rms_plus_one)
-    return _mask_logits(_logits(x, _head(params, cfg)), cfg)
+    (B, L, D) in front.  The JAX function returns the MoE aux loss beside
+    them; here ``lm_loss`` reads it."""
+    return _forward(params, cfg, tokens, extra_embeds)[0]
+
+
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross entropy (fp32) of (B, S, V) logits against (B, S)
+    labels, over the labels >= 0 (a label < 0 is masked out)."""
+    mask = (labels >= 0).float()
+    lab = labels.clamp(min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def lm_loss(params, cfg, batch: Dict[str, torch.Tensor],
+            aux_coef: float = 0.01) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Causal-LM cross entropy (fp32), masked on labels >= 0, plus
+    ``aux_coef`` times the MoE aux loss.  ``batch``: "tokens" and
+    "labels" (B, S), and for the VLM "patches" (B, L, D), whose L logit
+    rows are dropped before the loss.  Returns (total, {"loss",
+    "aux_loss"})."""
+    logits, aux = _forward(params, cfg, batch["tokens"],
+                           extra_embeds=batch.get("patches"))
+    if cfg.frontend == "vlm":
+        logits = logits[:, cfg.frontend_len:]
+    loss = masked_nll(logits, batch["labels"])
+    return loss + aux_coef * aux, {"loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -365,8 +450,10 @@ def _decode_stack(params, cfg, x, cache, pos: torch.Tensor, donate: bool):
         if uses_window_cache(cfg):
             return _decode_window_cache(params, cfg, x, cache, pos,
                                         inv_freq, donate)
-        return _run_attn_stack(params, cfg, x, positions=positions,
-                               cache=cache, cache_pos=pos, donate=donate)
+        x, _, ncache = _run_attn_stack(params, cfg, x, positions=positions,
+                                       cache=cache, cache_pos=pos,
+                                       donate=donate)
+        return x, ncache
     new_mamba, new_attn = [], []
     for gi, (lo, hi, has_attn) in enumerate(_zamba_groups(cfg)):
         for i in range(lo, hi):
@@ -377,7 +464,7 @@ def _decode_stack(params, cfg, x, cache, pos: torch.Tensor, donate: bool):
             x = x + o
             new_mamba.append(nc)
         if has_attn:
-            x, nkv = _attn_block(
+            x, nkv, _ = _attn_block(
                 params["shared_attn"], cfg, x, positions=positions,
                 inv_freq=inv_freq, window=0, cache=_layer(cache["attn"], gi),
                 cache_pos=pos, donate=donate)
@@ -423,9 +510,9 @@ def _decode_window_cache(params, cfg, x, cache, pos, inv_freq, donate):
             o, nkv = attn_mod.ring_decode_attention(
                 lp["attn"], cfg, h, pos=pos, inv_freq=inv_freq,
                 cache=_layer(_layer(cache["local"], g), j), donate=donate)
-            x = _ffn(lp, cfg, x + o)
+            x, _ = _ffn(lp, cfg, x + o)
             rings.append(nkv)
-        x, ngc = _attn_block(
+        x, ngc, _ = _attn_block(
             _layer(blocks, g * ge + ge - 1), cfg, x, positions=positions,
             inv_freq=inv_freq, window=0, cache=_layer(cache["global"], g),
             cache_pos=pos, donate=donate)
@@ -475,8 +562,8 @@ def prefill(params, cfg, tokens: torch.Tensor, cache, *,
             "window_cache=False")
     x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, ncache = _run_stack(params, cfg, x, positions=positions, cache=cache,
-                           cache_pos=0)
+    x, _, ncache = _run_stack(params, cfg, x, positions=positions,
+                              cache=cache, cache_pos=0)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.rms_plus_one)
     logits = _mask_logits(_logits(x[:, -1], _head(params, cfg)), cfg)

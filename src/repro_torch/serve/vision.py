@@ -40,7 +40,7 @@ after it, and nothing here pretends to recover a lost context.
 ``serving_summary`` serves a deterministic mixed-size request stream
 through any registered conv model (``models/zoo.py``), in fp32 or int8,
 and is what ``launch/serve.py --vision`` runs.  A mesh is not ported
-(ROADMAP queue A 8e).
+(ROADMAP queue A 4e).
 """
 from __future__ import annotations
 

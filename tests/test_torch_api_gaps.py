@@ -161,3 +161,111 @@ def test_default_plan_matches_reference(nest):
     jp = j_cw.default_plan(JNest(**nest))
     assert (tp.nf_block, tp.c_block, tp.p_block, tuple(tp.grid)) == \
         (jp.nf_block, jp.c_block, jp.p_block, tuple(jp.grid))
+
+
+# --------------------------------------------------------------------------
+# the training slice: every module against its JAX counterpart
+# --------------------------------------------------------------------------
+
+# (module in both packages, the names the port defers: the dry-run's
+# abstract state, the mesh's axes and the collective, all scale-out work)
+TRAIN_MODULES = [
+    ("optim.adamw", {"abstract_opt_state", "opt_state_axes"}),
+    ("optim.schedules", set()),
+    ("ckpt.checkpoint", set()),
+    ("data.pipeline", set()),
+    ("distributed.compression", {"compressed_psum"}),
+    ("train.steps", set()),
+    ("train.trainer", set()),
+    ("train.evaluate", set()),
+    ("models.settings", set()),
+]
+# (module, qualified name, the port's extra trailing parameters)
+TRAIN_FUNCS = [
+    ("optim.adamw", "init_opt_state", ()),
+    ("optim.adamw", "adamw_update", ()),
+    ("optim.adamw", "global_norm", ()),
+    ("optim.schedules", "warmup_cosine", ()),
+    ("optim.schedules", "constant", ()),
+    ("ckpt.checkpoint", "save_checkpoint", ()),
+    ("ckpt.checkpoint", "restore_checkpoint", ()),
+    ("ckpt.checkpoint", "latest_step", ()),
+    ("ckpt.checkpoint", "cleanup_old", ()),
+    ("data.pipeline", "TokenPipeline.__init__", ()),
+    ("data.pipeline", "TokenPipeline.next_batch", ()),
+    ("data.pipeline", "TokenPipeline.state", ()),
+    ("data.pipeline", "TokenPipeline.restore", ()),
+    ("distributed.compression", "int8_roundtrip", ()),
+    ("distributed.compression", "ErrorFeedback.init", ()),
+    ("distributed.compression", "ErrorFeedback.apply", ()),
+    ("train.steps", "make_train_step", ()),
+    # the device the trainer runs on ("cuda" unless the caller asks)
+    ("train.trainer", "Trainer.__init__", ("device",)),
+    ("train.trainer", "Trainer.init_or_restore", ()),
+    ("train.trainer", "Trainer.run", ()),
+    ("train.evaluate", "evaluate", ()),
+    ("train.evaluate", "make_eval_step", ()),
+    ("models.settings", "set_remat", ()),
+    ("models.settings", "get_remat", ()),
+    ("models.settings", "remat", ()),
+    ("models.settings", "maybe_remat", ()),
+    ("models.api", "lm_loss", ()),
+    ("models.transformer", "lm_loss", ()),
+    ("models.encdec", "lm_loss", ()),
+]
+
+
+def _pair(module):
+    import importlib
+    return (importlib.import_module(f"repro_torch.{module}"),
+            importlib.import_module(f"repro.{module}"))
+
+
+def _attr(mod, qual):
+    obj = mod
+    for part in qual.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+@pytest.mark.parametrize("module,deferred", TRAIN_MODULES,
+                         ids=[m for m, _ in TRAIN_MODULES])
+def test_training_module_exports_the_reference_names(module, deferred):
+    t_mod, j_mod = _pair(module)
+    # a module without __all__ exports its public functions
+    names = getattr(j_mod, "__all__", None) or [
+        n for n, v in vars(j_mod).items() if inspect.isfunction(v)
+        and v.__module__ == j_mod.__name__ and not n.startswith("_")]
+    assert set(names) - set(t_mod.__all__) == deferred
+
+
+@pytest.mark.parametrize("module,qual,extra", TRAIN_FUNCS,
+                         ids=[f"{m}.{q}" for m, q, _ in TRAIN_FUNCS])
+def test_training_signature_matches_reference(module, qual, extra):
+    t_mod, j_mod = _pair(module)
+    got, want = _params_of(_attr(t_mod, qual)), _params_of(_attr(j_mod, qual))
+    assert got[:len(want)] == want
+    assert tuple(p[0] for p in got[len(want):]) == extra
+
+
+@pytest.mark.parametrize("module,cls", [("optim.adamw", "AdamWConfig"),
+                                        ("data.pipeline", "DataConfig"),
+                                        ("train.trainer", "TrainerConfig"),
+                                        ("models.common", "DTypePolicy")])
+def test_training_config_fields_match_reference(module, cls):
+    """The same fields with the same defaults (a dtype by its name)."""
+    import dataclasses
+
+    def fields(c):
+        return [(f.name, str(f.default).split(".")[-1].replace(
+            "'>", "").replace("<class '", "").split(".")[-1])
+            for f in dataclasses.fields(c)]
+    t_mod, j_mod = _pair(module)
+    assert fields(getattr(t_mod, cls)) == fields(getattr(j_mod, cls))
+    if cls == "DTypePolicy":
+        t_fp32 = getattr(t_mod, cls).fp32()
+        j_fp32 = getattr(j_mod, cls).fp32()
+        assert [str(getattr(t_fp32, f)).split(".")[-1]
+                for f in ("param", "compute", "accum", "master")] == \
+            [np.dtype(getattr(j_fp32, f)).name
+             for f in ("param", "compute", "accum", "master")]

@@ -51,7 +51,13 @@ def test_port_imports_where_jax_cannot_load():
         "                               steps, vision)\n"
         "from repro_torch.obs import folds, metrics, report, trace\n"
         "from repro_torch.ft import fault_tolerance\n"
-        "from repro_torch.launch import serve\n"
+        "from repro_torch.launch import serve, train\n"
+        "from repro_torch.optim import adamw, schedules\n"
+        "from repro_torch.ckpt import checkpoint\n"
+        "from repro_torch.data import pipeline\n"
+        "from repro_torch.distributed import compression\n"
+        "from repro_torch.train import evaluate, steps, trainer\n"
+        "from repro_torch import tree\n"
         "from repro_torch.kernels import (attention_fold, build,\n"
         "                                 conv1d_causal, conv2d_ws, ops, ref)\n"
         "from repro_torch.kernels import (conv1d_causal, conv2d,\n"
@@ -86,7 +92,8 @@ def test_port_imports_where_jax_cannot_load():
                                    "token_serving_summary",
                                    "token_launcher", "foldlint",
                                    "chaos_summary", "chaos_launcher",
-                                   "obs_report", "autotune"])
+                                   "obs_report", "autotune", "trainer",
+                                   "train_launcher"])
 def test_cuda_without_a_gpu_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
@@ -97,6 +104,8 @@ def test_cuda_without_a_gpu_raises(entry):
     from repro_torch.obs import report
     from repro_torch.serve.chaos import chaos_summary
     from repro_torch.launch.serve import main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.models import api, mobilenet, resnet, vgg
     from repro_torch.serve.engine import BatchEngine, token_serving_summary
     from repro_torch.serve.vision import VisionEngine, serving_summary
@@ -145,6 +154,9 @@ def test_cuda_without_a_gpu_raises(entry):
         "obs_report": lambda: report.main(["--model", "vgg16"]),
         "autotune": lambda: autotune_schedule(ConvLoopNest(
             n=1, nf=8, c=4, r=3, s=3, x=8, y=8, stride=1, pad=1)),
+        "trainer": lambda: Trainer(lm, TrainerConfig(total_steps=1)),
+        "train_launcher": lambda: train_main(["--arch", "zamba2-1.2b",
+                                              "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
