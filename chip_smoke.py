@@ -236,6 +236,30 @@ Phases (any failed check raises, and the script exits non-zero):
     depthwise on fold_dw, the projection's residual fused), and one conv
     on fold_ws_psum, batch 4, fp32: each within 1e-4 of its max of the
     reference chain's (``impl="direct"``), every fold kernel launched.
+16f. ``[mesh vision]`` and ``[mesh lm]``, the scale-out path: VGG-16 at
+    its published widths, 224, buckets (2, 4), six requests of 1-4
+    images, fp32 then bf16, through the mesh-less engine (CUDA graphs)
+    and ``VisionEngine(mesh=make_local_mesh(1, 1))`` over NCCL, logits
+    bitwise; zamba2-1.2b's [train] step (B=4 x 1024, the seeded weights,
+    the first batch) under ``set_context(mesh, make_rules(cfg, mesh))``
+    bitwise the step without a context, and ``compressed_psum`` over the
+    batch's whole gradient tree on the one-rank NCCL group bitwise
+    ``int8_roundtrip``.  Then two processes on the card, one rank each,
+    joined over gloo (NCCL refuses two ranks on one device; gloo moves
+    the card's tensors through the host): VGG-16 on 2x1 (each rank runs
+    half of every batch's rows, the logits gathered) and 1x2 (each rank
+    holds half of every conv's filters, runs the fold kernel on them and
+    gathers the output channels), fp32 and bf16, every rank's logits
+    bitwise the mesh-less engine's; MobileNetV2 at its full width and its
+    own 32 px (batch-norm statistics drawn as ``randomize_bn`` draws
+    them) on 1x2 the same way, fp32 and bf16, which splits the depthwise,
+    output- and weight-stationary fold kernels with the batch-norm
+    scale / shift and the fused residual sliced alike, each rank's
+    depthwise and OS launches above 0; and zamba2-1.2b's 38 mamba2 layers
+    as a two-stage GPipe pipeline (4 microbatches of 1 x 512, the conv1d
+    kernel in every layer) bitwise the sequential emulation.  Images/s
+    and each rank's kernel launches are printed; two ranks on one card
+    over gloo measure no scale-out.
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
@@ -265,8 +289,9 @@ serving runtime and HTTP serving; launches tick at warm-ups and
 captures), 12g (the per-layer VGG-16 path), 14-16 (the LM path), 16b
 (the dense family, which launches no kernel), 16c (the other families,
 none either: every kernel's count), 16d (training: the conv1d kernel
-only, forward and backward), 16e (the fold convs' gradients), 17 (the
-attention op).  The second-to-last
+only, forward and backward), 16e (the fold convs' gradients), 16f (the
+scale-out path: the parent's one-rank phases, and each rank's own
+counts, reported by its process), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -4621,6 +4646,351 @@ def phase_foldlint(torch, dev):
     return {"rows": rows, "seconds": seconds}
 
 
+# -- [mesh vision] / [mesh lm]: the scale-out path ---------------------------
+
+MESH_IMG, MESH_WIDTH = 224, 1.0     # VGG-16 at its published widths
+MESH_BUCKETS = (2, 4)
+MESH_REQUESTS = 6                   # requests of 1-4 images from MESH_SEED
+MESH_SEED = SEED + 80
+MESH_SHAPES = ((2, 1), (1, 2))      # the two-rank meshes (data x model)
+# (model, image size, the two-rank meshes it runs on), each at full
+# width; MobileNetV2 (CIFAR-scale, 32 px) splits fold_dw, fold_os, the
+# batch norm's scale / shift and the fused residual
+MESH_MODELS = (("vgg16", MESH_IMG, MESH_SHAPES),
+               ("mobilenetv2", 32, ((1, 2),)))
+MESH_DTYPES = ("float32", "bfloat16")
+PIPE_STAGES, PIPE_MICRO, PIPE_T = 2, 4, 512   # 4 microbatches of 1 x 512
+PIPE_SEED = SEED + 81
+MESH_RANK_TIMEOUT_S = 600           # both ranks, start to finish
+
+
+def mesh_images(img):
+    """The [mesh vision] stream: ``MESH_REQUESTS`` requests of 1-4 images
+    at ``img``, fp32, from ``MESH_SEED``."""
+    import numpy as np
+    rng = np.random.default_rng(MESH_SEED)
+    return [rng.standard_normal((int(k), 3, img, img)).astype(
+        np.float32) for k in rng.integers(1, max(MESH_BUCKETS) + 1,
+                                          MESH_REQUESTS)]
+
+
+def mesh_params(torch, dev, model, img, dtype):
+    """``model``'s weights for the mesh phases, from a generator on
+    ``dev`` seeded ``MESH_SEED`` (MobileNetV2's batch-norm statistics
+    from ``randomize_bn``): every rank's process draws the same bits."""
+    from repro_torch.models import zoo
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    params = zoo.get_conv_model(model).init_params(
+        gen, img=img, width_mult=MESH_WIDTH, device=dev,
+        dtype=getattr(torch, dtype))
+    return randomize_bn(torch, params) if model == "mobilenetv2" else params
+
+
+def fold_launches():
+    """Every fold-conv and head-kernel count, in one dict."""
+    from repro_torch.kernels import conv2d_ws as cw
+    from repro_torch.kernels import dense as dn
+    out = dict(cw.launch_counts())
+    out.update(dn.launch_counts())
+    return out
+
+
+def serve_mesh_stream(torch, dev, model, params, mesh, imgs, jit=True):
+    """The stream through a ``VisionEngine`` of ``model`` (on ``mesh``, or
+    none): (logits of every request in order, the metrics, the kernel
+    launches of the engine's whole life: compile, warm-up, capture,
+    serving)."""
+    import numpy as np
+    from repro_torch.models import zoo
+    from repro_torch.serve.vision import VisionEngine
+    before = fold_launches()
+    eng = VisionEngine(params, zoo.get_conv_model(model).to_graph(),
+                       img=imgs[0].shape[-1],
+                       buckets=MESH_BUCKETS, jit=jit, device=dev, mesh=mesh)
+    eng.warmup()
+    reqs = [eng.submit(im) for im in imgs]
+    eng.run()
+    for r in reqs:
+        check(r.outcome.value == "ok" and r.served_by == "primary",
+              f"mesh {None if mesh is None else mesh.shape}: request "
+              f"{r.rid} {r.outcome.value} by {r.served_by}")
+    d = eng.metrics_dict()
+    rb = d["robustness"]
+    check(not (rb["degraded_batches"] or rb["failed"]
+               or rb["nonfinite_batches"] or rb["lost_requests"]),
+          f"mesh serving: degraded / failed / non-finite / lost {rb}")
+    after = fold_launches()
+    launches = {k: after[k] - before.get(k, 0) for k in after
+                if after[k] - before.get(k, 0)}
+    return np.concatenate([r.logits for r in reqs]), d, launches
+
+
+def mesh_line(what, d, launches, bitwise, err):
+    lat = d["latency"]
+    return (f"[mesh vision] {what}: {d['requests']} requests / "
+            f"{d['images']} images, {d['images_per_s']:.3f} images/s, p50 "
+            f"{lat['p50_s'] * 1e3:.3f} ms; mesh {d['mesh']}, buckets "
+            f"{d['buckets']}; launches {launches}; logits bitwise the "
+            f"mesh-less engine's: {bitwise} (max abs diff {err:.3e})")
+
+
+def phase_mesh_vision_one_rank(torch, dev, mesh, out_dir):
+    """VGG-16 at 224 through the mesh-less engine (CUDA graphs) and
+    through ``VisionEngine(mesh=make_local_mesh(1, 1))`` (NCCL), fp32 then
+    bf16: the mesh's logits bitwise the mesh-less ones.  MobileNetV2's
+    mesh-less logits too.  The mesh-less logits go to ``out_dir`` for the
+    two-rank phases."""
+    import numpy as np
+    out = {}
+    for model, img, _ in MESH_MODELS:
+        imgs = mesh_images(img)
+        for dtype in MESH_DTYPES:
+            params = mesh_params(torch, dev, model, img, dtype)
+            ref, d0, l0 = serve_mesh_stream(torch, dev, model, params, None,
+                                            imgs)
+            np.save(out_dir / f"{model}_{dtype}.npy", ref)
+            print(mesh_line(f"{model} {dtype} mesh-less (CUDA graphs)", d0,
+                            l0, True, 0.0))
+            out[f"{model} {dtype}"] = {"alone": {
+                "images_per_s": d0["images_per_s"], "launches": l0}}
+            if model == "vgg16":
+                got, d1, l1 = serve_mesh_stream(torch, dev, model, params,
+                                                mesh, imgs)
+                bitwise = bool(np.array_equal(got, ref))
+                err = float(np.abs(got - ref).max())
+                print(mesh_line(f"{model} {dtype} 1x1 ({mesh.backend})", d1,
+                                l1, bitwise, err))
+                check(bitwise, f"mesh vision 1x1 {model} {dtype}: logits "
+                      "differ from the mesh-less engine's")
+                out[f"{model} {dtype}"]["1x1"] = {
+                    "images_per_s": d1["images_per_s"], "launches": l1,
+                    "bitwise": bitwise, "backend": mesh.backend}
+            del params
+            _free(torch)
+    return out
+
+
+def phase_mesh_lm_one_rank(torch, dev, mesh):
+    """[train]'s setup (zamba2-1.2b, B=4 x 1024, the seeded weights, the
+    first batch): one step under ``set_context(mesh, make_rules(cfg,
+    mesh))`` bitwise the step without a context (loss, new parameters,
+    optimizer state), then ``compressed_psum`` over that batch's full
+    gradient tree on the mesh's one-rank group bitwise
+    ``int8_roundtrip``; under deterministic algorithms."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     int8_roundtrip)
+    from repro_torch.models.settings import remat
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import batch_to, lm_grads, make_train_step
+    from repro_torch.tree import leaves
+    cfg, data, opt = train_setup()
+    params = train_params(torch, dev, cfg)
+    batch = batch_to(TokenPipeline(data).next_batch(), dev)
+    step = make_train_step(cfg, opt, remat=TRAIN_REMAT)
+    rules = sharding.make_rules(cfg, mesh)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        p0, s0, m0 = step(params, init_opt_state(params), batch)
+        torch.cuda.synchronize()
+        ms_plain = 1e3 * (time.perf_counter() - t0)
+        want = [t.cpu() for t in leaves((p0, s0))] + [m0["loss"].cpu()]
+        del p0, s0
+        _free(torch)
+        sharding.set_context(mesh, rules)
+        try:
+            t0 = time.perf_counter()
+            p1, s1, m1 = step(params, init_opt_state(params), batch)
+            torch.cuda.synchronize()
+            ms_ctx = 1e3 * (time.perf_counter() - t0)
+            got = leaves((p1, s1)) + [m1["loss"]]
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+            del p1, s1, got, want
+            _free(torch)
+            with remat(TRAIN_REMAT):
+                _, grads = lm_grads(params, cfg, batch)
+        finally:
+            sharding.clear_context()
+        group = mesh.group("data")
+        t0 = time.perf_counter()
+        psum_bad = [i for i, g in enumerate(leaves(grads))
+                    if not torch.equal(compressed_psum(g, group),
+                                       int8_roundtrip(g))]
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n_leaves = len(leaves(grads))
+    print(f"[mesh lm] {ZAMBA} step B={TRAIN_B} x {TRAIN_T} under a 1x1 "
+          f"({mesh.backend}) sharding context: loss {float(m1['loss']):.6f}"
+          f", parameters, optimizer state and loss bitwise the step "
+          f"without one: {not bad} ({ms_ctx:.1f} ms under the context, "
+          f"{ms_plain:.1f} ms without)")
+    print(f"[mesh lm] compressed_psum over the step's {n_leaves} gradient "
+          f"leaves on the one-rank {mesh.backend} group, bitwise "
+          f"int8_roundtrip: {not psum_bad} ({psum_s:.2f} s)")
+    check(not bad, f"mesh lm: the step under a 1x1 context differs from "
+          f"the step without one ({len(bad)} leaves)")
+    check(not psum_bad, f"mesh lm: compressed_psum differs from "
+          f"int8_roundtrip on {len(psum_bad)} leaves")
+    del params, grads
+    _free(torch)
+    return {"step_bitwise": not bad, "step_ms_context": ms_ctx,
+            "step_ms_plain": ms_plain, "psum_bitwise": not psum_bad,
+            "psum_leaves": n_leaves, "psum_s": psum_s}
+
+
+def pipe_inputs(torch, dev):
+    """zamba2-1.2b's 38 stacked mamba2 layers (bf16, from ``PIPE_SEED``)
+    and the pipeline's microbatches: (PIPE_MICRO, 1, PIPE_T, d_model)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(ZAMBA)
+    gen = torch.Generator(device=dev).manual_seed(PIPE_SEED)
+    blocks = transformer.init_params(cfg, gen, device=dev)["blocks"]
+    x = torch.randn((PIPE_MICRO, 1, PIPE_T, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return cfg, blocks, x
+
+
+def mesh_rank_main(rank, port, out_dir, dev_name):
+    """One rank of the two-rank phases (a process of its own, gloo on the
+    one card): VGG-16 on the 2x1 and 1x2 meshes and MobileNetV2 on 1x2,
+    in fp32 and bf16, against the parent's mesh-less logits, then the
+    two-stage pipeline over
+    zamba2's mamba2 stack against the sequential emulation.  Writes
+    ``rank<r>.json``; any failed check raises and fails the run."""
+    import numpy as np
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.pipeline import make_pipelined_stack
+    from repro_torch.launch.mesh import (make_local_mesh, make_mesh,
+                                         start_process_group)
+    from repro_torch.models import transformer
+    set_numerics(torch)
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    dev = torch.device(dev_name)
+    out_dir = pathlib.Path(out_dir)
+    start_process_group(rank, 2, port, device=dev)   # gloo: 2 ranks, 1 card
+    res = {"vision": {}}
+    for name, img, shapes in MESH_MODELS:
+        imgs = mesh_images(img)
+        for dtype in MESH_DTYPES:
+            params = mesh_params(torch, dev, name, img, dtype)
+            ref = np.load(out_dir / f"{name}_{dtype}.npy")
+            for data, model in shapes:
+                mesh = make_local_mesh(data, model, device=dev)
+                got, d, launches = serve_mesh_stream(torch, dev, name,
+                                                     params, mesh, imgs)
+                bitwise = bool(np.array_equal(got, ref))
+                key = f"{name} {dtype} {data}x{model}"
+                res["vision"][key] = {
+                    "line": mesh_line(f"{key} (gloo) rank {rank}", d,
+                                      launches, bitwise,
+                                      float(np.abs(got - ref).max())),
+                    "bitwise": bitwise, "images_per_s": d["images_per_s"],
+                    "launches": launches}
+            del params
+            _free(torch)
+    cfg, blocks, x = pipe_inputs(torch, dev)
+
+    def layer_fn(lp, act):
+        return transformer._mamba_layer(lp, cfg, act)[0]
+    mesh = make_mesh((PIPE_STAGES,), ("pod",), device=dev)
+    torch.use_deterministic_algorithms(True)
+    with torch.inference_mode():
+        seq = make_pipelined_stack(cfg, layer_fn, n_stages=PIPE_STAGES)
+        piped = make_pipelined_stack(cfg, layer_fn, n_stages=PIPE_STAGES,
+                                     mesh=mesh)
+        want = seq(blocks, x)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = piped(blocks, x)
+        torch.cuda.synchronize(dev)
+        pipe_s = time.perf_counter() - t0
+        n_pipe = cc.launch_counts()[cc.KERNEL]
+        t0 = time.perf_counter()
+        again = seq(blocks, x)
+        torch.cuda.synchronize(dev)
+        seq_s = time.perf_counter() - t0
+    res["pipeline"] = {
+        "bitwise": bool(torch.equal(got, want)),
+        "seq_repeatable": bool(torch.equal(again, want)),
+        "finite": bool(torch.isfinite(got.float()).all()),
+        "conv1d_launches": n_pipe, "pipeline_s": pipe_s, "seq_s": seq_s,
+        "max_abs_diff": float((got.float() - want.float()).abs().max())}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_two_ranks(torch, dev, out_dir):
+    """Spawn the two ranks (after the parent has built the kernels and
+    freed its memory), wait for both under ``MESH_RANK_TIMEOUT_S``, print
+    their lines and check them.  A rank that fails fails the run; at the
+    deadline both are killed and the run fails."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+    _free(torch)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank_main,
+                             args=(free_port(), str(out_dir), str(dev)),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_RANK_TIMEOUT_S:
+                raise RuntimeError("the two-rank mesh phases passed "
+                                   f"{MESH_RANK_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for key in ranks[0]["vision"]:
+        for r in ranks:
+            print(r["vision"][key]["line"])
+            check(r["vision"][key]["bitwise"], f"mesh vision {key}: a "
+                  "rank's logits differ from the mesh-less engine's")
+    # MobileNetV2's split depthwise and OS kernels ran on every rank
+    for key in (k for k in ranks[0]["vision"] if k.startswith("mobilenet")):
+        sfx = "_bf16" if "bfloat16" in key else ""
+        for i, r in enumerate(ranks):
+            got = r["vision"][key]["launches"]
+            for k in ("fold_conv_dw", "fold_conv_os"):
+                check(got.get(k + sfx, 0) > 0, f"mesh vision {key}: rank "
+                      f"{i} launched no {k + sfx}")
+    from repro_torch.configs.registry import get_config
+    cfg_layers = get_config(ZAMBA).n_layers
+    per_stage = cfg_layers // PIPE_STAGES * PIPE_MICRO
+    for i, r in enumerate(ranks):
+        p = r["pipeline"]
+        print(f"[mesh lm] pipeline rank {i}: {ZAMBA}'s {cfg_layers} mamba2 "
+              f"layers in {PIPE_STAGES} stages on 2 ranks (gloo), "
+              f"{PIPE_MICRO} microbatches of 1 x {PIPE_T}: output bitwise "
+              f"the sequential emulation: {p['bitwise']} (max abs diff "
+              f"{p['max_abs_diff']:.3e}); {p['conv1d_launches']} conv1d "
+              f"launches on this rank ({per_stage} expected); "
+              f"{p['pipeline_s'] * 1e3:.1f} ms pipelined, "
+              f"{p['seq_s'] * 1e3:.1f} ms sequential")
+        check(p["bitwise"] and p["finite"] and p["seq_repeatable"],
+              f"mesh lm: pipeline rank {i} differs from the sequential "
+              "emulation")
+        check(p["conv1d_launches"] == per_stage,
+              f"mesh lm: pipeline rank {i} launched conv1d "
+              f"{p['conv1d_launches']} times, {per_stage} expected")
+    print(f"[mesh] the two-rank phases took {seconds:.1f} s (two processes "
+          "on one card over gloo: their times are not scale-out numbers)")
+    return {"ranks": ranks, "seconds": seconds}
+
+
 def main() -> int:
     # cuBLAS's deterministic workspace, read when cuBLAS is first set up:
     # the training phase's bitwise checks run under
@@ -5137,6 +5507,51 @@ def main() -> int:
 
     # -- the fold convs' gradients on the card (counts from 0 inside) -----
     report["fold_grads"] = phase_fold_grads(torch, dev)
+
+    # -- the scale-out path: VGG-16 and zamba2 on meshes; counts from 0
+    # just before, read just after (the two ranks count in their own
+    # processes and report it) ------------------------------------------
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    for mod in counted:
+        mod.reset_launch_counts()
+    t_mesh = time.perf_counter()
+    mesh_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        mesh = make_local_mesh(1, 1, device=dev)
+        report["mesh"] = {"vision": phase_mesh_vision_one_rank(
+            torch, dev, mesh, mesh_dir)}
+        report["mesh"]["lm"] = phase_mesh_lm_one_rank(torch, dev, mesh)
+        mesh_launches = {k: n for mod in counted
+                         for k, n in mod.launch_counts().items() if n}
+        report["mesh"]["two_ranks"] = phase_mesh_two_ranks(torch, dev,
+                                                           mesh_dir)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    report["mesh"]["seconds"] = time.perf_counter() - t_mesh
+    print(f"[mesh] one-rank path launches {mesh_launches}; "
+          f"{report['mesh']['seconds']:.1f} s with the two ranks")
+    for name in ("fold_conv_ws", "fold_conv_ws_bf16", dn.KERNEL,
+                 dn.KERNEL_BF16, cc.KERNEL):
+        check(mesh_launches.get(name, 0) > 0,
+              f"{name} never launched on the one-rank mesh path")
+    mesh_total = dict(mesh_launches)
+    for r in report["mesh"]["two_ranks"]["ranks"]:
+        for v in r["vision"].values():
+            for k, n in v["launches"].items():
+                mesh_total[k] = mesh_total.get(k, 0) + n
+        mesh_total[cc.KERNEL] = mesh_total.get(cc.KERNEL, 0) + \
+            r["pipeline"]["conv1d_launches"]
+    for name in ("fold_conv_ws", "fold_conv_ws_bf16", dn.KERNEL,
+                 dn.KERNEL_BF16):
+        for i, r in enumerate(report["mesh"]["two_ranks"]["ranks"]):
+            check(any(v["launches"].get(name, 0) > 0
+                      for v in r["vision"].values()),
+                  f"{name} never launched on mesh rank {i}")
     # torch.profiler last: once it has run, every kernel of the process
     # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
     report["decode_zamba2"] = phase_lm_device(
@@ -5272,6 +5687,10 @@ def main() -> int:
                          train_launches_per_step=train_conv1d_launches(
                              tcfg))
         kernels.append(entry)
+    for entry in kernels:
+        # the scale-out path's launches (the parent's one-rank phases and
+        # both ranks' processes), beside the main path's
+        entry["mesh_launches"] = mesh_total.get(entry["name"], 0)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "build"

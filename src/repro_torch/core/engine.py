@@ -109,6 +109,13 @@ class ScheduleKey:
         return f"{self.r}x{self.s}x{self.c}->{self.nf}/s{self.stride}{g}{pr}"
 
 
+# the ``kernels.ops.conv2d`` impl that runs each dataflow
+_IMPL_OF_DATAFLOW = {"weight_stationary": "fold_ws",
+                     "output_stationary": "fold_os",
+                     "weight_stationary_psum": "fold_ws_psum",
+                     "depthwise": "fold_dw"}
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvSchedule:
     """One compiled fold schedule: block plan + selected dataflow.  ``nest``
@@ -138,10 +145,7 @@ class ConvSchedule:
 
     def impl(self) -> str:
         """The ``kernels.ops.conv2d`` impl string for this dataflow."""
-        if self.dataflow == "depthwise":
-            return "fold_dw"
-        return ("fold_ws" if self.dataflow == "weight_stationary"
-                else "fold_os")
+        return _IMPL_OF_DATAFLOW[self.dataflow]
 
 
 # --------------------------------------------------------------------------
@@ -1055,6 +1059,39 @@ class CompiledNetwork:
         return "\n".join(lines)
 
 
+def _split_impl(name: str, cv: ConvLoopNest, sched: ConvSchedule, epi,
+                groups: int, size: int
+                ) -> Tuple[str, ConvLoopNest, ConvSchedule]:
+    """What a conv split N_F-wise over ``size`` model ranks runs on its
+    slice: the impl, the slice's loop nest and its schedule.  The impl
+    names the dataflow the whole layer's kernel resolves to
+    (``fold_kernel_spec``'s WS -> OS / psum fallback included), so the
+    slice streams its folds as the whole layer would; a slice that would
+    resolve otherwise raises.  The schedule is the layer's, except that a
+    grouped conv's slice (fewer groups) takes the plan solved for its own
+    group count, which is the one its kernel would solve."""
+    from repro_torch.kernels.conv2d_ws import fold_kernel_spec
+    local = dataclasses.replace(
+        cv, nf=cv.nf // size,
+        c=cv.c // size if groups > 1 else cv.c,
+        groups=groups // size if groups > 1 else 1)
+    if local.groups != sched.plan.groups:
+        sched = dataclasses.replace(sched, plan=plan_conv_blocks(local))
+
+    def resolved(nest, dataflow):
+        return fold_kernel_spec(
+            (nest.n, nest.c, nest.padded_x, nest.padded_y),
+            (nest.nf, nest.c // nest.groups, nest.r, nest.s),
+            stride=nest.stride, plan=sched.plan, dataflow=dataflow,
+            epilogue=epi, groups=nest.groups).dataflow
+    whole = resolved(dataclasses.replace(cv, groups=groups), sched.dataflow)
+    part = resolved(local, whole)
+    if part != whole:
+        raise GraphError(f"{name}: the filter slice resolves to {part}, "
+                         f"the whole layer to {whole}")
+    return _IMPL_OF_DATAFLOW[whole], local, sched
+
+
 def _input_dtype(params: Dict[str, Any], graph) -> torch.dtype:
     """The type a network's input is fed in: its first conv's weights'
     (fp32 or bf16, as ``init_params(dtype=)`` made them).  The JAX package
@@ -1081,7 +1118,7 @@ def compile_network(params: Dict[str, Any], graph,
                     verify: bool = True,
                     tracer=None,
                     device: Any = "cuda", precision: str = "fp32",
-                    quant=None) -> CompiledNetwork:
+                    quant=None, shard=None) -> CompiledNetwork:
     """Lower a streaming graph into a static fold schedule + forward.
 
     ``graph`` is a ``StreamGraph`` (or a legacy conv-spec sequence).  Conv
@@ -1136,6 +1173,18 @@ def compile_network(params: Dict[str, Any], graph,
     ``plan:<layer>`` span per conv and a ``compile_network`` span on the
     compile track.
 
+    ``shard`` (``distributed/sharding.FilterShard``) splits the convs it
+    names N_F-wise over a mesh's model axis: their entries in ``params``
+    hold this rank's slice of the filters (and of the bias).  Each such
+    conv is planned and verified at its whole geometry, as without a mesh,
+    and its slice's geometry is verified too; the forward runs the fold
+    kernel on the slice, with the batch-norm scale / shift and the
+    residual sliced alike, on the dataflow the whole layer resolves to
+    (``_split_impl``), and gathers the output channels over the model
+    axis before the next layer.  A grouped conv splits by whole groups,
+    its input channels with them.  The gathers are collectives between
+    kernels, so a split network is not captured (``jit`` runs eager).
+
     ``precision="int8"`` lowers every conv through ``conv2d_int8``: int8
     weight and activation blocks, int32 sums, dequant folded into the
     epilogue's scale/shift slot.  ``quant`` is the calibrated
@@ -1187,6 +1236,13 @@ def compile_network(params: Dict[str, Any], graph,
             n_, chan, h, w_ = s_in
             nf, cin, r, s = (int(d) for d in params[nd.param]["w"].shape)
             groups = chan if nd.groups == DEPTHWISE else nd.groups
+            split = shard is not None and shard.sharded(nd.param)
+            if split:
+                nf *= shard.size      # the slice's whole layer
+                if groups > 1 and groups % shard.size:
+                    raise GraphError(
+                        f"{nd.name}: {groups} groups do not split over "
+                        f"{shard.size} model ranks")
             if cin * groups != chan:
                 raise GraphError(
                     f"{nd.name}: weights expect {cin}x{groups} input "
@@ -1239,13 +1295,29 @@ def compile_network(params: Dict[str, Any], graph,
                                  torch.int8 if x_scale is not None
                                  else in_dtype)
                 verify_s += time.perf_counter() - t0
+            split_impl = split_plan = None
+            if split and mode == "kernel":
+                kernel_epi = (requant_epilogue(epi) if x_scale is not None
+                              else epi)
+                split_impl, cv_local, sched_local = _split_impl(
+                    nd.name, cv, sched, kernel_epi, groups, shard.size)
+                split_plan = sched_local.plan
+                if verify:
+                    t0 = time.perf_counter()
+                    _verify_schedule(nd.name, cv_local, sched_local,
+                                     kernel_epi,
+                                     cv_local.groups, sm_count,
+                                     torch.int8 if x_scale is not None
+                                     else in_dtype)
+                    verify_s += time.perf_counter() - t0
             layer_schedules.append((nd.name, sched))
             layer_nests.append((nd.name, cv))
             shapes[nd.name] = (n_, nf) + epilogue_out_hw(nd.epilogue, cv.p,
                                                          cv.q)
             steps.append(("conv", nd.name, nd.all_inputs(),
                           (sched, epi, nd.stride, nd.pad, nd.param,
-                           demoted_pool, groups, nd.bn_param, x_scale)))
+                           demoted_pool, groups, nd.bn_param, x_scale,
+                           split, split_impl, split_plan)))
         elif nd.op in ("bias", "batchnorm", "relu", "relu6"):
             shapes[nd.name] = s_in
             steps.append((nd.op, nd.name, nd.inputs, nd.param))
@@ -1289,9 +1361,20 @@ def compile_network(params: Dict[str, Any], graph,
         for op, out, ins, info in steps_t:
             if op == "conv":
                 (sched, epi, stride, pad, pname, demoted_pool, groups,
-                 bn_param, x_scale) = info
+                 bn_param, x_scale, split, split_impl, split_plan) = info
                 xin, w = env[ins[0]], p[pname]["w"]
-                impl = "direct" if mode == "reference" else sched.impl()
+                impl = "direct" if mode == "reference" else (
+                    split_impl or sched.impl())
+                plan = split_plan or sched.plan
+                # a split conv: this rank's filters, and per-channel
+                # operands sliced alike (``chans``); a grouped one reads
+                # its own groups' input channels
+                chans = shard.channels(w.shape[0]) if split else slice(None)
+                if split and groups > 1:
+                    cs = xin.shape[1] // shard.size
+                    xin = xin[:, shard.index * cs:
+                              (shard.index + 1) * cs].contiguous()
+                    groups //= shard.size
                 if x_scale is not None:
                     # the int8 stream: weights quantize per channel here,
                     # activations with the calibrated scale; bias, BN and
@@ -1300,12 +1383,13 @@ def compile_network(params: Dict[str, Any], graph,
                         else None
                     scale = shift = None
                     if epi is not None and epi.scale:
-                        scale, shift = bn_scale_shift(p[bn_param])
-                    res = env[ins[1]] if epi is not None and epi.residual \
-                        else None
+                        scale, shift = (v[chans] for v in
+                                        bn_scale_shift(p[bn_param]))
+                    res = env[ins[1]][:, chans] \
+                        if epi is not None and epi.residual else None
                     y = conv2d_int8(xin, w, b, x_scale=x_scale,
                                     stride=stride, pad=pad, epilogue=epi,
-                                    impl=impl, plan=sched.plan,
+                                    impl=impl, plan=plan,
                                     residual=res, scale=scale, shift=shift,
                                     groups=groups)
                 elif epi is not None:
@@ -1314,19 +1398,24 @@ def compile_network(params: Dict[str, Any], graph,
                     b = p[pname]["b"] if epi.bias else None
                     scale = shift = None
                     if epi.scale:
-                        scale, shift = bn_scale_shift(p[bn_param])
-                    res = env[ins[1]] if epi.residual else None
+                        scale, shift = (v[chans] for v in
+                                        bn_scale_shift(p[bn_param]))
+                    res = env[ins[1]][:, chans] if epi.residual else None
                     y = conv2d_fused(xin, w, b, stride=stride, pad=pad,
                                      epilogue=epi, impl=impl,
-                                     plan=sched.plan, residual=res,
+                                     plan=plan, residual=res,
                                      scale=scale, shift=shift,
                                      groups=groups)
                 else:
                     y = conv2d(xin, w, stride=stride, pad=pad, impl=impl,
-                               plan=sched.plan, groups=groups)
-                env[out] = maxpool2x2(y) if demoted_pool else y
+                               plan=plan, groups=groups)
+                y = maxpool2x2(y) if demoted_pool else y
+                env[out] = shard.gather(y) if split else y
             elif op == "bias":
-                env[out] = env[ins[0]] + p[info]["b"][None, :, None, None]
+                b = p[info]["b"]
+                if shard is not None and shard.sharded(info):
+                    b = shard.gather(b, dim=0)
+                env[out] = env[ins[0]] + b[None, :, None, None]
             elif op == "batchnorm":
                 scale, shift = bn_scale_shift(p[info])
                 env[out] = (env[ins[0]] * scale[None, :, None, None]
@@ -1358,7 +1447,8 @@ def compile_network(params: Dict[str, Any], graph,
         hits=cache.stats.hits - stats_before.hits,
         misses=cache.stats.misses - stats_before.misses,
         replans=cache.stats.replans - stats_before.replans)
-    captured = jit and dev.type == "cuda"
+    captured = jit and dev.type == "cuda" and (shard is None
+                                               or shard.size == 1)
     apply = CapturedForward(forward, input_shape, dev, in_dtype) \
         if captured else forward
     if tracer is not None:
@@ -1399,7 +1489,8 @@ class BucketCompiler:
     later buckets' proofs of shared schedules one lookup a layer).  So do
     ``autotune`` and its options: the first bucket's compile measures every
     schedule, every later bucket hits the shared cache (tuning is pay-once
-    across buckets), and ``tuning_path`` is one JSON shared by all."""
+    across buckets), and ``tuning_path`` is one JSON shared by all.  So
+    does ``shard`` (a mesh's filter split, ``compile_network``)."""
 
     def __init__(self, params: Dict[str, Any], graph, img: int, *,
                  chan: int = 3, policy: str = "auto",
@@ -1411,7 +1502,7 @@ class BucketCompiler:
                  autotune_timer: Optional[Callable] = None,
                  verify: bool = True, tracer=None,
                  device: Any = "cuda",
-                 precision: str = "fp32", quant=None):
+                 precision: str = "fp32", quant=None, shard=None):
         from repro_torch.core.quant import check_precision, default_recipe
         check_precision(precision)
         self.params = params
@@ -1431,6 +1522,7 @@ class BucketCompiler:
         self.tracer = tracer          # duck-typed obs tracer (or None)
         self.device = device
         self.precision = precision
+        self.shard = shard
         if precision == "int8" and quant is None:
             _, dev = resolve_execution(policy, device)
             quant = default_recipe(self.graph, params,
@@ -1464,7 +1556,8 @@ class BucketCompiler:
                 autotune_reps=self.autotune_reps,
                 autotune_timer=self.autotune_timer, verify=self.verify,
                 tracer=self.tracer, device=self.device,
-                precision=self.precision, quant=self.quant)
+                precision=self.precision, quant=self.quant,
+                shard=self.shard)
             self._nets[batch] = net
         return net
 

@@ -10,8 +10,9 @@ The paper expresses its dataflow with two data-centric directives:
 ``MappingPlan`` carries a set of directives for a named loop nest, checks
 them and gives the extents of its temporal (streamed) dims.  The canonical
 plans below are pure directive sets: the weight-stationary conv of Fig 6,
-batched conv serving and LM training.  Binding a plan's spatial dims to a
-device mesh comes with the mesh slice.
+batched conv serving and LM training.  ``partition_spec`` binds a plan's
+spatial dims to mesh axes: a ``PartitionSpec`` per tensor, which
+``distributed/sharding.py`` turns into each rank's slice.
 
 The block plan is the *logical* schedule.  It fixes the filter fold
 (``nf_block`` filters), the depth fold (``c_block`` channels) and the image
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.loopnest import ConvLoopNest
 
@@ -38,6 +39,7 @@ __all__ = [
     "Directive",
     "MappingPlan",
     "ConvBlockPlan",
+    "PartitionSpec",
     "conv_working_set",
     "largest_divisor_le",
     "plan_conv_blocks",
@@ -81,6 +83,31 @@ class TemporalMap:
 Directive = Union[SpatialMap, TemporalMap]
 
 
+class PartitionSpec(tuple):
+    """Per tensor dim, the mesh axis it is split over, a tuple of axes
+    (split over their product, the first the major), or None
+    (replicated): ``jax.sharding.PartitionSpec``'s tuple, with its
+    normalization (a one-axis tuple is the axis, an empty one None), its
+    equality (a tuple's: ``P("data") != P("data", None)``) and its
+    printing."""
+
+    def __new__(cls, *parts):
+        def norm(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return None if not p else (p[0] if len(p) == 1 else p)
+            return p
+        return super().__new__(cls, tuple(norm(p) for p in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(self)
+
+    __str__ = __repr__
+
+
 @dataclasses.dataclass(frozen=True)
 class MappingPlan:
     """A complete binding of a loop nest's dims to space and time."""
@@ -102,6 +129,15 @@ class MappingPlan:
             if d.dim in seen:
                 raise ValueError(f"{d}: dim bound twice")
             seen.add(d.dim)
+
+    def partition_spec(self, tensor_dims: Sequence[Optional[str]]
+                       ) -> PartitionSpec:
+        """The ``PartitionSpec`` of a tensor whose axes are named by loop
+        dims (None: not a loop dim, replicated); a dim spatially mapped to
+        ``mxu`` (within a chip) is not a mesh axis."""
+        by_dim = {d.dim: d.axis for d in self.spatial() if d.axis != "mxu"}
+        return PartitionSpec(*[by_dim.get(d) if d else None
+                               for d in tensor_dims])
 
     def grid(self) -> Tuple[int, ...]:
         """Extents of the temporal dims in tiles, in streaming order (the

@@ -15,6 +15,9 @@ request stream through the vision engine (``serve/vision.py``).
         --trace trace.json --metrics-json metrics.json
     python -m repro_torch.launch.serve --vision --device cpu \
         --chaos 7 --chaos-profile mixed
+    python -m repro_torch.launch.serve --vision --mesh 1x1
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --vision \
+        --device cpu --mesh 1x2
 
 The token path serves ``--requests`` random prompts of ``--prompt-len``
 tokens, ``--new-tokens`` each, at batch width ``--batch``, over random
@@ -39,6 +42,14 @@ the engine stops admitting, drains everything in flight and still
 prints its metrics.  ``--autotune`` measures the schedules on the
 device (``--tuning-path`` persists them as JSON); ``--deadline-s`` puts
 an SLO on every ``--deadline-every``-th request.
+
+``--mesh DATAxMODEL`` serves on a ``launch/mesh.py`` mesh
+(``serve/vision.py``: rows over the data axis, conv filters over the
+model axis), one process a rank: a 1x1 mesh starts its own one-rank
+group, a larger one joins the group its launcher (``torchrun``) set up
+through the ``env://`` variables (NCCL when each rank has a card of its
+own, gloo on the CPU or when ranks share a card).  Rank 0 prints the
+summary.
 
 ``--chaos SEED`` runs the deterministic fault-injection smoke instead
 (``serve/chaos.py``, profile ``--chaos-profile``): the stream is served
@@ -152,6 +163,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "plain-torch direct conv")
     ap.add_argument("--precision", choices=("fp32", "int8"), default="fp32",
                     help="streamed conv precision of the compiled forwards")
+    ap.add_argument("--mesh", default="",
+                    help='optional "DATAxMODEL" mesh, e.g. "2x1" (one '
+                         "process a rank)")
     ap.add_argument("--autotune", action="store_true",
                     help="measure each schedule's candidates on the device "
                          "instead of the analytical ranking")
@@ -192,6 +206,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 def vision_main(args) -> dict:
     from repro_torch.ft.fault_tolerance import PreemptionGuard
     from repro_torch.serve.vision import serving_summary
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_local_mesh
+        data, model_par = (int(t) for t in args.mesh.lower().split("x"))
+        mesh = make_local_mesh(data, model_par, device=args.device)
     tracer, registry = make_obs(args)
     with PreemptionGuard() as guard:    # SIGTERM -> stop admitting, drain
         summary = serving_summary(
@@ -203,14 +222,20 @@ def vision_main(args) -> dict:
             deadline_s=args.deadline_s or None,
             deadline_every=args.deadline_every, guard=guard,
             tracer=tracer, registry=registry, device=args.device,
-            precision=args.precision)
+            precision=args.precision, mesh=mesh)
     write_obs_artifacts(args, tracer, registry)
     # an int8 summary prints under its own key, as the JAX launcher files
     # it under its own section beside the fp32 one
     out = summary if args.precision == "fp32" else \
         {f"serving_{args.precision}": summary}
-    print(json.dumps(out, indent=1, sort_keys=True))
+    if mesh is None or _rank() == 0:
+        print(json.dumps(out, indent=1, sort_keys=True))
     return summary
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def chaos_main(args) -> dict:

@@ -1,7 +1,7 @@
 """GQA attention with qk-norm, QKV bias, RoPE, sliding-window/global masks
 and a position-indexed KV cache for decode (the JAX package's
-``models/attention.py``; its sharding constraints are no-ops without a
-mesh and are left out).
+``models/attention.py``, with its sharding constraints:
+``distributed/sharding.constrain``).
 
 Attention is the 5-D loop nest (B, H, Tq, Tkv, D): Q stationary, K/V
 streamed.  ``_mha`` materializes the (T, S) scores; ``_mha_blockwise`` is
@@ -21,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import TreeMaker
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.settings import get_attn_impl
 
@@ -34,15 +35,18 @@ _NEG = -1e30
 def attn_params(tm: TreeMaker, cfg) -> Dict[str, Any]:
     d, kv, hd = cfg.d_model, cfg.kv_heads, cfg.head_dim_
     h = cfg.padded_heads     # padded for even TP; padded heads are masked
-    p = {"wq": tm.param((d, h, hd)), "wk": tm.param((d, kv, hd)),
-         "wv": tm.param((d, kv, hd)), "wo": tm.param((h, hd, d))}
+    e, hh, kvh, hdh = Axes.EMBED, Axes.HEADS, Axes.KV_HEADS, Axes.HEAD_DIM
+    p = {"wq": tm.param((d, h, hd), (e, hh, hdh)),
+         "wk": tm.param((d, kv, hd), (e, kvh, hdh)),
+         "wv": tm.param((d, kv, hd), (e, kvh, hdh)),
+         "wo": tm.param((h, hd, d), (hh, hdh, e))}
     if cfg.qkv_bias:
-        p["bq"] = tm.param((h, hd), init="zeros")
-        p["bk"] = tm.param((kv, hd), init="zeros")
-        p["bv"] = tm.param((kv, hd), init="zeros")
+        p["bq"] = tm.param((h, hd), (hh, hdh), init="zeros")
+        p["bk"] = tm.param((kv, hd), (kvh, hdh), init="zeros")
+        p["bv"] = tm.param((kv, hd), (kvh, hdh), init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = tm.param((hd,), init="ones")
-        p["k_norm"] = tm.param((hd,), init="ones")
+        p["q_norm"] = tm.param((hd,), (Axes.HEAD_DIM,), init="ones")
+        p["k_norm"] = tm.param((hd,), (Axes.HEAD_DIM,), init="ones")
     return p
 
 
@@ -143,7 +147,9 @@ def _expand_kv(k, v, h):
     if kv == h:
         return k, v
     g = h // kv
-    return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    names = ("batch", None, "heads", None)
+    return (constrain(k.repeat_interleave(g, dim=2), names),
+            constrain(v.repeat_interleave(g, dim=2), names))
 
 
 def _mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -283,8 +289,11 @@ def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
 
 def init_kv_cache(cfg, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: Any = "cuda") -> Dict[str, torch.Tensor]:
-    """One layer's KV cache (kv heads expanded to cfg.cache_kv_heads)."""
+                  device: Any = "cuda",
+                  abstract: bool = False) -> Dict[str, torch.Tensor]:
+    """One layer's KV cache (kv heads expanded to cfg.cache_kv_heads);
+    ``abstract``: ``meta`` tensors of its shapes, nothing allocated."""
+    device = "meta" if abstract else device
     shape = (batch, max_len, cfg.cache_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,8 +1,15 @@
 """Parameter initializers shared by the port's models: the conv models'
 ``normal``/``zeros``/``ones``/``width``, and for the LM side the
-mixed-precision ``DTypePolicy`` and the ``init``-mode ``TreeMaker`` (the
-JAX package's ``models/common.py``; its ``abstract`` and ``axes`` modes
-come with the dry-run and mesh slice)."""
+mixed-precision ``DTypePolicy``, the logical axis names ``Axes`` and the
+``TreeMaker`` (the JAX package's ``models/common.py``).
+
+Every LM parameter is declared once, through ``TreeMaker.param`` with its
+shape and its logical axes, and the same declaration runs in three modes:
+``init`` draws the tensor, ``abstract`` makes a ``meta`` tensor of its
+shape and type (no storage: a full config's tree costs nothing), and
+``axes`` gives the tuple of logical axis names, which
+``distributed/sharding.py`` binds to mesh axes.  One definition, so the
+sharding rules cannot drift from the model code."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +19,27 @@ from typing import Any, Optional, Sequence
 import torch
 
 __all__ = ["normal", "zeros", "ones", "width", "cast", "DTypePolicy",
-           "TreeMaker"]
+           "TreeMaker", "Axes", "stack_abstract", "stack_axes", "map_axes"]
+
+
+class Axes:
+    """Logical axis names (bound to mesh axes by
+    ``distributed/sharding.py``)."""
+    LAYERS = "layers"        # the stacking axis, never sharded
+    BATCH = "batch"
+    SEQ = "seq"
+    EMBED = "embed"
+    VOCAB = "vocab"
+    HEADS = "heads"
+    KV_HEADS = "kv_heads"
+    HEAD_DIM = "head_dim"
+    MLP = "mlp"              # ffn hidden
+    EXPERTS = "experts"
+    EXPERT_MLP = "expert_mlp"
+    SSM_INNER = "ssm_inner"  # mamba/rwkv expanded inner dim
+    STATE = "state"          # ssm state dim
+    CONV_K = "conv_k"
+    NONE = None
 
 
 def _trunc_normal(gen: torch.Generator, shape) -> torch.Tensor:
@@ -70,30 +97,49 @@ class DTypePolicy:
 
 
 class TreeMaker:
-    """Declare-once parameter trees, ``init`` mode: each ``param`` call
-    draws one leaf from ``gen`` (on the generator's device) and puts it on
-    ``device`` in the policy's parameter type."""
+    """Declare-once parameter trees.
 
-    def __init__(self, gen: torch.Generator, device: Any = "cuda",
-                 dtype_policy: Optional[DTypePolicy] = None):
+    mode="init":     each ``param`` call draws one leaf from ``gen`` (on
+                     the generator's device) and puts it on ``device`` in
+                     the policy's parameter type;
+    mode="abstract": leaves are ``meta`` tensors of the shape and type
+                     (nothing allocated, nothing drawn);
+    mode="axes":     leaves are tuples of logical axis names.
+    """
+
+    def __init__(self, gen: Optional[torch.Generator] = None,
+                 device: Any = "cuda",
+                 dtype_policy: Optional[DTypePolicy] = None,
+                 mode: str = "init"):
+        if mode not in ("init", "abstract", "axes"):
+            raise ValueError(f"unknown TreeMaker mode {mode!r}")
+        self.mode = mode
         self.gen = gen
-        self.device = torch.device(device)
+        self.device = torch.device("meta" if mode == "abstract" else device)
         self.dp = dtype_policy or DTypePolicy()
 
     def _uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
         t = torch.empty(shape, dtype=torch.float32, device=self.gen.device)
         return t.uniform_(lo, hi, generator=self.gen)
 
-    def param(self, shape: Sequence[int], init: str = "normal",
-              scale: Optional[float] = None,
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """Declare one parameter.
+    def param(self, shape: Sequence[int], axes: Sequence[Optional[str]],
+              init: str = "normal", scale: Optional[float] = None,
+              dtype: Optional[torch.dtype] = None) -> Any:
+        """Declare one parameter with one logical axis name (or None) per
+        dim.
 
         init: "normal" (trunc-normal, fan-in scaled unless ``scale``),
               "zeros", "ones", "ssm_a" (mamba A_log), "ssm_dt" (dt bias).
         """
         shape = tuple(int(s) for s in shape)
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {tuple(axes)} differ "
+                             "in rank")
+        if self.mode == "axes":
+            return tuple(axes)
         dtype = dtype or self.dp.param
+        if self.mode == "abstract":
+            return torch.empty(shape, dtype=dtype, device="meta")
         if init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=self.device)
         if init == "ones":
@@ -110,3 +156,27 @@ class TreeMaker:
         else:
             raise ValueError(f"unknown init {init!r}")
         return x.to(device=self.device, dtype=dtype)
+
+
+def map_axes(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict whose leaves are tensors
+    or tuples of axis names (a tuple is a leaf here, not a sequence), and
+    the matching leaves of the trees in ``rest``."""
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def stack_abstract(tree: Any, n: int) -> Any:
+    """A tree of ``meta`` tensors with a new leading axis of ``n`` (the
+    abstract form of stacking ``n`` copies)."""
+    return map_axes(lambda t: torch.empty((n,) + tuple(t.shape),
+                                          dtype=t.dtype, device="meta"),
+                    tree)
+
+
+def stack_axes(tree: Any) -> Any:
+    """Prepend the (unsharded) layers axis to every leaf of an axes
+    tree."""
+    return map_axes(lambda a: (Axes.LAYERS,) + tuple(a), tree)

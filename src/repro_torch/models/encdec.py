@@ -17,64 +17,83 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import DTypePolicy, TreeMaker
+from repro_torch.models.common import (Axes, DTypePolicy, TreeMaker,
+                                       stack_abstract, stack_axes)
 from repro_torch.models.layers import rms_norm, rope_freqs
 from repro_torch.models.mlp import mlp, mlp_params
 from repro_torch.models.transformer import (_layer, _layers, _logits,
                                             _mask_logits, _stack,
                                             _stack_layers, masked_nll)
 
-__all__ = ["init_params", "encode", "forward", "lm_loss", "init_cache",
-           "prefill", "decode_step"]
+__all__ = ["init_params", "param_axes", "encode", "forward", "lm_loss",
+           "init_cache", "prefill", "decode_step"]
 
 
 def _enc_layer(tm: TreeMaker, cfg):
     d = cfg.d_model
-    return {"ln1": tm.param((d,), init="ones"),
+    return {"ln1": tm.param((d,), (Axes.EMBED,), init="ones"),
             "attn": attn_mod.attn_params(tm, cfg),
-            "ln2": tm.param((d,), init="ones"),
+            "ln2": tm.param((d,), (Axes.EMBED,), init="ones"),
             "mlp": mlp_params(tm, cfg)}
 
 
 def _dec_layer(tm: TreeMaker, cfg):
     d = cfg.d_model
-    return {"ln1": tm.param((d,), init="ones"),
+    return {"ln1": tm.param((d,), (Axes.EMBED,), init="ones"),
             "self_attn": attn_mod.attn_params(tm, cfg),
-            "ln_x": tm.param((d,), init="ones"),
+            "ln_x": tm.param((d,), (Axes.EMBED,), init="ones"),
             "cross_attn": attn_mod.attn_params(tm, cfg),
-            "ln2": tm.param((d,), init="ones"),
+            "ln2": tm.param((d,), (Axes.EMBED,), init="ones"),
             "mlp": mlp_params(tm, cfg)}
+
+
+def _model_tree(cfg, tm: TreeMaker, stack):
+    d, v = cfg.d_model, cfg.padded_vocab
+    return {
+        "embed": tm.param((v, d), (Axes.VOCAB, Axes.EMBED), scale=0.02),
+        "src_proj": tm.param((d, d), (Axes.EMBED, Axes.EMBED)),
+        "enc": stack(lambda: _enc_layer(tm, cfg), cfg.enc_layers),
+        "enc_norm": tm.param((d,), (Axes.EMBED,), init="ones"),
+        "dec": stack(lambda: _dec_layer(tm, cfg), cfg.n_layers),
+        "final_norm": tm.param((d,), (Axes.EMBED,), init="ones"),
+        "lm_head": tm.param((d, v), (Axes.EMBED, Axes.VOCAB)),
+    }
 
 
 def init_params(cfg, gen: Optional[torch.Generator] = None,
                 dtype_policy: Optional[DTypePolicy] = None,
-                device: Any = "cuda") -> Dict[str, Any]:
+                device: Any = "cuda", abstract: bool = False
+                ) -> Dict[str, Any]:
     """Random parameters on ``device``: the JAX package's laws (other
     random bits), drawn from ``gen`` (a generator on ``device`` seeded 0
-    when None)."""
+    when None).  ``abstract``: ``meta`` tensors of the parameters' shapes
+    and types, nothing drawn or allocated."""
+    dp = dtype_policy or DTypePolicy()
+    if abstract:
+        tm = TreeMaker(dtype_policy=dp, mode="abstract")
+        return _model_tree(cfg, tm, lambda mk, n: stack_abstract(mk(), n))
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
-    tm = TreeMaker(gen, dev, dtype_policy or DTypePolicy())
-    d, v = cfg.d_model, cfg.padded_vocab
-    return {
-        "embed": tm.param((v, d), scale=0.02),
-        "src_proj": tm.param((d, d)),
-        "enc": _stack_layers([_enc_layer(tm, cfg)
-                              for _ in range(cfg.enc_layers)]),
-        "enc_norm": tm.param((d,), init="ones"),
-        "dec": _stack_layers([_dec_layer(tm, cfg)
-                              for _ in range(cfg.n_layers)]),
-        "final_norm": tm.param((d,), init="ones"),
-        "lm_head": tm.param((d, v)),
-    }
+    tm = TreeMaker(gen, dev, dp)
+    return _model_tree(cfg, tm,
+                       lambda mk, n: _stack_layers([mk() for _ in range(n)]))
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The parameters' logical axes (``init_params``'s structure, tuples
+    of axis names at the leaves)."""
+    tm = TreeMaker(mode="axes")
+    return _model_tree(cfg, tm, lambda mk, n: stack_axes(mk()))
 
 
 def encode(params, cfg, src_embeds: torch.Tensor) -> torch.Tensor:
     """src_embeds: (B, Ts, D) stub frame embeddings -> the encoder output
     (non-causal self-attention)."""
-    x = src_embeds.to(params["src_proj"].dtype) @ params["src_proj"]
+    x = constrain(src_embeds.to(params["src_proj"].dtype)
+                  @ params["src_proj"], ("batch", None, None))
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _layers(params["enc"]):
@@ -121,7 +140,7 @@ def forward(params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Teacher-forced logits (B, S, padded vocab) fp32 of ``batch``'s
     "tokens" (B, S) over the encoded "src_embeds" (B, Ts, D)."""
     enc_out = encode(params, cfg, batch["src_embeds"])
-    x = params["embed"][batch["tokens"]]
+    x = constrain(params["embed"][batch["tokens"]], ("batch", None, None))
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _layers(params["dec"]):
@@ -144,10 +163,12 @@ def lm_loss(params, cfg, batch: Dict[str, torch.Tensor],
 
 def init_cache(cfg, batch: int, max_len: int, src_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Any = "cuda") -> Dict[str, Any]:
+               device: Any = "cuda", abstract: bool = False
+               ) -> Dict[str, Any]:
     """Per decoder layer, stacked: the self-attention KV cache of
-    ``max_len`` rows and the cross K/V of ``src_len`` rows."""
-    dev = resolve_device(device)
+    ``max_len`` rows and the cross K/V of ``src_len`` rows; ``abstract``:
+    ``meta`` tensors of those shapes."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
     shape = (batch, src_len, cfg.cache_kv_heads, cfg.head_dim_)
     return _stack([{
         "self": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, dev),

@@ -27,7 +27,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import TreeMaker
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.mlp import mlp, mlp_params
 
 __all__ = ["moe_params", "moe_ffn", "padded_experts"]
@@ -41,10 +42,14 @@ def padded_experts(cfg, multiple: int = 16) -> int:
 def moe_params(tm: TreeMaker, cfg) -> Dict[str, Any]:
     d, f = cfg.d_model, cfg.d_ff
     e = padded_experts(cfg)
-    p = {"router": tm.param((d, e), dtype=torch.float32),
-         "wi_gate": tm.param((e, d, f)),
-         "wi_up": tm.param((e, d, f)),
-         "wo": tm.param((e, f, d))}
+    p = {"router": tm.param((d, e), (Axes.EMBED, Axes.EXPERTS),
+                             dtype=torch.float32),
+         "wi_gate": tm.param((e, d, f), (Axes.EXPERTS, Axes.EMBED,
+                                         Axes.EXPERT_MLP)),
+         "wi_up": tm.param((e, d, f), (Axes.EXPERTS, Axes.EMBED,
+                                       Axes.EXPERT_MLP)),
+         "wo": tm.param((e, f, d), (Axes.EXPERTS, Axes.EXPERT_MLP,
+                                    Axes.EMBED))}
     if cfg.shared_experts:
         p["shared"] = mlp_params(tm, cfg, d_ff=cfg.shared_experts * f)
     return p
@@ -67,9 +72,9 @@ def moe_ffn(p: Dict[str, Any], cfg, x: torch.Tensor, *,
 
     ``dispatch_dtype``: the type of the dispatch / combine one-hots and
     their einsums; fp32 (None) is GShard's, bf16 rounds the gates to bf16
-    in the combine (``cfg.moe_dispatch_dtype == "bf16"``).  The mesh
-    constraint of ``cfg.moe_ep_constraint`` places the expert buffers on
-    a mesh; on one card there is none, and it is not read."""
+    in the combine (``cfg.moe_dispatch_dtype == "bf16"``).  With
+    ``cfg.moe_ep_constraint`` the expert buffers carry the experts-axis
+    constraint (``distributed/sharding.constrain``)."""
     b, t, d = x.shape
     e = p["router"].shape[1]
     k = cfg.top_k
@@ -112,9 +117,13 @@ def moe_ffn(p: Dict[str, Any], cfg, x: torch.Tensor, *,
 
     cd = x.dtype
     xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), xf)
+    if cfg.moe_ep_constraint:
+        xe = constrain(xe, ("experts", "batch", None, None))
     hg = torch.einsum("egcd,edf->egcf", xe, p["wi_gate"])
     hu = torch.einsum("egcd,edf->egcf", xe, p["wi_up"])
     he = torch.einsum("egcf,efd->egcd", F.silu(hg) * hu, p["wo"])
+    if cfg.moe_ep_constraint:
+        he = constrain(he, ("experts", "batch", None, None))
     out = torch.einsum("gsec,egcd->gsd", combine.to(cd), he)
     if cfg.shared_experts:
         out = out + mlp(p["shared"], xf)

@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import TreeMaker
+from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.layers import group_rms_norm
 
 __all__ = ["rwkv_params", "rwkv_time_mix", "rwkv_channel_mix",
@@ -35,26 +35,30 @@ def rwkv_params(tm: TreeMaker, cfg) -> Dict[str, Any]:
     h, hd = cfg.n_heads, cfg.head_dim_
     return {
         # time-mix (wkv)
-        "mu_x": tm.param((d,), init="zeros"),
-        "mu": tm.param((5, d), init="zeros"),
-        "tm_w1": tm.param((d, 5 * _LORA_MIX), scale=0.01),
-        "tm_w2": tm.param((5, _LORA_MIX, d), scale=0.01),
-        "td_w1": tm.param((d, _LORA_DECAY), scale=0.01),
-        "td_w2": tm.param((_LORA_DECAY, d), scale=0.01),
-        "decay_base": tm.param((d,), init="zeros", dtype=torch.float32),
-        "u": tm.param((h, hd), init="zeros", dtype=torch.float32),
-        "wr": tm.param((d, d)),
-        "wk": tm.param((d, d)),
-        "wv": tm.param((d, d)),
-        "wg": tm.param((d, d)),
-        "wo": tm.param((d, d)),
-        "ln_x": tm.param((d,), init="ones"),
+        "mu_x": tm.param((d,), (Axes.EMBED,), init="zeros"),
+        "mu": tm.param((5, d), (None, Axes.EMBED), init="zeros"),
+        "tm_w1": tm.param((d, 5 * _LORA_MIX), (Axes.EMBED, None),
+                          scale=0.01),
+        "tm_w2": tm.param((5, _LORA_MIX, d), (None, None, Axes.EMBED),
+                          scale=0.01),
+        "td_w1": tm.param((d, _LORA_DECAY), (Axes.EMBED, None), scale=0.01),
+        "td_w2": tm.param((_LORA_DECAY, d), (None, Axes.EMBED), scale=0.01),
+        "decay_base": tm.param((d,), (Axes.EMBED,), init="zeros",
+                               dtype=torch.float32),
+        "u": tm.param((h, hd), (Axes.HEADS, Axes.HEAD_DIM), init="zeros",
+                      dtype=torch.float32),
+        "wr": tm.param((d, d), (Axes.EMBED, Axes.HEADS)),
+        "wk": tm.param((d, d), (Axes.EMBED, Axes.HEADS)),
+        "wv": tm.param((d, d), (Axes.EMBED, Axes.HEADS)),
+        "wg": tm.param((d, d), (Axes.EMBED, Axes.HEADS)),
+        "wo": tm.param((d, d), (Axes.HEADS, Axes.EMBED)),
+        "ln_x": tm.param((d,), (Axes.EMBED,), init="ones"),
         # channel-mix
-        "cmu_k": tm.param((d,), init="zeros"),
-        "cmu_r": tm.param((d,), init="zeros"),
-        "ck": tm.param((d, f)),
-        "cv": tm.param((f, d)),
-        "cr": tm.param((d, d)),
+        "cmu_k": tm.param((d,), (Axes.EMBED,), init="zeros"),
+        "cmu_r": tm.param((d,), (Axes.EMBED,), init="zeros"),
+        "ck": tm.param((d, f), (Axes.EMBED, Axes.MLP)),
+        "cv": tm.param((f, d), (Axes.MLP, Axes.EMBED)),
+        "cr": tm.param((d, d), (Axes.EMBED, Axes.HEADS)),
     }
 
 
@@ -157,9 +161,12 @@ def rwkv_channel_mix(p: Dict[str, Any], cfg, x: torch.Tensor, *,
 
 
 def init_rwkv_cache(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
-                    device: Any = "cuda") -> Dict[str, torch.Tensor]:
+                    device: Any = "cuda",
+                    abstract: bool = False) -> Dict[str, torch.Tensor]:
     """One layer's recurrent state: the WKV state (fp32) and the last
-    token-shift input of the time and channel mixes."""
+    token-shift input of the time and channel mixes; ``abstract``:
+    ``meta`` tensors of their shapes."""
+    device = "meta" if abstract else device
     h, hd, d = cfg.n_heads, cfg.head_dim_, cfg.d_model
     return {"s": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
                              device=device),

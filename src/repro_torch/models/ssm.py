@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import conv1d_causal
-from repro_torch.models.common import TreeMaker
+from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.layers import group_rms_norm
 
 __all__ = ["mamba_params", "mamba_block", "mamba_decode", "init_mamba_cache"]
@@ -40,17 +40,19 @@ def mamba_params(tm: TreeMaker, cfg) -> Dict[str, Any]:
     gs = cfg.ssm_groups * cfg.ssm_state
     f32 = torch.float32
     return {
-        "wz": tm.param((d, d_in)),
-        "wx": tm.param((d, d_in)),
-        "wB": tm.param((d, gs)),
-        "wC": tm.param((d, gs)),
-        "wdt": tm.param((d, heads)),
-        "dt_bias": tm.param((heads,), init="ssm_dt", dtype=f32),
-        "A_log": tm.param((heads,), init="ssm_a", dtype=f32),
-        "D": tm.param((heads,), init="ones", dtype=f32),
-        "conv_w": tm.param((cfg.ssm_conv, conv_dim)),
-        "norm": tm.param((d_in,), init="ones"),
-        "wo": tm.param((d_in, d)),
+        "wz": tm.param((d, d_in), (Axes.EMBED, Axes.SSM_INNER)),
+        "wx": tm.param((d, d_in), (Axes.EMBED, Axes.SSM_INNER)),
+        "wB": tm.param((d, gs), (Axes.EMBED, Axes.STATE)),
+        "wC": tm.param((d, gs), (Axes.EMBED, Axes.STATE)),
+        "wdt": tm.param((d, heads), (Axes.EMBED, Axes.HEADS)),
+        "dt_bias": tm.param((heads,), (Axes.HEADS,), init="ssm_dt",
+                            dtype=f32),
+        "A_log": tm.param((heads,), (Axes.HEADS,), init="ssm_a", dtype=f32),
+        "D": tm.param((heads,), (Axes.HEADS,), init="ones", dtype=f32),
+        "conv_w": tm.param((cfg.ssm_conv, conv_dim),
+                           (Axes.CONV_K, Axes.SSM_INNER)),
+        "norm": tm.param((d_in,), (Axes.SSM_INNER,), init="ones"),
+        "wo": tm.param((d_in, d), (Axes.SSM_INNER, Axes.EMBED)),
     }
 
 
@@ -200,7 +202,11 @@ def mamba_decode(p: Dict[str, Any], cfg, x: torch.Tensor,
 
 
 def init_mamba_cache(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
-                     device: Any = "cuda") -> Dict[str, torch.Tensor]:
+                     device: Any = "cuda",
+                     abstract: bool = False) -> Dict[str, torch.Tensor]:
+    """One layer's conv window and SSD state (fp32); ``abstract``:
+    ``meta`` tensors of their shapes."""
+    device = "meta" if abstract else device
     d_in, heads, conv_dim = _dims(cfg)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim),

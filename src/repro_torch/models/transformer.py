@@ -28,17 +28,19 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import DTypePolicy, TreeMaker
+from repro_torch.models.common import (Axes, DTypePolicy, TreeMaker,
+                                       stack_abstract, stack_axes)
 from repro_torch.models.layers import rms_norm, rope_freqs
 from repro_torch.models.mlp import mlp, mlp_params
 from repro_torch.models.settings import maybe_remat
 
-__all__ = ["init_params", "forward", "lm_loss", "init_cache", "decode_step",
-           "prefill", "uses_window_cache"]
+__all__ = ["init_params", "param_axes", "forward", "lm_loss", "init_cache",
+           "decode_step", "prefill", "uses_window_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -47,9 +49,9 @@ __all__ = ["init_params", "forward", "lm_loss", "init_cache", "decode_step",
 
 def _attn_layer_tree(tm: TreeMaker, cfg):
     d = cfg.d_model
-    t = {"ln1": tm.param((d,), init="ones"),
+    t = {"ln1": tm.param((d,), (Axes.EMBED,), init="ones"),
          "attn": attn_mod.attn_params(tm, cfg),
-         "ln2": tm.param((d,), init="ones")}
+         "ln2": tm.param((d,), (Axes.EMBED,), init="ones")}
     if cfg.is_moe:
         t["moe"] = moe_mod.moe_params(tm, cfg)
     else:
@@ -60,11 +62,11 @@ def _attn_layer_tree(tm: TreeMaker, cfg):
 def _layer_tree(tm: TreeMaker, cfg):
     d = cfg.d_model
     if cfg.block == "rwkv6":
-        return {"ln1": tm.param((d,), init="ones"),
-                "ln2": tm.param((d,), init="ones"),
+        return {"ln1": tm.param((d,), (Axes.EMBED,), init="ones"),
+                "ln2": tm.param((d,), (Axes.EMBED,), init="ones"),
                 "rwkv": rwkv_mod.rwkv_params(tm, cfg)}
     if cfg.block == "mamba2":
-        return {"ln1": tm.param((d,), init="ones"),
+        return {"ln1": tm.param((d,), (Axes.EMBED,), init="ones"),
                 "mamba": ssm_mod.mamba_params(tm, cfg)}
     return _attn_layer_tree(tm, cfg)
 
@@ -89,28 +91,47 @@ def _stack_layers(trees):
     return stacked
 
 
-def init_params(cfg, gen: Optional[torch.Generator] = None,
-                dtype_policy: Optional[DTypePolicy] = None,
-                device: Any = "cuda") -> Dict[str, Any]:
-    """Random parameters on ``device``: the JAX package's laws (other
-    random bits), drawn from ``gen`` (a generator on ``device`` seeded 0
-    when None)."""
-    dev = resolve_device(device)
-    if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(0)
-    tm = TreeMaker(gen, dev, dtype_policy or DTypePolicy())
+def _model_tree(cfg, tm: TreeMaker, layer_maker):
     d, v = cfg.d_model, cfg.padded_vocab
-    p = {"embed": tm.param((v, d), scale=0.02),
-         "final_norm": tm.param((d,), init="ones"),
-         "blocks": _stack_layers([_layer_tree(tm, cfg)
-                                  for _ in range(cfg.n_layers)])}
+    p = {"embed": tm.param((v, d), (Axes.VOCAB, Axes.EMBED), scale=0.02),
+         "final_norm": tm.param((d,), (Axes.EMBED,), init="ones"),
+         "blocks": layer_maker()}
     if not cfg.tie_embeddings:
-        p["lm_head"] = tm.param((d, v))
+        p["lm_head"] = tm.param((d, v), (Axes.EMBED, Axes.VOCAB))
     if cfg.shared_attn_every:
         p["shared_attn"] = _attn_layer_tree(tm, cfg)
     if cfg.frontend == "vlm":
-        p["frontend_proj"] = tm.param((d, d))
+        p["frontend_proj"] = tm.param((d, d), (Axes.EMBED, Axes.EMBED))
     return p
+
+
+def init_params(cfg, gen: Optional[torch.Generator] = None,
+                dtype_policy: Optional[DTypePolicy] = None,
+                device: Any = "cuda", abstract: bool = False
+                ) -> Dict[str, Any]:
+    """Random parameters on ``device``: the JAX package's laws (other
+    random bits), drawn from ``gen`` (a generator on ``device`` seeded 0
+    when None).  ``abstract``: the tree of ``meta`` tensors of the
+    parameters' shapes and types (no device, nothing drawn or
+    allocated)."""
+    dp = dtype_policy or DTypePolicy()
+    if abstract:
+        tm = TreeMaker(dtype_policy=dp, mode="abstract")
+        return _model_tree(cfg, tm, lambda: stack_abstract(
+            _layer_tree(tm, cfg), cfg.n_layers))
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    tm = TreeMaker(gen, dev, dp)
+    return _model_tree(cfg, tm, lambda: _stack_layers(
+        [_layer_tree(tm, cfg) for _ in range(cfg.n_layers)]))
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The parameters' logical axes: a tree of ``init_params``'s
+    structure whose leaves are tuples of axis names."""
+    tm = TreeMaker(mode="axes")
+    return _model_tree(cfg, tm, lambda: stack_axes(_layer_tree(tm, cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +145,7 @@ def _attn_block(lp, cfg, x, *, positions, inv_freq, window, cache=None,
     a, new_kv = attn_mod.attention(
         lp["attn"], cfg, h, positions=positions, inv_freq=inv_freq,
         window=window, cache=cache, cache_pos=cache_pos, donate=donate)
-    x, aux = _ffn(lp, cfg, x + a)
+    x, aux = _ffn(lp, cfg, x + constrain(a, ("batch", None, None)))
     return x, new_kv, aux
 
 
@@ -139,9 +160,9 @@ def _ffn(lp, cfg, x):
             renorm_topk=cfg.shared_experts == 0,
             dispatch_dtype=(torch.bfloat16
                             if cfg.moe_dispatch_dtype == "bf16" else None))
-        return x + f, aux
-    return x + mlp(lp["mlp"], h, act="gelu" if cfg.rms_plus_one else "silu"), \
-        None
+        return x + constrain(f, ("batch", None, None)), aux
+    f = mlp(lp["mlp"], h, act="gelu" if cfg.rms_plus_one else "silu")
+    return x + constrain(f, ("batch", None, None)), None
 
 
 def _add_aux(total, aux):
@@ -186,7 +207,7 @@ def _embed(params, cfg, tokens, extra_embeds=None):
     if cfg.frontend == "vlm" and extra_embeds is not None:
         patches = extra_embeds.to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([patches, x], dim=1)
-    return x
+    return constrain(x, ("batch", None, None))
 
 
 def _layer(tree, i):
@@ -405,14 +426,16 @@ def uses_window_cache(cfg) -> bool:
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Any = "cuda") -> Dict[str, Any]:
+               device: Any = "cuda", abstract: bool = False
+               ) -> Dict[str, Any]:
     """The decode cache of the whole model, stacked over layers: (L, B,
     max_len, cache KV heads, head dim) per k and v for the dense family;
     with ``uses_window_cache``, ``{"local": (groups, ge-1, B, W, ...),
     "global": (groups, B, max_len, ...)}``; the Mamba2 states and the
     shared block's KV caches for zamba2; the WKV states (fp32) and the
-    token-shift inputs for rwkv6."""
-    dev = resolve_device(device)
+    token-shift inputs for rwkv6.  ``abstract``: ``meta`` tensors of
+    those shapes and types, nothing allocated."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
 
     def kv(length):
         return attn_mod.init_kv_cache(cfg, batch, length, dtype, dev)

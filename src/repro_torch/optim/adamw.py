@@ -4,9 +4,10 @@ package's ``optim/adamw.py``).
 The state is ``{"step": 0-d int32, "mu", "nu", "master"}``, the last three
 fp32 trees of the parameters' structure; the update is functional (new
 tensors, the old state untouched), so a step can be retried or compared.
-The parameters are the master weights rounded to their own type.  The
-JAX package's ``abstract_opt_state`` and ``opt_state_axes`` (the dry-run
-and the mesh) wait for the scale-out slice.
+The parameters are the master weights rounded to their own type.
+``abstract_opt_state`` is the state of an abstract (``meta``) parameter
+tree, nothing allocated, and ``opt_state_axes`` its logical axes, which
+``distributed/sharding.zero1_shardings`` binds to the mesh.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
-__all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "global_norm"]
+__all__ = ["AdamWConfig", "init_opt_state", "abstract_opt_state",
+           "opt_state_axes", "adamw_update", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +47,24 @@ def init_opt_state(params) -> Dict[str, Any]:
         "master": tree_map(lambda x: x.detach().to(torch.float32,
                                                    copy=True), params),
     }
+
+
+def abstract_opt_state(abstract_params) -> Dict[str, Any]:
+    """The state's ``meta`` mirror: fp32 ``mu`` / ``nu`` / ``master`` of
+    the parameters' shapes and a 0-d int32 ``step`` (no allocation)."""
+    def f32(t):
+        return tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32,
+                                              device="meta"), t)
+    return {"step": torch.empty((), dtype=torch.int32, device="meta"),
+            "mu": f32(abstract_params), "nu": f32(abstract_params),
+            "master": f32(abstract_params)}
+
+
+def opt_state_axes(param_axes_tree) -> Dict[str, Any]:
+    """The state's logical axes: the parameters' for the moments and the
+    master copy, none for the step."""
+    return {"step": (), "mu": param_axes_tree, "nu": param_axes_tree,
+            "master": param_axes_tree}
 
 
 def global_norm(tree) -> torch.Tensor:

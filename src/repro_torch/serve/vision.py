@@ -7,6 +7,15 @@ fold-schedule engine, hardened into a fault-tolerant serving runtime.
   and (optional) measured autotuning are pay-once across buckets; on a
   CUDA device each bucket's forward is one CUDA graph (``BucketCompiler``'s
   default ``jit``), captured at ``warmup`` and replayed for every batch;
+* execution **shards across a mesh** (``mesh=``) by binding the batch
+  (image-fold) axis and the N_F (filter-fold) axis to mesh axes through
+  ``core/mapping.py:serving_conv_plan``'s ``partition_spec``
+  (``distributed/sharding.py:vision_shardings``): each data rank runs its
+  rows of every batch and the logits are gathered; each model rank holds
+  its N_F slice of every conv whose filter count divides the model axis,
+  runs the fold kernel on it and gathers the output channels before the
+  next layer.  Every rank runs the same request stream (one process a
+  rank) and gets every request's logits;
 * host→device staging **overlaps compute** with a double-buffered
   feeder: while the device runs batch k, batch k+1 is formed, copied into
   pinned host memory and sent with a non-blocking copy; the blocking point
@@ -39,8 +48,8 @@ after it, and nothing here pretends to recover a lost context.
 
 ``serving_summary`` serves a deterministic mixed-size request stream
 through any registered conv model (``models/zoo.py``), in fp32 or int8,
-and is what ``launch/serve.py --vision`` runs.  A mesh is not ported
-(ROADMAP queue A 4e).
+and is what ``launch/serve.py --vision`` runs, with ``mesh=`` on a
+``launch/mesh.py`` mesh.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ import torch
 
 from repro_torch.core.engine import (BucketCompiler, ScheduleCache,
                                      resolve_execution)
+from repro_torch.core.mapping import serving_conv_plan
 from repro_torch.obs.folds import FoldStreamCounters
 from repro_torch.obs.metrics import LogHistogram, MetricsRegistry
 from repro_torch.obs.trace import (NULL_TRACER, REQ_TID0, TID_COMPLETE,
@@ -169,6 +179,14 @@ class ServingMetrics:
         }
 
 
+def _local(leaf, sharding):
+    """This rank's shard of a parameter entry (a tensor or a dict of
+    them) under its ``NamedSharding``(s)."""
+    if isinstance(leaf, dict):
+        return {k: _local(v, sharding[k]) for k, v in leaf.items()}
+    return sharding.local(leaf)
+
+
 class _NonFiniteOutput(RuntimeError):
     """A primary forward completed but produced NaN/Inf in active rows."""
 
@@ -200,11 +218,28 @@ class VisionEngine:
     ``served_by`` (primary/reference).  The reference rung runs each
     request on its own (``_reference_forward``), so a request served on
     that rung equals a direct reference forward of its images bitwise.
+
+    With ``mesh`` (a ``launch/mesh.py`` mesh with ranks; one engine per
+    rank, each fed the same requests), bucket widths round up to the
+    ``data_axis`` size and ``plan`` is the ``serving_conv_plan`` of the
+    widest bucket and the largest filter count.  The parameters are
+    placed by ``vision_shardings``: each ``model_axis`` rank keeps its N_F
+    slice of every conv whose filter count divides the axis (the weights
+    never move; ``params`` is then this rank's tree), everything else is
+    replicated.  Each data rank runs its bucket width / data rows of a
+    batch and the logits are gathered over the data axis; a split conv's
+    output channels are gathered over the model axis after its kernel
+    (``core/engine.compile_network``'s ``shard``), so a split network runs
+    eager.  The reference rung runs a request's whole rows on every data
+    rank.  A collective that fails raises out of ``run``: a rank's failure
+    fails the run.
     """
 
     def __init__(self, params: Dict[str, Any], graph, *,
                  img: int, chan: int = 3, policy: str = "auto",
                  buckets: Sequence[int] = (1, 2, 4, 8),
+                 mesh=None, data_axis: str = "data",
+                 model_axis: str = "model",
                  cache: Optional[ScheduleCache] = None,
                  head: Optional[Callable] = None, jit: bool = True,
                  fuse_epilogues: bool = True, autotune: bool = False,
@@ -218,6 +253,39 @@ class VisionEngine:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.registry = registry
         bucket_policy = BucketPolicy(buckets)
+        self.mesh = mesh
+        self.plan = None
+        self._data_group, self._data, self._data_index = None, 1, 0
+        shard = quant = None
+        if mesh is not None:
+            from repro_torch.distributed.sharding import (filter_shard,
+                                                          vision_shardings)
+            self._data = mesh.shape.get(data_axis, 1)
+            if self._data > 1:
+                self._data_group = mesh.group(data_axis)
+                self._data_index = mesh.axis_index(data_axis)
+            bucket_policy = bucket_policy.aligned(self._data)
+            nf_max = max((int(leaf["w"].shape[0])
+                          for leaf in params.values()
+                          if isinstance(leaf, dict) and "w" in leaf
+                          and getattr(leaf["w"], "ndim", 0) == 4),
+                         default=1)
+            self.plan = serving_conv_plan(bucket_policy.max_width, nf_max,
+                                          data_axis=data_axis,
+                                          model_axis=model_axis)
+            shard = filter_shard(params, mesh, self.plan, graph,
+                                 model_axis)
+            if shard is not None:
+                if precision == "int8":
+                    # one recipe from the whole weights, as without a mesh
+                    from repro_torch.core.graph import as_graph
+                    from repro_torch.core.quant import default_recipe
+                    _, dev = resolve_execution(policy, device)
+                    quant = default_recipe(as_graph(graph), params,
+                                           (1, chan, img, img), device=dev)
+                shardings = vision_shardings(params, mesh, self.plan)
+                params = {k: _local(v, shardings[k]) if k in shard.names
+                          else v for k, v in params.items()}
         self.params = params
         self.batcher = ImageBatcher(bucket_policy, img, chan,
                                     tracer=self.tracer)
@@ -227,7 +295,7 @@ class VisionEngine:
             autotune=autotune, tuning_path=tuning_path,
             autotune_timer=autotune_timer,
             tracer=self.tracer if self.tracer.enabled else None,
-            device=device, precision=precision)
+            device=device, precision=precision, quant=quant, shard=shard)
         self.metrics = ServingMetrics()
         self.chaos = chaos
         if chaos is not None and getattr(chaos, "tracer", None) in \
@@ -245,7 +313,7 @@ class VisionEngine:
         self._req_spans: Dict[int, Any] = {}   # rid -> open lifetime span
         # compile the first bucket now: it resolves the device (raising
         # when a requested GPU is absent) before any request is taken
-        first = self.compiler.network_for(bucket_policy.widths[0])
+        first = self._net(bucket_policy.widths[0])
         self.device = first.device
         # requests arrive as fp32; a bf16 network takes them rounded to
         # bf16 on the device, and its logits come back widened to fp32
@@ -321,6 +389,26 @@ class VisionEngine:
         self.batcher.expired.clear()
 
     # -- device side -------------------------------------------------------
+    def _net(self, bucket: int):
+        """The compiled forward of a bucket: at this data rank's rows."""
+        return self.compiler.network_for(bucket // self._data)
+
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        """This data rank's rows of a bucket batch."""
+        if self._data == 1:
+            return x
+        n = x.shape[0] // self._data
+        return x[self._data_index * n:(self._data_index + 1) * n]
+
+    def _forward(self, net, x: torch.Tensor) -> torch.Tensor:
+        """A bucket forward on this rank's rows, the logits gathered over
+        the data axis."""
+        out = net(self.params, x)
+        if self._data_group is None:
+            return out
+        from repro_torch.distributed.comm import all_gather_cat
+        return all_gather_cat(out, self._data_group, 0)
+
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """Stage a host batch: into pinned memory, then a non-blocking copy
         on the current stream (the caching host allocator keeps the pinned
@@ -344,7 +432,7 @@ class VisionEngine:
         self.tracer.end(span, bucket=fb.bucket, n_images=fb.n_images,
                         n_requests=len(fb.requests),
                         occupancy=fb.occupancy)
-        return fb, self._to_device(fb.x)
+        return fb, self._to_device(self._rows(fb.x))
 
     def _dispatch(self, staged: Tuple[FormedBatch, torch.Tensor]):
         """Enqueue the bucket's forward and return without waiting: the
@@ -354,16 +442,16 @@ class VisionEngine:
         completion time.  Only an injected fault is carried: any other
         exception propagates."""
         fb, x = staged
-        net = self.compiler.network_for(fb.bucket)
+        net = self._net(fb.bucket)
         span = self.tracer.begin("dispatch", tid=TID_DISPATCH,
                                  bucket=fb.bucket, n_images=fb.n_images)
         t0 = time.monotonic()
         try:
             with torch.inference_mode():
                 if self.chaos is not None:
-                    out = self.chaos.call(lambda a: net(self.params, a), x)
+                    out = self.chaos.call(lambda a: self._forward(net, a), x)
                 else:
-                    out = net(self.params, x)
+                    out = self._forward(net, x)
             self.tracer.end(span)
             return fb, out, t0, None
         except ChaosKernelFault as e:
@@ -399,7 +487,7 @@ class VisionEngine:
                 bucket=fb.bucket, n_images=fb.n_images,
                 **({"error": repr(exc)} if exc is not None else {}))
         if exc is None:
-            layers = self.compiler.network_for(fb.bucket).layer_schedules
+            layers = self._net(fb.bucket).layer_schedules
             self.folds.record(layers, fb.n_images, duration)
             if tr.enabled:
                 ts = t0
@@ -450,7 +538,8 @@ class VisionEngine:
             self._ref_compiler = BucketCompiler(
                 self.params, c.graph, c.img, chan=c.chan,
                 policy="reference", cache=c.cache, head=c.head, jit=c.jit,
-                device=c.device, precision=c.precision, quant=c.quant)
+                device=c.device, precision=c.precision, quant=c.quant,
+                shard=c.shard)
         return self._ref_compiler
 
     def _reference_forward(self, reqs: List[ImageRequest]) -> np.ndarray:
@@ -532,12 +621,13 @@ class VisionEngine:
         only."""
         widths = self.batcher.policy.widths
         for w in widths:
-            net = self.compiler.network_for(w)
+            net = self._net(w)
             self.folds.prepare(net.layer_schedules)
-            zeros = np.zeros((w, self.batcher.chan, self.batcher.img,
-                              self.batcher.img), np.float32)
+            zeros = np.zeros((w // self._data, self.batcher.chan,
+                              self.batcher.img, self.batcher.img),
+                             np.float32)
             with torch.inference_mode():
-                net(self.params, self._to_device(zeros)).cpu()
+                self._forward(net, self._to_device(zeros)).cpu()
         return widths
 
     def step(self) -> int:
@@ -579,6 +669,7 @@ class VisionEngine:
         d = self.metrics.as_dict()
         d["compile"] = self.compiler.stats()
         d["buckets"] = list(self.batcher.policy.widths)
+        d["mesh"] = dict(self.mesh.shape) if self.mesh is not None else None
         d["device"] = str(self.device)
         d["host_us_per_batch"] = round(
             1e6 * self.metrics.host_s / self.metrics.batches, 3) \
@@ -663,8 +754,8 @@ class VisionEngine:
 def serving_summary(model: str, *, requests: int = 32, img: int = 32,
                     width_mult: float = 0.0625, classes: int = 10,
                     policy: str = "auto",
-                    buckets: Sequence[int] = (1, 2, 4, 8), seed: int = 0,
-                    autotune: bool = False,
+                    buckets: Sequence[int] = (1, 2, 4, 8), mesh=None,
+                    seed: int = 0, autotune: bool = False,
                     tuning_path: Optional[str] = None,
                     deadline_s: Optional[float] = None,
                     deadline_every: int = 1, guard=None, tracer=None,
@@ -688,7 +779,9 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
     images through the same schedule cache (and, for int8, the same
     ``QuantRecipe``), under the policy of the rung that served it: whether
     every one matched bitwise, the largest difference and the largest
-    reference magnitude land under ``"verify"``."""
+    reference magnitude land under ``"verify"``.  With ``mesh`` (one call
+    per rank) the engine serves on the mesh and each rank holds every
+    served request against that mesh-less direct forward."""
     from repro_torch.models.zoo import compile_forward, get_conv_model
     spec = get_conv_model(model)
     _, dev = resolve_execution(policy, device)     # raises without a GPU
@@ -699,7 +792,7 @@ def serving_summary(model: str, *, requests: int = 32, img: int = 32,
                           buckets=buckets, jit=jit, autotune=autotune,
                           tuning_path=tuning_path, tracer=tracer,
                           registry=registry, device=dev,
-                          precision=precision)
+                          precision=precision, mesh=mesh)
     engine.warmup()
     rng = np.random.default_rng(seed)
     sizes = rng.integers(1, engine.batcher.policy.max_width + 1, requests)

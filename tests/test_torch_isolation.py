@@ -55,7 +55,9 @@ def test_port_imports_where_jax_cannot_load():
         "from repro_torch.optim import adamw, schedules\n"
         "from repro_torch.ckpt import checkpoint\n"
         "from repro_torch.data import pipeline\n"
-        "from repro_torch.distributed import compression\n"
+        "from repro_torch.distributed import (comm, compression,\n"
+        "                                     pipeline, sharding)\n"
+        "from repro_torch.launch import mesh, specs\n"
         "from repro_torch.train import evaluate, steps, trainer\n"
         "from repro_torch import tree\n"
         "from repro_torch.kernels import (attention_fold, build,\n"
@@ -160,6 +162,24 @@ def test_cuda_without_a_gpu_raises(entry):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "2x1", "production"])
+def test_make_local_mesh_without_a_gpu_raises_and_starts_nothing(mesh):
+    """A mesh on the card without a card raises before any process group
+    starts: nothing falls back to gloo on the CPU (a planning mesh needs
+    no device and builds)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: nothing to refuse")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    if mesh == "production":
+        assert make_production_mesh().device_mesh is None
+    else:
+        data, model = (int(t) for t in mesh.split("x"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_local_mesh(data, model)
+    assert not dist.is_initialized()
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

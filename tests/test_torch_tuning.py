@@ -388,22 +388,21 @@ def _kw(fn, drop=()):
             inspect.signature(fn).parameters.items() if k not in drop}
 
 
-# what the port adds (its device, CUDA graphs) and what it leaves to
-# ROADMAP queue A 8e (the mesh)
-PORT_ONLY = {"device", "jit"}
-MESH = {"mesh", "data_axis", "model_axis"}
+# what the port adds: its device, CUDA graphs, and the compiler's side of
+# a mesh's filter split (``shard``, which ``VisionEngine(mesh=)`` builds)
+PORT_ONLY = {"device", "jit", "shard"}
 
 
 @pytest.mark.parametrize("name,where", [
     ("compile_network", "core.engine"), ("BucketCompiler", "core.engine"),
     ("VisionEngine", "serve.vision"), ("serving_summary", "serve.vision")])
 def test_entry_point_keywords_match_reference_package(name, where):
-    """Every keyword of the JAX package's entry point (less the mesh) is
-    there with its default and kind, in its order; the port adds only its
-    device and ``jit``."""
+    """Every keyword of the JAX package's entry point (the mesh's
+    included) is there with its default and kind, in its order; the port
+    adds only its device, ``jit`` and ``shard``."""
     mod = t_vision if where == "serve.vision" else t_engine
     every = _kw(getattr(mod, name))
-    want = _kw(getattr(_ref(where), name), MESH)
+    want = _kw(getattr(_ref(where), name))
     got = {k: v for k, v in every.items() if k in want}
     assert got == want
     assert list(got) == list(want)
