@@ -260,6 +260,19 @@ Phases (any failed check raises, and the script exits non-zero):
     kernel in every layer) bitwise the sequential emulation.  Images/s
     and each rank's kernel launches are printed; two ranks on one card
     over gloo measure no scale-out.
+16g. ``[dryrun]``: ``launch/dryrun.run_cell`` on zamba2-1.2b train_4k
+    at 16x16 and llama3-8b decode_32k at 2x16x16, each in a subprocess of
+    its own on the host's cores (a fake process group of 256 / 512 ranks,
+    ``DTensor``s of ``meta`` tensors: nothing reaches the card): per-device
+    GiB, the three roofline terms on the H100, the dominant one, the
+    collectives and each cell's seconds; a cell that is not ``ok`` fails.
+16h. ``[roofline]``: ``op_cost.analyze_step`` over [train]'s own step
+    (zamba2-1.2b, B=4 x 1024, remat full, one card) and [dense lm]'s
+    captured decode step (gemma3-12b, B=4, window cache), both traced on
+    ``meta`` tensors: t_compute, t_memory, the bound and the roofline
+    fraction beside the step ms measured in this run, and MFU = model
+    flops / (step s x 989 TFLOP/s), with the card's name and power limit
+    on the same line.  Neither phase launches a kernel (checked).
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
@@ -291,7 +304,8 @@ captures), 12g (the per-layer VGG-16 path), 14-16 (the LM path), 16b
 none either: every kernel's count), 16d (training: the conv1d kernel
 only, forward and backward), 16e (the fold convs' gradients), 16f (the
 scale-out path: the parent's one-rank phases, and each rank's own
-counts, reported by its process), 17 (the attention op).  The second-to-last
+counts, reported by its process), 16g-16h (the dry-run and the roofline:
+none), 17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -4991,6 +5005,156 @@ def phase_mesh_two_ranks(torch, dev, out_dir):
     return {"ranks": ranks, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# the dry-run and the H100 roofline: planning, on the host's cores
+# --------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("zamba2-1.2b", "train_4k", False),
+                ("llama3-8b", "decode_32k", True))
+DRYRUN_TIMEOUT_S = 900
+
+
+def phase_dryrun(out_dir):
+    """``launch/dryrun.run_cell`` on two production cells, each in a
+    subprocess of its own (its fake process group of 256 or 512 ranks
+    never meets this process's groups; no card visible to it), the two
+    side by side: per-device GiB, the three roofline terms, the dominant
+    one, the collectives and the seconds each cell took.  A cell that is
+    not ``ok`` fails the run."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        tag = f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+        code = ("import sys, pathlib\n"
+                "from repro_torch.launch.dryrun import run_cell\n"
+                f"r = run_cell({arch!r}, {shape!r}, {multi_pod!r}, "
+                f"pathlib.Path({str(out_dir)!r}))\n"
+                "sys.exit(0 if r.get('ok') else 1)\n")
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    ended, logs = {}, {}
+    try:
+        while len(ended) < len(procs):
+            for tag, proc in procs.items():
+                if tag not in ended and proc.poll() is not None:
+                    ended[tag] = time.perf_counter() - t0
+                    logs[tag] = proc.stdout.read()
+            check(time.perf_counter() - t0 < DRYRUN_TIMEOUT_S,
+                  "dryrun: a cell ran past its time limit")
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for tag, proc in procs.items():
+        path = out_dir / f"{tag}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        check(proc.returncode == 0 and rec.get("ok") is True,
+              f"dryrun {tag}: {rec.get('error') or logs[tag][-2000:]}")
+        m, rl = rec["memory"], rec["roofline"]
+        counts = {k: int(v) for k, v in rl["collectives"]["count"].items()}
+        print(f"[dryrun] {tag}: {ended[tag]:.1f} s (trace "
+              f"{rec['compile_s']:.1f} s at depths {rec['traced_depths']}, "
+              f"{rec['ops_counted']:.0f} ops counted); per device: "
+              f"arguments {m['argument_bytes'] / 2**30:.3f} GiB, outputs "
+              f"{m['output_bytes'] / 2**30:.3f}, donated "
+              f"{m['alias_bytes'] / 2**30:.3f}, temp (estimate) "
+              f"{m['temp_bytes'] / 2**30:.3f}, total "
+              f"{m['total_per_device'] / 2**30:.3f} GiB; t_compute "
+              f"{rl['t_compute_s'] * 1e3:.4f} ms, t_memory "
+              f"{rl['t_memory_s'] * 1e3:.4f} ms, t_collective "
+              f"{rl['t_collective_s'] * 1e3:.4f} ms, dominant "
+              f"{rl['dominant']}; useful flops ratio "
+              f"{rl['useful_flops_ratio']:.4f}, roofline fraction "
+              f"{rl['roofline_fraction']:.4f}; collectives {counts}")
+        out[tag] = {"seconds": ended[tag], "record": rec}
+    return out
+
+
+def roofline_line(torch, what, cost, model_flops, step_ms, smi,
+                  device_ms=None):
+    """One ``[roofline]`` line: the traced step's terms on the H100 beside
+    the step's measured ms, and its MFU."""
+    from repro_torch.roofline import H100_SXM, roofline_terms
+    rep = roofline_terms(cost, chips=1, model_flops=model_flops)
+    mfu = model_flops / (step_ms / 1e3 * H100_SXM.peak_flops)
+    row = {"t_compute_ms": rep.t_compute * 1e3,
+           "t_memory_ms": rep.t_memory * 1e3,
+           "bound_ms": rep.bound_time * 1e3, "dominant": rep.dominant,
+           "roofline_fraction": rep.roofline_fraction,
+           "useful_flops_ratio": rep.useful_flops_ratio,
+           "flops": cost.flops, "bytes_hbm": cost.bytes_hbm,
+           "model_flops": model_flops, "step_ms": step_ms,
+           "device_ms": device_ms,
+           "bound_over_step": rep.bound_time * 1e3 / step_ms, "mfu": mfu}
+    dev = ("" if device_ms is None else
+           f" (device work {device_ms:.3f} ms, bound over it "
+           f"{row['bound_ms'] / device_ms:.4f})")
+    print(f"[roofline] {what}: t_compute {row['t_compute_ms']:.4f} ms, "
+          f"t_memory {row['t_memory_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({rep.dominant}), roofline fraction "
+          f"{rep.roofline_fraction:.4f}, useful flops ratio "
+          f"{rep.useful_flops_ratio:.4f}; measured step {step_ms:.3f} ms"
+          f"{dev}: the bound is {row['bound_over_step']:.4f} of it, mfu "
+          f"{mfu:.5f}; {smi}")
+    return row
+
+
+def phase_roofline(torch, train_step_ms, decode_step_ms, decode_device_ms,
+                   smi):
+    """``op_cost.analyze_step`` over [train]'s own step (zamba2-1.2b at its
+    published config, B x T of ``TRAIN_B`` x ``TRAIN_T``, remat
+    ``TRAIN_REMAT``, AdamW, one card, no mesh) and [dense lm]'s captured
+    decode step (gemma3-12b, B=4, ``window_cache``, a 64-slot cache at
+    position 16), each traced on ``meta`` tensors of the same shapes:
+    nothing runs on the card.  Beside each, the step ms the phase
+    measured in this run and MFU = model flops / (step s x peak)."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import model_flops_for
+    from repro_torch.models import api
+    from repro_torch.op_cost import analyze_step
+    from repro_torch.optim.adamw import abstract_opt_state
+    from repro_torch.serve.steps import make_decode_step
+    from repro_torch.train.steps import make_train_step
+    out = {}
+    tcfg, _, topt = train_setup()
+    params = api.init_params(tcfg, abstract=True)
+    batch = {k: torch.empty((TRAIN_B, TRAIN_T), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    cost = analyze_step(make_train_step(tcfg, topt, remat=TRAIN_REMAT),
+                        params, abstract_opt_state(params), batch)
+    out["train"] = roofline_line(
+        torch, f"{ZAMBA} train step B={TRAIN_B} x {TRAIN_T}, remat "
+        f"{TRAIN_REMAT}, 1 chip (traced in "
+        f"{time.perf_counter() - t0:.1f} s)", cost,
+        model_flops_for(tcfg, ShapeSpec("train", TRAIN_T, TRAIN_B,
+                                         "train")), train_step_ms, smi)
+    wcfg = dataclasses.replace(dense_cfg(DENSE_SERVED), window_cache=True)
+    params = api.init_params(wcfg, abstract=True)
+    t0 = time.perf_counter()
+    cost = analyze_step(make_decode_step(wcfg, donate=True), params,
+                        torch.empty(4, dtype=torch.long, device="meta"),
+                        api.init_cache(wcfg, 4, 64, abstract=True), 16)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out["decode"] = roofline_line(
+        torch, f"{DENSE_SERVED} decode step B=4, window cache, captured "
+        f"(traced in {time.perf_counter() - t0:.1f} s; HBM bytes "
+        f"{cost.bytes_hbm / weights:.4f}x its {weights / 2**30:.2f} GiB of "
+        "weights)", cost,
+        model_flops_for(wcfg, ShapeSpec("decode", 64, 4, "decode")),
+        decode_step_ms, smi, device_ms=decode_device_ms)
+    out["decode"]["hbm_over_weights"] = cost.bytes_hbm / weights
+    return out
+
+
 def main() -> int:
     # cuBLAS's deterministic workspace, read when cuBLAS is first set up:
     # the training phase's bitwise checks run under
@@ -5552,6 +5716,26 @@ def main() -> int:
             check(any(v["launches"].get(name, 0) > 0
                       for v in r["vision"].values()),
                   f"{name} never launched on mesh rank {i}")
+    # -- the dry-run and the roofline: traced on the host, nothing runs on
+    # the card (every count from 0 just before, none after) -------------
+    for mod in counted:
+        mod.reset_launch_counts()
+    t_plan = time.perf_counter()
+    plan_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        report["dryrun"] = phase_dryrun(plan_dir)
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
+    report["roofline"] = phase_roofline(
+        torch, report["train"]["step_ms_mean"],
+        served["serving"]["step_ms"], served["serving"]["device_ms"],
+        report["nvidia_smi"])
+    plan_launches = {k: n for mod in counted
+                     for k, n in mod.launch_counts().items() if n}
+    check(not plan_launches, f"dryrun / roofline launched {plan_launches}")
+    print(f"[dryrun] the two phases took {time.perf_counter() - t_plan:.1f}"
+          " s and launched no kernel")
+
     # torch.profiler last: once it has run, every kernel of the process
     # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
     report["decode_zamba2"] = phase_lm_device(

@@ -17,11 +17,21 @@ of every conv whose filter count divides the model axis
 (``FilterShard``), and ``core/engine.py`` runs the fold kernel on that
 slice and gathers the output channels.
 
+``distribute_tree`` lays a tree out on a mesh with ranks: each leaf
+becomes a ``DTensor`` whose local tensor is the rank's shard
+(``NamedSharding.local_slice``), or a ``meta`` tensor of the shard's shape
+for a ``meta`` leaf.  The dry-run (``launch/dryrun.py``) traces the
+sharded step on such trees over a fake process group; on real tensors
+over gloo the same step gives the one-rank loss.
+
 ``constrain`` reads the (mesh, rules) context a launcher installs: without
 one it returns ``x`` itself; under a one-rank mesh it checks the spec
-against ``x``'s shape and returns ``x`` unchanged.  Under a mesh of more
-ranks it raises: a tensor-parallel LM forward is not ported (ROADMAP 4f),
-and replicating silently would hide that.
+against ``x``'s shape and returns ``x`` unchanged.  On a ``DTensor`` it
+returns ``x`` redistributed to the spec's placements, as
+``with_sharding_constraint`` does in JAX's SPMD program.  On a plain
+tensor under a mesh of more ranks it raises: the model would run
+replicated on every rank, and doing that silently would hide it (the
+multi-rank LM path for serving and training is ROADMAP 4f.3).
 """
 from __future__ import annotations
 
@@ -32,11 +42,12 @@ from typing import Any, Dict, FrozenSet, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.mapping import PartitionSpec
+from repro_torch.distributed.dtensor import in_local_region, is_dtensor
 from repro_torch.models.common import Axes, map_axes
 
 __all__ = ["ShardingRules", "make_rules", "spec_for", "tree_shardings",
-           "NamedSharding", "set_context", "clear_context", "context_mesh",
-           "constrain",
+           "NamedSharding", "distribute_tree", "set_context", "clear_context",
+           "context_mesh", "constrain",
            "zero1_shardings", "vision_shardings", "vision_batch_sharding",
            "FilterShard", "filter_shard"]
 
@@ -118,13 +129,27 @@ class NamedSharding:
                              f"mesh {self.mesh.shape} lacks")
 
     def placements(self):
-        """The DTensor placements, one per mesh dim: ``Shard(d)`` where
-        the dim is split over that mesh axis, ``Replicate()`` else."""
+        """The DTensor placements, one per device-mesh dim: ``Shard(d)``
+        where the dim is split over that mesh axis (or over every axis of
+        a joined dim, in its order), ``Replicate()`` else."""
         from torch.distributed.tensor import Replicate, Shard
         by_axis = {a: d for d, entry in enumerate(self.spec)
                    for a in _entry_axes(entry)}
-        return tuple(Shard(by_axis[a]) if a in by_axis else Replicate()
-                     for a in self.mesh.axis_names)
+        out = []
+        for group in getattr(self.mesh, "dm_axes",
+                             tuple((a,) for a in self.mesh.axis_names)):
+            dims = {by_axis.get(a) for a in group}
+            if dims == {None}:
+                out.append(Replicate())
+                continue
+            d = dims.pop()
+            if dims or d is None or tuple(
+                    a for a in _entry_axes(self.spec[d]) if a in group) \
+                    != group:
+                raise ValueError(f"{self.spec} splits the joined mesh axes "
+                                 f"{group} apart")
+            out.append(Shard(d))
+        return tuple(out)
 
     def _parts(self, d: int) -> int:
         if d >= len(self.spec):
@@ -169,6 +194,29 @@ class NamedSharding:
         if tuple(self.local_shape(t.shape)) == tuple(t.shape):
             return t
         return t[self.local_slice(t.shape)].clone()
+
+    def distribute(self, t: torch.Tensor):
+        """``t`` as a ``DTensor`` on the mesh's ranks: this rank's shard
+        as its local tensor (a ``meta`` tensor of the shard's shape for a
+        ``meta`` ``t``), ``t``'s shape and contiguous strides as the
+        global ones."""
+        from torch.distributed.tensor import DTensor
+        self.mesh._need_ranks()
+        if t.device.type == "meta":
+            local = torch.empty(self.local_shape(t.shape), dtype=t.dtype,
+                                device="meta")
+        else:
+            local = self.local(t).contiguous()
+        return DTensor.from_local(
+            local, self.mesh.device_mesh, self.placements(), run_check=False,
+            shape=t.shape, stride=torch.empty(t.shape, device="meta").stride())
+
+
+def distribute_tree(tree, shardings):
+    """Each leaf of ``tree`` (tensors, ``meta`` or real) as a ``DTensor``
+    under the matching ``NamedSharding`` of ``shardings``."""
+    return map_axes(lambda t, sh: sh.distribute(t), tree, shardings)
+
 
 
 def tree_shardings(axes_tree, rules: ShardingRules, mesh):
@@ -324,19 +372,25 @@ def context_mesh():
 
 def constrain(x, logical_names: Sequence[Optional[str]]):
     """The activation's sharding constraint: ``x`` itself without a
-    context; under a one-rank mesh, ``x`` after its spec is checked
-    against its shape; under more ranks, an error (ROADMAP 4f)."""
-    if _CTX is None:
+    context; a ``DTensor`` redistributed to the spec's placements; under
+    a one-rank mesh, a plain ``x`` after its spec is checked against its
+    shape; a plain tensor under more ranks, an error (ROADMAP 4f.3).
+    Inside ``run_local`` (a rank's own shards) it is ``x`` itself."""
+    if _CTX is None or in_local_region():
         return x
     mesh, rules = _CTX
     spec = spec_for(logical_names, rules)
     if len(spec) != x.ndim:
         raise ValueError(f"constraint {spec} for a tensor of shape "
                          f"{tuple(x.shape)}")
-    NamedSharding(mesh, spec).local_shape(x.shape)   # raises if uneven
+    sharding = NamedSharding(mesh, spec)
+    sharding.local_shape(x.shape)                     # raises if uneven
+    if is_dtensor(x):
+        return x.redistribute(mesh.device_mesh, sharding.placements())
     if mesh.size > 1:
         raise NotImplementedError(
-            f"an LM forward under a mesh of {mesh.size} ranks "
-            f"({mesh.shape}): the tensor-parallel LM path is not ported "
-            "(ROADMAP queue A 4f); run it under a one-rank mesh or none")
+            f"a plain tensor under a mesh of {mesh.size} ranks "
+            f"({mesh.shape}): the multi-rank LM path takes DTensors "
+            "(distribute_tree); the replicated one is not ported (ROADMAP "
+            "queue A 4f.3); run it under a one-rank mesh or none")
     return x

@@ -49,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.epilogue import Epilogue, apply_epilogue
+from repro_torch.distributed.dtensor import (is_dtensor, place_like,
+                                             replicated_like, run_local)
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv1d_causal import conv1d_causal_folded
@@ -360,9 +362,16 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
     ``impl="fold"`` launches the CUDA kernel (``kernels/conv1d_causal.py``)
     and raises on a tensor that is not on a CUDA device; ``"ref"`` runs the
     plain version (``kernels/ref.py:conv1d_causal_ref``); ``None`` means
-    ``"fold"`` on a CUDA tensor and ``"ref"`` on a CPU one.  Differentiable
-    (``_Conv1dCausal``): under ``"fold"`` the backward's dx launches the
-    kernel once more."""
+    ``"fold"`` on a CUDA tensor and ``"ref"`` on a CPU or ``meta`` one.  On
+    a ``DTensor`` (a sharded step's operand) every rank convolves its own
+    rows and channels: its local shards go through this same dispatch.
+    Differentiable (``_Conv1dCausal``): under ``"fold"`` the backward's dx
+    launches the kernel once more."""
+    if is_dtensor(x):
+        x = place_like(x, x, {0: 0, 2: 2})
+        w = place_like(replicated_like(w, x), x, {2: 1})
+        return run_local(lambda a, b: conv1d_causal(a, b, impl), x, w,
+                         out_placements=[x.placements])
     if impl is None:
         impl = "fold" if x.device.type == "cuda" else "ref"
     if impl not in ("fold", "ref"):

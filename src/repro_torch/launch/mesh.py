@@ -7,9 +7,14 @@ process group per axis line.  ``make_local_mesh(data, model)`` is the
 serving and test mesh; ``make_mesh`` builds any other (the pipeline's
 ``pod`` stage axis); ``make_production_mesh`` is the planning mesh of the
 production geometry: one pod of 16x16 (data x model), or two pods with a
-leading ``pod`` axis that carries only the data-parallel reduction.  It
-has no ranks: building it starts nothing and touches no device, and the
-sharding rules (``distributed/sharding.py``) read its shape alone.
+leading ``pod`` axis that carries only the data-parallel reduction.  By
+default it has no ranks: building it starts nothing and touches no
+device, and the sharding rules (``distributed/sharding.py``) read its
+shape alone.  With ``fake=True`` (``make_fake_mesh``) it is the mesh the
+dry-run traces the sharded step on: a ``"fake"`` process group of 256 or
+512 ranks in this one process, as rank 0, whose collectives move nothing
+and return at once, under a CPU ``DeviceMesh`` with the same axis names.
+This module is the only one that starts such a group.
 
 The process group: with one rank and none running, ``make_mesh`` starts
 one itself on a free localhost port.  With more ranks it joins the group
@@ -38,17 +43,24 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "make_mesh", "make_local_mesh", "make_production_mesh",
-           "start_process_group", "pick_backend", "free_port"]
+           "make_fake_mesh", "end_fake_group", "start_process_group",
+           "pick_backend", "free_port"]
 
 
 class Mesh:
-    """Named mesh axes, in order, and the ranks behind them (if any)."""
+    """Named mesh axes, in order, and the ranks behind them (if any).
+    ``dm_axes`` names the mesh axes each dim of ``device_mesh`` carries:
+    one axis a dim, or, on the dry-run's fake mesh, ``pod`` and ``data``
+    joined in one dim (pod major)."""
 
     def __init__(self, shape: Dict[str, int], device_mesh=None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 dm_axes: Optional[Sequence[Tuple[str, ...]]] = None):
         self.shape = dict(shape)
         self.device_mesh = device_mesh
         self.device = device
+        self.dm_axes = (tuple(tuple(g) for g in dm_axes) if dm_axes
+                        else tuple((a,) for a in self.shape))
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -168,9 +180,64 @@ def make_local_mesh(data: int = 1, model: int = 1, *,
     return make_mesh((data, model), ("data", "model"), device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The production geometry without ranks: 16x16 (data, model), or
-    2x16x16 (pod, data, model) with ``multi_pod``."""
-    if multi_pod:
-        return Mesh({"pod": 2, "data": 16, "model": 16})
-    return Mesh({"data": 16, "model": 16})
+def make_production_mesh(*, multi_pod: bool = False,
+                         fake: bool = False) -> Mesh:
+    """The production geometry: 16x16 (data, model), or 2x16x16 (pod,
+    data, model) with ``multi_pod``.  Without ranks, or with ``fake`` on
+    a fake process group of 256 or 512 ranks (``make_fake_mesh``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if fake:
+        return make_fake_mesh(shape, axes)
+    return Mesh(dict(zip(axes, shape)))
+
+
+def make_fake_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` over a ``"fake"`` process group started here:
+    every rank of it lives in this process as rank 0, and its collectives
+    return at once and move nothing.  Its ``DeviceMesh`` has the card's
+    device type, so ``DTensor`` moves a shard from one dim to another by
+    an all-to-all, as over NCCL (over gloo's CPU mesh it gathers and
+    slices instead), while its local tensors stay ``meta``: nothing
+    reaches a device.  ``pod`` and ``data`` share one device-mesh dim
+    (``Mesh.dm_axes``): the rules map them together only (the batch,
+    ZeRO-1, a long decode's cache sequence), and DTensor's redistribution
+    planner, which searches the placements of every mesh dim, does not
+    finish on three dims for the attention's five-dim einsum operands.  A
+    fake group already running is ended first; a real one makes this
+    raise (its ranks would be lost)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} and axes {axis_names} differ in "
+                         "length")
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group of "
+                f"{dist.get_world_size()} ranks is running: a fake mesh "
+                "would replace it (end it first)")
+        end_fake_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    groups = [(a,) for a in axis_names]
+    if "pod" in axis_names and "data" in axis_names:
+        i, j = axis_names.index("pod"), axis_names.index("data")
+        if j != i + 1:
+            raise ValueError(f"pod and data must be adjacent: {axis_names}")
+        groups[i:j + 1] = [("pod", "data")]
+    sizes = dict(zip(axis_names, shape))
+    dm_shape = tuple(math.prod(sizes[a] for a in g) for g in groups)
+    dm = DeviceMesh("cuda", torch.arange(math.prod(shape)).reshape(dm_shape),
+                    mesh_dim_names=tuple("_".join(g) for g in groups))
+    return Mesh(sizes, dm, torch.device("meta"), dm_axes=groups)
+
+
+def end_fake_group() -> None:
+    """End the running fake process group, if one is (a real one is left
+    alone)."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()

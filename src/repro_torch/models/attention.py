@@ -21,6 +21,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensor import (arange_like, einsum, is_dtensor,
+                                             place_like, replicated_like,
+                                             run_local)
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.layers import apply_rope, rms_norm
@@ -55,10 +58,12 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
               kv_len=None) -> torch.Tensor:
     """Boolean (Tq, Tkv) mask.  window > 0 limits lookback (sliding);
     ``kv_len`` (an int or a 0-d tensor) masks the cache entries past it."""
-    q = q_pos[:, None]
-    k = kv_pos[None, :]
-    mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
-                      device=q_pos.device)
+    refs = (q_pos, kv_pos, kv_len)
+    q = replicated_like(q_pos, *refs)[:, None]
+    k = replicated_like(kv_pos, *refs)[None, :]
+    mask = replicated_like(
+        torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device), *refs)
     if causal:
         mask &= k <= q
     if window > 0:
@@ -69,8 +74,8 @@ def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
 
 
 def _project_kv(p, cfg, x):
-    k = torch.einsum("btd,dkh->btkh", x, p["wk"])
-    v = torch.einsum("btd,dkh->btkh", x, p["wv"])
+    k = einsum("btd,dkh->btkh", x, p["wk"])
+    v = einsum("btd,dkh->btkh", x, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -79,7 +84,7 @@ def _project_kv(p, cfg, x):
 
 
 def _project_q(p, cfg, x):
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    q = einsum("btd,dhk->bthk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
@@ -103,8 +108,9 @@ def _project_out(p, cfg, out):
     if cfg.padded_heads != cfg.n_heads:
         hmask = torch.arange(cfg.padded_heads, device=out.device) \
             < cfg.n_heads
-        out = out * hmask[None, None, :, None].to(out.dtype)
-    return torch.einsum("bthk,hkd->btd", out, p["wo"])
+        out = out * replicated_like(hmask[None, None, :, None].to(out.dtype),
+                                    out)
+    return einsum("bthk,hkd->btd", out, p["wo"])
 
 
 def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,8 +119,11 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Scores and the weighted sum in fp32 (the JAX package's
     ``preferred_element_type=float32``), softmax in fp32.  Materializes
-    the (T, S) score tensor.
+    the (T, S) score tensor.  On DTensors, ``_sharded_core``.
     """
+    if is_dtensor(q) or is_dtensor(k):
+        return _sharded_core(lambda *a: _mha(*a, head_dim), q, k, v, mask,
+                             head_dim=head_dim)
     b, t, h, hd = q.shape
     kv = k.shape[2]
     if t == 1 and kv != h:
@@ -159,7 +168,17 @@ def _mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    block: int = 1024) -> torch.Tensor:
     """Flash-style online-softmax attention: a loop over KV blocks
     carrying (running max, denom, weighted accumulator).  The same math as
-    ``_mha`` up to fp regrouping, with an O(T x block) score footprint."""
+    ``_mha`` up to fp regrouping, with an O(T x block) score footprint.
+    On DTensors, each rank's own rows and heads (``_sharded_core``)."""
+    if is_dtensor(q) or is_dtensor(k):
+        q_pos, kv_pos, kv_len = (
+            a.full_tensor() if is_dtensor(a) else a
+            for a in (q_pos, kv_pos, kv_len))
+        return _sharded_core(
+            lambda q, k, v, _: _mha_blockwise(
+                q, k, v, q_pos, kv_pos, head_dim=head_dim, causal=causal,
+                window=window, kv_len=kv_len, block=block),
+            q, k, v, None, head_dim=head_dim, split_keys=False)
     b, t, h, hd = q.shape
     s = k.shape[1]
     k, v = _expand_kv(k, v, h)
@@ -187,6 +206,80 @@ def _mha_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(d.transpose(1, 2)[..., None], min=1e-30)
     return out.to(q.dtype)
+
+
+def _sharded_core(core, q, k, v, mask, *, head_dim: int,
+                  split_keys: bool = True):
+    """An attention core (``_mha`` or ``_mha_blockwise``) on DTensors:
+    every rank attends its own batch rows and heads.  k and v are laid
+    out as q is on the batch and head dims (GQA's kv heads expanded to
+    q's first where q's head split does not split them in whole groups);
+    a key sequence split over the data axes (a long decode's cache) stays
+    split with ``split_keys``, and the softmax is then combined across it
+    (``_mha_split_keys``), else it is gathered.  ``core(q, k, v, mask)``
+    runs on each rank's local tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    q = place_like(q, q, {0: 0, 2: 2})
+    mesh = q.device_mesh
+    h, kv = q.shape[2], k.shape[2]
+    parts = 1
+    for m, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 2:
+            parts *= mesh.size(m)
+    if kv != h and kv % parts:
+        g = h // kv
+        b_, s_ = k.shape[:2]
+        k, v = (x[:, :, :, None, :].expand(b_, s_, kv, g, x.shape[-1])
+                .reshape(b_, s_, h, x.shape[-1]) for x in (k, v))
+    want, seq_dims = [], []
+    for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if isinstance(pq, Shard):
+            want.append(Shard(pq.dim))
+        elif isinstance(pk, Shard) and pk.dim == 1 and split_keys:
+            want.append(Shard(1))
+            seq_dims.append(m)
+        else:
+            want.append(Replicate())
+    k, v = (x if tuple(x.placements) == tuple(want)
+            else x.redistribute(mesh, want) for x in (k, v))
+    if mask is not None:
+        mask = replicated_like(mask, q)
+        mask = mask.redistribute(mesh, [Shard(1) if m in seq_dims
+                                        else Replicate()
+                                        for m in range(mesh.ndim)])
+    groups = [mesh.get_group(m) for m in seq_dims]
+
+    def local(q, k, v, mask):
+        if groups:
+            return _mha_split_keys(q, k, v, mask, head_dim, groups)
+        return core(q, k, v, mask)
+    return run_local(local, q, k, v, mask, out_placements=[q.placements])
+
+
+def _mha_split_keys(q, k, v, mask, head_dim: int, groups):
+    """``_mha`` over keys split across ``groups`` (each rank holds a slice
+    of the sequence): the local scores' max, the softmax's sum and the
+    weighted values are reduced across the groups, flash-decoding's
+    combine.  q: (B, T, H, hd), k / v: (B, S_local, KV, hd)."""
+    from torch.distributed._functional_collectives import all_reduce
+    h = q.shape[2]
+    if k.shape[2] != h:
+        k = k.repeat_interleave(h // k.shape[2], dim=2)
+        v = v.repeat_interleave(h // v.shape[2], dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    scores = scores * (head_dim ** -0.5)
+    if mask is not None:
+        scores = torch.where(mask[None, None], scores, _NEG)
+    m = scores.amax(dim=-1, keepdim=True)
+    for g in groups:
+        m = all_reduce(m, "max", g)
+    p = torch.exp(scores - m)
+    den = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhts,bshd->bthd", p.to(v.dtype).float(), v.float())
+    for g in groups:
+        den = all_reduce(den, "sum", g)
+        out = all_reduce(out, "sum", g)
+    return (out / den.permute(0, 2, 1, 3)).to(q.dtype)
 
 
 def _flash(q, k, v, q_pos, kv_pos, **kw) -> torch.Tensor:
@@ -219,12 +312,33 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     into ``cache`` itself, else into a copy (the one passed in is not
     changed)."""
     t = new.shape[1]
+    if is_dtensor(cache) and t in (1, cache.shape[1]):
+        return _write_rows_sharded(cache, new, pos, donate)
     start = pos.clamp(0, cache.shape[1] - t)
-    idx = start + torch.arange(t, device=cache.device)
+    idx = replicated_like(start, cache) + replicated_like(
+        torch.arange(t, device=cache.device), cache, start)
     new = new.to(cache.dtype)
     if donate:
         return cache.index_copy_(1, idx, new)
     return cache.index_copy(1, idx, new)
+
+
+def _write_rows_sharded(cache, new, pos, donate: bool) -> torch.Tensor:
+    """``_write_rows`` on a DTensor cache, whose sequence may be split
+    across ranks: one row goes where its position's one-hot is set (each
+    rank writes only the slots it holds), a block as long as the cache
+    replaces it (the start clamps to 0).  With ``donate`` the new cache is
+    copied into ``cache``."""
+    new = new.to(cache.dtype)
+    if new.shape[1] == cache.shape[1]:
+        out = new
+    else:
+        slot = arange_like(cache, 1) == replicated_like(
+            pos.clamp(0, cache.shape[1] - 1), cache)
+        out = torch.where(slot[None, :, None, None], new, cache)
+    if donate:
+        return cache.copy_(out)
+    return out
 
 
 def attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
@@ -330,7 +444,8 @@ def ring_decode_attention(p: Dict[str, Any], cfg, x: torch.Tensor, *,
     k = _write_rows(cache["k"], _to_cache_heads(cfg, k_new), slot, donate)
     v = _write_rows(cache["v"], _to_cache_heads(cfg, v_new), slot, donate)
     # per-slot absolute position: latest p <= pos with p = i (mod W)
-    idx = torch.arange(w, device=x.device)
+    idx = replicated_like(torch.arange(w, device=x.device), pos, x)
+    pos = replicated_like(pos, idx)
     slot_pos = pos - torch.remainder(pos - idx, w)
     mask = (slot_pos >= 0)[None, :]               # (1, W): warm-up guard
     out = _mha(q, k.to(q.dtype), v.to(q.dtype), mask, cfg.head_dim_)

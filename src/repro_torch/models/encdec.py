@@ -17,11 +17,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.dtensor import einsum, replicated_like
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (Axes, DTypePolicy, TreeMaker,
                                        stack_abstract, stack_axes)
-from repro_torch.models.layers import rms_norm, rope_freqs
+from repro_torch.models.layers import embed_rows, rms_norm, rope_freqs
 from repro_torch.models.mlp import mlp, mlp_params
 from repro_torch.models.transformer import (_layer, _layers, _logits,
                                             _mask_logits, _stack,
@@ -117,12 +118,12 @@ def _dec_block(lp, cfg, x, *, positions, inv_freq, enc_out=None,
     h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
     ca = lp["cross_attn"]
     if cross_kv is not None:     # decode: the cached encoder K/V
-        q = torch.einsum("btd,dhk->bthk", h, ca["wq"])
+        q = einsum("btd,dhk->bthk", h, ca["wq"])
         if cfg.qk_norm:
             q = rms_norm(q, ca["q_norm"], cfg.norm_eps)
         a = attn_mod._mha(q, cross_kv["k"].to(q.dtype),
                           cross_kv["v"].to(q.dtype), None, cfg.head_dim_)
-        a = torch.einsum("bthk,hkd->btd", a, ca["wo"])
+        a = einsum("bthk,hkd->btd", a, ca["wo"])
     else:
         a, _ = attn_mod.attention(ca, cfg, h, positions=positions,
                                   inv_freq=None, kv_x=enc_out)
@@ -140,7 +141,8 @@ def forward(params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Teacher-forced logits (B, S, padded vocab) fp32 of ``batch``'s
     "tokens" (B, S) over the encoded "src_embeds" (B, Ts, D)."""
     enc_out = encode(params, cfg, batch["src_embeds"])
-    x = constrain(params["embed"][batch["tokens"]], ("batch", None, None))
+    x = constrain(embed_rows(params["embed"], batch["tokens"]),
+                  ("batch", None, None))
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _layers(params["dec"]):
@@ -157,8 +159,9 @@ def lm_loss(params, cfg, batch: Dict[str, torch.Tensor],
     Returns (loss, {"loss", "aux_loss": 0})."""
     loss = masked_nll(forward(params, cfg, batch), batch["labels"])
     return loss, {"loss": loss,
-                  "aux_loss": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
+                  "aux_loss": replicated_like(
+                      torch.zeros((), dtype=torch.float32,
+                                  device=loss.device), loss)}
 
 
 def init_cache(cfg, batch: int, max_len: int, src_len: int,
@@ -184,7 +187,7 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache
     prompt into the self caches at slots [0, S).  Returns (last-token
     logits, the new cache)."""
     enc_out = encode(params, cfg, batch["src_embeds"])
-    x = params["embed"][batch["tokens"]]
+    x = embed_rows(params["embed"], batch["tokens"])
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     new = []
@@ -207,7 +210,7 @@ def decode_step(params, cfg, token: torch.Tensor, cache, pos,
     or a 0-d integer tensor).  Returns (logits (B, padded vocab) fp32, the
     new cache); with ``donate`` the self caches are written in place and
     ``cache`` comes back (``transformer.decode_step``)."""
-    x = params["embed"][token[:, None]]
+    x = embed_rows(params["embed"], token[:, None])
     pos = attn_mod.device_position(pos, x.device)
     inv_freq = rope_freqs(cfg.head_dim_, cfg.rope_theta, device=x.device)
     new = []

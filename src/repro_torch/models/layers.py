@@ -5,8 +5,38 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.dtensor import (is_dtensor, place_like,
+                                             replicated_like, run_local)
+
 __all__ = ["rms_norm", "group_rms_norm", "layer_norm", "rope_freqs",
-           "apply_rope", "softcap"]
+           "apply_rope", "softcap", "embed_rows"]
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On DTensors the vocab-parallel lookup: each
+    rank takes the rows of its own vocab slice for its own tokens (zeros
+    for a token outside the slice), a partial sum over the vocab split."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    tokens = replicated_like(tokens, table)
+    table = place_like(table, table, {0: 0})
+    tokens = place_like(tokens, tokens, {0: 0})
+    (rows, _), (lo, _) = compute_local_shape_and_global_offset(
+        table.shape, table.device_mesh, table.placements)
+    out = []
+    for pt, pk in zip(table.placements, tokens.placements):
+        out.append(Shard(0) if isinstance(pk, Shard)
+                   else Partial() if isinstance(pt, Shard) else Replicate())
+
+    def local(table, tokens):
+        idx = tokens - lo
+        inside = (idx >= 0) & (idx < rows)
+        got = table[idx.clamp(0, rows - 1)]
+        return got * inside[..., None].to(got.dtype)
+    return run_local(local, table, tokens, out_placements=[out])
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -51,6 +81,8 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                inv_freq: torch.Tensor) -> torch.Tensor:
     """x: (..., T, H, D); positions: broadcastable to (..., T)."""
+    positions = replicated_like(positions, x)
+    inv_freq = replicated_like(inv_freq, x)
     angles = positions[..., :, None, None].float() \
         * inv_freq[None, None, :]                      # (..., T, 1, D/2)
     sin, cos = torch.sin(angles), torch.cos(angles)

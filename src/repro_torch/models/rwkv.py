@@ -20,6 +20,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensor import (is_dtensor, place_like,
+                                             placements_as, replicated_like,
+                                             run_local)
 from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.layers import group_rms_norm
 
@@ -72,12 +75,24 @@ def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _lora_mix(base, w1, w2):
+    """The five LoRA offsets (B, 5, T, D) of ``base``.  On DTensors each
+    rank runs its own batch rows with the (small) LoRA weights whole."""
+    if is_dtensor(base):
+        base = place_like(base, base, {0: 0})
+        w1, w2 = (place_like(replicated_like(w, base), base, {})
+                  for w in (w1, w2))
+        return run_local(_lora_mix, base, w1, w2,
+                         out_placements=[base.placements])
+    lora = torch.tanh(base @ w1)
+    lora = lora.reshape(*lora.shape[:-1], 5, _LORA_MIX)
+    return torch.einsum("btsk,skd->bstd", lora, w2)
+
+
 def _ddlerp(p, x, dx):
     """Data-dependent lerp: five mixed streams (w, k, v, r, g)."""
     base = x + dx * p["mu_x"]
-    lora = torch.tanh(base @ p["tm_w1"])
-    lora = lora.reshape(*lora.shape[:-1], 5, _LORA_MIX)
-    off = torch.einsum("btsk,skd->bstd", lora, p["tm_w2"])     # (B,5,T,D)
+    off = _lora_mix(base, p["tm_w1"], p["tm_w2"])             # (B,5,T,D)
     mix = p["mu"][None, :, None, :] + off
     return x[:, None] + dx[:, None] * mix                      # (B,5,T,D)
 
@@ -104,7 +119,17 @@ def _wkv_scan(r, k, v, w, u, s0, chunk: int = 16):
     Under autograd, where ``chunk`` divides T, the steps run in chunks of
     ``chunk``, each under a checkpoint that keeps only its inputs (the
     JAX function's chunked ``jax.checkpoint``): the same ops, so the same
-    values, with the per-step residuals recomputed in the backward."""
+    values, with the per-step residuals recomputed in the backward.  On
+    DTensors every rank walks its own batch rows and heads."""
+    if is_dtensor(r):
+        r = place_like(r, r, {0: 0, 2: 2})
+        k, v, w = (place_like(x, r, {0: 0, 2: 2}) for x in (k, v, w))
+        u = place_like(replicated_like(u, r), r, {2: 0})
+        s0 = place_like(replicated_like(s0, r), r, {0: 0, 2: 1})
+        return run_local(lambda *a: _wkv_scan(*a, chunk=chunk),
+                         r, k, v, w, u, s0,
+                         out_placements=[r.placements,
+                                         placements_as(r, {0: 0, 2: 1})])
     r32, k32, v32, w32 = (a.float() for a in (r, k, v, w))
     u4 = u[None, :, :, None]
     t = r.shape[1]

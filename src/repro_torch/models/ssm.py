@@ -20,6 +20,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensor import (is_dtensor, place_like,
+                                             placements_as, replicated_like,
+                                             run_local)
 from repro_torch.kernels.ops import conv1d_causal
 from repro_torch.models.common import Axes, TreeMaker
 from repro_torch.models.layers import group_rms_norm
@@ -62,8 +65,23 @@ def _ssd_chunked(xh, dt, a_log, B, C, h0, chunk: int):
     xh: (B,T,H,hd)  dt: (B,T,H) fp32  a_log = A*dt: (B,T,H) fp32 (<0)
     B, C: (B,T,G,state) fp32 (G broadcast over heads)
     h0: (B,H,state,hd) fp32 initial state.
-    Returns y (B,T,H,hd) fp32, h_final.
+    Returns y (B,T,H,hd) fp32, h_final.  On DTensors every rank runs its
+    own batch rows and heads.
     """
+    if is_dtensor(xh):
+        if B.shape[2] > 1 and any(getattr(p, "dim", None) == 2
+                                  for p in xh.placements):
+            raise NotImplementedError(
+                "the SSD with heads split across ranks takes one B / C "
+                f"group, got {B.shape[2]}")
+        xh = place_like(xh, xh, {0: 0, 2: 2})
+        dt, a_log = (place_like(x, xh, {0: 0, 2: 2}) for x in (dt, a_log))
+        B, C = (place_like(x, xh, {0: 0}) for x in (B, C))
+        h0 = place_like(replicated_like(h0, xh), xh, {0: 0, 2: 1})
+        return run_local(lambda *a: _ssd_chunked(*a, chunk),
+                         xh, dt, a_log, B, C, h0,
+                         out_placements=[xh.placements,
+                                         placements_as(xh, {0: 0, 2: 1})])
     b, t, h, hd = xh.shape
     g = B.shape[2]
     nc = t // chunk
@@ -157,6 +175,21 @@ def mamba_block(p: Dict[str, Any], cfg, x: torch.Tensor, *,
     return y @ p["wo"], hf, conv_tail
 
 
+def _ssd_step(h_prev, a, b_dt, xh, c):
+    """One SSD step: ``h = h_prev * a + (B dt) (x) x``, ``y = C . h``.
+    h_prev: (B, H, state, hd), a: (B, H), b_dt and c: (B, H, state), xh:
+    (B, H, hd).  On DTensors every rank steps its own rows and heads."""
+    if is_dtensor(xh):
+        xh = place_like(xh, xh, {0: 0, 1: 1})
+        a, b_dt, c = (place_like(t, xh, {0: 0, 1: 1}) for t in (a, b_dt, c))
+        h_prev = place_like(h_prev, xh, {0: 0, 1: 1})
+        return run_local(_ssd_step, h_prev, a, b_dt, xh, c,
+                         out_placements=[xh.placements, xh.placements])
+    h = h_prev * a[:, :, None, None] \
+        + torch.einsum("bhs,bhd->bhsd", b_dt, xh)
+    return h, torch.einsum("bhs,bhsd->bhd", c, h)
+
+
 def mamba_decode(p: Dict[str, Any], cfg, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], donate: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -186,9 +219,7 @@ def mamba_decode(p: Dict[str, Any], cfg, x: torch.Tensor,
 
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A)                                      # (B,H)
-    h = cache["h"] * a[:, :, None, None] \
-        + torch.einsum("bhs,bhd->bhsd", Bc * dt[..., None], xh)
-    y = torch.einsum("bhs,bhsd->bhd", Cc, h)
+    h, y = _ssd_step(cache["h"], a, Bc * dt[..., None], xh, Cc)
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(b, 1, d_in).to(x.dtype)
     y = group_rms_norm(y * F.silu(z), p["norm"], groups=heads,

@@ -28,6 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.dtensor import (arange_like, is_dtensor,
+                                             placed_like, replicated_like)
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -35,7 +37,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Axes, DTypePolicy, TreeMaker,
                                        stack_abstract, stack_axes)
-from repro_torch.models.layers import rms_norm, rope_freqs
+from repro_torch.models.layers import embed_rows, rms_norm, rope_freqs
 from repro_torch.models.mlp import mlp, mlp_params
 from repro_torch.models.settings import maybe_remat
 
@@ -76,6 +78,15 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees, dim=0)
+
+
+def _laid_out_as(state, cache):
+    """A layer's new recurrent state (a dict of tensors) laid out as its
+    layer of the cache passed in, the identity on plain tensors: the
+    stacked cache keeps its layout at every depth, as a scan's carry
+    does (DTensor's ``stack`` would otherwise choose by the count of
+    layers)."""
+    return {k: placed_like(v, cache[k]) for k, v in state.items()}
 
 
 def _stack_layers(trees):
@@ -172,9 +183,11 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _aux_or_zero(total, device):
+def _aux_or_zero(total, x):
+    """The aux loss sum, or a 0-d fp32 zero beside ``x``."""
     return (total if total is not None
-            else torch.zeros((), dtype=torch.float32, device=device))
+            else replicated_like(torch.zeros((), dtype=torch.float32,
+                                             device=x.device), x))
 
 
 def _rwkv_block(lp, cfg, x, *, state=None, x_tm=None, x_cm=None):
@@ -201,7 +214,7 @@ def _mamba_layer(lp, cfg, x, *, h0=None, conv_init=None):
 def _embed(params, cfg, tokens, extra_embeds=None):
     """Token embeddings; for the VLM, ``extra_embeds`` (B, L, D) projected
     by ``frontend_proj`` and put in front of them."""
-    x = params["embed"][tokens]
+    x = embed_rows(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if cfg.frontend == "vlm" and extra_embeds is not None:
@@ -353,7 +366,7 @@ def _mask_logits(logits, cfg):
         neg = torch.full((cfg.padded_vocab,), -1e30, dtype=logits.dtype,
                          device=logits.device)
         neg[:cfg.vocab] = 0.0
-        logits = logits + neg
+        logits = logits + replicated_like(neg, logits)
     return logits
 
 
@@ -375,7 +388,7 @@ def _forward(params, cfg, tokens, extra_embeds=None):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.rms_plus_one)
     return (_mask_logits(_logits(x, _head(params, cfg)), cfg),
-            _aux_or_zero(aux, x.device))
+            _aux_or_zero(aux, x))
 
 
 def forward(params, cfg, tokens: torch.Tensor, *,
@@ -389,11 +402,25 @@ def forward(params, cfg, tokens: torch.Tensor, *,
 
 def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross entropy (fp32) of (B, S, V) logits against (B, S)
-    labels, over the labels >= 0 (a label < 0 is masked out)."""
+    labels, over the labels >= 0 (a label < 0 is masked out).
+
+    On ``DTensor`` logits (a sharded step, the vocab split over the model
+    axis) it is the vocab-parallel form, ``logsumexp(x) - x[label]``, with
+    the max and the sums reduced across the vocab shards and the label's
+    logit picked by a one-hot product, where a log-softmax and a gather
+    would first gather every shard's logits on every rank."""
     mask = (labels >= 0).float()
     lab = labels.clamp(min=0).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    x = logits.float()
+    if is_dtensor(x):
+        m = x.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+        vocab = arange_like(x)
+        picked = (x * (lab[..., None] == vocab).float()).sum(dim=-1)
+        nll = lse - picked
+    else:
+        logp = torch.log_softmax(x, dim=-1)
+        nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
@@ -485,7 +512,7 @@ def _decode_stack(params, cfg, x, cache, pos: torch.Tensor, donate: bool):
                 lp["mamba"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
                 _layer(cache["mamba"], i), donate=donate)
             x = x + o
-            new_mamba.append(nc)
+            new_mamba.append(_laid_out_as(nc, _layer(cache["mamba"], i)))
         if has_attn:
             x, nkv, _ = _attn_block(
                 params["shared_attn"], cfg, x, positions=positions,
@@ -508,7 +535,7 @@ def _decode_rwkv(params, cfg, x, cache, donate):
         x, sf, xl_tm, xl_cm = _rwkv_block(_layer(blocks, i), cfg, x,
                                           state=c["s"], x_tm=c["x_tm"],
                                           x_cm=c["x_cm"])
-        new.append({"s": sf, "x_tm": xl_tm, "x_cm": xl_cm})
+        new.append(_laid_out_as({"s": sf, "x_tm": xl_tm, "x_cm": xl_cm}, c))
         if donate:
             for name, t in new[-1].items():
                 c[name].copy_(t)

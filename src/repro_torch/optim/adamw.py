@@ -8,6 +8,12 @@ The parameters are the master weights rounded to their own type.
 ``abstract_opt_state`` is the state of an abstract (``meta``) parameter
 tree, nothing allocated, and ``opt_state_axes`` its logical axes, which
 ``distributed/sharding.zero1_shardings`` binds to the mesh.
+
+On a sharded step (``DTensor`` leaves) each gradient is redistributed to
+its moments' ZeRO-1 placements before the update, and the new master to
+its parameter's placements after it: the JAX dry-run's ``in_shardings``
+/ ``out_shardings`` of the train step.  On plain tensors both are the
+identity.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensor import placed_like, replicated_like
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 __all__ = ["AdamWConfig", "init_opt_state", "abstract_opt_state",
@@ -92,14 +99,14 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
     b2c = 1.0 - cfg.b2 ** step.float()
 
     def upd(g, mu, nu, master, p):
-        g = g.float() * scale
+        g = placed_like(g, mu).float() * scale
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
         mhat = mu / b1c
         nhat = nu / b2c
         new_master = master - lr * (mhat / (torch.sqrt(nhat) + cfg.eps)
                                     + cfg.weight_decay * master)
-        return mu, nu, new_master, new_master.to(p.dtype)
+        return mu, nu, new_master, placed_like(new_master, p).to(p.dtype)
 
     out = [upd(*a) for a in zip(leaves(grads), leaves(state["mu"]),
                                 leaves(state["nu"]), leaves(state["master"]),
@@ -110,4 +117,6 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
                  "master": unflatten_like(grads, [o[2] for o in out])}
     new_params = unflatten_like(grads, [o[3] for o in out])
     return new_params, new_state, {
-        "grad_norm": gnorm, "lr": lr * torch.ones((), device=step.device)}
+        "grad_norm": gnorm,
+        "lr": lr * replicated_like(torch.ones((), device=step.device), step)}
+

@@ -7,10 +7,23 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.dtensor import is_dtensor
 from repro_torch.models import api
 from repro_torch.models.settings import attn_impl as attn_ctx
 
 __all__ = ["make_prefill_step", "make_decode_step"]
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the vocab.  On a sharded step the logits' vocab
+    shards are gathered first: the argmax reads every shard."""
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate
+        last = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if getattr(p, "dim", None) == last else p
+            for p in logits.placements])
+    return logits.argmax(dim=-1)
 
 
 def make_prefill_step(cfg, attn_impl: str = "naive") -> Callable:
@@ -19,7 +32,7 @@ def make_prefill_step(cfg, attn_impl: str = "naive") -> Callable:
     def step(params, batch, cache):
         with attn_ctx(attn_impl):
             logits, cache = api.prefill(params, cfg, batch, cache)
-        return logits.argmax(dim=-1), logits, cache
+        return _greedy(logits), logits, cache
     return step
 
 
@@ -39,6 +52,6 @@ def make_decode_step(cfg, temperature: float = 0.0,
             probs = torch.softmax(logits / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
         else:
-            nxt = logits.argmax(dim=-1)
+            nxt = _greedy(logits)
         return nxt, logits, cache
     return step

@@ -71,6 +71,12 @@ def test_port_imports_where_jax_cannot_load():
         "                                  index_check, launch_audit,\n"
         "                                  plan_check, report)\n"
         "from repro_torch import convert\n"
+        "from repro_torch import op_cost, roofline\n"
+        "from repro_torch.distributed import dtensor\n"
+        "from repro_torch.launch import dryrun\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # no process group started\n"
+        "assert build._build.cache_info().currsize == 0  # nothing built\n"
         "assert not [m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
         "            and sys.modules[m] is not None]\n"

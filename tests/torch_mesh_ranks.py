@@ -14,7 +14,12 @@ is not 0.
 engine of the same process.  ``psum``: ``compressed_psum`` over the world
 and over each axis of a 2x1 and a 1x2 mesh (two ranks) or of a 2x2 mesh
 (four).  ``pipeline``: the GPipe pipeline over WORLD stages against the
-sequential emulation.
+sequential emulation.  ``lm``: the reduced LM families of ``LM_ARCHS`` in
+fp32 on DTensors (``distribute_tree``) over a 1x2 and a 2x1 mesh: the
+``lm_loss`` of ``lm_batch``, a greedy decode step from the cache of
+``lm_prefill`` with the cache's sequence split over the data axis
+(``seq_shard_kv``), and one train step (``make_train_step``) with its
+optimizer state in the ZeRO-1 layout.
 """
 import pathlib
 import sys
@@ -115,6 +120,105 @@ def _pipeline_case(out, d, world):
         None, layer_fn, n_stages=world)(ws, xm).numpy()
 
 
+LM_ARCHS = ("qwen3-4b", "zamba2-1.2b", "rwkv6-1.6b", "qwen2-moe-a2.7b")
+LM_MESHES = ((1, 2), (2, 1))
+LM_CACHE = 16
+
+
+def lm_batch(cfg):
+    """The ``lm`` case's batch: 2 x 16 tokens, labels the next ones."""
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 17))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).int(),
+            "labels": torch.from_numpy(toks[:, 1:]).int()}
+
+
+def lm_params(cfg):
+    """The ``lm`` case's weights: seeded, fp32, on the CPU."""
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    return api.init_params(cfg, torch.Generator().manual_seed(0),
+                           dtype_policy=DTypePolicy.fp32(), device="cpu")
+
+
+def lm_prefill(cfg, params):
+    """(the fp32 cache of ``LM_CACHE`` rows after the batch's first 8
+    tokens, the 9th token, its position 8), on one rank."""
+    from repro_torch.models import api
+    toks = lm_batch(cfg)["tokens"]
+    cache = api.init_cache(cfg, 2, LM_CACHE, dtype=torch.float32,
+                           device="cpu")
+    _, cache = api.prefill(params, cfg, {"tokens": toks[:, :8]}, cache)
+    return cache, toks[:, 8], 8
+
+
+def lm_train_step(cfg):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+    return make_train_step(cfg, AdamWConfig())
+
+
+def _lm_case(out):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mapping import PartitionSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.serve.steps import make_decode_step
+    from repro_torch.tree import leaves_with_path
+
+    def lay(tree, rules, mesh, axes):
+        return shd.distribute_tree(tree, shd.tree_shardings(axes, rules,
+                                                            mesh))
+
+    for data, model in LM_MESHES:
+        mesh = make_local_mesh(data, model, device="cpu")
+        for arch in LM_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            tag = f"{data}x{model}_{arch}"
+            plain = lm_params(cfg)
+            rules = shd.make_rules(cfg, mesh)
+            p_axes = api.param_axes(cfg)
+            params = lay(plain, rules, mesh, p_axes)
+            batch = lay(lm_batch(cfg), rules, mesh,
+                        specs.train_batch_axes(cfg))
+            shd.set_context(mesh, rules)
+            try:
+                loss = api.lm_loss(params, cfg, batch)[0]
+                z1 = shd.zero1_shardings(p_axes, plain, rules, mesh)
+                opt = init_opt_state(plain)
+                opt = {"step": shd.NamedSharding(mesh, PartitionSpec())
+                       .distribute(opt["step"]),
+                       **{k: shd.distribute_tree(opt[k], z1)
+                          for k in ("mu", "nu", "master")}}
+                new_params, new_opt, _ = lm_train_step(cfg)(params, opt,
+                                                            batch)
+            finally:
+                shd.clear_context()
+            out[f"loss_{tag}"] = loss.full_tensor().numpy()
+            for what, tree in (("train", new_params),
+                               ("mu", new_opt["mu"])):
+                for path, leaf in leaves_with_path(tree):
+                    out[f"{what}_{tag}_{'.'.join(map(str, path))}"] = \
+                        leaf.full_tensor().numpy()
+            # a decode step over the cache's sequence split on the data
+            # axis (the batch whole on every rank)
+            rules = shd.make_rules(cfg, mesh, seq_shard_kv=True,
+                                   shard_batch=False)
+            cache, token, pos = lm_prefill(cfg, plain)
+            shd.set_context(mesh, rules)
+            try:
+                nxt, logits, _ = make_decode_step(cfg)(
+                    lay(plain, rules, mesh, p_axes),
+                    lay(token, rules, mesh, ("batch",)),
+                    lay(cache, rules, mesh, api.cache_axes(cfg)), pos)
+            finally:
+                shd.clear_context()
+            out[f"decode_{tag}"] = logits.full_tensor().numpy()
+            out[f"next_{tag}"] = nxt.full_tensor().numpy()
+
+
 def rank_main(rank, world, port, d, cases):
     import torch.distributed as dist
     from repro_torch.launch.mesh import start_process_group
@@ -129,6 +233,8 @@ def rank_main(rank, world, port, d, cases):
         _psum_cases(out, shapes)
     if "pipeline" in cases:
         _pipeline_case(out, d, world)
+    if "lm" in cases:
+        _lm_case(out)
     np.savez(d / f"rank{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
