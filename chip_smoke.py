@@ -245,8 +245,9 @@ Phases (any failed check raises, and the script exits non-zero):
     bitwise the step without a context, and ``compressed_psum`` over the
     batch's whole gradient tree on the one-rank NCCL group bitwise
     ``int8_roundtrip``.  Then two processes on the card, one rank each,
-    joined over gloo (NCCL refuses two ranks on one device; gloo moves
-    the card's tensors through the host): VGG-16 on 2x1 (each rank runs
+    joined over ``distributed/hostgloo.py``'s group (NCCL refuses two
+    ranks on one device; the card's tensors cross through CUDA IPC
+    buffers, gloo carries the meetings): VGG-16 on 2x1 (each rank runs
     half of every batch's rows, the logits gathered) and 1x2 (each rank
     holds half of every conv's filters, runs the fold kernel on them and
     gathers the output channels), fp32 and bf16, every rank's logits
@@ -257,9 +258,28 @@ Phases (any failed check raises, and the script exits non-zero):
     scale / shift and the fused residual sliced alike, each rank's
     depthwise and OS launches above 0; and zamba2-1.2b's 38 mamba2 layers
     as a two-stage GPipe pipeline (4 microbatches of 1 x 512, the conv1d
-    kernel in every layer) bitwise the sequential emulation.  Images/s
-    and each rank's kernel launches are printed; two ranks on one card
-    over gloo measure no scale-out.
+    kernel in every layer) bitwise the sequential emulation.  Then
+    zamba2-1.2b at its published config on 2x1 and 1x2: two steps of
+    [train]'s run (bf16, B=4 x 1024, remat full) through
+    ``Trainer(mesh=)``, each rank's conv1d launches above 0, the first
+    loss within 1e-2·|loss| of [train]'s one-rank first loss, every loss
+    and gradient norm finite, and a checkpoint after step 1 restored by a
+    fresh mesh ``Trainer`` whose step 2 is bitwise the uninterrupted
+    one; two fp32 steps of the model cut to two repeats of its layer
+    pattern (14 of 38 layers, full width), B=2 x 256: both losses within
+    1e-5·|loss| of the one-rank steps' (the second taken after the first
+    update), the first step's first moment within 1e-4 of each leaf's
+    max|mu|, its new parameters within 2·lr and within what that error
+    can move them; and ``token_serving_summary(mesh=)`` against the
+    mesh-less engine: fp32 (B=4, 8 requests, 8-token prompts, 12 new
+    tokens) every decode call's logits within 1e-5·max|logits| and every
+    next token equal (a one-rank top-2 gap under that bound is reported
+    as a tie and its row compared no further), bf16 (4 requests, 2 new
+    tokens) the first call's logits within 3e-2·max(1, max|logits|), 0
+    lost.  The dry-run's cells run on the
+    host's cores meanwhile.  Images/s, step ms, peak GiB, decode ms and
+    each rank's kernel launches and collectives are printed; two ranks
+    on one card measure no scale-out.
 16g. ``[dryrun]``: ``launch/dryrun.run_cell`` on zamba2-1.2b train_4k
     at 16x16 and llama3-8b decode_32k at 2x16x16, each in a subprocess of
     its own on the host's cores (a fake process group of 256 / 512 ranks,
@@ -4675,7 +4695,7 @@ MESH_MODELS = (("vgg16", MESH_IMG, MESH_SHAPES),
 MESH_DTYPES = ("float32", "bfloat16")
 PIPE_STAGES, PIPE_MICRO, PIPE_T = 2, 4, 512   # 4 microbatches of 1 x 512
 PIPE_SEED = SEED + 81
-MESH_RANK_TIMEOUT_S = 600           # both ranks, start to finish
+MESH_RANK_TIMEOUT_S = 720           # both ranks, start to finish
 
 
 def mesh_images(img):
@@ -4870,13 +4890,322 @@ def pipe_inputs(torch, dev):
     return cfg, blocks, x
 
 
+# [mesh lm] on two ranks: zamba2-1.2b at its published config through
+# Trainer(mesh=) and token_serving_summary(mesh=)
+MESH_LM_SHAPES = ((2, 1), (1, 2))
+MESH_TRAIN_STEPS = 2                # the restart saves after step 1
+MESH_CUT_B, MESH_CUT_T = 2, 256     # the fp32 step, depth cut
+MESH_CUT_SEED = SEED + 82
+MESH_CUT_LR = 1e-3
+MESH_SERVE = {"batch": 4, "max_len": 64, "prompt_len": 8,
+              "new_tokens": 12, "requests": 8}
+# bf16 is held on its first call alone: one batch of requests, 2 new tokens
+MESH_SERVE_BY_DTYPE = {"float32": MESH_SERVE,
+                       "bfloat16": dict(MESH_SERVE, requests=4,
+                                        new_tokens=2)}
+MESH_SERVE_SEED = SEED + 83
+TOL_MESH_LOSS = 1e-2                # bf16 two-rank loss vs one rank
+TOL_MESH_FP32 = 1e-5                # fp32 loss, logits, the tie gap
+TOL_MESH_MU = 1e-4                  # fp32 first moment, of each leaf's max
+TOL_MESH_BF16 = 3e-2                # bf16 first logits, of max(1, max|ref|)
+MESH_PARENT_GIB = 8.0               # the most the parent may hold then
+
+
+def mesh_serve_refs(torch, dev, out_dir):
+    """The one-rank engine (mesh-less, its decode step captured) over the
+    [mesh lm] serving stream, fp32 then bf16: each decode call's logits
+    go to ``out_dir`` for the ranks; returns the summaries."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import token_serving_summary
+    vocab = get_config(ZAMBA).vocab
+    out = {}
+    for dtype in MESH_DTYPES:
+        d = token_serving_summary(ZAMBA, full=True, seed=MESH_SERVE_SEED,
+                                  device=dev, fp32=dtype == "float32",
+                                  record_logits=True,
+                                  **MESH_SERVE_BY_DTYPE[dtype])
+        # the real vocab: the padded rows hold -1e30 on both sides
+        np.save(out_dir / f"serve_{dtype}.npy", np.stack(
+            d.pop("step_logits"))[..., :vocab])
+        check(d["requests_lost"] == 0, f"mesh lm serve one rank {dtype}: "
+              f"{d['requests_lost']} requests lost")
+        out[dtype] = d
+        print(f"[mesh lm] serve {ZAMBA} {dtype} one rank ({d['decode']}): "
+              f"{d['requests_done']}/{d['requests']} requests, "
+              f"{d['tokens']} tokens, {d['tokens_per_s']:.3f} tokens/s, "
+              f"decode step {d['decode_step_ms']:.3f} ms (each call's "
+              "logits read back)")
+        _free(torch)
+    return out
+
+
+def held_steps(ref, got, rel):
+    """Each decode call's logits of the mesh engine (``got``) against the
+    one-rank engine's (``ref``), both (calls, batch, vocab): (the largest
+    error over the call's max|ref|, the ties, the rows whose next token
+    differs).  A row whose one-rank top-2 gap at a call is below
+    ``rel·max|ref|`` is a tie: it is reported, and that row is compared
+    no further (its tokens may part from there)."""
+    import numpy as np
+    worst, ties, differ, dropped = 0.0, [], [], set()
+    for i in range(ref.shape[0]):
+        scale = float(np.abs(ref[i]).max())
+        for r in range(ref.shape[1]):
+            if r in dropped:
+                continue
+            worst = max(worst, float(np.abs(got[i, r] - ref[i, r]).max())
+                        / scale)
+            top = np.sort(ref[i, r])[-2:]
+            if top[1] - top[0] < rel * scale:
+                ties.append([i, r])
+                dropped.add(r)
+            elif int(got[i, r].argmax()) != int(ref[i, r].argmax()):
+                differ.append([i, r])
+    return worst, ties, differ
+
+
+def staged_collectives(mesh):
+    """(calls, host seconds) of the collectives this rank has run on the
+    mesh's groups of more than one rank (``distributed/hostgloo.py``'s
+    counters: the ranks share the card)."""
+    stats = [mesh.group(a).stats for a in mesh.axis_names
+             if mesh.shape[a] > 1]
+    return (sum(st["calls"] for st in stats),
+            sum(st["seconds"] for st in stats))
+
+
+def mesh_lm_train(torch, dev, mesh, ckpt_dir):
+    """zamba2-1.2b's [train] setup (published config, bf16 compute and
+    fp32 master, B=4 x 1024, remat full, the seeded weights) through
+    ``Trainer(mesh=)`` for ``MESH_TRAIN_STEPS`` steps, each timed between
+    two syncs and its conv1d launches counted (the counts from 0 just
+    before, read just after); the peak device memory; then the restart:
+    a mesh ``Trainer`` that checkpoints after step 1 into ``ckpt_dir``
+    and a fresh one that restores there and runs step 2, each rank's
+    shards bitwise the uninterrupted run's."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    cfg, data, opt = train_setup()
+    step = make_train_step(cfg, opt, remat=TRAIN_REMAT)
+    rec = {"ms": [], "launches": []}
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize(dev)
+        n0, t0 = cc.launch_counts()[cc.KERNEL], time.perf_counter()
+        out = step(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["launches"].append(cc.launch_counts()[cc.KERNEL] - n0)
+        return out
+
+    def trainer(total, directory=None):
+        return Trainer(cfg, TrainerConfig(
+            total_steps=total, ckpt_dir=directory, ckpt_every=1,
+            log_every=1, seed=TRAIN_SEED, remat=TRAIN_REMAT), opt_cfg=opt,
+            data_cfg=data, step_fn=timed, device=dev, mesh=mesh)
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    cc.reset_launch_counts()
+    calls0, coll0 = staged_collectives(mesh)
+    t0 = time.perf_counter()
+    whole = trainer(MESH_TRAIN_STEPS)
+    p, o = whole.run()
+    run_s = time.perf_counter() - t0
+    launches = cc.launch_counts()[cc.KERNEL]
+    calls1, coll1 = staged_collectives(mesh)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    hist = whole.history
+    ref = [t.to_local().cpu() for t in leaves((p, o))]
+    del p, o, whole
+    _free(torch)
+    t0 = time.perf_counter()
+    first = trainer(1, str(ckpt_dir))
+    first.run()
+    second = trainer(MESH_TRAIN_STEPS, str(ckpt_dir))
+    p, o = second.run()
+    restart_s = time.perf_counter() - t0
+    bad = sum(not torch.equal(a.to_local().cpu(), b)
+              for a, b in zip(leaves((p, o)), ref))
+    del p, o, ref
+    _free(torch)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "restart_losses": [h["loss"] for h in first.history
+                               + second.history],
+            "step_ms": rec["ms"][:MESH_TRAIN_STEPS],
+            "restart_step_ms": rec["ms"][MESH_TRAIN_STEPS:],
+            "launches": launches,
+            "launches_per_step": rec["launches"][:MESH_TRAIN_STEPS],
+            "restart_launches": sum(rec["launches"][MESH_TRAIN_STEPS:]),
+            "peak_gib": peak, "run_s": run_s, "restart_s": restart_s,
+            "restart_leaves_differ": bad,
+            "collectives": calls1 - calls0,
+            "collective_s": coll1 - coll0}
+
+
+def mesh_lm_cut(torch, dev, mesh):
+    """The fp32 contract at full width: zamba2-1.2b with its depth cut to
+    two repeats of its layer pattern (``dryrun.depth_plan``), fp32
+    weights and compute, B=2 x 256, two AdamW steps on one rank and then
+    the sharded steps on ``mesh`` (their trees laid out by
+    ``specs.step_layout``), each on the same batch.  Held: both losses
+    within ``TOL_MESH_FP32·|loss|`` (the second is taken after the first
+    update); after the first step the first moment of every leaf (the
+    clipped gradient times 1 - b1) within ``TOL_MESH_MU·max|mu|`` of the
+    one-rank step's, and every new parameter within 2·lr and within
+    ``cut_param_tol`` (what that moment's error can move it)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.dryrun import depth_plan
+    from repro_torch.launch.specs import step_layout
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import batch_to, make_train_step
+    from repro_torch.tree import leaves
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    full = get_config(ZAMBA)
+    depth = depth_plan(full)[3]
+    cfg = dataclasses.replace(full, n_layers=depth)
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MESH_CUT_SEED),
+        dtype_policy=DTypePolicy.fp32(), device=dev)
+    batch = batch_to(TokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=MESH_CUT_T, global_batch=MESH_CUT_B,
+        seed=MESH_CUT_SEED)).next_batch(), dev)
+    adam = AdamWConfig(lr=MESH_CUT_LR)
+    step = make_train_step(cfg, adam)
+    want_p, want_o, want_m = step(params, init_opt_state(params), batch)
+    want = [float(want_m["loss"]),
+            float(step(want_p, want_o, batch)[2]["loss"])]
+    want_mu = leaves(want_o["mu"])
+    del want_o
+    lay = step_layout(cfg, "train", mesh, MESH_CUT_B)
+    p_sh, o_sh, b_sh = lay.shardings
+    args = (sharding.distribute_tree(params, p_sh),
+            init_opt_state(params, o_sh),
+            sharding.distribute_tree(batch, b_sh))
+    del params
+    cc.reset_launch_counts()
+    sharding.set_context(mesh, lay.rules)
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got_p, got_o, got_m = step(*args)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = cc.launch_counts()[cc.KERNEL]
+        del args
+        got_m2 = step(got_p, got_o, sharding.distribute_tree(batch, b_sh))[2]
+    finally:
+        sharding.clear_context()
+    # DTensors: the sharded steps
+    got = [float(got_m["loss"].full_tensor()),
+           float(got_m2["loss"].full_tensor())]
+    worst = mu_worst = tight = 0.0
+    for a, b, ma, mb in zip(leaves(got_p), leaves(want_p),
+                            leaves(got_o["mu"]), want_mu):
+        err = (a.full_tensor() - b).abs()
+        worst = max(worst, float(err.max()))
+        scale = max(float(mb.abs().max()), 1e-30)
+        mu_err = float((ma.full_tensor() - mb).abs().max())
+        mu_worst = max(mu_worst, mu_err / scale)
+        dmu = TOL_MESH_MU * scale
+        tight = max(tight, float((err / cut_param_tol(torch, b, mb, dmu,
+                                                      adam)).max()))
+    del got_p, got_o, want_p, want_mu
+    _free(torch)
+    return {"depth": depth, "layers_full": full.n_layers, "loss": got,
+            "loss_one_rank": want,
+            "loss_rel_err": max(abs(g - w) / abs(w)
+                                for g, w in zip(got, want)),
+            "mu_rel_err": mu_worst, "param_err_over_tol": tight,
+            "param_err_over_2lr": worst / (2 * MESH_CUT_LR), "ms": ms,
+            "launches": launches}
+
+
+def cut_param_tol(torch, want, mu, dmu, adam):
+    """Each new parameter's bound against the one-rank step's ``want``:
+    ``1e-6 + 1e-5·|p|`` plus what an error ``dmu`` of the first moment
+    ``mu`` can move it (AdamW's first step moves a weight by
+    lr·g/(|g| + eps), so an error dg in g moves it by up to
+    2·lr·dg/(|g| + eps), with g = mu / (1 - b1))."""
+    g, dg = mu.abs() / (1 - adam.b1), dmu / (1 - adam.b1)
+    return 1e-6 + 1e-5 * want.abs() + 2 * adam.lr * dg / (g + adam.eps)
+
+
+def mesh_lm_serve(torch, dev, mesh, out_dir):
+    """``token_serving_summary(mesh=)`` over the [mesh lm] stream, fp32
+    then bf16, every decode call's logits recorded and held against the
+    one-rank engine's (``held_steps``; bf16: the first call's)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import token_serving_summary
+    vocab = get_config(ZAMBA).vocab
+    out = {}
+    for dtype in MESH_DTYPES:
+        calls0, coll0 = staged_collectives(mesh)
+        d = token_serving_summary(ZAMBA, full=True, seed=MESH_SERVE_SEED,
+                                  device=dev, mesh=mesh,
+                                  fp32=dtype == "float32",
+                                  record_logits=True,
+                                  **MESH_SERVE_BY_DTYPE[dtype])
+        calls1, coll1 = staged_collectives(mesh)
+        d["collectives"], d["collective_s"] = calls1 - calls0, coll1 - coll0
+        got = np.stack(d.pop("step_logits"))[..., :vocab]
+        ref = np.load(out_dir / f"serve_{dtype}.npy")
+        d["calls"], d["calls_one_rank"] = len(got), len(ref)
+        if dtype == "float32" and got.shape == ref.shape:
+            d["max_err"], d["ties"], d["differ"] = held_steps(
+                ref, got, TOL_MESH_FP32)
+        else:
+            d["max_err"] = float(np.abs(got[0] - ref[0]).max()) / max(
+                1.0, float(np.abs(ref[0]).max()))
+        del d["outputs"]
+        out[dtype] = d
+        _free(torch)
+    return out
+
+
+def mesh_lm_rank(torch, dev, out_dir):
+    """The LM part of a rank of the two-rank phases: on 2x1 and 1x2,
+    zamba2-1.2b training (``mesh_lm_train``), the fp32 step at cut depth
+    (``mesh_lm_cut``) and serving (``mesh_lm_serve``)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    out = {}
+    for data, model in MESH_LM_SHAPES:
+        mesh = make_local_mesh(data, model, device=dev)
+        key = f"{data}x{model}"
+        t0 = time.perf_counter()
+        out[key] = {"train": mesh_lm_train(torch, dev, mesh,
+                                           out_dir / f"ckpt_{key}"),
+                    "cut": mesh_lm_cut(torch, dev, mesh),
+                    "serve": mesh_lm_serve(torch, dev, mesh, out_dir)}
+        out[key]["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_rank_main(rank, port, out_dir, dev_name):
     """One rank of the two-rank phases (a process of its own, gloo on the
     one card): VGG-16 on the 2x1 and 1x2 meshes and MobileNetV2 on 1x2,
     in fp32 and bf16, against the parent's mesh-less logits, then the
     two-stage pipeline over
-    zamba2's mamba2 stack against the sequential emulation.  Writes
-    ``rank<r>.json``; any failed check raises and fails the run."""
+    zamba2's mamba2 stack against the sequential emulation, then
+    zamba2-1.2b's training, fp32 step and serving on 2x1 and 1x2
+    (``mesh_lm_rank``).  Writes ``rank<r>.json``; any failed check raises
+    and fails the run."""
     import numpy as np
     sys.path.insert(0, str(SRC))
     import torch
@@ -4903,9 +5232,9 @@ def mesh_rank_main(rank, port, out_dir, dev_name):
                 bitwise = bool(np.array_equal(got, ref))
                 key = f"{name} {dtype} {data}x{model}"
                 res["vision"][key] = {
-                    "line": mesh_line(f"{key} (gloo) rank {rank}", d,
-                                      launches, bitwise,
-                                      float(np.abs(got - ref).max())),
+                    "line": mesh_line(
+                        f"{key} ({mesh.backend}) rank {rank}", d, launches,
+                        bitwise, float(np.abs(got - ref).max())),
                     "bitwise": bitwise, "images_per_s": d["images_per_s"],
                     "launches": launches}
             del params
@@ -4939,19 +5268,39 @@ def mesh_rank_main(rank, port, out_dir, dev_name):
         "finite": bool(torch.isfinite(got.float()).all()),
         "conv1d_launches": n_pipe, "pipeline_s": pipe_s, "seq_s": seq_s,
         "max_abs_diff": float((got.float() - want.float()).abs().max())}
+    del blocks, x, got, want, again
+    _free(torch)
+    # still under deterministic algorithms: the restart is held bitwise
+    res["lm"] = mesh_lm_rank(torch, dev, out_dir)
+    torch.use_deterministic_algorithms(False)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def phase_mesh_two_ranks(torch, dev, out_dir):
-    """Spawn the two ranks (after the parent has built the kernels and
-    freed its memory), wait for both under ``MESH_RANK_TIMEOUT_S``, print
-    their lines and check them.  A rank that fails fails the run; at the
-    deadline both are killed and the run fails."""
+def phase_mesh_two_ranks(torch, dev, out_dir, first_loss):
+    """The one-rank serving references (``mesh_serve_refs``), then spawn
+    the two ranks (after the parent has built the kernels and freed its
+    memory), wait for both under ``MESH_RANK_TIMEOUT_S``, print their
+    lines and check them (the two-rank training's first loss against
+    ``first_loss``, [train]'s one-rank first loss on the same batch).  A
+    rank that fails fails the run; at the deadline both are killed and
+    the run fails."""
     import torch.multiprocessing as mp
     from repro_torch.launch.mesh import free_port
+    t0 = time.perf_counter()
+    serve_refs = mesh_serve_refs(torch, dev, out_dir)
+    refs_s = time.perf_counter() - t0
     _free(torch)
+    # each rank's step: about half of [train]'s one-rank 35.5 GiB (its
+    # 63.32 GiB peak less the 27.78 held then) plus its share of the AdamW
+    # state, so this process must hold little
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"[mesh] the parent holds {held:.2f} GiB "
+          f"({torch.cuda.memory_reserved(dev) / 2**30:.2f} reserved) as the "
+          "two ranks start")
+    check(held < MESH_PARENT_GIB, f"mesh: the parent holds {held:.2f} GiB; "
+          "the two ranks' steps would not fit beside it")
     t0 = time.perf_counter()
     ctx = mp.start_processes(mesh_rank_main,
                              args=(free_port(), str(out_dir), str(dev)),
@@ -5000,9 +5349,117 @@ def phase_mesh_two_ranks(torch, dev, out_dir):
         check(p["conv1d_launches"] == per_stage,
               f"mesh lm: pipeline rank {i} launched conv1d "
               f"{p['conv1d_launches']} times, {per_stage} expected")
-    print(f"[mesh] the two-rank phases took {seconds:.1f} s (two processes "
+    lm = report_mesh_lm(ranks, serve_refs, first_loss)
+    print(f"[mesh] the two-rank phases took {seconds:.1f} s, the one-rank "
+          f"serving references {refs_s:.1f} s before them (two processes "
           "on one card over gloo: their times are not scale-out numbers)")
-    return {"ranks": ranks, "seconds": seconds}
+    return {"ranks": ranks, "seconds": seconds, "lm": lm,
+            "serve_refs": serve_refs, "serve_refs_s": refs_s}
+
+
+def report_mesh_lm(ranks, serve_refs, first_loss):
+    """Print and check the ranks' [mesh lm] results: each rank's conv1d
+    launches above 0, the first loss within ``TOL_MESH_LOSS·|loss|`` of
+    the one-rank first loss, every loss and gradient norm finite, the
+    restart bitwise; the fp32 step within ``TOL_MESH_FP32·|loss|`` /
+    2·lr; the served logits and tokens under the tie rule, 0 lost."""
+    out = {}
+    for key in ranks[0]["lm"]:
+        rows = [r["lm"][key] for r in ranks]
+        tr = [r["train"] for r in rows]
+        h = tr[0]
+        err = abs(h["losses"][0] - first_loss) / abs(first_loss)
+        print(f"[mesh lm] train {ZAMBA} {key} (2 ranks on one card, "
+              f"hostgloo; bf16, remat {TRAIN_REMAT}, B={TRAIN_B} x "
+              f"{TRAIN_T}): losses "
+              + ", ".join(f"{x:.6f}" for x in h["losses"])
+              + "; grad norms " + ", ".join(f"{x:.4f}" for x in
+                                            h["grad_norms"])
+              + f"; first loss {err:.3e} of |loss| off the one-rank "
+              f"{first_loss:.6f}; step ms " + "; ".join(
+                  f"rank {i} " + ", ".join(f"{x:.1f}" for x in t["step_ms"])
+                  for i, t in enumerate(tr))
+              + "; peak GiB " + ", ".join(f"{t['peak_gib']:.2f}" for t in tr)
+              + "; conv1d launches a rank " + ", ".join(
+                  f"{t['launches']} ({t['launches_per_step']} a step)"
+                  for t in tr)
+              + "; collectives a rank over the two steps " + ", ".join(
+                  f"{t['collectives']} ({t['collective_s']:.1f} s)"
+                  for t in tr))
+        print(f"[mesh lm] train {key} restart: checkpoint after step 1, a "
+              f"fresh mesh Trainer restores and runs step 2 in "
+              + ", ".join(f"{t['restart_s']:.1f}" for t in tr)
+              + " s a rank; leaves that differ from the uninterrupted run "
+              + ", ".join(str(t["restart_leaves_differ"]) for t in tr)
+              + f"; losses {h['restart_losses']}")
+        check(all(t["launches"] > 0 for t in tr), f"mesh lm {key}: a rank "
+              "launched no conv1d kernel in training")
+        check(all(math.isfinite(x) for x in h["losses"] + h["grad_norms"]),
+              f"mesh lm {key}: a non-finite loss or grad norm")
+        check(err <= TOL_MESH_LOSS, f"mesh lm {key}: first loss "
+              f"{h['losses'][0]} vs one rank {first_loss}")
+        check(all(t["restart_leaves_differ"] == 0 for t in tr)
+              and h["restart_losses"] == h["losses"],
+              f"mesh lm {key}: the restart is not bitwise the uninterrupted "
+              "run")
+        cut = [r["cut"] for r in rows]
+        c = cut[0]
+        print(f"[mesh lm] fp32 {ZAMBA} at depth {c['depth']} of "
+              f"{c['layers_full']} (two repeats of its layer pattern; full "
+              f"width), B={MESH_CUT_B} x {MESH_CUT_T}, two steps on {key}: "
+              "losses " + ", ".join(f"{x:.7f}" for x in c["loss"])
+              + " against one rank's " + ", ".join(
+                  f"{x:.7f}" for x in c["loss_one_rank"])
+              + f" ({c['loss_rel_err']:.3e} of |loss| at most); after step "
+              "1 the first moment within " + ", ".join(
+                  f"{x['mu_rel_err']:.3e}" for x in cut)
+              + " of each leaf's max|mu|, new parameters within " + ", ".join(
+                  f"{x['param_err_over_2lr']:.3e}" for x in cut)
+              + " of 2·lr and " + ", ".join(
+                  f"{x['param_err_over_tol']:.3e}" for x in cut)
+              + " of the bound that moment's error allows; step 1 ms "
+              + ", ".join(f"{x['ms']:.1f}" for x in cut)
+              + "; conv1d launches a rank in step 1 " + ", ".join(
+                  str(x["launches"]) for x in cut))
+        check(all(x["loss_rel_err"] <= TOL_MESH_FP32
+                  and x["mu_rel_err"] <= TOL_MESH_MU
+                  and x["param_err_over_tol"] <= 1.0
+                  and x["param_err_over_2lr"] <= 1.0 for x in cut),
+              f"mesh lm {key}: the fp32 steps are off the one-rank steps")
+        check(all(x["launches"] > 0 for x in cut), f"mesh lm {key}: a rank "
+              "launched no conv1d kernel in the fp32 step")
+        for dtype, ref in serve_refs.items():
+            sv = [r["serve"][dtype] for r in rows]
+            d = sv[0]
+            ties = d.get("ties", [])
+            print(f"[mesh lm] serve {ZAMBA} {dtype} {key} ({d['decode']}): "
+                  f"{d['requests_done']}/{d['requests']} requests, "
+                  f"{d['requests_lost']} lost, {d['tokens']} tokens; "
+                  f"decode step {d['decode_step_ms']:.3f} ms, "
+                  f"{d['tokens_per_s']:.3f} tokens/s (one rank: "
+                  f"{ref['decode_step_ms']:.3f} ms, {ref['tokens_per_s']:.3f}"
+                  f" tokens/s); {d['collectives']} collectives on rank 0 "
+                  f"({d['collective_s']:.1f} s); logits within "
+                  f"{d['max_err']:.3e} of the "
+                  + ("one-rank engine's max|logits| over every call"
+                     if dtype == "float32" else
+                     "one-rank engine's max(1, max|logits|) at the first "
+                     "call")
+                  + (f"; ties {ties}; rows whose next token differs "
+                     f"{d['differ']}" if dtype == "float32" else ""))
+            check(all(x["requests_lost"] == 0
+                      and x["calls"] == x["calls_one_rank"] for x in sv),
+                  f"mesh lm serve {dtype} {key}: lost requests or another "
+                  "call sequence")
+            if dtype == "float32":
+                check(all(x["max_err"] <= TOL_MESH_FP32 and not x["differ"]
+                          for x in sv), f"mesh lm serve fp32 {key}: logits "
+                      "or tokens off the one-rank engine's")
+            else:
+                check(all(x["max_err"] <= TOL_MESH_BF16 for x in sv),
+                      f"mesh lm serve bf16 {key}: first logits off")
+        out[key] = {"seconds": [r["seconds"] for r in rows]}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -5014,13 +5471,13 @@ DRYRUN_CELLS = (("zamba2-1.2b", "train_4k", False),
 DRYRUN_TIMEOUT_S = 900
 
 
-def phase_dryrun(out_dir):
-    """``launch/dryrun.run_cell`` on two production cells, each in a
+def start_dryrun(out_dir):
+    """Start ``launch/dryrun.run_cell`` on two production cells, each in a
     subprocess of its own (its fake process group of 256 or 512 ranks
-    never meets this process's groups; no card visible to it), the two
-    side by side: per-device GiB, the three roofline terms, the dominant
-    one, the collectives and the seconds each cell took.  A cell that is
-    not ``ok`` fails the run."""
+    never meets this process's groups; no card visible to it): (the
+    start time, the processes by cell).  They run on the host's cores
+    beside the card's phases that follow (the two-rank mesh phases);
+    ``phase_dryrun`` collects them."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(SRC) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -5036,6 +5493,23 @@ def phase_dryrun(out_dir):
         procs[tag] = subprocess.Popen(
             [sys.executable, "-c", code], env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return t0, procs
+
+
+def stop_dryrun(started) -> None:
+    """Kill what is left of ``start_dryrun``'s processes."""
+    for proc in started[1].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_dryrun(out_dir, started):
+    """Wait for ``start_dryrun``'s cells under ``DRYRUN_TIMEOUT_S``: per
+    cell the per-device GiB, the three roofline terms, the dominant one,
+    the collectives and the seconds it took.  A cell that is not ``ok``
+    fails the run."""
+    t0, procs = started
     ended, logs = {}, {}
     try:
         while len(ended) < len(procs):
@@ -5047,10 +5521,7 @@ def phase_dryrun(out_dir):
                   "dryrun: a cell ran past its time limit")
             time.sleep(0.2)
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_dryrun(started)
     out = {}
     for tag, proc in procs.items():
         path = out_dir / f"{tag}.json"
@@ -5672,6 +6143,33 @@ def main() -> int:
     # -- the fold convs' gradients on the card (counts from 0 inside) -----
     report["fold_grads"] = phase_fold_grads(torch, dev)
 
+    # torch.profiler after every timed phase of this process but the mesh
+    # ones: once it has run, every kernel of the process reads ~1.3 us
+    # slower, graph replay included (PERF.md, section 6).  The mesh
+    # phases compare within themselves or time in their ranks' own
+    # processes, and they need the card's memory that the profiled runs
+    # held (gemma3-12b's weights and zamba2's prefill and decode runs)
+    report["decode_zamba2"] = phase_lm_device(
+        torch, report["prefill_zamba2"], prefill_run, decode_run)
+    del prefill_run, decode_run
+    for what, fn in dense_runs.items():
+        ms, n, top = profile_device(torch, fn, top=8)
+        served[f"profile_{what.replace(' ', '_')}"] = {
+            "device_ms": ms, "kernels": n, "top_kernels": top}
+        if ms is not None:
+            print(f"[profile] {DENSE_SERVED} {what} (prefill B=1 x 1024; "
+                  f"the decode step captured, B=4, window cache, position "
+                  f"16): {ms:.3f} ms of kernels in {n} launches; top: "
+                  + "; ".join(f"{r['kernel'][:56]} {r['ms']:.3f} ms "
+                              f"({r['share']:.3f}, {r['calls']} calls)"
+                              for r in top))
+    # the loop's last closure holds gemma3-12b's weights and decode graph
+    del dense_runs, fn
+    report["lm_families"]["profile"] = profile_lm_families(torch, dev)
+    report["train"]["profile"] = profile_train(
+        torch, dev, tcfg, tdata, topt, report["train"]["step_ms_mean"])
+    _free(torch)
+
     # -- the scale-out path: VGG-16 and zamba2 on meshes; counts from 0
     # just before, read just after (the two ranks count in their own
     # processes and report it) ------------------------------------------
@@ -5683,6 +6181,8 @@ def main() -> int:
         mod.reset_launch_counts()
     t_mesh = time.perf_counter()
     mesh_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    plan_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dryrun = None
     try:
         mesh = make_local_mesh(1, 1, device=dev)
         report["mesh"] = {"vision": phase_mesh_vision_one_rank(
@@ -5690,8 +6190,16 @@ def main() -> int:
         report["mesh"]["lm"] = phase_mesh_lm_one_rank(torch, dev, mesh)
         mesh_launches = {k: n for mod in counted
                          for k, n in mod.launch_counts().items() if n}
-        report["mesh"]["two_ranks"] = phase_mesh_two_ranks(torch, dev,
-                                                           mesh_dir)
+        # the dry-run's two cells trace on the host's cores while the two
+        # ranks run on the card
+        dryrun = start_dryrun(plan_dir)
+        report["mesh"]["two_ranks"] = phase_mesh_two_ranks(
+            torch, dev, mesh_dir, report["train"]["losses"][0])
+    except BaseException:
+        if dryrun is not None:
+            stop_dryrun(dryrun)
+        shutil.rmtree(plan_dir, ignore_errors=True)
+        raise
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
         if dist.is_initialized():
@@ -5709,7 +6217,9 @@ def main() -> int:
             for k, n in v["launches"].items():
                 mesh_total[k] = mesh_total.get(k, 0) + n
         mesh_total[cc.KERNEL] = mesh_total.get(cc.KERNEL, 0) + \
-            r["pipeline"]["conv1d_launches"]
+            r["pipeline"]["conv1d_launches"] + sum(
+                m["train"]["launches"] + m["cut"]["launches"]
+                for m in r["lm"].values())
     for name in ("fold_conv_ws", "fold_conv_ws_bf16", dn.KERNEL,
                  dn.KERNEL_BF16):
         for i, r in enumerate(report["mesh"]["two_ranks"]["ranks"]):
@@ -5721,9 +6231,8 @@ def main() -> int:
     for mod in counted:
         mod.reset_launch_counts()
     t_plan = time.perf_counter()
-    plan_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     try:
-        report["dryrun"] = phase_dryrun(plan_dir)
+        report["dryrun"] = phase_dryrun(plan_dir, dryrun)
     finally:
         shutil.rmtree(plan_dir, ignore_errors=True)
     report["roofline"] = phase_roofline(
@@ -5734,28 +6243,9 @@ def main() -> int:
                      for k, n in mod.launch_counts().items() if n}
     check(not plan_launches, f"dryrun / roofline launched {plan_launches}")
     print(f"[dryrun] the two phases took {time.perf_counter() - t_plan:.1f}"
-          " s and launched no kernel")
+          " s past the two-rank mesh phases (the cells started with them) "
+          "and launched no kernel")
 
-    # torch.profiler last: once it has run, every kernel of the process
-    # reads ~1.3 us slower, graph replay included (PERF.md, section 6)
-    report["decode_zamba2"] = phase_lm_device(
-        torch, report["prefill_zamba2"], prefill_run, decode_run)
-    del prefill_run, decode_run
-    for what, fn in dense_runs.items():
-        ms, n, top = profile_device(torch, fn, top=8)
-        served[f"profile_{what.replace(' ', '_')}"] = {
-            "device_ms": ms, "kernels": n, "top_kernels": top}
-        if ms is not None:
-            print(f"[profile] {DENSE_SERVED} {what} (prefill B=1 x 1024; "
-                  f"the decode step captured, B=4, window cache, position "
-                  f"16): {ms:.3f} ms of kernels in {n} launches; top: "
-                  + "; ".join(f"{r['kernel'][:56]} {r['ms']:.3f} ms "
-                              f"({r['share']:.3f}, {r['calls']} calls)"
-                              for r in top))
-    del dense_runs
-    report["lm_families"]["profile"] = profile_lm_families(torch, dev)
-    report["train"]["profile"] = profile_train(
-        torch, dev, tcfg, tdata, topt, report["train"]["step_ms_mean"])
 
     # the jit rows, side by side: every conv cell, then served images/s
     print("[jit] conv cells, ms: jitted / eager / device work (busy share "
@@ -5875,6 +6365,13 @@ def main() -> int:
         # the scale-out path's launches (the parent's one-rank phases and
         # both ranks' processes), beside the main path's
         entry["mesh_launches"] = mesh_total.get(entry["name"], 0)
+        if entry["name"] == cc.KERNEL:
+            # [mesh lm]'s training and fp32 steps, each rank's count
+            entry["mesh_lm_launches"] = {
+                key: [{"train": r["lm"][key]["train"]["launches"],
+                       "fp32_step": r["lm"][key]["cut"]["launches"]}
+                      for r in report["mesh"]["two_ranks"]["ranks"]]
+                for key in report["mesh"]["two_ranks"]["ranks"][0]["lm"]}
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "build"

@@ -17,6 +17,15 @@ keys sorted), so the key paths are the JAX package's.  Restart contract:
 save at step k, restore, and the parameters and optimizer state are the
 saved ones bitwise, and the data pipeline's cursor (in ``extra``) replays
 batch k + 1 next.
+
+A tree of ``DTensor`` leaves (a mesh run's parameters and ZeRO-1 state)
+is saved by every rank together: each leaf is gathered whole
+(``full_tensor``), rank 0 alone writes, and every rank waits on a barrier
+before the call returns.  The files are those of a one-rank save of the
+full tree, byte for byte, so a mesh checkpoint restores on one rank and
+in the JAX package.  ``restore_checkpoint`` reads the full arrays on
+every rank and lays each out as the ``DTensor`` leaf of ``tree_like``
+is laid out (each rank keeps its own slice; nothing crosses ranks).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.dtensor import is_dtensor
 from repro_torch.tree import leaves_with_path, unflatten_like
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
@@ -51,21 +61,39 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, bool]:
     return np.asarray(leaf), False
 
 
+def _writer() -> bool:
+    """Whether this process writes a checkpoint of ``DTensor`` leaves:
+    rank 0 of the process group."""
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[Dict] = None,
                     keep: int = 3) -> Path:
     """Write ``tree`` (tensors on any device, or arrays) as step ``step``,
     with ``extra`` (JSON) in its meta, then keep the newest ``keep``
-    committed steps."""
+    committed steps.  A tree with ``DTensor`` leaves is saved by every
+    rank of the process group: each leaf gathered in turn, rank 0
+    writing, all ranks leaving together (a barrier)."""
+    flat = _flatten(tree)
+    sharded = any(is_dtensor(leaf) for _, leaf in flat)
     base = Path(directory)
     final = base / f"step_{step:09d}"
+    if sharded and not _writer():
+        for _, leaf in flat:                # the gathers rank 0 runs
+            if is_dtensor(leaf):
+                leaf.full_tensor()
+        _barrier()
+        return final
     tmp = base / f".tmp_step_{step:09d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     (tmp / "arrays").mkdir(parents=True)
     bf16_keys = []
-    for key, leaf in _flatten(tree):
-        arr, bf16 = _to_numpy(leaf)
+    for key, leaf in flat:
+        arr, bf16 = _to_numpy(leaf.full_tensor() if is_dtensor(leaf)
+                              else leaf)
         if bf16:
             bf16_keys.append(key)
         np.save(tmp / "arrays" / f"{key}.npy", arr)
@@ -76,7 +104,14 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         shutil.rmtree(final)
     tmp.rename(final)                        # atomic on POSIX
     cleanup_old(directory, keep=keep)
+    if sharded:
+        _barrier()
     return final
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -93,8 +128,9 @@ def restore_checkpoint(directory: str, tree_like: Any,
                        ) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like`` (values ignored): each
     leaf a tensor of the saved type on the device of ``tree_like``'s leaf
-    (the CPU for a leaf that is not a tensor).  Returns (tree, step,
-    extra)."""
+    (the CPU for a leaf that is not a tensor), a ``DTensor`` leaf's as a
+    ``DTensor`` of the same mesh and placements holding this rank's
+    slice.  Returns (tree, step, extra)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -111,9 +147,31 @@ def restore_checkpoint(directory: str, tree_like: Any,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if is_dtensor(like):
+            vals.append(_laid_out_like(t, like))
+            continue
         dev = like.device if isinstance(like, torch.Tensor) else "cpu"
         vals.append(t.to(dev))
     return unflatten_like(tree_like, vals), step, meta.get("extra", {})
+
+
+def _laid_out_like(full: torch.Tensor, like) -> torch.Tensor:
+    """``full`` as a ``DTensor`` laid out as ``like``: this rank's slice
+    of it, on ``like``'s local device, under ``like``'s mesh and
+    placements."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    if tuple(full.shape) != tuple(like.shape):
+        raise ValueError(f"a saved leaf of shape {tuple(full.shape)} for "
+                         f"one of {tuple(like.shape)}")
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, like.device_mesh, like.placements)
+    local = full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return DTensor.from_local(
+        local.to(like.to_local().device, copy=True).contiguous(),
+        like.device_mesh, like.placements, run_check=False,
+        shape=full.shape, stride=full.stride())
 
 
 def cleanup_old(directory: str, keep: int = 3) -> None:

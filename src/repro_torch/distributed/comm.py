@@ -2,13 +2,11 @@
 
 Gathers and point-to-point transfers move raw bytes (each tensor viewed as
 ``uint8``), so every type crosses bit for bit and no backend needs to know
-it.  Gloo takes no CUDA tensor for ``all_gather``, ``send`` or ``recv``
-(and the port does not lean on its CUDA reductions either): on a gloo
-group every collective copies a card's tensor to the host, runs there,
-and copies the result back.  The compute stays on the card.  NCCL groups
-take the card's tensors as they are.  A collective over a group of one
-rank is the identity and runs nothing, except ``all_reduce``, which
-always runs (a one-rank NCCL reduction is how a one-rank mesh proves its
+it.  Every collective hands its tensor to the group as it is: NCCL and
+``distributed/hostgloo.py``'s group (ranks that share a card) take the
+card's tensors, gloo the host's.  A collective over a group of one rank
+is the identity and runs nothing, except ``all_reduce``, which always
+runs (a one-rank NCCL reduction is how a one-rank mesh proves its
 communicator).
 """
 from __future__ import annotations
@@ -17,20 +15,13 @@ from typing import List
 
 import torch
 
-__all__ = ["group_size", "via_host", "all_gather_cat", "all_reduce",
+__all__ = ["group_size", "all_gather_cat", "all_reduce",
            "send", "recv", "global_rank"]
 
 
 def group_size(group) -> int:
     import torch.distributed as dist
     return dist.get_world_size(group)
-
-
-def via_host(t: torch.Tensor, group) -> bool:
-    """Whether ``t`` crosses ``group`` through the host (gloo and a card's
-    tensor)."""
-    import torch.distributed as dist
-    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
 def global_rank(group, rank: int) -> int:
@@ -52,13 +43,10 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return t
-    host = via_host(t, group)
-    src = _bytes(t.cpu() if host else t)
+    src = _bytes(t)
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    tensors = [p.view(t.dtype).reshape(t.shape) for p in parts]
-    out = torch.cat(tensors, dim)
-    return out.to(t.device) if host else out
+    return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts], dim)
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -66,26 +54,21 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     tensor; ``t`` is left as it was."""
     import torch.distributed as dist
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
-    host = via_host(t, group)
-    buf = t.detach().to("cpu", copy=True) if host else t.detach().clone()
+    buf = t.detach().clone()
     dist.all_reduce(buf, op=ops[op], group=group)
-    return buf.to(t.device) if host else buf
+    return buf
 
 
 def send(t: torch.Tensor, dst: int, group) -> None:
     """Send ``t``'s bytes to ``group``'s rank ``dst``."""
     import torch.distributed as dist
-    src = _bytes(t.cpu() if via_host(t, group) else t)
-    dist.send(src, dst=global_rank(group, dst), group=group)
+    dist.send(_bytes(t), dst=global_rank(group, dst), group=group)
 
 
 def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
     """Receive a tensor of ``like``'s shape, type and device from
     ``group``'s rank ``src``."""
     import torch.distributed as dist
-    host = via_host(like, group)
-    buf = _bytes(torch.empty_like(like, device="cpu") if host
-                 else torch.empty_like(like))
+    buf = _bytes(torch.empty_like(like))
     dist.recv(buf, src=global_rank(group, src), group=group)
-    out = buf.view(like.dtype).reshape(like.shape)
-    return out.to(like.device) if host else out
+    return buf.view(like.dtype).reshape(like.shape)

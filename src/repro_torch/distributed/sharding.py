@@ -30,8 +30,10 @@ against ``x``'s shape and returns ``x`` unchanged.  On a ``DTensor`` it
 returns ``x`` redistributed to the spec's placements, as
 ``with_sharding_constraint`` does in JAX's SPMD program.  On a plain
 tensor under a mesh of more ranks it raises: the model would run
-replicated on every rank, and doing that silently would hide it (the
-multi-rank LM path for serving and training is ROADMAP 4f.3).
+replicated on every rank, and doing that silently would hide it.  The
+entry points that lay the trees out for such a mesh are
+``Trainer(mesh=)`` and ``BatchEngine(mesh=)``, from
+``launch/specs.step_layout``.
 """
 from __future__ import annotations
 
@@ -390,7 +392,9 @@ def constrain(x, logical_names: Sequence[Optional[str]]):
     if mesh.size > 1:
         raise NotImplementedError(
             f"a plain tensor under a mesh of {mesh.size} ranks "
-            f"({mesh.shape}): the multi-rank LM path takes DTensors "
-            "(distribute_tree); the replicated one is not ported (ROADMAP "
-            "queue A 4f.3); run it under a one-rank mesh or none")
+            f"({mesh.shape}): the multi-rank LM step runs on DTensors "
+            "(ROADMAP 4f.3); lay its trees out through Trainer(mesh=), "
+            "BatchEngine(mesh=) or distribute_tree over "
+            "launch/specs.step_layout's shardings, or run it under a "
+            "one-rank mesh or none")
     return x

@@ -50,7 +50,6 @@ from typing import Optional, Sequence, Tuple
 
 from repro_torch.configs.base import SHAPES, ShapeSpec
 from repro_torch.configs.registry import ARCHS, get_config
-from repro_torch.core.mapping import PartitionSpec
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import (Mesh, end_fake_group, make_fake_mesh,
@@ -83,10 +82,6 @@ def model_flops_for(cfg, shape) -> float:
     return 2.0 * n_active * shape.global_batch      # decode: 1 token/seq
 
 
-def _dp_size(mesh):
-    return int(mesh.shape.get("pod", 1)) * int(mesh.shape.get("data", 1))
-
-
 def _mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
 
@@ -95,48 +90,33 @@ def _mesh_axes(shape: Sequence[int]) -> Tuple[str, ...]:
     return ("pod", "data", "model")[-len(shape):]
 
 
-def _batch_shardings(axes_tree, rules, mesh):
-    return map_axes(lambda a: shd.NamedSharding(mesh, shd.spec_for(a, rules)),
-                    axes_tree)
-
-
 def cell_inputs(cfg, shape: ShapeSpec, mesh: Mesh, rules, *,
                 remat: str = "dots", attn_impl: str = "naive"):
     """(step, abstract arguments, their ``NamedSharding``s, donated
     argument indices) of a cell: the JAX dry-run's ``in_shardings`` and
-    ``donate_argnums`` (``repro/launch/dryrun.py:66-131``)."""
+    ``donate_argnums`` (``repro/launch/dryrun.py:66-131``), from
+    ``launch/specs.step_shardings``."""
+    shardings, donate = specs_mod.step_shardings(cfg, shape.kind, mesh,
+                                                 rules)
     params_abs = api.init_params(cfg, abstract=True)
-    axes = api.param_axes(cfg)
-    p_sh = shd.tree_shardings(axes, rules, mesh)
-    repl = shd.NamedSharding(mesh, PartitionSpec())
     if shape.kind == "train":
-        opt_abs = abstract_opt_state(params_abs)
-        z1 = shd.zero1_shardings(axes, params_abs, rules, mesh)
-        o_sh = {"step": repl, "mu": z1, "nu": z1, "master": z1}
-        batch_abs = specs_mod.train_batch_specs(cfg, shape)
-        b_sh = _batch_shardings(specs_mod.train_batch_axes(cfg), rules, mesh)
         step = make_train_step(cfg, AdamWConfig(), remat=remat,
                                attn_impl=attn_impl)
-        return (step, (params_abs, opt_abs, batch_abs), (p_sh, o_sh, b_sh),
-                (0, 1))
+        return (step, (params_abs, abstract_opt_state(params_abs),
+                       specs_mod.train_batch_specs(cfg, shape)),
+                shardings, donate)
     max_len = shape.seq_len + (cfg.frontend_len
                                if cfg.frontend == "vlm" else 0)
     cache_abs = api.init_cache(cfg, shape.global_batch, max_len,
                                src_len=specs_mod.src_len_for(cfg, shape),
                                abstract=True)
-    c_sh = shd.tree_shardings(api.cache_axes(cfg), rules, mesh)
     if shape.kind == "prefill":
-        batch_abs = specs_mod.prefill_batch_specs(cfg, shape)
-        b_sh = _batch_shardings(specs_mod.prefill_batch_axes(cfg), rules,
-                                mesh)
         step = make_prefill_step(cfg, attn_impl=attn_impl)
-        return (step, (params_abs, batch_abs, cache_abs), (p_sh, b_sh, c_sh),
-                (2,))
+        return (step, (params_abs, specs_mod.prefill_batch_specs(cfg, shape),
+                       cache_abs), shardings, donate)
     token_abs, pos_abs = specs_mod.decode_input_specs(cfg, shape)
-    tok_sh = shd.NamedSharding(mesh, shd.spec_for(("batch",), rules))
-    step = make_decode_step(cfg)
-    return (step, (params_abs, token_abs, cache_abs, pos_abs),
-            (p_sh, tok_sh, c_sh, repl), (2,))
+    return (make_decode_step(cfg), (params_abs, token_abs, cache_abs,
+                                    pos_abs), shardings, donate)
 
 
 def _sharded_bytes(tree, shardings) -> int:
@@ -152,12 +132,10 @@ def _sharded_bytes(tree, shardings) -> int:
 
 
 def _rules_for(cfg, shape, mesh, seq_shard_kv=None):
-    shard_batch = shape.global_batch % _dp_size(mesh) == 0
-    if seq_shard_kv is None:
-        seq_shard_kv = shape.kind == "decode" and not shard_batch
-    return (shd.make_rules(cfg, mesh, seq_shard_kv=seq_shard_kv,
-                           shard_batch=shard_batch),
-            bool(seq_shard_kv), shard_batch)
+    """(rules, seq_shard_kv, shard_batch) of a cell
+    (``launch/specs.step_rules``)."""
+    return specs_mod.step_rules(cfg, shape.kind, mesh, shape.global_batch,
+                                seq_shard_kv)
 
 
 def argument_bytes(arch: str, shape_name: str, multi_pod: bool,

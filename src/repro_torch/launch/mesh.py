@@ -26,10 +26,11 @@ visible cards.  A card that is not there raises, as
 ``device.resolve_device`` does: nothing falls back to gloo on the CPU.
 
 Two ranks on one card cannot share NCCL, which refuses two ranks on one
-device, so such a mesh runs over gloo and its collectives move the card's
-tensors through the host (``distributed/comm.py``); its ``DeviceMesh`` is
-then a CPU mesh (gloo's transport), while ``Mesh.device`` stays the card
-the rank computes on.
+device, so such a mesh runs over ``distributed/hostgloo.py``'s group:
+the card's tensors cross between the ranks through CUDA IPC buffers on
+the card, gloo carries the meetings.  The ``DeviceMesh`` has the type of
+the device the ranks compute on, so a ``DTensor``'s shards stay on the
+card.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "make_mesh", "make_local_mesh", "make_production_mesh",
            "make_fake_mesh", "end_fake_group", "start_process_group",
-           "pick_backend", "free_port"]
+           "pick_backend", "free_port", "mesh_from_flag", "rank"]
 
 
 class Mesh:
@@ -125,23 +126,34 @@ def start_process_group(rank: int, world_size: int, port: int, *,
     """Join rank ``rank`` of ``world_size`` to a process group whose
     rendezvous is ``tcp://localhost:port``, over ``pick_backend``'s
     backend.  Each rank's process calls it before ``make_mesh``."""
+    _init_group(world_size, device, init_method=f"tcp://localhost:{port}",
+                rank=rank)
+
+
+def _init_group(world_size: int, device: Any, **kw) -> None:
+    """``init_process_group`` over ``pick_backend``'s backend; gloo for
+    ranks that compute on a card is ``distributed/hostgloo.py``'s group
+    (the card's tensors cross through CUDA IPC buffers)."""
     import torch.distributed as dist
-    dist.init_process_group(pick_backend(world_size, device),
-                            init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world_size)
+    backend = pick_backend(world_size, device)
+    if backend == "gloo" and resolve_device(device).type == "cuda":
+        from repro_torch.distributed.hostgloo import register
+        backend = register()
+    if "rank" in kw:
+        kw["world_size"] = world_size
+    dist.init_process_group(backend, **kw)
 
 
-def _ensure_group(n: int, dev: torch.device) -> str:
-    """The running process group's backend; with none running, start a
-    one-rank group (n == 1) or join the ``env://`` one."""
+def _ensure_group(n: int, dev: torch.device) -> None:
+    """Check the running process group's size; with none running, start
+    a one-rank group (n == 1) or join the ``env://`` one."""
     import torch.distributed as dist
     if not dist.is_initialized():
         if n == 1:
             start_process_group(0, 1, free_port(), device=dev)
         elif all(k in os.environ for k in ("RANK", "WORLD_SIZE",
                                             "MASTER_ADDR", "MASTER_PORT")):
-            dist.init_process_group(pick_backend(n, dev),
-                                    init_method="env://")
+            _init_group(n, dev, init_method="env://")
         else:
             raise RuntimeError(
                 f"a mesh of {n} ranks needs a running process group: call "
@@ -150,7 +162,6 @@ def _ensure_group(n: int, dev: torch.device) -> str:
     if dist.get_world_size() != n:
         raise ValueError(f"the process group has {dist.get_world_size()} "
                          f"ranks, the mesh needs {n}")
-    return dist.get_backend()
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
@@ -164,13 +175,12 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
         raise ValueError(f"shape {shape} and axes {axis_names} differ in "
                          "length")
     dev = resolve_device(device)
-    backend = _ensure_group(math.prod(shape), dev)
+    _ensure_group(math.prod(shape), dev)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
-    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
-                          mesh_dim_names=axis_names)
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
     return Mesh(dict(zip(axis_names, shape)), dm, dev)
 
 
@@ -178,6 +188,26 @@ def make_local_mesh(data: int = 1, model: int = 1, *,
                     device: Any = "cuda") -> Mesh:
     """A (data x model) mesh over the process group's ranks."""
     return make_mesh((data, model), ("data", "model"), device=device)
+
+
+def mesh_from_flag(flag: str, device: Any = "cuda") -> Optional[Mesh]:
+    """The launchers' ``--mesh DATAxMODEL``: None for an empty flag, else
+    ``make_local_mesh(DATA, MODEL)`` (a 1x1 mesh starts its own one-rank
+    group, a larger one joins the ``env://`` group its launcher, such as
+    ``torchrun``, set up)."""
+    if not flag:
+        return None
+    try:
+        data, model = (int(t) for t in flag.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {flag!r} is not DATAxMODEL, e.g. 2x1")
+    return make_local_mesh(data, model, device=device)
+
+
+def rank() -> int:
+    """This process's rank in the running process group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def make_production_mesh(*, multi_pod: bool = False,

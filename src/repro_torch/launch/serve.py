@@ -18,6 +18,8 @@ request stream through the vision engine (``serve/vision.py``).
     python -m repro_torch.launch.serve --vision --mesh 1x1
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --vision \
         --device cpu --mesh 1x2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen3-4b --device cpu --mesh 2x1
 
 The token path serves ``--requests`` random prompts of ``--prompt-len``
 tokens, ``--new-tokens`` each, at batch width ``--batch``, over random
@@ -29,7 +31,10 @@ tokens/s and the prefill/decode times as one JSON object.  Every
 (granite-moe-1b-a400m, qwen2-moe-a2.7b), rwkv6-1.6b, zamba2-1.2b, the VLM
 internvl2-26b (tokens only: the engine steps prompts through decode) and
 the enc-dec seamless-m4t-medium (over a zero cross cache: the engine
-never prefills, as the JAX engine does not).
+never prefills, as the JAX engine does not).  With ``--mesh`` the token
+path serves on the mesh's ranks (``BatchEngine(mesh=)``: the parameters
+and cache laid out by the decode step's layout, the step eager on more
+than one rank) and the summary names the mesh and the decode mode.
 
 The vision path serves a deterministic mixed-size request stream through
 the bucketed compiled forwards of any registered conv model
@@ -43,7 +48,7 @@ prints its metrics.  ``--autotune`` measures the schedules on the
 device (``--tuning-path`` persists them as JSON); ``--deadline-s`` puts
 an SLO on every ``--deadline-every``-th request.
 
-``--mesh DATAxMODEL`` serves on a ``launch/mesh.py`` mesh
+``--mesh DATAxMODEL`` serves the vision path on a ``launch/mesh.py`` mesh
 (``serve/vision.py``: rows over the data axis, conv filters over the
 model axis), one process a rank: a 1x1 mesh starts its own one-rank
 group, a larger one joins the group its launcher (``torchrun``) set up
@@ -206,11 +211,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 def vision_main(args) -> dict:
     from repro_torch.ft.fault_tolerance import PreemptionGuard
     from repro_torch.serve.vision import serving_summary
-    mesh = None
-    if args.mesh:
-        from repro_torch.launch.mesh import make_local_mesh
-        data, model_par = (int(t) for t in args.mesh.lower().split("x"))
-        mesh = make_local_mesh(data, model_par, device=args.device)
+    from repro_torch.launch.mesh import mesh_from_flag, rank
+    mesh = mesh_from_flag(args.mesh, args.device)
     tracer, registry = make_obs(args)
     with PreemptionGuard() as guard:    # SIGTERM -> stop admitting, drain
         summary = serving_summary(
@@ -228,14 +230,9 @@ def vision_main(args) -> dict:
     # it under its own section beside the fp32 one
     out = summary if args.precision == "fp32" else \
         {f"serving_{args.precision}": summary}
-    if mesh is None or _rank() == 0:
+    if rank() == 0:
         print(json.dumps(out, indent=1, sort_keys=True))
     return summary
-
-
-def _rank() -> int:
-    import torch.distributed as dist
-    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def chaos_main(args) -> dict:
@@ -259,12 +256,15 @@ def chaos_main(args) -> dict:
 
 
 def token_main(args) -> dict:
+    from repro_torch.launch.mesh import mesh_from_flag, rank
     from repro_torch.serve.engine import token_serving_summary
     summary = token_serving_summary(
         args.arch, full=args.full, batch=args.batch, max_len=args.max_len,
         prompt_len=args.prompt_len, new_tokens=args.new_tokens,
-        requests=args.requests or 8, seed=args.seed, device=args.device)
-    print(json.dumps(summary, indent=1, sort_keys=True))
+        requests=args.requests or 8, seed=args.seed, device=args.device,
+        mesh=mesh_from_flag(args.mesh, args.device))
+    if rank() == 0:
+        print(json.dumps(summary, indent=1, sort_keys=True))
     return summary
 
 

@@ -41,18 +41,27 @@ class AdamWConfig:
     schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
-def init_opt_state(params) -> Dict[str, Any]:
+def init_opt_state(params, shardings=None) -> Dict[str, Any]:
     """Zero moments and an fp32 master copy of ``params``; the step counter
-    (0-d int32) sits on the first leaf's device."""
-    first = leaves(params)[0]
+    (0-d int32) sits on the first leaf's device.  ``shardings``, the
+    state's tree of layouts (``NamedSharding``s), lays each leaf out as it
+    is made: no rank holds the whole state at once."""
+    def made(kind, make):
+        if shardings is None:
+            return tree_map(make, params)
+        return tree_map(lambda p, sh: sh.distribute(make(p)), params,
+                        shardings[kind])
+
+    def zeros(x):
+        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
     return {
-        "step": torch.zeros((), dtype=torch.int32, device=first.device),
-        "mu": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                             device=x.device), params),
-        "nu": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                             device=x.device), params),
-        "master": tree_map(lambda x: x.detach().to(torch.float32,
-                                                   copy=True), params),
+        "step": step if shardings is None else
+        shardings["step"].distribute(step),
+        "mu": made("mu", zeros),
+        "nu": made("nu", zeros),
+        "master": made("master", lambda x: x.detach().to(torch.float32,
+                                                         copy=True)),
     }
 
 

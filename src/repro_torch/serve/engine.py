@@ -21,6 +21,18 @@ engine:
 * a step runs every slot at ``pos = max(pos[active])``;
 * the enc-dec family decodes over the zero cross K/V of ``max_len`` rows
   that ``init_cache`` makes (no source is encoded).
+
+On a mesh (``mesh=``) the decode step is the JAX package's sharded one:
+every rank runs the same engine on the same requests (SPMD).  The
+parameters and the cache are laid out by ``launch/specs.step_layout``'s
+decode layout (the cache's batch over the data axes where the batch
+divides by them, else its sequence), the token vector over the batch
+axis; the next tokens are gathered for the slot logic on the host.  The
+step runs eagerly and returns a new cache: a CUDA graph cannot hold the
+collectives' meetings on the host, so a mesh of more than one rank never
+captures (``decode_mode`` "eager").  A one-rank mesh keeps plain tensors under the
+mesh's sharding context and the captured step: the mesh-less engine's
+bits.
 """
 from __future__ import annotations
 
@@ -34,7 +46,10 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import _tensor_leaves
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.specs import step_layout
 from repro_torch.models import api
+from repro_torch.models.common import DTypePolicy
 from repro_torch.serve.steps import make_decode_step
 
 __all__ = ["Request", "CapturedDecode", "BatchEngine",
@@ -139,31 +154,55 @@ def _clone_tree(tree):
 
 
 class BatchEngine:
-    """``params`` lie on ``device`` already.  The cache is allocated once
-    and every step writes into it (``decode``, a ``CapturedDecode`` of the
-    donated step: one CUDA graph on a CUDA device).  ``prefill_s`` and
-    ``decode_s`` sum the host time of the prompt-stepping decode calls and
-    of the engine's decode steps (each ends reading the next tokens back,
-    so the device work is inside)."""
+    """``params`` lie on ``device`` already (on a mesh, the whole tree on
+    every rank: the engine lays it out).  Without a mesh of more than one
+    rank the cache is allocated once and every step writes into it
+    (``decode``, a ``CapturedDecode`` of the donated step: one CUDA graph
+    on a CUDA device); on one, ``decode`` is the eager sharded step.
+    ``prefill_s`` and ``decode_s`` sum the host time of the
+    prompt-stepping decode calls and of the engine's decode steps (each
+    ends reading the next tokens back, so the device work is inside)."""
 
     def __init__(self, cfg, params, *, batch: int, max_len: int,
                  cache_dtype: torch.dtype = torch.bfloat16,
-                 device: Any = "cuda"):
+                 device: Any = "cuda", mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
         self.batch = batch
         self.max_len = max_len
-        self.cache = api.init_cache(cfg, batch, max_len, dtype=cache_dtype,
-                                    device=self.device)
-        self.decode = CapturedDecode(make_decode_step(cfg, donate=True),
-                                     self.device)
+        self.mesh = mesh
+        self.layout = (None if mesh is None
+                       else step_layout(cfg, "decode", mesh, batch))
+        cache = api.init_cache(cfg, batch, max_len, dtype=cache_dtype,
+                               device=self.device)
+        if self.sharded:
+            p_sh, self._token_sharding, c_sh, _ = self.layout.shardings
+            params = shd.distribute_tree(params, p_sh)
+            cache = shd.distribute_tree(cache, c_sh)
+            self.decode = make_decode_step(cfg)
+        else:
+            self.decode = CapturedDecode(make_decode_step(cfg, donate=True),
+                                         self.device)
+        self.params = params
+        self.cache = cache
         self.pos = np.zeros(batch, np.int32)          # next write index
         self.slots: List[Optional[Request]] = [None] * batch
         self.tokens = np.zeros(batch, np.int32)       # last token per slot
         self.queue: List[Request] = []
         self.prefill_s = self.decode_s = 0.0
         self.prefill_calls = self.decode_steps = 0
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the step runs on ``DTensor``s (a mesh of more than one
+        rank)."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    @property
+    def decode_mode(self) -> str:
+        """"captured" (one CUDA graph a step) or "eager"."""
+        return ("captured" if self.device.type == "cuda"
+                and not self.sharded else "eager")
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -174,15 +213,35 @@ class BatchEngine:
         """The last token of every slot, on the host."""
         return torch.from_numpy(self.tokens.astype(np.int64))
 
+    def _next_tokens(self, tok_vec: torch.Tensor, pos: int) -> np.ndarray:
+        """One decode call: the next token of every row, on the host.  On
+        a mesh the call runs under its sharding context, the tokens laid
+        out over the batch axis and the next ones gathered."""
+        if self.mesh is None:
+            nxt, _, self.cache = self.decode(self.params, tok_vec,
+                                             self.cache, pos)
+            return nxt.cpu().numpy()
+        shd.set_context(self.mesh, self.layout.rules)
+        try:
+            if self.sharded:
+                tok_vec = self._token_sharding.distribute(
+                    tok_vec.to(self.device))
+            nxt, _, self.cache = self.decode(self.params, tok_vec,
+                                             self.cache, pos)
+            if self.sharded:
+                nxt = nxt.full_tensor()
+        finally:
+            shd.clear_context()
+        return nxt.cpu().numpy()
+
     def _prefill_one(self, slot: int, req: Request) -> None:
         """Prefill a single slot by stepping its prompt through decode."""
         t0 = time.perf_counter()
         for tok in req.prompt:
             tok_vec = self._token_vec()
             tok_vec[slot] = int(tok)
-            nxt, _, self.cache = self.decode(
-                self.params, tok_vec, self.cache, int(self.pos[slot]))
-            self.tokens[slot] = int(nxt[slot].item())
+            nxt = self._next_tokens(tok_vec, int(self.pos[slot]))
+            self.tokens[slot] = int(nxt[slot])
             self.pos[slot] += 1
             self.prefill_calls += 1
         self.prefill_s += time.perf_counter() - t0
@@ -205,9 +264,7 @@ class BatchEngine:
         # one position for the whole batch: the largest active one
         t0 = time.perf_counter()
         pos = int(self.pos[active].max())
-        nxt, _, self.cache = self.decode(self.params, self._token_vec(),
-                                         self.cache, pos)
-        nxt = nxt.cpu().numpy()
+        nxt = self._next_tokens(self._token_vec(), pos)
         self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         for s in active:
@@ -233,18 +290,39 @@ def token_serving_summary(arch: str = "zamba2-1.2b", *, full: bool = False,
                           batch: int = 4, max_len: int = 64,
                           prompt_len: int = 8, new_tokens: int = 12,
                           requests: int = 8, seed: int = 0,
-                          device: Any = "cuda") -> dict:
-    """Serve ``requests`` random prompts through a ``BatchEngine`` over
-    random weights from ``seed`` (the bf16 policy; ``full`` for the
-    published widths, else ``reduced()``) and return what it did: requests
-    done and lost, tokens, tokens/s, and the time of the prompt-stepping
-    decode calls (``prefill_ms``) and of the engine's decode steps."""
+                          device: Any = "cuda", mesh=None,
+                          fp32: bool = False,
+                          record_logits: bool = False) -> dict:
+    """Serve ``requests`` random prompts through a ``BatchEngine`` (on
+    ``mesh``, or none) over random weights from ``seed`` (the bf16
+    policy, or fp32 weights and cache with ``fp32``; ``full`` for the
+    published widths, else ``reduced()``) and return what it did:
+    requests done and lost, tokens, tokens/s, the time of the
+    prompt-stepping decode calls (``prefill_ms``) and of the engine's
+    decode steps, the decode mode and the mesh; with ``record_logits``
+    also every decode call's logits, whole, as fp32 numpy arrays
+    (``step_logits``: each call reads them back, which its time then
+    includes)."""
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=not full)
+    policy = DTypePolicy.fp32() if fp32 else None
     params = api.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        cfg, torch.Generator(device=dev).manual_seed(seed),
+        dtype_policy=policy, device=dev)
     engine = BatchEngine(cfg, params, batch=batch, max_len=max_len,
-                         device=dev)
+                         cache_dtype=torch.float32 if fp32
+                         else torch.bfloat16, device=dev, mesh=mesh)
+    del params
+    logits: List[np.ndarray] = []
+    if record_logits:
+        step = engine.decode
+
+        def decode(*args):
+            out = step(*args)
+            lg = out[1].full_tensor() if engine.sharded else out[1]
+            logits.append(lg.float().cpu().numpy())
+            return out
+        engine.decode = decode
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, prompt_len,
                                                dtype=np.int32),
@@ -256,7 +334,7 @@ def token_serving_summary(arch: str = "zamba2-1.2b", *, full: bool = False,
     elapsed = time.perf_counter() - t0
     done = sum(r.done for r in reqs)
     toks = sum(len(r.output) for r in reqs)
-    return {
+    out = {
         "arch": cfg.name, "device": str(dev), "batch": batch,
         "max_len": max_len, "prompt_len": prompt_len,
         "new_tokens": new_tokens, "requests": requests,
@@ -266,5 +344,10 @@ def token_serving_summary(arch: str = "zamba2-1.2b", *, full: bool = False,
         "prefill_ms": 1e3 * engine.prefill_s,
         "decode_steps": engine.decode_steps,
         "decode_step_ms": 1e3 * engine.decode_s / max(engine.decode_steps, 1),
+        "decode": engine.decode_mode,
+        "mesh": None if mesh is None else dict(mesh.shape),
         "outputs": {r.rid: r.output for r in reqs[:3]},
     }
+    if record_logits:
+        out["step_logits"] = logits
+    return out

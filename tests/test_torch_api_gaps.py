@@ -182,7 +182,8 @@ TRAIN_MODULES = [
 ]
 # (module, qualified name, the port's extra trailing parameters)
 TRAIN_FUNCS = [
-    ("optim.adamw", "init_opt_state", ()),
+    # on a mesh, the state's layouts, each leaf laid out as it is made
+    ("optim.adamw", "init_opt_state", ("shardings",)),
     ("optim.adamw", "adamw_update", ()),
     ("optim.adamw", "global_norm", ()),
     ("optim.schedules", "warmup_cosine", ()),
@@ -199,9 +200,11 @@ TRAIN_FUNCS = [
     ("distributed.compression", "ErrorFeedback.init", ()),
     ("distributed.compression", "ErrorFeedback.apply", ()),
     ("train.steps", "make_train_step", ()),
-    # the device the trainer runs on ("cuda" unless the caller asks)
-    ("train.trainer", "Trainer.__init__", ("device",)),
-    ("train.trainer", "Trainer.init_or_restore", ()),
+    # the device the trainer runs on ("cuda" unless the caller asks) and
+    # the mesh it trains on (ROADMAP 4f.3)
+    ("train.trainer", "Trainer.__init__", ("device", "mesh")),
+    # on a mesh, the batch rows the trees are laid out for
+    ("train.trainer", "Trainer.init_or_restore", ("rows",)),
     ("train.trainer", "Trainer.run", ()),
     ("train.evaluate", "evaluate", ()),
     ("train.evaluate", "make_eval_step", ()),

@@ -72,7 +72,7 @@ def test_port_imports_where_jax_cannot_load():
         "                                  plan_check, report)\n"
         "from repro_torch import convert\n"
         "from repro_torch import op_cost, roofline\n"
-        "from repro_torch.distributed import dtensor\n"
+        "from repro_torch.distributed import dtensor, hostgloo\n"
         "from repro_torch.launch import dryrun\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # no process group started\n"

@@ -19,7 +19,19 @@ fp32 on DTensors (``distribute_tree``) over a 1x2 and a 2x1 mesh: the
 ``lm_loss`` of ``lm_batch``, a greedy decode step from the cache of
 ``lm_prefill`` with the cache's sequence split over the data axis
 (``seq_shard_kv``), and one train step (``make_train_step``) with its
-optimizer state in the ZeRO-1 layout.
+optimizer state in the ZeRO-1 layout.  ``collectives``: every
+collective of ``distributed/hostgloo.py``'s group on host tensors
+(``card_collectives``: on the card's, over the world group, which is
+that group where ranks share a card).
+``lm_entry``: the same families
+through the port's entry points on a 1x2 and a 2x1 mesh, fp32, from the
+JAX package's weights (the step-0 checkpoint ``jax0_<arch>`` in DIR):
+``Trainer(mesh=)`` for ``ENTRY_STEPS`` steps checkpointing every step,
+a restart from its step-2 checkpoint, ``BatchEngine(mesh=)`` over
+``entry_requests``, ``make_prefill_step`` on ``DTensor``s, both
+launchers with ``--mesh``, a checkpoint that rank 0 alone writes, a
+SIGTERM to rank 1 alone, and a plain tensor's step under the two-rank
+context.
 """
 import pathlib
 import sys
@@ -219,13 +231,254 @@ def _lm_case(out):
             out[f"next_{tag}"] = nxt.full_tensor().numpy()
 
 
+ENTRY_STEPS = 3
+ENTRY_BATCH, ENTRY_SEQ, ENTRY_DATA_SEED = 2, 16, 7
+ENTRY_MAX_LEN = 16
+ENTRY_SPECS = ((5, 4), (3, 5), (4, 3))   # (prompt length, new tokens)
+ENTRY_PREFILL = 8                        # prompt tokens of the prefill step
+
+
+def entry_data(cfg):
+    """The ``lm_entry`` trainer's pipeline: 2 x 16 tokens a step."""
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab=cfg.vocab, seq_len=ENTRY_SEQ,
+                      global_batch=ENTRY_BATCH, seed=ENTRY_DATA_SEED)
+
+
+def entry_prompts(cfg):
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+            for n, _ in ENTRY_SPECS]
+
+
+def entry_params(cfg, d, arch):
+    """The JAX package's fp32 weights, from its step-0 checkpoint."""
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.models import api
+    from repro_torch.models.common import DTypePolicy
+    like = {"params": api.init_params(cfg, dtype_policy=DTypePolicy.fp32(),
+                                      device="cpu")}
+    return restore_checkpoint(str(d / f"jax0_{arch}"), like)[0]["params"]
+
+
+def entry_trainer(cfg, mesh, directory, total):
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(cfg, TrainerConfig(total_steps=total,
+                                      ckpt_dir=str(directory), ckpt_every=1,
+                                      log_every=1),
+                   data_cfg=entry_data(cfg), device="cpu", mesh=mesh)
+
+
+def serve_entry(engine, cfg):
+    """The ``ENTRY_SPECS`` requests over ``entry_prompts`` through
+    ``engine``: the served tokens of each."""
+    from repro_torch.serve.engine import Request
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+            for i, (p, (_, n)) in enumerate(zip(entry_prompts(cfg),
+                                                ENTRY_SPECS))]
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    assert all(r.done for r in reqs)
+    return [r.output for r in reqs]
+
+
+def _recorded(engine, calls):
+    """``engine`` with every decode call's logits (gathered whole on a
+    mesh) appended to ``calls``."""
+    step = engine.decode
+
+    def decode(*args):
+        out = step(*args)
+        lg = out[1]
+        calls.append((lg.full_tensor() if engine.sharded else lg).numpy())
+        return out
+    engine.decode = decode
+    return engine
+
+
+def collective_input(rank):
+    """Rank ``rank``'s operand of the ``collectives`` case."""
+    return torch.arange(8.0) + 10 * rank
+
+
+def _collectives_case(out, rank, device):
+    """Each collective of ``distributed/hostgloo.py``'s group on ``device``
+    tensors: on the CPU over a group of that backend made beside the
+    world's, on a card over the world group (the staged one there)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.hostgloo import register
+    group = dist.new_group(backend=register()) if device == "cpu" else None
+    x = collective_input(rank).to(device)
+
+    def keep(name, t):
+        out[f"coll_{name}"] = t.float().cpu().numpy()
+    for name, op in (("sum", dist.ReduceOp.SUM), ("avg", dist.ReduceOp.AVG),
+                     ("max", dist.ReduceOp.MAX)):
+        y = x.clone()
+        # the first collective under inference mode, the rest outside:
+        # the staging buffers it makes serve both
+        with torch.inference_mode(name == "sum"):
+            dist.all_reduce(y, op=op, group=group)
+        keep(name, y)
+    y = x.to(torch.bfloat16)
+    dist.all_reduce(y, group=group)
+    keep("sum_bf16", y)
+    o = torch.empty(16, device=device)
+    dist.all_gather_into_tensor(o, x, group=group)
+    keep("gather", o)
+    o = torch.empty(4, device=device)
+    dist.reduce_scatter_tensor(o, x, group=group)
+    keep("scatter", o)
+    y = x.clone()
+    dist.broadcast(y, 1, group=group)
+    keep("bcast", y)
+    o = torch.empty(8, device=device)
+    dist.all_to_all_single(o, x, group=group)
+    keep("a2a", o)
+    # the list form runs the tensor form inside: counted once, as itself
+    stats = (group if group is not None else dist.group.WORLD).stats
+    before = dict(stats["by_op"]), stats["calls"]
+    o = torch.empty(4, device=device)
+    dist.reduce_scatter(o, list(x.split(4)), group=group)
+    keep("scatter_list", o)
+    out["coll_counted"] = np.array(
+        [stats["calls"] - before[1]]
+        + [stats["by_op"].get(k, 0) - before[0].get(k, 0)
+           for k in ("reduce_scatter", "reduce_scatter_single")])
+    if group is not None:
+        dist.destroy_process_group(group)
+
+
+def _lm_entry_case(out, d, rank):
+    import os
+    import shutil
+    import signal
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import latest_step, save_checkpoint
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.mapping import PartitionSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.dtensor import is_dtensor
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import step_layout
+    from repro_torch.models import api
+    from repro_torch.serve.engine import BatchEngine
+    from repro_torch.serve.steps import make_prefill_step
+    from repro_torch.tree import leaves, leaves_with_path
+
+    def key(path):
+        return "__".join(map(str, path))
+
+    for data, model in LM_MESHES:
+        mesh = make_local_mesh(data, model, device="cpu")
+        shape = f"{data}x{model}"
+        # a DTensor tree's checkpoint: rank 0 alone writes
+        solo = d / f"solo_{shape}_r{rank}"
+        x = shd.NamedSharding(mesh, PartitionSpec(
+            "data" if data > 1 else "model")).distribute(torch.arange(8.0))
+        save_checkpoint(str(solo), 7, {"x": x})
+        out[f"solo_{shape}"] = np.array(solo.exists())
+        # both launchers on the mesh (the group is already running)
+        # (rank 0 alone keeps the history: the other rank's loss is None)
+        loss = train_launcher.main(
+            ["--arch", "qwen3-4b", "--device", "cpu", "--steps", "2",
+             "--batch", "2", "--seq", "16", "--mesh", shape])["last_loss"]
+        out[f"train_launcher_{shape}"] = np.array(
+            np.nan if loss is None else loss)
+        summary = serve_launcher.main(
+            ["--arch", "zamba2-1.2b", "--device", "cpu", "--batch", "2",
+             "--max-len", "16", "--prompt-len", "3", "--new-tokens", "3",
+             "--requests", "3", "--mesh", shape])
+        out[f"serve_launcher_{shape}"] = np.array(
+            [summary["requests_done"], summary["requests_lost"],
+             summary["tokens"], summary["decode"] == "eager"])
+        for arch in LM_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            tag = f"{shape}_{arch}"
+            whole, again = d / f"whole_{tag}", d / f"again_{tag}"
+            if rank == 0:
+                shutil.copytree(d / f"jax0_{arch}", whole)
+            dist.barrier()
+            tr = entry_trainer(cfg, mesh, whole, ENTRY_STEPS)
+            p, o = tr.run()
+            out[f"losses_{tag}"] = np.array([h["loss"] for h in tr.history])
+            for path, leaf in leaves_with_path({"params": p, "opt": o}):
+                out[f"final_{tag}/{key(path)}"] = leaf.full_tensor().numpy()
+            # a restart from the step-2 checkpoint
+            if rank == 0:
+                again.mkdir()
+                shutil.copytree(whole / "step_000000002",
+                                again / "step_000000002")
+            dist.barrier()
+            tr2 = entry_trainer(cfg, mesh, again, ENTRY_STEPS)
+            p2, o2 = tr2.run()
+            out[f"restart_{tag}"] = np.array(all(
+                is_dtensor(a) and torch.equal(a.to_local(), b.to_local())
+                for a, b in zip(leaves((p2, o2)), leaves((p, o)))))
+            out[f"restart_losses_{tag}"] = np.array(
+                [h["loss"] for h in tr2.history])
+            # serving and the prefill step from the JAX weights
+            params = entry_params(cfg, d, arch)
+            calls = []
+            eng = _recorded(BatchEngine(cfg, params, batch=ENTRY_BATCH,
+                                        max_len=ENTRY_MAX_LEN,
+                                        cache_dtype=torch.float32,
+                                        device="cpu", mesh=mesh), calls)
+            for i, toks in enumerate(serve_entry(eng, cfg)):
+                out[f"served_{tag}_{i}"] = np.array(toks)
+            out[f"served_logits_{tag}"] = np.stack(calls)
+            out[f"decode_mode_{tag}"] = np.array(eng.decode_mode)
+            lay = step_layout(cfg, "prefill", mesh, ENTRY_BATCH)
+            p_sh, b_sh, c_sh = lay.shardings
+            toks = lm_batch(cfg)["tokens"][:, :ENTRY_PREFILL]
+            cache = api.init_cache(cfg, ENTRY_BATCH, ENTRY_MAX_LEN,
+                                   dtype=torch.float32, device="cpu")
+            shd.set_context(mesh, lay.rules)
+            try:
+                _, logits, _ = make_prefill_step(cfg)(
+                    shd.distribute_tree(params, p_sh),
+                    shd.distribute_tree({"tokens": toks}, b_sh),
+                    shd.distribute_tree(cache, c_sh))
+            finally:
+                shd.clear_context()
+            out[f"prefill_{tag}"] = logits.full_tensor().numpy()
+        # a SIGTERM to rank 1 alone stops both ranks after the same step
+        cfg = get_config("qwen3-4b", reduced=True)
+        stop_dir = d / f"preempt_{shape}"
+        if rank == 0:
+            shutil.copytree(d / "jax0_qwen3-4b", stop_dir)
+        dist.barrier()
+        tr = entry_trainer(cfg, mesh, stop_dir, ENTRY_STEPS)
+        if rank == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        tr.run()
+        out[f"preempt_{shape}"] = np.array(
+            [latest_step(str(stop_dir)), len(tr.history)])
+        # a plain tensor's step under the two-rank context raises
+        shd.set_context(mesh, shd.make_rules(cfg, mesh))
+        try:
+            api.lm_loss(lm_params(cfg), cfg, lm_batch(cfg))
+            raised = False
+        except NotImplementedError:
+            raised = True
+        finally:
+            shd.clear_context()
+        out[f"plain_raises_{shape}"] = np.array(raised)
+
+
 def rank_main(rank, world, port, d, cases):
     import torch.distributed as dist
     from repro_torch.launch.mesh import start_process_group
     torch.set_num_threads(1)
     d = pathlib.Path(d)
-    start_process_group(rank, world, port, device="cpu")
+    device = "cuda" if "card_collectives" in cases else "cpu"
+    start_process_group(rank, world, port, device=device)
     out = {}
+    if "collectives" in cases or "card_collectives" in cases:
+        _collectives_case(out, rank, device)
     shapes = [(2, 1), (1, 2)] if world == 2 else [(2, 2)]
     if "serve" in cases:
         _serving_cases(out, d, shapes)
@@ -235,6 +488,8 @@ def rank_main(rank, world, port, d, cases):
         _pipeline_case(out, d, world)
     if "lm" in cases:
         _lm_case(out)
+    if "lm_entry" in cases:
+        _lm_entry_case(out, d, rank)
     np.savez(d / f"rank{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
