@@ -271,12 +271,12 @@ Phases (any failed check raises, and the script exits non-zero):
     update), the first step's first moment within 1e-4 of each leaf's
     max|mu|, its new parameters within 2·lr and within what that error
     can move them; and ``token_serving_summary(mesh=)`` against the
-    mesh-less engine: fp32 (B=4, 8 requests, 8-token prompts, 12 new
+    mesh-less engine: fp32 (B=4, 8 requests, 4-token prompts, 12 new
     tokens) every decode call's logits within 1e-5·max|logits| and every
     next token equal (a one-rank top-2 gap under that bound is reported
-    as a tie and its row compared no further), bf16 (4 requests, 2 new
-    tokens) the first call's logits within 3e-2·max(1, max|logits|), 0
-    lost.  The dry-run's cells run on the
+    as a tie and its row compared no further), bf16 (4 requests, 2-token
+    prompts, 2 new tokens) the first call's logits within 3e-2·max(1,
+    max|logits|), 0 lost.  The dry-run's cells run on the
     host's cores meanwhile.  Images/s, step ms, peak GiB, decode ms and
     each rank's kernel launches and collectives are printed; two ranks
     on one card measure no scale-out.
@@ -293,6 +293,32 @@ Phases (any failed check raises, and the script exits non-zero):
     fraction beside the step ms measured in this run, and MFU = model
     flops / (step s x 989 TFLOP/s), with the card's name and power limit
     on the same line.  Neither phase launches a kernel (checked).
+16i. ``[elastic]``, the elastic restart (``examples/torch_elastic_
+    restart.py``), right after 16f's two ranks have exited: (a) the
+    example at its defaults on the card in a process of its own (reduced
+    qwen3-4b, 30 steps with checkpoints, rank 217 of 512 declared dead,
+    the (16, 16) plan for 508 devices, a fresh ``Trainer`` to step 60),
+    rc 0, the JAX demo's dead-rank, plan and ``OK`` lines word for word
+    and its loss falling, with its seconds; (b) the survivor of 16f's
+    2x1 zamba2-1.2b run (published config, bf16, B=4 x 1024, remat
+    full): the example's ``HeartbeatMonitor`` phase over both ranks'
+    beats of that run, rank 1 silent after step 2, must declare [1] dead;
+    ``solve_elastic_mesh(1, 1, 4, max_per_device_batch=2)`` must give
+    mesh (1, 1), per-device batch 2, accumulation 2; then this process
+    builds ``make_local_mesh(1, 1)`` and the example's fresh ``Trainer``
+    (``n_micro`` 2, remat full), which restores the two ranks' step-1
+    checkpoint and runs step 2: its loss within 1e-5·|loss| of the two
+    ranks' step 2, its first moment within 5e-2 of each leaf's max|mu| of
+    their step-2 checkpoint, each fp32 master weight within the cut fp32
+    step's bound (``cut_param_tol``) for that moment's error and each
+    bf16 parameter within that plus one bf16 step (bf16 at full width:
+    one rank's whole-batch step from the same state, run first for the
+    scale, lands 0.23 of max|mu| away, and the survivor's moment
+    must be nearer than its), the AdamW step 2, every parameter and
+    moment finite, and 228 conv1d
+    launches in the step (38 forward, 38 recomputed, 38 dx for each of
+    the two microbatches) and no other kernel's.  Restore seconds, step
+    ms and peak GiB are printed with the card's name and power limit.
 17. The fold-attention op at zamba2's shared-attention shape (no model
     calls it), then both LM kernels timed at the prefill cell's shapes
     (the conv1d on its vector path and on its scalar path),
@@ -324,8 +350,9 @@ captures), 12g (the per-layer VGG-16 path), 14-16 (the LM path), 16b
 none either: every kernel's count), 16d (training: the conv1d kernel
 only, forward and backward), 16e (the fold convs' gradients), 16f (the
 scale-out path: the parent's one-rank phases, and each rank's own
-counts, reported by its process), 16g-16h (the dry-run and the roofline:
-none), 17 (the attention op).  The second-to-last
+counts, reported by its process), 16i (the survivor's restart step:
+the conv1d kernel only), 16g-16h (the dry-run and the roofline: none),
+17 (the attention op).  The second-to-last
 line is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.  Details
 (per-layer times, serving metrics, the compiler's resource report and
 the registers and spills of every fold_conv instance) go to
@@ -4892,16 +4919,23 @@ def pipe_inputs(torch, dev):
 
 # [mesh lm] on two ranks: zamba2-1.2b at its published config through
 # Trainer(mesh=) and token_serving_summary(mesh=)
-MESH_LM_SHAPES = ((2, 1), (1, 2))
+# 1x2 first: its checkpoints are gone before 2x1 writes the ones
+# [elastic] restores (the disk never holds more than two of these
+# 15.3 GiB checkpoints at once)
+MESH_LM_SHAPES = ((1, 2), (2, 1))
 MESH_TRAIN_STEPS = 2                # the restart saves after step 1
 MESH_CUT_B, MESH_CUT_T = 2, 256     # the fp32 step, depth cut
 MESH_CUT_SEED = SEED + 82
 MESH_CUT_LR = 1e-3
-MESH_SERVE = {"batch": 4, "max_len": 64, "prompt_len": 8,
+# each prompt token is a decode call (the engine steps prompts through
+# decode) of up to ~1 s on 1x2: 4-token prompts, two waves of requests
+# (8-token ones took the smoke past 1050 s once [elastic] ran too)
+MESH_SERVE = {"batch": 4, "max_len": 64, "prompt_len": 4,
               "new_tokens": 12, "requests": 8}
-# bf16 is held on its first call alone: one batch of requests, 2 new tokens
+# bf16 is held on its first call alone: one batch of requests, 2-token
+# prompts, 2 new tokens
 MESH_SERVE_BY_DTYPE = {"float32": MESH_SERVE,
-                       "bfloat16": dict(MESH_SERVE, requests=4,
+                       "bfloat16": dict(MESH_SERVE, requests=4, prompt_len=2,
                                         new_tokens=2)}
 MESH_SERVE_SEED = SEED + 83
 TOL_MESH_LOSS = 1e-2                # bf16 two-rank loss vs one rank
@@ -4975,7 +5009,7 @@ def staged_collectives(mesh):
             sum(st["seconds"] for st in stats))
 
 
-def mesh_lm_train(torch, dev, mesh, ckpt_dir):
+def mesh_lm_train(torch, dev, mesh, ckpt_dir, keep=False):
     """zamba2-1.2b's [train] setup (published config, bf16 compute and
     fp32 master, B=4 x 1024, remat full, the seeded weights) through
     ``Trainer(mesh=)`` for ``MESH_TRAIN_STEPS`` steps, each timed between
@@ -4983,7 +5017,9 @@ def mesh_lm_train(torch, dev, mesh, ckpt_dir):
     before, read just after); the peak device memory; then the restart:
     a mesh ``Trainer`` that checkpoints after step 1 into ``ckpt_dir``
     and a fresh one that restores there and runs step 2, each rank's
-    shards bitwise the uninterrupted run's."""
+    shards bitwise the uninterrupted run's.  ``keep``: leave both
+    checkpoints in ``ckpt_dir`` (for [elastic]), else rank 0 removes
+    them."""
     import shutil
     import torch.distributed as dist
     from repro_torch.train.steps import make_train_step
@@ -5036,7 +5072,7 @@ def mesh_lm_train(torch, dev, mesh, ckpt_dir):
     del p, o, ref
     _free(torch)
     dist.barrier()
-    if dist.get_rank() == 0:
+    if dist.get_rank() == 0 and not keep:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {"losses": [h["loss"] for h in hist],
             "grad_norms": [h["grad_norm"] for h in hist],
@@ -5181,7 +5217,8 @@ def mesh_lm_serve(torch, dev, mesh, out_dir):
 
 def mesh_lm_rank(torch, dev, out_dir):
     """The LM part of a rank of the two-rank phases: on 2x1 and 1x2,
-    zamba2-1.2b training (``mesh_lm_train``), the fp32 step at cut depth
+    zamba2-1.2b training (``mesh_lm_train``; the ``ELASTIC_FROM`` run's
+    checkpoints kept for [elastic]), the fp32 step at cut depth
     (``mesh_lm_cut``) and serving (``mesh_lm_serve``)."""
     from repro_torch.launch.mesh import make_local_mesh
     out = {}
@@ -5190,7 +5227,8 @@ def mesh_lm_rank(torch, dev, out_dir):
         key = f"{data}x{model}"
         t0 = time.perf_counter()
         out[key] = {"train": mesh_lm_train(torch, dev, mesh,
-                                           out_dir / f"ckpt_{key}"),
+                                           out_dir / f"ckpt_{key}",
+                                           keep=key == ELASTIC_FROM),
                     "cut": mesh_lm_cut(torch, dev, mesh),
                     "serve": mesh_lm_serve(torch, dev, mesh, out_dir)}
         out[key]["seconds"] = time.perf_counter() - t0
@@ -5459,6 +5497,304 @@ def report_mesh_lm(ranks, serve_refs, first_loss):
                 check(all(x["max_err"] <= TOL_MESH_BF16 for x in sv),
                       f"mesh lm serve bf16 {key}: first logits off")
         out[key] = {"seconds": [r["seconds"] for r in rows]}
+    return out
+
+
+# --------------------------------------------------------------------------
+# [elastic]: the elastic restart (examples/torch_elastic_restart.py)
+# --------------------------------------------------------------------------
+
+ELASTIC_EXAMPLE = ROOT / "examples" / "torch_elastic_restart.py"
+ELASTIC_EXAMPLE_TIMEOUT_S = 300
+# the JAX demo's lines (examples/elastic_restart.py), word for word
+ELASTIC_LINES = ("heartbeat monitor: dead ranks = [217]",
+                 "elastic plan: mesh (16, 16) (256 of 508 devices, 252 "
+                 "idle), per-device batch 16 x accum 1",
+                 "OK: survived the failure with exact data-cursor resume")
+ELASTIC_LOSS_LINE = " across failure + re-mesh + restart"
+ELASTIC_FROM = "2x1"                # the two-rank run whose rank 1 dies
+ELASTIC_DEAD = 1
+ELASTIC_MAX_PER_DEVICE = 2          # the survivor's rows a microbatch
+ELASTIC_TIMEOUT_STEPS = 3           # the monitor's timeout: slowest steps
+# the survivor's first moment after step 2 against the two ranks', of
+# each leaf's max|mu|, and the error it allows the parameters
+# (``cut_param_tol`` with dmu = TOL_ELASTIC_MU·max|mu|): bf16 at full
+# width, where the same step from the same weights parts by far more
+# than the fp32 cut step's TOL_MESH_MU.  [elastic] prints the scale: one
+# rank's whole-batch step from the same state (0.23 on an H100,
+# PERF.md), against the survivor's, whose two microbatches have the
+# ranks' shapes (2.95e-2)
+TOL_ELASTIC_MU = 5e-2
+
+
+def elastic_example():
+    """``examples/torch_elastic_restart.py`` as a module: its phases."""
+    sys.path.insert(0, str(ELASTIC_EXAMPLE.parent))
+    return importlib.import_module(ELASTIC_EXAMPLE.stem)
+
+
+def phase_elastic_example(args=()):
+    """(a) The example at its defaults (the card) in a process of its
+    own: rc 0, the JAX demo's dead-rank, plan and ``OK`` lines and one
+    loss line whose loss fell.  Returns its lines and seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ELASTIC_EXAMPLE), *args],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=ELASTIC_EXAMPLE_TIMEOUT_S,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"elastic example: rc {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    loss = [ln for ln in lines if ln.startswith("loss ")
+            and ln.endswith(ELASTIC_LOSS_LINE)]
+    check(len(loss) == 1, f"elastic example: loss lines {loss}")
+    first, last = (float(x) for x in loss[0].split()[1:4:2])
+    for want in ELASTIC_LINES:
+        check(want in lines, f"elastic example: no line {want!r}")
+    check(last < first, f"elastic example: loss {first} -> {last}")
+    shown = [ln for ln in lines if ln in ELASTIC_LINES[:2]] + loss + \
+        [ELASTIC_LINES[2]]
+    for ln in shown:
+        print(f"[elastic] (a) {ln}")
+    print(f"[elastic] (a) examples/torch_elastic_restart.py on the card "
+          f"(reduced qwen3-4b, 8 x 48, 30 + 30 steps): rc 0 in "
+          f"{seconds:.1f} s")
+    return {"lines": shown, "seconds": seconds, "first_loss": first,
+            "last_loss": last}
+
+
+def elastic_beats(runs):
+    """The two-rank run's beats, (seconds, rank, step): each rank beats
+    after each of its steps, on the clock of its summed step times."""
+    beats = []
+    for rank, tr in enumerate(runs):
+        t = 0.0
+        for i, ms in enumerate(tr["step_ms"]):
+            t += ms / 1e3
+            beats.append((t, rank, i + 1))
+    return beats
+
+
+def elastic_param_bound(torch, got, want, mu, adam):
+    """(the worst error over its bound of a new fp32 master leaf against
+    the two-rank run's, the worst over that bound plus one bf16 step of
+    |p| for its bf16 parameter, whether that parameter is bitwise, the
+    master's worst error over the fp32 cut step's bound): ``got`` and
+    ``want`` are (master, parameter) pairs, ``mu`` the two-rank run's
+    first moment.  The bound is ``cut_param_tol``'s, ``1e-6 + 1e-5·|p| +
+    2·lr·dg/(|g| + eps)``, the first moment's error ``TOL_ELASTIC_MU``
+    of the leaf's max|mu| (the fp32 cut step's: ``TOL_MESH_MU``)."""
+    top = max(float(mu.abs().max()), 1e-30)
+    strict = cut_param_tol(torch, want[0], mu, TOL_MESH_MU * top, adam)
+    tol = cut_param_tol(torch, want[0], mu, TOL_ELASTIC_MU * top, adam)
+    err = (got[0] - want[0]).abs()
+    p, q = got[1].float(), want[1].float()
+    param = float(((p - q).abs() / (tol + BF16_STEP * q.abs())).max())
+    return (float((err / tol).max()), param,
+            bool(torch.equal(got[1], want[1])), float((err / strict).max()))
+
+
+def phase_elastic_restart(torch, dev, out_dir, ranks, smi):
+    """(b) Rank 1 of the [mesh lm] ``ELASTIC_FROM`` run dies after step
+    2: ``HeartbeatMonitor`` (the example's phase 2) gets both ranks' beats
+    of that run, then rank 1 stops beating; ``solve_elastic_mesh`` plans
+    the one survivor (TP 1, the global batch of 4 as 2 x 2); with both
+    rank processes gone, this process's ``restart_trainer`` (the
+    example's phase 4) builds ``make_local_mesh(1, 1)`` and a fresh
+    ``Trainer`` with ``n_micro = grad_accum`` that restores the two
+    ranks' step-1 checkpoint and runs step 2.  The two ranks' step-2
+    checkpoint, the reference, is read into host memory first and
+    removed (the disk never holds more than two of them at once).  For
+    the scale of bf16's spread, one rank's whole-batch step runs first
+    from the same restored state (neither timed nor counted).
+    Held against the two-rank run's step 2: the loss within
+    ``TOL_MESH_FP32·|loss|`` of its fresh mesh Trainer's; the first
+    moment within ``TOL_ELASTIC_MU`` of each leaf's max|mu| of its
+    checkpoint, each fp32 master weight within ``elastic_param_bound``
+    and each bf16 parameter within that plus one bf16 step, and the
+    first moment nearer to the ranks' than the whole-batch step's; the
+    AdamW step 2; every parameter and moment finite; the step's kernel
+    launches, counted from 0 just before it, the conv1d kernel's
+    ``grad_accum`` x [train]'s a step and no other kernel's."""
+    import shutil
+    from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.kernels import conv2d_ws as cw
+    from repro_torch.kernels import dense as dn
+    from repro_torch.models import api
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+    cc = importlib.import_module("repro_torch.kernels.conv1d_causal")
+    af = importlib.import_module("repro_torch.kernels.attention_fold")
+    counted = (cw, dn, cc, af)
+    ex = elastic_example()
+    cfg, data, opt = train_setup()
+    runs = [r["lm"][ELASTIC_FROM]["train"] for r in ranks]
+    # the control plane, sized to the card: a timeout of a few steps
+    slowest = max(ms for tr in runs for ms in tr["step_ms"]) / 1e3
+    timeout = ELASTIC_TIMEOUT_STEPS * slowest
+    dead = ex.phase_control_plane(n_ranks=len(runs), dead_rank=ELASTIC_DEAD,
+                                  step=MESH_TRAIN_STEPS, timeout_s=timeout,
+                                  beats=elastic_beats(runs))
+    print(f"[elastic] (b) heartbeat monitor over the {ELASTIC_FROM} run's "
+          f"beats ({len(runs)} ranks, timeout {timeout:.1f} s = "
+          f"{ELASTIC_TIMEOUT_STEPS} of its slowest steps), rank "
+          f"{ELASTIC_DEAD} silent after step {MESH_TRAIN_STEPS}: dead ranks "
+          f"= {dead}")
+    check(dead == [ELASTIC_DEAD], f"elastic: dead ranks {dead}")
+    plan = ex.replan(available=len(runs) - 1, model_parallel=1,
+                     global_batch=data.global_batch,
+                     max_per_device_batch=ELASTIC_MAX_PER_DEVICE)
+    print(f"[elastic] (b) {ex.plan_line(plan, available=len(runs) - 1)}")
+    check(plan.mesh_shape == (1, 1) and plan.per_device_batch == 2
+          and plan.grad_accum == 2, f"elastic: plan {plan}")
+    # the reference into host memory, its files off the disk: the
+    # survivor restores the newest checkpoint left, step 1
+    src = out_dir / f"ckpt_{ELASTIC_FROM}"
+    check(latest_step(str(src)) == MESH_TRAIN_STEPS, "elastic: the "
+          f"{ELASTIC_FROM} run left no step-{MESH_TRAIN_STEPS} checkpoint")
+    zeros = tree_map(lambda t: 0, api.init_params(cfg, abstract=True))
+    t0 = time.perf_counter()
+    ref = restore_checkpoint(str(src), {"params": zeros, "opt": {
+        "master": zeros, "mu": zeros, "step": 0}}, step=MESH_TRAIN_STEPS)[0]
+    ref_s = time.perf_counter() - t0
+    shutil.rmtree(src / f"step_{MESH_TRAIN_STEPS:09d}")
+    check(latest_step(str(src)) == MESH_TRAIN_STEPS - 1,
+          "elastic: no step-1 checkpoint of the two ranks")
+    _free(torch)
+    tr = ex.restart_trainer(plan, cfg, data, opt, str(src), dev,
+                            total_steps=MESH_TRAIN_STEPS, ckpt_every=1,
+                            log_every=1, mesh=True, seed=TRAIN_SEED,
+                            remat=TRAIN_REMAT)
+    step, rec = tr.step_fn, {}
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize(dev)
+        rec["restore_s"] = time.perf_counter() - t0
+        # the scale of bf16's spread: one rank's whole-batch step from the
+        # same state (its moments and masters kept on the host)
+        whole = make_train_step(cfg, opt, remat=TRAIN_REMAT)(
+            params, opt_state, batch)[1]
+        rec["whole"] = {k: [t.cpu() for t in leaves(whole[k])]
+                        for k in ("mu", "master")}
+        del whole
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for mod in counted:
+            mod.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = step(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        rec["ms"] = 1e3 * (time.perf_counter() - t1)
+        rec["launches"] = {k: n for mod in counted
+                           for k, n in mod.launch_counts().items() if n}
+        return out
+    tr.step_fn = timed
+    # the two ranks' algorithms: the step repeats bit for bit
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        p, o = tr.run()
+        run_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    h = tr.history[0]
+    want_loss = runs[0]["restart_losses"][-1]
+    loss_err = abs(h["loss"] - want_loss) / abs(want_loss)
+    worst = dict.fromkeys(("master", "param", "strict", "mu",
+                           "whole_master", "whole_mu"), 0.0)
+    where = {}
+    bitwise = 0
+
+    def mu_err(got, want):
+        return float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+    for (path, a), b, am, bm, mu, bmu, wm, wmu in zip(
+            leaves_with_path(p), leaves(ref["params"]), leaves(o["master"]),
+            leaves(ref["opt"]["master"]), leaves(o["mu"]),
+            leaves(ref["opt"]["mu"]), rec["whole"]["master"],
+            rec["whole"]["mu"]):
+        bm, b, bmu = bm.to(dev), b.to(dev), bmu.to(dev)
+        m, q, same, st = elastic_param_bound(torch, (am, a), (bm, b), bmu,
+                                             opt)
+        wm = elastic_param_bound(torch, (wm.to(dev), a), (bm, b), bmu,
+                                 opt)[0]
+        for k, v in (("master", m), ("param", q), ("strict", st),
+                     ("mu", mu_err(mu, bmu)), ("whole_master", wm),
+                     ("whole_mu", mu_err(wmu.to(dev), bmu))):
+            if v > worst[k]:
+                worst[k], where[k] = v, "/".join(map(str, path))
+        bitwise += same
+    n_leaves = len(leaves(p))
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in leaves((p, o["mu"], o["nu"], o["master"])))
+    adam_step = int(o["step"])
+    ref_step = int(ref["opt"]["step"])
+    del p, o, ref
+    _free(torch)
+    want = plan.grad_accum * train_conv1d_launches(cfg)
+    n = rec["launches"].get(cc.KERNEL, 0)
+    out = {"dead": dead, "timeout_s": timeout,
+           "plan": {"mesh_shape": list(plan.mesh_shape),
+                    "per_device_batch": plan.per_device_batch,
+                    "grad_accum": plan.grad_accum},
+           "restore_s": rec["restore_s"], "step_ms": rec["ms"],
+           "save_s": run_s - rec["restore_s"] - rec["ms"] / 1e3,
+           "reference_read_s": ref_s, "peak_gib": peak, "loss": h["loss"],
+           "loss_two_ranks": want_loss, "loss_rel_err": loss_err,
+           "grad_norm": h["grad_norm"],
+           "grad_norm_two_ranks": runs[0]["grad_norms"][-1],
+           "master_err_over_tol": worst["master"],
+           "param_err_over_tol": worst["param"],
+           "master_err_over_pr30_tol": worst["strict"],
+           "mu_rel_err": worst["mu"],
+           "whole_batch_mu_rel_err": worst["whole_mu"],
+           "whole_batch_master_err_over_tol": worst["whole_master"],
+           "worst_leaves": where,
+           "params_bitwise": bitwise,
+           "leaves": n_leaves, "finite": finite, "adam_step": adam_step,
+           "launches": rec["launches"], "conv1d_launches": n}
+    print(f"[elastic] (b) survivor restart of {ZAMBA} (bf16, remat "
+          f"{TRAIN_REMAT}, B={TRAIN_B} x {TRAIN_T} as {plan.grad_accum} x "
+          f"{plan.per_device_batch}) on make_local_mesh(1, 1) from the "
+          f"{ELASTIC_FROM} run's step-1 checkpoint: restore "
+          f"{rec['restore_s']:.2f} s, step 2 {rec['ms']:.1f} ms, its "
+          f"checkpoint {out['save_s']:.2f} s, peak {peak:.2f} GiB; {smi}")
+    print(f"[elastic] (b) step-2 loss {h['loss']:.6f} against the two "
+          f"ranks' {want_loss:.6f} ({loss_err:.3e} of |loss|), grad norm "
+          f"{h['grad_norm']:.5f} against {out['grad_norm_two_ranks']:.5f}; "
+          f"against their step-2 checkpoint (read in {ref_s:.2f} s, step "
+          f"{ref_step}): first moment within {worst['mu']:.3e} of each "
+          f"leaf's max|mu|, fp32 master within {worst['master']:.3e} of "
+          f"the bound ({worst['strict']:.3e} of the fp32 one; worst "
+          f"leaves {where}), bf16 "
+          f"parameters within {worst['param']:.3e} of it plus one bf16 "
+          f"step ({bitwise} of {n_leaves} leaves bitwise); one rank's "
+          f"whole-batch step from the same state: first moment within "
+          f"{worst['whole_mu']:.3e}, masters {worst['whole_master']:.3e} "
+          f"of the bound; AdamW step "
+          f"{adam_step}; every parameter and moment finite: {finite}; "
+          f"kernel launches in the step {rec['launches']} ({n} conv1d, "
+          f"{want} expected: {cfg.n_layers} forward + {cfg.n_layers} "
+          f"recomputed + {cfg.n_layers} dx a microbatch)")
+    check(loss_err <= TOL_MESH_FP32, f"elastic: step-2 loss {h['loss']} "
+          f"vs the two ranks' {want_loss}")
+    check(worst["mu"] <= TOL_ELASTIC_MU, f"elastic: the survivor's first "
+          f"moment is {worst['mu']} of max|mu| off the two ranks'")
+    check(worst["mu"] < worst["whole_mu"], "elastic: the survivor's step, "
+          "split as the ranks split the batch, is no nearer to theirs than "
+          "one rank's whole-batch step")
+    check(worst["master"] <= 1.0 and worst["param"] <= 1.0, "elastic: the "
+          "survivor's parameters are off the two ranks' step 2")
+    check(adam_step == MESH_TRAIN_STEPS and ref_step == MESH_TRAIN_STEPS,
+          f"elastic: AdamW step {adam_step}, reference {ref_step}")
+    check(finite, "elastic: a non-finite parameter or moment")
+    check(n > 0 or not want, "elastic: the conv1d kernel never launched "
+          "in the step")
+    check(rec["launches"] == ({cc.KERNEL: want} if want else {}),
+          f"elastic: kernel launches {rec['launches']}, {want} conv1d "
+          "expected and no other kernel")
     return out
 
 
@@ -6195,6 +6531,18 @@ def main() -> int:
         dryrun = start_dryrun(plan_dir)
         report["mesh"]["two_ranks"] = phase_mesh_two_ranks(
             torch, dev, mesh_dir, report["train"]["losses"][0])
+        report["mesh"]["seconds"] = time.perf_counter() - t_mesh
+        # -- the elastic restart: the example on the card, then the
+        # survivor's restart of the two ranks' checkpoint in this process
+        # (both rank processes have exited); the step's launches counted
+        # from 0 just before it, read just after --------------------------
+        t_el = time.perf_counter()
+        report["elastic"] = {"example": phase_elastic_example()}
+        report["elastic"]["restart"] = phase_elastic_restart(
+            torch, dev, mesh_dir, report["mesh"]["two_ranks"]["ranks"],
+            report["nvidia_smi"])
+        report["elastic"]["seconds"] = time.perf_counter() - t_el
+        print(f"[elastic] {report['elastic']['seconds']:.1f} s")
     except BaseException:
         if dryrun is not None:
             stop_dryrun(dryrun)
@@ -6204,7 +6552,6 @@ def main() -> int:
         shutil.rmtree(mesh_dir, ignore_errors=True)
         if dist.is_initialized():
             dist.destroy_process_group()
-    report["mesh"]["seconds"] = time.perf_counter() - t_mesh
     print(f"[mesh] one-rank path launches {mesh_launches}; "
           f"{report['mesh']['seconds']:.1f} s with the two ranks")
     for name in ("fold_conv_ws", "fold_conv_ws_bf16", dn.KERNEL,
@@ -6366,6 +6713,9 @@ def main() -> int:
         # both ranks' processes), beside the main path's
         entry["mesh_launches"] = mesh_total.get(entry["name"], 0)
         if entry["name"] == cc.KERNEL:
+            # [elastic]'s survivor step, its own count from 0
+            entry["elastic_launches"] = \
+                report["elastic"]["restart"]["conv1d_launches"]
             # [mesh lm]'s training and fp32 steps, each rank's count
             entry["mesh_lm_launches"] = {
                 key: [{"train": r["lm"][key]["train"]["launches"],

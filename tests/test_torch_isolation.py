@@ -101,7 +101,7 @@ def test_port_imports_where_jax_cannot_load():
                                    "token_launcher", "foldlint",
                                    "chaos_summary", "chaos_launcher",
                                    "obs_report", "autotune", "trainer",
-                                   "train_launcher"])
+                                   "train_launcher", "elastic_example"])
 def test_cuda_without_a_gpu_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
@@ -117,6 +117,8 @@ def test_cuda_without_a_gpu_raises(entry):
     from repro_torch.models import api, mobilenet, resnet, vgg
     from repro_torch.serve.engine import BatchEngine, token_serving_summary
     from repro_torch.serve.vision import VisionEngine, serving_summary
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_elastic_restart as elastic
     params = vgg.init_params(torch.Generator(), width_mult=0.0625, img=32,
                              classes=10, device="cpu")
     lm = get_config("zamba2-1.2b", reduced=True)
@@ -165,6 +167,7 @@ def test_cuda_without_a_gpu_raises(entry):
         "trainer": lambda: Trainer(lm, TrainerConfig(total_steps=1)),
         "train_launcher": lambda: train_main(["--arch", "zamba2-1.2b",
                                               "--steps", "1"]),
+        "elastic_example": lambda: elastic.main([]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

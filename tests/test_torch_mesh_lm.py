@@ -12,6 +12,12 @@ a 1x2 and a 2x1 mesh:
   batches; a restart from the step-2 checkpoint bitwise the uninterrupted
   run; the step-3 checkpoint restored bitwise by one rank and by the JAX
   package, its files byte for byte a one-rank save of the gathered tree;
+* the survivor's restart (here, in the test's process): the step-2
+  checkpoint restored on one rank by ``examples/torch_elastic_restart.py``'s
+  ``restart_trainer`` under the plan for one survivor (a 1x1 mesh, two
+  microbatches of 1), its step-3 loss within 1e-5·|loss| of the mesh
+  run's and its parameters within the fp32 step's bound of the mesh
+  run's;
 * ``BatchEngine(mesh=)``: the JAX package's engine's tokens on the same
   weights and prompts (a token may part only at a near-tie of the one-rank
   logits), each decode call's logits within 1e-5·max|logits| of the
@@ -34,6 +40,7 @@ and ``torchrun`` starts the training launcher on two ranks through the
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -66,6 +73,8 @@ from repro_torch.tree import leaves, leaves_with_path  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
+sys.path.insert(0, str(ROOT / "examples"))
+import torch_elastic_restart as elastic  # noqa: E402
 import torch_mesh_ranks as ranks  # noqa: E402
 
 MESHES = ["1x2", "2x1"]
@@ -210,6 +219,65 @@ def test_rank_zero_alone_keeps_the_history(entry):
         for arch in ARCHS:
             assert len(got[0][f"losses_{mesh}_{arch}"]) == ranks.ENTRY_STEPS
             assert len(got[1][f"losses_{mesh}_{arch}"]) == 0
+
+
+# -- the survivor's restart on a re-planned mesh -----------------------------
+
+SURVIVOR_FROM = ranks.ENTRY_STEPS - 1   # the mesh run's step-2 checkpoint
+# the dense, hybrid-SSM and RWKV families (qwen2-moe's restore and step
+# alone took 8-10 s a case in the tier-1 run)
+SURVIVOR_ARCHS = ["qwen3-4b", "zamba2-1.2b", "rwkv6-1.6b"]
+TOL_MU = 1e-4           # the first moment's error, of each leaf's max|mu|
+
+
+@pytest.mark.parametrize("arch", SURVIVOR_ARCHS)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_survivor_restores_the_mesh_checkpoint_on_a_replanned_mesh(
+        entry, mesh, arch, tmp_path):
+    """One rank survives the two: ``examples/torch_elastic_restart.py``'s
+    plan for it (a 1x1 mesh, the batch of 2 as two microbatches of 1) and
+    its ``restart_trainer`` on that mesh restore the two-rank run's step-2
+    checkpoint and run step 3.  The loss within 1e-5·|loss| of the mesh
+    run's step 3, every new parameter within ``1e-6 + 1e-5·|p| +
+    2·lr·dg/(|g| + eps)`` of the mesh run's (g the mesh run's clipped
+    gradient, |mu| / (1 - b1), dg 1e-4 of its leaf's max), the step
+    counter 3."""
+    import torch.distributed as dist
+    from repro_torch.tree import leaves_with_path as paths
+    d, _, _, got = entry
+    tag = f"{mesh}_{arch}"
+    cfg = t_registry.get_config(arch, reduced=True)
+    data = ranks.entry_data(cfg)
+    plan = elastic.replan(available=1, model_parallel=1,
+                     global_batch=data.global_batch, max_per_device_batch=1)
+    assert (plan.mesh_shape, plan.grad_accum) == ((1, 1), 2)
+    step_dir = f"step_{SURVIVOR_FROM:09d}"
+    shutil.copytree(d / f"whole_{tag}" / step_dir, tmp_path / step_dir)
+    adam = t_adamw.AdamWConfig()
+    try:
+        tr = elastic.restart_trainer(plan, cfg, data, adam, str(tmp_path),
+                                     "cpu", total_steps=ranks.ENTRY_STEPS,
+                                     ckpt_every=1, log_every=1, mesh=True)
+        assert tr.mesh.shape == {"data": 1, "model": 1}
+        p, o = tr.run()
+    finally:
+        dist.destroy_process_group()
+    assert [h["step"] for h in tr.history] == [ranks.ENTRY_STEPS]
+    want = float(got[0][f"losses_{tag}"][-1])
+    assert abs(tr.history[0]["loss"] - want) <= REL * abs(want), \
+        (tag, tr.history[0]["loss"], want)
+    assert int(o["step"]) == ranks.ENTRY_STEPS
+    final = f"final_{tag}/"
+    for path, leaf in paths({"params": p}):
+        key = "__".join(map(str, path))
+        ref = got[0][final + key]
+        mu = np.abs(got[0][final + "opt__mu__" + key.split("__", 1)[1]])
+        g = mu / (1 - adam.b1)
+        dg = TOL_MU * max(float(mu.max()), 1e-30) / (1 - adam.b1)
+        tol = 1e-6 + 1e-5 * np.abs(ref) + 2 * adam.lr * dg / (g + adam.eps)
+        err = np.abs(leaf.numpy() - ref)
+        assert leaf.dtype == torch.float32 and (err <= tol).all(), \
+            (tag, key, float((err / tol).max()))
 
 
 # -- checkpoints of DTensor trees ---------------------------------------------
